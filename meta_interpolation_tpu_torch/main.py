@@ -4,6 +4,11 @@
         --dataset synthetic --optimizer Adamax --metasgd --inner_lr 1e-5 \
         --number_of_evaluation_steps_per_iter 3 --val_batch_size 1 \
         --loss 1*L1 [--device cpu]
+    python -m meta_interpolation_tpu_torch.main --model rrin --mode val \
+        --dataset synthetic --optimizer Adam --inner_lr 1e-5 --loss 1*L1 \
+        --number_of_training_steps_per_iter 0 \
+        --number_of_evaluation_steps_per_iter 1 --fast_warp_range 8 \
+        [--device cpu]
 
 Runs on the CUDA card unless ``--device cpu`` is given.
 """

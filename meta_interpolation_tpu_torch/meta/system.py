@@ -57,8 +57,13 @@ class SceneAdaptiveInterpolation:
         torch.backends.cuda.matmul.allow_tf32 = False
 
         self.model_def = registry.get(cfg.model)
+        # model hyperparameters from the CLI (JAX meta/system.py:133-149)
+        self.model_kwargs = {}
+        if self.model_def.name == "rrin" and cfg.fast_warp_range > 0:
+            self.model_kwargs["warp_range"] = cfg.fast_warp_range
         gen = torch.Generator().manual_seed(cfg.random_seed)
-        self.model = self.model_def.build(gen).to(self.device)
+        self.model = self.model_def.build(gen, **self.model_kwargs).to(
+            self.device)
         # weights flow through functional_call as meta_params['net']
         self.model.requires_grad_(False)
         self.inner_opt = make_inner_optimizer(cfg)

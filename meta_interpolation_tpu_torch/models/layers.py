@@ -1,4 +1,4 @@
-"""The layers SepConv uses, in NCHW.
+"""The layers SepConv and RRIN use, in NCHW.
 
 Counterparts of ``meta_interpolation_tpu/models/layers.py``, which works
 in NHWC with HWIO kernels; here activations are NCHW and conv weights
@@ -34,6 +34,54 @@ def replicate_pad(x: torch.Tensor, pad: Union[int, Sequence[int]]
     if isinstance(pad, int):
         pad = (pad, pad, pad, pad)
     return F.pad(x, tuple(pad), mode="replicate")
+
+
+def _reflect_index(size: int, before: int, after: int,
+                   device: torch.device) -> torch.Tensor:
+    """Source index of each padded position along one axis, as
+    ``jnp.pad(mode="reflect")`` picks it: the reflection (edge not
+    repeated) continues periodically, so a pad may exceed the size."""
+    pos = torch.arange(-before, size + after, device=device)
+    if size == 1:
+        return torch.zeros_like(pos)
+    period = 2 * (size - 1)
+    pos = pos.remainder(period)
+    return torch.where(pos >= size, period - pos, pos)
+
+
+def reflect_pad(x: torch.Tensor, pad: Union[int, Sequence[int]]
+                ) -> torch.Tensor:
+    """Reflection pad; ``pad`` is an int or (left, right, top, bottom).
+    Unlike ``F.pad(mode="reflect")``, a pad as wide as the dimension or
+    wider reflects again, as ``jnp.pad`` does."""
+    if isinstance(pad, int):
+        pad = (pad, pad, pad, pad)
+    left, right, top, bottom = pad
+    h, w = x.shape[-2], x.shape[-1]
+    x = x.index_select(-2, _reflect_index(h, top, bottom, x.device))
+    return x.index_select(-1, _reflect_index(w, left, right, x.device))
+
+
+def pad_to_multiple(x: torch.Tensor, multiple: int = 128):
+    """Reflect-pad H and W up to the next multiple, split evenly with the
+    odd pixel at the bottom/right. Returns (padded, (left, right, top,
+    bottom)); crop back with :func:`unpad`."""
+    h, w = x.shape[-2], x.shape[-1]
+    ph, pw = (-h) % multiple, (-w) % multiple
+    pads = (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2)
+    if ph == 0 and pw == 0:
+        return x, pads
+    return reflect_pad(x, pads), pads
+
+
+def unpad(x: torch.Tensor, pads: Sequence[int]) -> torch.Tensor:
+    left, right, top, bottom = pads
+    h, w = x.shape[-2], x.shape[-1]
+    return x[..., top:h - bottom, left:w - right]
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope)
 
 
 def avg_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
