@@ -17,6 +17,9 @@ package; any failed check raises. Phases, in order:
        - SepConv K1/K2 at input 1x3x434x562, maps 1x51x384x512;
        - the bounded warp K3 and its fy/fx gradient at image 1x3x256x512
          (RRIN's padded 256x448 frame), R = 8, floors over all of [-8, 7];
+       - the bounded flow projection K4 at 1x256x448 (DAIN's served frame),
+         R = 8, with and without depth, and a ragged 2x37x53 with flows
+         over [-11, 11], past R, so that far sources are dropped;
   4. main paths, each driven with every launch count set to 0 just before
      it and read just after:
        - SepConv: the CLI's scene-adaptive evaluation of the 8 synthetic
@@ -72,8 +75,26 @@ K3G_PER_CLIP = PAIRS * WARPS * RRIN_STEPS          # support backwards
 WARP_SHAPES = [(37, 53, -WARP_R, WARP_R - 1),
                (37, 53, -WARP_R - 3, WARP_R + 2),
                (256, 512, -WARP_R, WARP_R - 1)]
+# DAIN: served at 256x448 with the bounded projection; the CLI with the
+# run_dain.sh hyperparameters (no --dataset hd, no --resume) and tamed
+# random weights
+PROJ_R, DAIN_SEED = 8, 12345
+PROJ_SHAPES = [(1, 256, 448, float(PROJ_R)), (2, 37, 53, 11.0)]  # timed: 1st
+DAIN_QUERY = (2, 4)                # the served pair: frames 2 and 4
+K4_PER_FRAME = 2                   # one projection a direction
+DAIN_PTH = os.path.join(ROOT, "build", "dain_tamed.pth")
+DAIN_FLAGS = ["--model", "dain", "--mode", "val", "--optimizer", "Adamax",
+              "--metasgd", "--inner_lr", "1e-5", "--loss", "1*L1",
+              "--number_of_training_steps_per_iter", "1",
+              "--number_of_evaluation_steps_per_iter", "1",
+              "--val_batch_size", "1", "--pretrained_model", DAIN_PTH]
+# card vs CPU: a pixel may exceed the limit only within the reach, in
+# pixels along each axis, of where a flow value near an integer (a floor
+# flip) acts: the 2x2 cells a projected source lands on (1), the 4x4 filter
+# window (2) and the rectify net's 21x21 receptive field (10)
+NEAR_INT, FLIP_REACH = 1e-5, 13
 KERNELS = ("sepconv_forward", "sepconv_grad_kernels", "warp_bounded_forward",
-           "warp_bounded_grad_frac")
+           "warp_bounded_grad_frac", "flow_projection_bounded")
 # data-sheet peaks: fp32 outside the tensor cores (FLOP/s) and device
 # memory (bytes/s); first name that the card's name contains wins
 PEAKS = [("H100 PCIe", 51.2e12, 2.0e12), ("H100 NVL", 60.0e12, 3.9e12),
@@ -319,6 +340,62 @@ def warp_kernel_phase(torch, wb, card):
     return records
 
 
+def projection_kernel_phase(torch, fpb, card):
+    """Hold K4 against its plain version; time both at DAIN's served shape
+    beside the exact scatter. Returns the kernel's record (launches filled
+    in later)."""
+    flops_peak, bw_peak = peaks(card)
+    err = 0.0
+    for n, h, w, span in PROJ_SHAPES:
+        gen = torch.Generator().manual_seed(n * 1000 + h + w)
+        flow = ((torch.rand(n, h, w, 2, generator=gen) * 2 - 1) * span).cuda()
+        depth = (torch.rand(n, h, w, 1, generator=gen) + 0.3).cuda()
+        for d in (depth, None):
+            what = (f"{n}x{h}x{w} flows in [-{span:g}, {span:g}], "
+                    f"{'depth' if d is not None else 'no depth'}")
+            proj, cnt = fpb.flow_projection_bounded(flow, d, PROJ_R)
+            rproj, rcnt = fpb.project_ref(flow, d, PROJ_R)
+            err = max(err, max_err(proj, rproj, f"K4 proj {what}"),
+                      max_err(cnt, rcnt, f"K4 cnt {what}"))
+            check(torch.equal(cnt > 0, rcnt > 0), f"K4 hole set {what}")
+            torch.cuda.synchronize()
+            print(f"[kernels] K4 {what}: agrees with the plain version "
+                  f"(max|diff| {err:.3e}), hole sets identical, "
+                  f"{int((rcnt == 0).sum())} holes")
+            if span > PROJ_R and d is not None:
+                exact, _ = fpb.project_ref(flow, d)
+                check((exact - proj).abs().max().item() > 1e-3,
+                      "K4 dropped no source past R")
+
+    n, h, w, _ = PROJ_SHAPES[0]
+    gen = torch.Generator().manual_seed(7)
+    flow = ((torch.rand(n, h, w, 2, generator=gen) * 2 - 1) * PROJ_R).cuda()
+    depth = (torch.rand(n, h, w, 1, generator=gen) + 0.3).cuda()
+    fn = lambda: fpb.flow_projection_bounded(flow, depth, PROJ_R)
+    ms, eager_ms = time_ms(torch, fn), call_ms(torch, fn)
+    plain_ms = time_ms(torch, lambda: fpb.project_ref(flow, depth, PROJ_R))
+    exact_ms = time_ms(torch, lambda: fpb.project_ref(flow, depth))
+    # the function's bytes: flow (2 planes) and depth read, proj (2) and
+    # cnt written; ~30 operations a source to land and weigh it
+    nbytes, ops = 4 * n * h * w * 6, 30 * n * h * w
+    t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+    rec = {"name": "flow_projection_bounded", "route": "cuda",
+           "source": f"{PACKAGE}/csrc/flow_projection.cu",
+           "replaces": "meta_interpolation_tpu/ops/flow_projection_pallas.py:96",
+           "launches": None, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": None, "call_ms": eager_ms,
+           "shape": f"flow {n}x{h}x{w}x2, depth, R={PROJ_R}",
+           "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+    print(f"[kernels] flow_projection_bounded: {ms:.4f} ms, eager call "
+          f"{eager_ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+          f"{rec['bound_ms']:.6f} ms by {rec['bound_by']}; no single PyTorch "
+          f"call computes a scatter-average, so library_ms is null; the "
+          f"exact index_add scatter takes {exact_ms:.4f} ms)")
+    return [rec]
+
+
 def reset_launches(mods):
     for mod in mods:
         mod.reset_launches()
@@ -341,7 +418,7 @@ def profile_episode(torch, run, label, ours_key):
         return
     ours = [row for row in top if ours_key in row[2]]
     ours_ms = sum(ms for ms, _, _ in ours)
-    print(f"[profile] one {label} episode: wall {wall:.1f} ms, device busy "
+    print(f"[profile] one {label}: wall {wall:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}, {ours_key} "
           f"kernels {ours_ms:.3f} ms ({ours_ms / busy:.4f} of busy)")
     for ms, count, key in top[:12] + [r for r in ours if r not in top[:12]]:
@@ -439,7 +516,7 @@ def main_path_phase(torch, mods):
           f"{got['sepconv_grad_kernels'] // reps} per clip, peak "
           f"memory {peak_gib:.2f} GiB")
     profile_episode(torch, lambda: system.run_validation_iter(frames),
-                    f"sepconv {FULL_HW[0]}x{FULL_HW[1]}", "sepconv")
+                    f"sepconv {FULL_HW[0]}x{FULL_HW[1]} episode", "sepconv")
 
     # (c) a small clip on the card against the same clip on the CPU
     card_vs_cpu(cfg, "sepconv")
@@ -511,8 +588,8 @@ def rrin_phase(torch, mods):
               f"{out[which][0]['psnr']:.3f}, {extra}")
     profile_episode(torch,
                     lambda: systems["bounded"].run_validation_iter(frames),
-                    f"rrin {FULL_HW[0]}x{FULL_HW[1]}", "warp_bounded")
-    clip =systems["bounded"]._frames(frames)[0]
+                    f"rrin {FULL_HW[0]}x{FULL_HW[1]} episode", "warp_bounded")
+    clip = systems["bounded"]._frames(frames)[0]
     q0, _, q1 = RRIN_QUERY
     with FlopCounterMode(display=False) as counter, torch.no_grad():
         systems["bounded"].model(clip[q0][None], clip[q1][None])
@@ -522,6 +599,265 @@ def rrin_phase(torch, mods):
 
     # (c) a small clip on the card against the same clip on the CPU
     card_vs_cpu(get_args(RRIN_FLAGS), "rrin")
+    return launches
+
+
+def dain_weights(torch):
+    """Random DAIN weights from DAIN_SEED with the depth head tamed, also
+    written to DAIN_PTH for the CLI's --pretrained_model."""
+    from meta_interpolation_tpu_torch.models.dain.model import (
+        DAIN, tame_depth_head_)
+    model = tame_depth_head_(DAIN(torch.Generator().manual_seed(DAIN_SEED)))
+    os.makedirs(os.path.dirname(DAIN_PTH), exist_ok=True)
+    torch.save(model.state_dict(), DAIN_PTH)
+    return model
+
+
+def dain_served_phase(torch, mods, model):
+    """One frame pair at 256x448 through DAIN.forward with proj_range and
+    hole filling, timed in turns with the exact projection. Returns the
+    launches of the bounded runs per kernel."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.models.dain import model as dain_mod
+    frames = SyntheticSeptuplet(model="dain", mode="val", size=FULL_HW)[0][0]
+    f0, f1 = (torch.tensor(frames[i]).permute(2, 0, 1)[None].contiguous()
+              .cuda() for i in DAIN_QUERY)
+    model = model.cuda()
+    runs = {"bounded": lambda: model(f0, f1, proj_range=PROJ_R,
+                                     fill_holes=True),
+            "exact": lambda: model(f0, f1, fill_holes=True)}
+    with torch.no_grad():
+        for run in runs.values():
+            run()                                   # warm-up
+        times = {"bounded": [], "exact": []}
+        out = {"bounded": [], "exact": []}
+        reset_launches(mods)
+        for which in ["bounded", "exact", "exact", "bounded"] * 3:
+            want = launch_counts(mods)
+            if which == "bounded":
+                want["flow_projection_bounded"] += K4_PER_FRAME
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[which].append(runs[which]())
+            torch.cuda.synchronize()
+            times[which].append(time.perf_counter() - t0)
+            check(launch_counts(mods) == want,
+                  f"dain {which} frame launches {launch_counts(mods)}, "
+                  f"want {want}")
+        launches = launch_counts(mods)
+        n_frames = len(times["bounded"])
+        check(launches["flow_projection_bounded"] == K4_PER_FRAME * n_frames,
+              f"dain served launches {launches} for {n_frames} frames")
+        for which, preds in out.items():
+            for pred in preds:
+                check(tuple(pred.shape) == (1, 3) + FULL_HW
+                      and bool(torch.isfinite(pred).all()),
+                      f"dain served {which} output {tuple(pred.shape)}")
+        # bounded against exact, beside exact against exact: the forward
+        # itself is not bitwise repeatable on the card
+        diff = max((b - e).abs().max().item()
+                   for b, e in zip(out["bounded"], out["exact"]))
+        noise = max((e - out["exact"][0]).abs().max().item()
+                    for e in out["exact"])
+        flow_max = max(f.abs().max().item() for f in model.flows(f0, f1))
+        # the offsets (projected flows) of one frame on each path, and K4's
+        # offsets against the exact scatter's on the very same inputs
+        calls, offsets = [], []
+        real = dain_mod.flow_projection
+
+        def spy(*args, **kwargs):
+            calls.append((args, kwargs))
+            offsets.append(real(*args, **kwargs))
+            return offsets[-1]
+
+        dain_mod.flow_projection = spy
+        try:
+            runs["bounded"]()
+            runs["exact"]()
+        finally:
+            dain_mod.flow_projection = real
+        same_inputs = max(
+            max_err(off, real(*args, **{**kwargs, "proj_range": None}),
+                    "dain served: K4 offsets against the exact scatter's")
+            for (args, kwargs), off in zip(calls[:2], offsets[:2]))
+        off_diff = max((a - b).abs().max().item()
+                       for a, b in zip(offsets[:2], offsets[2:]))
+        flow_diff = max((a[0][0] - b[0][0]).abs().max().item()
+                        for a, b in zip(calls[:2], calls[2:]))
+        torch.cuda.reset_peak_memory_stats()
+        runs["bounded"]()
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        with FlopCounterMode(display=False) as counter:
+            runs["bounded"]()
+    for which in times:
+        print(f"[main] dain served {FULL_HW[0]}x{FULL_HW[1]} frame, "
+              f"{which} projection"
+              f"{f' R={PROJ_R}' if which == 'bounded' else ''}: median "
+              f"{statistics.median(times[which]):.4f} s/frame over "
+              f"{len(times[which])} in turns (all "
+              f"{[round(t, 4) for t in times[which]]})")
+    print(f"[main] dain served: K4 launches {launches} over {n_frames} "
+          f"bounded frames ({K4_PER_FRAME} a frame, none on the exact "
+          f"ones); bounded vs exact max|pred diff| {diff:.3e} (exact vs "
+          f"exact {noise:.3e}), max|offset diff| {off_diff:.3e} on flows "
+          f"{flow_diff:.3e} apart and {same_inputs:.3e} on the same flows; "
+          f"flows' "
+          f"max|value| {flow_max:.3f} px against R = {PROJ_R}; peak memory "
+          f"{peak_gib:.2f} GiB; forward {counter.get_total_flops() / 1e9:.3f}"
+          f" GFLOP (torch.utils.flop_counter)")
+    with torch.no_grad():
+        profile_episode(torch, runs["bounded"],
+                        f"dain served {FULL_HW[0]}x{FULL_HW[1]} frame",
+                        "flow_projection")
+    return launches
+
+
+def flip_mask(torch, values, delta):
+    """(H, W) bool: the pixels within FLIP_REACH of where a projection value
+    within delta of an integer acts. values: (flow, offsets) pairs of the
+    projections, (N, H, W, 2) each, (fx, fy) last. A flow acts at the cell
+    its source lands on, an offset at its own pixel."""
+    import torch.nn.functional as F
+    h, w = SMALL_HW
+    ys = torch.arange(h, dtype=torch.float32)[:, None].expand(h, w)
+    xs = torch.arange(w, dtype=torch.float32)[None, :].expand(h, w)
+    hits = torch.zeros(1, 1, h, w)
+    for flow, off in values:
+        check(tuple(flow.shape[1:3]) == SMALL_HW,
+              f"projection at {tuple(flow.shape)}: padded past {SMALL_HW}")
+        for v, ty, tx in ((flow, ys + flow[..., 1], xs + flow[..., 0]),
+                          (off, ys.expand(off.shape[:3]),
+                           xs.expand(off.shape[:3]))):
+            near = ((v - v.round()).abs() < delta).any(-1)   # (N, H, W)
+            hits[0, 0, ty[near].round().clamp(0, h - 1).long(),
+                 tx[near].round().clamp(0, w - 1).long()] = 1.0
+    return F.max_pool2d(hits, 2 * FLIP_REACH + 1, stride=1,
+                        padding=FLIP_REACH)[0, 0] > 0
+
+
+def dain_card_vs_cpu(torch, cfg, state):
+    """The first small synthetic clip on the card and on the CPU. A pixel
+    may exceed the limit only inside the flip mask: within FLIP_REACH of
+    where a projection input or output value (a flow the projection or the
+    filter interpolation floors) within delta of an integer on the CPU run
+    acts, since there the two devices may take other floors. delta is the
+    larger of NEAR_INT and the devices' largest flow difference in the
+    first forward, where both still hold the same weights. The PSNR of the
+    pixels outside the mask agrees to PSNR_TOL_DB, always."""
+    from meta_interpolation_tpu_torch.core.metrics import (
+        psnr_from_quantized, quantize)
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    from meta_interpolation_tpu_torch.models.dain import model as dain_mod
+    clip = SyntheticSeptuplet(model="dain", mode="val",
+                              size=SMALL_HW)[0][0][None]
+    seen = {"cuda": [], "cpu": []}
+    real = dain_mod.flow_projection
+    dev = None
+
+    def spy(flow, *args, **kwargs):
+        off = real(flow, *args, **kwargs)
+        seen[dev].append((flow.detach().cpu(), off.detach().cpu()))
+        return off
+
+    preds, psnr = {}, {}
+    dain_mod.flow_projection = spy
+    try:
+        for dev in ("cuda", "cpu"):
+            system = SceneAdaptiveInterpolation(cfg, device=dev)
+            system.load_net(state)
+            losses, pred = system.run_validation_iter(clip)
+            preds[dev], psnr[dev] = pred.cpu(), losses["psnr"]
+    finally:
+        dain_mod.flow_projection = real
+    # the first forward's two projections: same weights on both devices
+    d_flow = max((a[0] - b[0]).abs().max().item()
+                 for a, b in zip(seen["cuda"][:2], seen["cpu"][:2]))
+    delta = max(NEAR_INT, d_flow)
+    near = sum(int(((v - v.round()).abs() < delta).sum())
+               for pair in seen["cpu"] for v in pair)
+    n_values = sum(v.numel() for pair in seen["cpu"] for v in pair)
+    mask = flip_mask(torch, seen["cpu"], delta)
+    keep = ~mask
+    diff = (preds["cuda"] - preds["cpu"]).abs().amax(1)[0]      # (H, W)
+    lim = TOL_REL * preds["cpu"].abs().max().item() + TOL_ABS
+    outside = int(((diff > lim) & keep).sum())
+    inside = int(((diff > lim) & mask).sum())
+    share_1e4 = float((diff > 1e-4).float().mean())
+    # the repo's PSNR of the query frame over the pixels outside the mask
+    target = torch.tensor(clip[0, cfg.target_idxs[1]]).permute(2, 0, 1)
+    kept_psnr = {dev: psnr_from_quantized(quantize(p[0][:, keep]),
+                                          quantize(target[:, keep])).item()
+                 for dev, p in preds.items()}
+    dpsnr_kept = abs(kept_psnr["cuda"] - kept_psnr["cpu"])
+    msg = (f"dain {SMALL_HW[0]}x{SMALL_HW[1]} clip, card vs CPU: max|pred "
+           f"diff| {diff.max().item():.3e}, share of pixels beyond 1e-4 "
+           f"{share_1e4:.5f}, PSNR diff {abs(psnr['cuda'] - psnr['cpu']):.3e}"
+           f" dB; first-forward max|flow diff| {d_flow:.3e}; {near} of "
+           f"{n_values} projection values within {delta:.3e} of an integer, "
+           f"their flip mask {int(mask.sum())} of {mask.numel()} pixels; "
+           f"beyond {lim:.3e} (1e-4 max|pred| + 1e-5): {outside} pixels "
+           f"outside the mask (must be 0), {inside} inside; PSNR outside "
+           f"the mask {dpsnr_kept:.3e} dB apart (limit {PSNR_TOL_DB})")
+    check(int(keep.sum()) > 0 and outside == 0
+          and dpsnr_kept <= PSNR_TOL_DB, msg)
+    print(f"[main] {msg}")
+
+def dain_phase(torch, mods):
+    """DAIN through the port's entry points on the card: served with the
+    bounded projection, then the CLI and an episode with the exact one.
+    Returns the launches of the served runs (K4's main path) per kernel."""
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+
+    model = dain_weights(torch)
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    launches = dain_served_phase(torch, mods, model)
+    del model
+
+    # the CLI: the meta system projects exactly, as the JAX one does
+    cli_phase(torch, mods, DAIN_FLAGS, "dain", {})
+
+    # one 256x448 episode
+    cfg = get_args(DAIN_FLAGS)
+    system = SceneAdaptiveInterpolation(cfg)
+    system.load_net(state)
+    frames = SyntheticSeptuplet(model="dain", mode="val",
+                                size=FULL_HW)[0][0][None]
+    torch.cuda.reset_peak_memory_stats()
+    system.run_validation_iter(frames)             # warm-up
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    reps = 3
+    reset_launches(mods)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, preds = system.run_validation_iter(frames)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    got = launch_counts(mods)
+    check(not any(got.values()), f"dain episode launched kernels: {got}")
+    check(tuple(preds.shape) == (1, 3) + FULL_HW
+          and bool(torch.isfinite(preds).all())
+          and math.isfinite(losses["psnr"]), f"dain {FULL_HW} output: "
+                                              f"{losses}")
+    print(f"[main] dain {FULL_HW[0]}x{FULL_HW[1]} episode, exact projection: "
+          f"median {statistics.median(times):.4f} s over {reps} (all "
+          f"{[round(t, 4) for t in times]}), PSNR {losses['psnr']:.3f}, no "
+          f"kernel launched, peak memory {peak_gib:.2f} GiB")
+    profile_episode(torch, lambda: system.run_validation_iter(frames),
+                    f"dain {FULL_HW[0]}x{FULL_HW[1]} episode", "conv")
+    del system
+
+    # a small clip on the card against the same clip on the CPU
+    dain_card_vs_cpu(torch, cfg, state)
     return launches
 
 
@@ -536,6 +872,7 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from meta_interpolation_tpu_torch.ops import _build
+    from meta_interpolation_tpu_torch.ops import flow_projection_bounded as fpb
     from meta_interpolation_tpu_torch.ops import sepconv as sc
     from meta_interpolation_tpu_torch.ops import warp_bounded as wb
 
@@ -554,14 +891,17 @@ def main():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build]   {line.strip()}")
 
-    records = kernel_phase(torch, sc, card) + warp_kernel_phase(torch, wb,
-                                                                card)
-    mods = (sc, wb)
+    records = (kernel_phase(torch, sc, card)
+               + warp_kernel_phase(torch, wb, card)
+               + projection_kernel_phase(torch, fpb, card))
+    mods = (sc, wb, fpb)
     sepconv_launches = main_path_phase(torch, mods)
     rrin_launches = rrin_phase(torch, mods)
+    dain_launches = dain_phase(torch, mods)
     # each kernel's launches on the main path that runs it
     launches = {**{k: sepconv_launches[k] for k in KERNELS[:2]},
-                **{k: rrin_launches[k] for k in KERNELS[2:]}}
+                **{k: rrin_launches[k] for k in KERNELS[2:4]},
+                **{k: dain_launches[k] for k in KERNELS[4:]}}
     check([rec["name"] for rec in records] == list(KERNELS),
           f"kernel records {[rec['name'] for rec in records]}")
     for rec in records:

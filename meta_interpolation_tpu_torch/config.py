@@ -188,6 +188,18 @@ _BOOL_FLAGS = {
 }
 
 
+_HELP = {
+    "model": "backbone: sepconv, rrin or dain (the others raise "
+             "NotImplementedError). dain adapts only its rectify net, "
+             "trains on its own charbonnier loss whatever --loss says and "
+             "projects flows exactly; random weights need a tamed depth "
+             "head (models/dain/model.tame_depth_head_)",
+    "fast_warp_range": "bounded warp for rrin (0 = the exact sampler)",
+    "device": "cuda (the hand-written kernels) or cpu (their plain "
+              "PyTorch versions)",
+}
+
+
 def _strict_bool(v: str) -> bool:
     """true/false parser that REJECTS unknown tokens — a permissive
     'v in ("true","1")' would turn a typo like '--jit_episode ture' into
@@ -208,23 +220,23 @@ def build_parser() -> argparse.ArgumentParser:
             continue
         name = "--" + field.name
         default = field.default
+        kw = {"default": default, "help": _HELP.get(field.name)}
         if field.name in _BOOL_FLAGS:
-            parser.add_argument(name, action="store_true", default=default)
+            parser.add_argument(name, action="store_true", **kw)
         elif field.name == "episode_parallel" or field.name == "jit_episode":
-            parser.add_argument(name, type=_strict_bool, default=default)
+            parser.add_argument(name, type=_strict_bool, **kw)
         elif field.name == "device":
-            parser.add_argument(name, choices=("cuda", "cpu"),
-                                default=default)
+            parser.add_argument(name, choices=("cuda", "cpu"), **kw)
         elif field.type in ("Optional[str]",):
-            parser.add_argument(name, type=str, default=default)
+            parser.add_argument(name, type=str, **kw)
         elif isinstance(default, bool):
-            parser.add_argument(name, action="store_true", default=default)
+            parser.add_argument(name, action="store_true", **kw)
         elif isinstance(default, int):
-            parser.add_argument(name, type=int, default=default)
+            parser.add_argument(name, type=int, **kw)
         elif isinstance(default, float):
-            parser.add_argument(name, type=float, default=default)
+            parser.add_argument(name, type=float, **kw)
         else:
-            parser.add_argument(name, type=str, default=default)
+            parser.add_argument(name, type=str, **kw)
     return parser
 
 

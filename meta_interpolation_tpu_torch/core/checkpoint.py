@@ -4,15 +4,29 @@ PyTorch state dicts.
 Counterpart of ``meta_interpolation_tpu/core/checkpoint.py:95-171``. The
 JAX trees mirror the torch module names (``tree['moduleConv1']['0']
 ['kernel']`` ↔ ``'moduleConv1.0.weight'``), so the bridge is a name join
-plus the conv layout transpose HWIO ↔ OIHW; biases carry over as they
-are. These are the only leaves of the ported models.
+plus a layout rule per leaf kind:
+
+  * conv ``kernel`` HWIO ↔ ``nn.Conv2d.weight`` OIHW;
+  * transposed-conv ``kernel`` (kh, kw, in, out) ↔ ``nn.ConvTranspose2d.
+    weight`` (in, out, kh, kw). The JAX tree cannot tell the two kinds
+    apart, and a square 2→2 transposed conv (DAIN's ``deconv*``) loads
+    silently wrong under the conv rule, so the rule is keyed on the module
+    type: every call names the model whose state dict is meant;
+  * batch norm ``mean``/``var`` ↔ the ``running_mean``/``running_var``
+    buffers, ``scale`` ↔ ``weight`` (affine only);
+  * ``bias`` as it is.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Set, Tuple
 
 import numpy as np
 import torch
+from torch import nn
+
+_BN_FROM_JAX = {"mean": "running_mean", "var": "running_var",
+                "scale": "weight"}
+_BN_TO_JAX = {"running_mean": "mean", "running_var": "var"}
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = ""):
@@ -23,28 +37,66 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""):
             yield f"{prefix}{key}", value
 
 
-def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Nested dict of numpy leaves (a JAX parameter tree) → state dict."""
+def _transposed(model: nn.Module) -> Set[str]:
+    """Names of the model's transposed-conv modules."""
+    return {name for name, mod in model.named_modules()
+            if isinstance(mod, nn.ConvTranspose2d)}
+
+
+def _check_matches(state: Dict[str, Any], model: nn.Module, what: str):
+    """Raise unless ``state`` has the names and shapes of the model's state
+    dict."""
+    want = model.state_dict()
+    bad = sorted(set(state) ^ set(want)) + [
+        k for k in state
+        if k in want and tuple(state[k].shape) != tuple(want[k].shape)]
+    if bad:
+        raise ValueError(f"{what} does not match the model: {bad[:5]}")
+
+
+def params_from_jax(tree: Dict[str, Any], model: nn.Module
+                    ) -> Dict[str, torch.Tensor]:
+    """Nested dict of numpy leaves (a JAX parameter tree) → the state dict
+    of ``model``: transposed convs take their own layout, and every name
+    and shape is checked against the model's state dict."""
+    transposed = _transposed(model)
     state = {}
     for path, value in _flatten(tree):
         parent, _, leaf = path.rpartition(".")
         value = np.asarray(value)
-        if leaf == "kernel":         # HWIO → OIHW
-            value, leaf = value.transpose(3, 2, 0, 1), "weight"
+        if leaf == "kernel":
+            # (kh, kw, in, out) → (in, out, kh, kw); HWIO → OIHW
+            value = value.transpose((2, 3, 0, 1) if parent in transposed
+                                    else (3, 2, 0, 1))
+            leaf = "weight"
+        else:
+            leaf = _BN_FROM_JAX.get(leaf, leaf)
         state[f"{parent}.{leaf}" if parent else leaf] = torch.tensor(value)
+    _check_matches(state, model, "JAX tree")
     return state
 
 
-def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """State dict → nested dict of numpy leaves shaped like the JAX tree
-    (the inverse of :func:`params_from_jax`)."""
+def params_to_jax(state: Dict[str, torch.Tensor], model: nn.Module
+                  ) -> Dict[str, Any]:
+    """A state dict of ``model`` → nested dict of numpy leaves shaped like
+    the JAX tree (the inverse of :func:`params_from_jax`)."""
+    _check_matches(state, model, "state dict")
+    transposed = _transposed(model)
     tree: Dict[str, Any] = {}
     for name, value in state.items():
         parts = name.split(".")
+        parent = ".".join(parts[:-1])
         value = value.detach().cpu().numpy()
         leaf = parts[-1]
-        if leaf == "weight":         # OIHW → HWIO
-            value, leaf = value.transpose(2, 3, 1, 0), "kernel"
+        if leaf == "weight" and value.ndim == 4:
+            # (in, out, kh, kw) → (kh, kw, in, out); OIHW → HWIO
+            value = value.transpose((2, 3, 0, 1) if parent in transposed
+                                    else (2, 3, 1, 0))
+            leaf = "kernel"
+        elif leaf == "weight" and value.ndim == 1:   # batch-norm scale
+            leaf = "scale"
+        else:
+            leaf = _BN_TO_JAX.get(leaf, leaf)
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})

@@ -9,6 +9,16 @@
         --number_of_training_steps_per_iter 0 \
         --number_of_evaluation_steps_per_iter 1 --fast_warp_range 8 \
         [--device cpu]
+    python -m meta_interpolation_tpu_torch.main --model dain --mode val \
+        --dataset synthetic --optimizer Adamax --metasgd --inner_lr 1e-5 \
+        --loss 1*L1 --number_of_training_steps_per_iter 1 \
+        --number_of_evaluation_steps_per_iter 1 --val_batch_size 1 \
+        --pretrained_model dain_tamed.pth [--device cpu]
+
+DAIN's random-init depth net overflows, so a random-weight run loads a
+state dict whose depth head is tamed (``models/dain/model.
+tame_depth_head_``); the meta system projects the flows exactly, as the
+JAX package's does.
 
 Runs on the CUDA card unless ``--device cpu`` is given.
 """

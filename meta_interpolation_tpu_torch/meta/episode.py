@@ -23,7 +23,7 @@ gradient, MSL), second order, L2F attenuation and per-step BN raise
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,15 +63,18 @@ class EpisodeSpec:
 class EpisodeBuilder:
     """Per-task and batched episodes for one model.
 
-    ``model(f0, f1) -> pred`` on NCHW frames; ``loss_fn(pred, target) ->
-    {..., 'total'}``; ``inner_keep``: optional {param name: adapted?}.
+    ``model(f0, f1, **apply_kwargs) -> pred`` on NCHW frames;
+    ``loss_fn(pred, target) -> {..., 'total'}``; ``inner_keep``: optional
+    {param name: adapted?}; ``apply_kwargs``: passed to every forward.
     """
 
     def __init__(self, model: nn.Module, loss_fn: Callable,
                  inner_opt: InnerOptimizer,
                  denormalize: Callable = lambda x: x,
-                 inner_keep: Optional[Dict[str, bool]] = None):
+                 inner_keep: Optional[Dict[str, bool]] = None,
+                 apply_kwargs: Optional[Dict[str, Any]] = None):
         self.model = model
+        self.apply_kwargs = dict(apply_kwargs or {})
         self.loss_fn = loss_fn
         self.inner_opt = inner_opt
         self.denormalize = denormalize
@@ -79,7 +82,8 @@ class EpisodeBuilder:
 
     def _pair_loss(self, params: Params, f0, f1, target):
         """One criterion call → (loss_total, pred); frames are CHW."""
-        pred = functional_call(self.model, params, (f0[None], f1[None]))
+        pred = functional_call(self.model, params, (f0[None], f1[None]),
+                               self.apply_kwargs)
         return self.loss_fn(pred, target[None])["total"], pred[0]
 
     def _support_loss(self, params: Params, frames, spec: EpisodeSpec):

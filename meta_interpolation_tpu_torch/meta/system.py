@@ -15,7 +15,7 @@ import torch
 
 from ..config import Config
 from ..core import losses as losses_lib
-from ..models import registry
+from ..models import layers, registry
 from . import episode as episode_lib
 from .inner_optimizers import make_inner_optimizer
 
@@ -51,16 +51,13 @@ class SceneAdaptiveInterpolation:
                 f"not ported to PyTorch yet: {', '.join(unported)}")
         self.cfg = cfg
         self.device = _resolve_device(device or cfg.device)
-        # cuDNN convolutions default to TF32 on the card, which keeps ~3
-        # decimal digits; the port computes in full float32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        # before any backward: the forwards set it too, but a backward's
+        # convolutions read the flags when they run
+        layers.full_float32()
 
         self.model_def = registry.get(cfg.model)
         # model hyperparameters from the CLI (JAX meta/system.py:133-149)
-        self.model_kwargs = {}
-        if self.model_def.name == "rrin" and cfg.fast_warp_range > 0:
-            self.model_kwargs["warp_range"] = cfg.fast_warp_range
+        self.model_kwargs = self.model_def.build_kwargs(cfg)
         gen = torch.Generator().manual_seed(cfg.random_seed)
         self.model = self.model_def.build(gen, **self.model_kwargs).to(
             self.device)
@@ -79,10 +76,12 @@ class SceneAdaptiveInterpolation:
             "net": net, "lrs": self.inner_opt.init_lrs(net, cfg.inner_lr)}
         inner_keep = (self.model_def.inner_mask_fn(self.model)
                       if self.model_def.inner_mask_fn is not None else None)
-        self.loss_fn = losses_lib.make_loss_fn(cfg.loss)
+        self.loss_fn = (self.model_def.loss_fn
+                        or losses_lib.make_loss_fn(cfg.loss))
         self.builder = episode_lib.EpisodeBuilder(
             self.model, self.loss_fn, self.inner_opt,
-            denormalize=self.model_def.denormalize, inner_keep=inner_keep)
+            denormalize=self.model_def.denormalize, inner_keep=inner_keep,
+            apply_kwargs=self.model_def.meta_apply_kwargs)
         self.current_epoch = 0
 
     def load_net(self, state: Dict[str, torch.Tensor]) -> None:

@@ -1,9 +1,12 @@
-"""The layers SepConv and RRIN use, in NCHW.
+"""The layers SepConv, RRIN and DAIN use, in NCHW.
 
 Counterparts of ``meta_interpolation_tpu/models/layers.py``, which works
 in NHWC with HWIO kernels; here activations are NCHW and conv weights
 OIHW (:func:`conv3x3` builds a ``nn.Conv2d``, whose state-dict names the
-weight bridge maps onto the JAX ``kernel``/``bias`` leaves).
+weight bridge maps onto the JAX ``kernel``/``bias`` leaves). Transposed
+convs are ``nn.ConvTranspose2d`` (weight (in, out, kh, kw)), and batch norm
+is :class:`EvalBatchNorm2d`, which always normalises with its stored
+statistics.
 """
 from __future__ import annotations
 
@@ -13,6 +16,14 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def full_float32() -> None:
+    """Turn TF32 off for cuDNN convolutions and cuBLAS matmuls: on the card
+    they default to it, which keeps ~3 decimal digits. The port computes in
+    full float32; every model's forward calls this."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def conv3x3(in_ch: int, out_ch: int,
@@ -25,6 +36,50 @@ def conv3x3(in_ch: int, out_ch: int,
         conv.weight.uniform_(-bound, bound, generator=generator)
         conv.bias.zero_()
     return conv
+
+
+def torch_default_init_(conv: nn.Module,
+                        generator: Optional[torch.Generator] = None):
+    """``nn.Conv2d``'s own init, drawn from ``generator``: weight and bias
+    uniform in ±1/√fan_in (kaiming_uniform with a = √5)."""
+    fan_in = conv.weight[0].numel()
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        conv.weight.uniform_(-bound, bound, generator=generator)
+        if conv.bias is not None:
+            conv.bias.uniform_(-bound, bound, generator=generator)
+    return conv
+
+
+def normal_init_(conv: nn.Module, std: float,
+                 generator: Optional[torch.Generator] = None):
+    """Weight normal(0, std), bias zero."""
+    with torch.no_grad():
+        conv.weight.normal_(0.0, std, generator=generator)
+        if conv.bias is not None:
+            conv.bias.zero_()
+    return conv
+
+
+class EvalBatchNorm2d(nn.Module):
+    """Batch norm with stored statistics only (the JAX package's
+    ``hourglass._bn``): ``(x − running_mean)/√(running_var + eps)``, then
+    ``·weight + bias`` when affine. Unlike ``nn.BatchNorm2d`` it never
+    switches to batch statistics, whatever ``self.training`` says. Names
+    follow ``nn.BatchNorm2d``'s state dict, so reference weights load."""
+
+    def __init__(self, ch: int, affine: bool = False, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("running_mean", torch.zeros(ch))
+        self.register_buffer("running_var", torch.ones(ch))
+        self.weight = nn.Parameter(torch.ones(ch)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(ch)) if affine else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, training=False,
+                            eps=self.eps)
 
 
 def replicate_pad(x: torch.Tensor, pad: Union[int, Sequence[int]]
@@ -86,6 +141,17 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
 
 def avg_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     return F.avg_pool2d(x, window)
+
+
+def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
+    return F.max_pool2d(x, window)
+
+
+def resize_bilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """Bilinear resize to ``size`` (H, W), align_corners=False: what the
+    JAX package's dense-matrix ``resize_bilinear`` computes."""
+    return F.interpolate(x, size=tuple(size), mode="bilinear",
+                         align_corners=False)
 
 
 def upsample_bilinear(x: torch.Tensor, scale: int = 2,

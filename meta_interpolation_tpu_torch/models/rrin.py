@@ -69,6 +69,7 @@ class RRIN(nn.Module):
 
     def forward(self, frame0: torch.Tensor, frame1: torch.Tensor
                 ) -> torch.Tensor:
+        layers.full_float32()
         x0, pads = layers.pad_to_multiple(frame0, 128)
         x1, _ = layers.pad_to_multiple(frame1, 128)
         output = self._process(x0, x1)

@@ -76,6 +76,7 @@ class SepConv(nn.Module):
 
     def forward(self, frame0: torch.Tensor, frame1: torch.Tensor
                 ) -> torch.Tensor:
+        layers.full_float32()
         h, w = frame0.shape[2], frame0.shape[3]
         # left/top get exactly PAD, bottom/right absorb the rounding
         target_h = -(-(h + 2 * PAD) // 128) * 128

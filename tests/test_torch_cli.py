@@ -24,6 +24,7 @@ from meta_interpolation_tpu_torch.data.datasets import get_dataset
 from meta_interpolation_tpu_torch.data.loader import (
     MetaLearningSystemDataLoader)
 from meta_interpolation_tpu_torch.main import main
+from meta_interpolation_tpu_torch.models.sepconv import SepConv
 
 PSNR_TOL_DB = 0.01
 
@@ -40,7 +41,7 @@ def _argv(pth, ckpt_dir):
 def test_cli_val_matches_jax_cli(tmp_path, capsys):
     params = jax.tree.map(np.asarray, jax_sepconv.init(jax.random.PRNGKey(7)))
     pth = tmp_path / "sepconv.pth"
-    torch.save(bridge.params_from_jax(params), pth)
+    torch.save(bridge.params_from_jax(params, SepConv()), pth)
 
     want = jax_main(_argv(pth, tmp_path / "jax"))
     got = main(_argv(pth, tmp_path / "torch") + ["--device", "cpu"])

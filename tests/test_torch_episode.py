@@ -83,7 +83,7 @@ def systems():
     jsys = JaxSystem(JaxConfig(**CFG))
     tsys = SceneAdaptiveInterpolation(Config(**CFG, device="cpu"))
     tsys.load_net(bridge.params_from_jax(
-        jax.tree.map(np.asarray, jsys.meta_params["net"])))
+        jax.tree.map(np.asarray, jsys.meta_params["net"]), tsys.model))
     frames, _ = SyntheticSeptuplet(model="sepconv", mode="val",
                                    size=(64, 64))[0]
     return jsys, tsys, np.asarray(frames)[None]
@@ -96,7 +96,7 @@ def test_adapted_params_match_jax(systems):
                                                           jspec)[0])
     want = bridge.params_from_jax(jax.tree.map(np.asarray, adapt(
         jsys.meta_params["net"], jsys.meta_params["lrs"],
-        jnp.asarray(frames[0]))))
+        jnp.asarray(frames[0]))), tsys.model)
     spec = episode.EpisodeSpec(support_idxs=tsys.cfg.support_idxs("train"),
                                num_steps=1)
     init = tsys.meta_params["net"]

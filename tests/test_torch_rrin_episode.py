@@ -44,7 +44,7 @@ def _systems(cfg):
     jsys = JaxSystem(JaxConfig(**cfg))
     tsys = SceneAdaptiveInterpolation(Config(**cfg, device="cpu"))
     tsys.load_net(bridge.params_from_jax(
-        jax.tree.map(np.asarray, jsys.meta_params["net"])))
+        jax.tree.map(np.asarray, jsys.meta_params["net"]), tsys.model))
     frames, _ = SyntheticSeptuplet(model="rrin", mode="val",
                                    size=(64, 64))[0]
     return jsys, tsys, np.asarray(frames)[None]
@@ -82,7 +82,7 @@ def test_adapted_params_match_jax(systems):
                                                           jspec)[0])
     want = bridge.params_from_jax(jax.tree.map(np.asarray, adapt(
         jsys.meta_params["net"], jsys.meta_params["lrs"],
-        jnp.asarray(frames[0]))))
+        jnp.asarray(frames[0]))), tsys.model)
     spec = episode.EpisodeSpec(support_idxs=tsys.cfg.support_idxs("train"),
                                num_steps=1)
     init = tsys.meta_params["net"]

@@ -28,7 +28,7 @@ def jax_params():
 @pytest.fixture(scope="module")
 def model(jax_params):
     m = RRIN()
-    m.load_state_dict(bridge.params_from_jax(jax_params))
+    m.load_state_dict(bridge.params_from_jax(jax_params, m))
     return m
 
 
@@ -41,7 +41,7 @@ def _nhwc(t):
 
 
 def test_bridge_names_and_shapes_match_model(jax_params):
-    state = bridge.params_from_jax(jax_params)
+    state = bridge.params_from_jax(jax_params, RRIN())
     model_state = RRIN().state_dict()
     assert set(state) == set(model_state)
     for name, value in state.items():
@@ -61,7 +61,7 @@ def test_unet_matches_jax(jax_params, depth, in_ch, out_ch, hw):
     x = np.random.RandomState(depth).rand(1, *hw, in_ch).astype(np.float32)
     want = jax_unet.apply(jax_params[key], jnp.asarray(x), depth=depth)
     net = UNet(in_ch, out_ch, depth)
-    net.load_state_dict(bridge.params_from_jax(jax_params[key]))
+    net.load_state_dict(bridge.params_from_jax(jax_params[key], net))
     with torch.no_grad():
         got = net(_nchw(x))
     np.testing.assert_allclose(_nhwc(got), np.asarray(want), atol=UNET_ATOL)
@@ -96,7 +96,7 @@ def test_inner_mask_matches_jax(jax_params):
     mask = inner_mask(RRIN())
     jmask = bridge.params_from_jax(jax.tree.map(
         lambda m, p: np.full(p.shape, m), jax_rrin.inner_mask(jax_params),
-        jax_params))
+        jax_params), RRIN())
     assert {k: bool(v.all()) for k, v in jmask.items()} == mask
     assert not mask["Mask.down_path.0.block.0.weight"]
     assert mask["Flow_L.down_path.0.block.0.weight"]
@@ -110,6 +110,6 @@ def test_registry_builds_rrin_with_its_kwargs():
     m = md.build(None, warp_range=8)
     assert isinstance(m, RRIN) and m.warp_range == 8
     assert md.build(None).warp_range is None
-    for name in ("superslomo", "voxelflow", "dain"):
+    for name in ("superslomo", "voxelflow"):
         with pytest.raises(NotImplementedError, match="not ported"):
             registry.get(name)

@@ -32,7 +32,7 @@ def _nhwc(t):
 
 
 def test_bridge_round_trip_and_names_match_model(jax_params):
-    state = bridge.params_from_jax(jax_params)
+    state = bridge.params_from_jax(jax_params, SepConv())
     model_state = SepConv().state_dict()
     assert set(state) == set(model_state)
     for name, value in state.items():
@@ -40,7 +40,7 @@ def test_bridge_round_trip_and_names_match_model(jax_params):
     assert "moduleConv1.0.weight" in state
     assert "moduleUpsample5.1.weight" in state
     assert "moduleVertical1.7.weight" in state
-    back = bridge.params_to_jax(state)
+    back = bridge.params_to_jax(state, SepConv())
     flat_a = jax.tree_util.tree_flatten_with_path(jax_params)[0]
     flat_b = dict(jax.tree_util.tree_flatten_with_path(back)[0])
     assert len(flat_a) == len(flat_b)
@@ -50,7 +50,7 @@ def test_bridge_round_trip_and_names_match_model(jax_params):
 
 def test_import_pth_loads_reference_names_and_skips_mismatches(tmp_path,
                                                               jax_params):
-    state = bridge.params_from_jax(jax_params)
+    state = bridge.params_from_jax(jax_params, SepConv())
     saved = {f"module.{k}": v for k, v in state.items()}
     saved["moduleConv1.0.bias"] = torch.zeros(7)      # wrong shape: skipped
     saved["unrelated.weight"] = torch.zeros(3)        # unknown: ignored
@@ -84,7 +84,7 @@ def test_inner_mask_matches_jax(jax_params):
     # so it bridges by name like the parameters
     jmask = bridge.params_from_jax(jax.tree.map(
         lambda m, p: np.full(p.shape, m), jax_sepconv.inner_mask(jax_params),
-        jax_params))
+        jax_params), SepConv())
     assert {k: bool(v.all()) for k, v in jmask.items()} == mask
     assert not mask["moduleVertical1.0.weight"]
     assert mask["moduleConv1.0.weight"]
@@ -123,7 +123,7 @@ def test_full_width_forward_matches_jax(jax_params):
     want = jax_sepconv.apply(jax_params, jnp.asarray(f0), jnp.asarray(f1),
                              use_pallas=False)
     model = SepConv()
-    model.load_state_dict(bridge.params_from_jax(jax_params))
+    model.load_state_dict(bridge.params_from_jax(jax_params, model))
     with torch.no_grad():
         got = model(_nchw(f0), _nchw(f1))
     assert got.shape == (1, 3, 78, 78)
