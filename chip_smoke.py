@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one CUDA card and check what comes out.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--earlier-sepconv PATH]
 
 Run from a checkout: the port's package must sit beside this script. It
 exits non-zero, printing no result, when there is no CUDA device or no
-package; any failed check raises. Phases, in order:
+package; any failed check raises. ``--earlier-sepconv`` names an earlier
+version of csrc/sepconv.cu (the same C interface, e.g. from ``git show
+<commit>:meta_interpolation_tpu_torch/csrc/sepconv.cu``): it is built
+beside the kernels and timed in turns with them. Phases, in order:
 
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every kernel under meta_interpolation_tpu_torch/csrc/, one
-     nvcc per source, all started together;
+     nvcc per source, all started together; the registers and spill bytes
+     of each kernel (ptxas), and no spill allowed in K1/K2;
   3. kernels: each held against its plain PyTorch version on the card at
-     its main-path shape and a ragged one, and timed beside that version,
+     its main-path shape and ragged ones, and timed beside that version,
      the card's bound and, where one exists, the one PyTorch call that
      computes the same function:
-       - SepConv K1/K2 at input 1x3x434x562, maps 1x51x384x512;
+       - SepConv K1/K2 at input 1x3x434x562, maps 1x51x384x512, and at
+         edges of their tiles and strips: N = 2, F = 5 and F = 50, maps
+         37x53 and 21x70;
        - the bounded warp K3 and its fy/fx gradient at image 1x3x256x512
          (RRIN's padded 256x448 frame), R = 8, floors over all of [-8, 7];
        - the bounded flow projection K4 at 1x256x448 (DAIN's served frame),
@@ -34,9 +40,11 @@ package; any failed check raises. Phases, in order:
   5. a JSON line of per-kernel results, the card line again, and the last
      line {"ok": true, "device": {...}}.
 """
+import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -55,7 +63,13 @@ EVAL_FLAGS = ["--model", "sepconv", "--mode", "val", "--optimizer", "Adamax",
 STEPS, PAIRS, CALLS = 3, 2, 2   # inner steps, support pairs, sepconvs a pass
 K1_PER_CLIP = PAIRS * CALLS * STEPS + CALLS   # support passes + the query
 K2_PER_CLIP = PAIRS * CALLS * STEPS           # support backwards
-KERNEL_SHAPES = [(37, 53), (384, 512)]  # (H, W) of the maps; timed: last
+# (N, H, W, F) of the K1/K2 checks; timed: last. H and W off the 16x16 and
+# 16x8 tiles and the 4- and 2-pixel strips; F odd, even and small
+KERNEL_SHAPES = [(1, 37, 53, 51), (2, 21, 70, 51), (2, 21, 70, 5),
+                 (1, 37, 53, 50), (1, 384, 512, 51)]
+# ptxas names of the K1/K2 kernels in csrc/sepconv.cu
+SEPCONV_KERNELS = {"sepconv_forward": "sepconv_fwd_kernel",
+                   "sepconv_grad_kernels": "sepconv_grad_kernels_kernel"}
 CLI_CROP = 256                 # synthetic clips of the CLI run
 FULL_HW = (256, 448)           # the Vimeo frame (kernel maps 384x512)
 SMALL_HW = (64, 64)            # card vs CPU
@@ -163,25 +177,118 @@ def max_err(got, want, what):
     return err
 
 
-def kernel_phase(torch, sc, card):
-    """Hold K1/K2 against their plain versions; time both at the SepConv
-    shape. Returns the per-kernel records (launches filled in later)."""
+def ptxas_report(log):
+    """{entry function: {"registers", "spill", "stack"}} from the log of
+    ``nvcc -Xptxas -v``; spill counts the bytes stored and loaded."""
+    report, name = {}, None
+    for line in str(log).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            report[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            report[name]["stack"] = int(m.group(1))
+            report[name]["spill"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
+def sepconv_resources(log, what, no_spill=True):
+    """K1's and K2's registers and spill and stack bytes from the build log
+    of a sepconv source; None where this run reused a built library. Fails
+    on a spill if ``no_spill``: the tap arrays must stay in registers."""
+    report = ptxas_report(log)
+    if not report:
+        print(f"[build] {what}: library reused, no ptxas report")
+        return None
+    resources = {}
+    for name, entry in SEPCONV_KERNELS.items():
+        hits = [v for k, v in report.items() if entry in k]
+        check(len(hits) == 1 and len(hits[0]) == 3,
+              f"{what}: no ptxas report for {entry}")
+        res = resources[name] = hits[0]
+        print(f"[build] {what} {name}: {res['registers']} registers, "
+              f"{res['spill']} bytes spilled, {res['stack']} bytes stack")
+        check(not no_spill or res["spill"] == 0,
+              f"{what} {name} spills {res['spill']} bytes")
+    return resources
+
+
+def on_library(sc, lib, fn):
+    """``fn`` run with the port's sepconv wrappers bound to ``lib``, a
+    built version of csrc/sepconv.cu (an earlier design, timed beside the
+    kernels the port runs) in place of the checkout's."""
+    def run(*args):
+        real = sc._library
+        sc._library = lambda: lib
+        try:
+            return fn(*args)
+        finally:
+            sc._library = real
+    return run
+
+
+def start_sepconv_build(path, tag):
+    """Start nvcc on a version of csrc/sepconv.cu into build/<tag>/, with
+    the kernels' own flags: (process, library path)."""
+    from meta_interpolation_tpu_torch.ops import _build
+    lib = os.path.join(ROOT, "build", tag, "libsepconv.so")
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+                             path], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def finish_sepconv_build(sc, proc, lib, what):
+    """Wait for start_sepconv_build's nvcc, report its K1/K2 resources and
+    load it with the C signatures of the port's wrappers."""
+    import ctypes
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"{what} build failed:\n{log}")
+    sepconv_resources(log, what, no_spill=False)
+    return sc._bind(ctypes.CDLL(lib))
+
+
+def in_turns(torch, fns):
+    """time_ms of the two ``fns`` in turns (first, second, second, first):
+    one list of times per function."""
+    times = ([], [])
+    for i in (0, 1, 1, 0):
+        times[i].append(time_ms(torch, fns[i]))
+    return times
+
+
+def kernel_phase(torch, sc, card, resources=None, earlier_lib=None):
+    """Hold K1/K2 against their plain versions at every KERNEL_SHAPES
+    entry; time both at the SepConv shape, in turns with the K1 and K2 of
+    ``earlier_lib`` (an earlier design) where given. Returns the per-kernel
+    records (launches filled in later)."""
     flops_peak, bw_peak = peaks(card)
+    earlier = None if earlier_lib is None else (
+        on_library(sc, earlier_lib, sc.sepconv_forward),
+        on_library(sc, earlier_lib, sc.sepconv_grad_kernels))
     errs = {"k1": 0.0, "k2": 0.0}
-    for h, w in KERNEL_SHAPES:
-        gen = torch.Generator().manual_seed(h * 1000 + w)
-        f, c = 51, 3
-        inp = torch.rand(1, c, h + f - 1, w + f - 1, generator=gen).cuda()
-        kv = torch.randn(1, f, h, w, generator=gen).cuda()
-        kh = torch.randn(1, f, h, w, generator=gen).cuda()
-        g = torch.randn(1, c, h, w, generator=gen).cuda()
-        out = sc.sepconv_forward(inp, kv, kh)
-        errs["k1"] = max(errs["k1"], max_err(out, sc.sepconv_ref(inp, kv, kh),
-                                             f"K1 {h}x{w}"))
+    for n, h, w, f in KERNEL_SHAPES:
+        gen = torch.Generator().manual_seed(n * 100000 + h * 1000 + w + f)
+        c = 3
+        inp = torch.rand(n, c, h + f - 1, w + f - 1, generator=gen).cuda()
+        kv = torch.randn(n, f, h, w, generator=gen).cuda()
+        kh = torch.randn(n, f, h, w, generator=gen).cuda()
+        g = torch.randn(n, c, h, w, generator=gen).cuda()
+        what = f"{n}x{h}x{w} F={f}"
+        ref = sc.sepconv_ref(inp, kv, kh)
+        errs["k1"] = max(errs["k1"], max_err(sc.sepconv_forward(inp, kv, kh),
+                                             ref, f"K1 {what}"))
         gkv, gkh = sc.sepconv_grad_kernels(inp, g, kv, kh)
         rkv, rkh = sc.grad_kernels_ref(inp, g, kv, kh)
-        errs["k2"] = max(errs["k2"], max_err(gkv, rkv, f"K2 gkv {h}x{w}"),
-                         max_err(gkh, rkh, f"K2 gkh {h}x{w}"))
+        errs["k2"] = max(errs["k2"], max_err(gkv, rkv, f"K2 gkv {what}"),
+                         max_err(gkh, rkh, f"K2 gkh {what}"))
         # the autograd Function against autograd through the plain forward
         grads = []
         for fn in (sc.sepconv, sc.sepconv_ref):
@@ -189,45 +296,63 @@ def kernel_phase(torch, sc, card):
             (fn(*leaves) * g).sum().backward()
             grads.append([t.grad for t in leaves])
         for a, b, name in zip(*grads, ("gin", "gkv", "gkh")):
-            max_err(a, b, f"SepConvFunction {name} {h}x{w}")
+            max_err(a, b, f"SepConvFunction {name} {what}")
         torch.cuda.synchronize()
-        print(f"[kernels] {h}x{w}: K1 and K2 agree with the plain versions "
+        print(f"[kernels] {what}: K1 and K2 agree with the plain versions "
               f"(max|diff| K1 {errs['k1']:.3e}, K2 {errs['k2']:.3e})")
 
-    n = 1
     k1_ops = 2 * n * h * w * c * f * (f + 1)
     k2_ops = 2 * n * h * w * f * f * (c + 2)
     in_bytes = 4 * n * c * (h + f - 1) * (w + f - 1)
     img_bytes, map_bytes = 4 * n * c * h * w, 4 * n * f * h * w
     k1_bytes = in_bytes + 2 * map_bytes + img_bytes
     k2_bytes = in_bytes + img_bytes + 4 * map_bytes
+    if earlier is not None:
+        max_err(earlier[0](inp, kv, kh), ref, "earlier K1")
+        for a, b, part in zip(earlier[1](inp, g, kv, kh), (rkv, rkh),
+                              ("gkv", "gkh")):
+            max_err(a, b, f"earlier K2 {part}")
     records = []
-    for name, err, fn, plain, ops, nbytes, line in [
+    for i, (name, err, fn, plain, ops, nbytes, line) in enumerate([
             ("sepconv_forward", errs["k1"],
              lambda: sc.sepconv_forward(inp, kv, kh),
              lambda: sc.sepconv_ref(inp, kv, kh), k1_ops, k1_bytes, 134),
             ("sepconv_grad_kernels", errs["k2"],
              lambda: sc.sepconv_grad_kernels(inp, g, kv, kh),
              lambda: sc.grad_kernels_ref(inp, g, kv, kh), k2_ops, k2_bytes,
-             233)]:
+             233)]):
         ms = time_ms(torch, fn)
         eager_ms = call_ms(torch, fn)
         plain_ms = time_ms(torch, plain)
         t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+        bound = max(t_ops, t_bytes)
         records.append({
             "name": name, "route": "cuda",
             "source": f"{PACKAGE}/csrc/sepconv.cu",
             "replaces": f"meta_interpolation_tpu/ops/sepconv.py:{line}",
             "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "call_ms": eager_ms,
-            "shape": f"in 1x3x{h + f - 1}x{w + f - 1}, maps 1x{f}x{h}x{w}",
+            "shape": f"in {n}x3x{h + f - 1}x{w + f - 1}, maps {n}x{f}x{h}x{w}",
             "gflop": ops / 1e9, "mbytes": nbytes / 1e6})
+        res = (resources or {}).get(name)
+        res_txt = (f"{res['registers']} registers, {res['spill']} bytes "
+                   f"spilled" if res else "registers not reported")
         print(f"[kernels] {name}: {ms:.4f} ms, eager call {eager_ms:.4f} ms "
-              f"(plain {plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms by "
-              f"{records[-1]['bound_by']}; no single PyTorch call computes "
-              f"it, so library_ms is null)")
+              f"(plain {plain_ms:.4f} ms, bound {bound:.4f} ms by "
+              f"{records[-1]['bound_by']}, {bound / ms:.3f} of the bound "
+              f"reached; {res_txt}; no single PyTorch call computes it, so "
+              f"library_ms is null)")
+        if earlier is None:
+            print(f"[kernels] {name}: earlier design not given "
+                  f"(--earlier-sepconv)")
+            continue
+        args = (inp, kv, kh) if i == 0 else (inp, g, kv, kh)
+        new, old = in_turns(torch, (fn, lambda: earlier[i](*args)))
+        print(f"[kernels] {name}, in turns (this, earlier, earlier, this): "
+              f"this design {new[0]:.4f}, {new[1]:.4f} ms; earlier design "
+              f"{old[0]:.4f}, {old[1]:.4f} ms; bound {bound:.4f} ms")
     return records
 
 
@@ -473,9 +598,10 @@ def cli_phase(torch, mods, flags, model, per_clip):
     return launches
 
 
-def main_path_phase(torch, mods):
-    """SepConv through the port's entry points on the card. Returns the
-    launches of the CLI run (the main path) per kernel."""
+def main_path_phase(torch, mods, earlier_lib=None):
+    """SepConv through the port's entry points on the card, the 256x448
+    episode also in turns with ``earlier_lib``'s K1 and K2 where given.
+    Returns the launches of the CLI run (the main path) per kernel."""
     from meta_interpolation_tpu_torch.config import get_args
     from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
     from meta_interpolation_tpu_torch.meta.system import (
@@ -517,6 +643,23 @@ def main_path_phase(torch, mods):
           f"memory {peak_gib:.2f} GiB")
     profile_episode(torch, lambda: system.run_validation_iter(frames),
                     f"sepconv {FULL_HW[0]}x{FULL_HW[1]} episode", "sepconv")
+    if earlier_lib is not None:
+        from meta_interpolation_tpu_torch.ops import sepconv as sc
+        runs = {"this": system.run_validation_iter,
+                "earlier": on_library(sc, earlier_lib,
+                                      system.run_validation_iter)}
+        turns = {"this": [], "earlier": []}
+        for which in ["this", "earlier", "earlier", "this"] * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[which](frames)
+            torch.cuda.synchronize()
+            turns[which].append(time.perf_counter() - t0)
+        print(f"[main] sepconv {FULL_HW[0]}x{FULL_HW[1]} episode in turns "
+              f"(this, earlier, earlier, this) x2: " + "; ".join(
+                  f"{which} K1/K2 median {statistics.median(t):.4f} s (all "
+                  f"{[round(x, 4) for x in t]})"
+                  for which, t in turns.items()))
 
     # (c) a small clip on the card against the same clip on the CPU
     card_vs_cpu(cfg, "sepconv")
@@ -862,6 +1005,11 @@ def dain_phase(torch, mods):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--earlier-sepconv", metavar="PATH",
+                        help="an earlier csrc/sepconv.cu to time K1/K2 "
+                             "against, in turns")
+    args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -882,6 +1030,8 @@ def main():
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
+    earlier_build = (start_sepconv_build(args.earlier_sepconv, "earlier")
+                     if args.earlier_sepconv else None)
     report = _build.build()
     print(f"[build] {len(report)} source(s) in {time.perf_counter() - t0:.1f}"
           f" s")
@@ -890,12 +1040,16 @@ def main():
         for line in str(rec["log"]).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build]   {line.strip()}")
+    resources = sepconv_resources(report["sepconv"]["log"], "sepconv.cu")
+    earlier_lib = (finish_sepconv_build(sc, *earlier_build,
+                                        f"earlier {args.earlier_sepconv}")
+                   if earlier_build else None)
 
-    records = (kernel_phase(torch, sc, card)
+    records = (kernel_phase(torch, sc, card, resources, earlier_lib)
                + warp_kernel_phase(torch, wb, card)
                + projection_kernel_phase(torch, fpb, card))
     mods = (sc, wb, fpb)
-    sepconv_launches = main_path_phase(torch, mods)
+    sepconv_launches = main_path_phase(torch, mods, earlier_lib)
     rrin_launches = rrin_phase(torch, mods)
     dain_launches = dain_phase(torch, mods)
     # each kernel's launches on the main path that runs it

@@ -14,172 +14,376 @@
 //   gkv(k)    = sum_l kh(l) * gw(k, l)
 //   gkh(l)    = sum_k kv(k) * gw(k, l)
 //
-// Bound on an H100 at the SepConv shape (N=1, C=3, F=51, maps 384x512):
-//   forward   F(F+1)C = 7956 FMA a pixel, 3.1 GFLOP against ~85 MB moved:
-//             compute-bound (~47 us at 67 TFLOP/s fp32, SXM data sheet);
-//   gradient  F^2(C+2) = 13005 FMA a pixel, 5.1 GFLOP against ~166 MB:
-//             compute-bound (~76 us).
-// Neither fits the tensor cores: every pixel has its own 51x51 filter, so
-// there is no weight shared across a tile to feed a matrix product.
+// What bounds them on an H100 at the SepConv shape (N=1, C=3, F=51, maps
+// 384x512): fp32 operations outside the tensor cores. The forward does
+// F(F+1)C = 7956 FMA a pixel (3.1 GFLOP against ~85 MB moved, ~47 us at
+// 67 TFLOP/s, SXM data sheet); the gradient F^2(C+2) = 13005 FMA a pixel
+// (5.1 GFLOP against ~166 MB, ~76 us). Neither fits the tensor cores:
+// every pixel has its own 51x51 filter, so a matrix product over a tile
+// would mostly compute products outside each pixel's band.
 //
-// Design (first, simple version): one thread owns one output pixel, in
-// 32x8 blocks so that a warp is one row of 32 neighbouring pixels. The
-// block stages its (8+F-1) x (32+F-1) input halo for all C channels in
-// shared memory once (C=3: 57 KB, dynamic), so device memory is read
-// O(HWC) times instead of O(F^2 HWC). The thread keeps its F horizontal
-// taps (and, for the gradient, its F gkh sums) in registers; the tap loop
-// is unrolled for F <= kFMax so those arrays stay in registers. Both
-// kernels keep the rank-1 factorisation of the TPU kernels (the vertical
-// tap multiplies once per row k), and both own their pixel, so no atomics
-// are needed and the sums are deterministic. Each tap costs one shared
-// load per FMA, which caps the rate well below the fp32 peak: register
-// blocking across neighbouring pixels is the next step.
+// So the limit is the SM's issue rate and its shared-memory rate. An SM
+// issues 4 warp instructions a clock (128 fp32 FMA lanes) but serves one
+// shared-memory wavefront (32 words) a clock, so a design with one shared
+// load per FMA reaches at most a quarter of the fp32 rate. Both kernels
+// block registers across neighbouring pixels instead:
+//
+// - A thread holds a strip of P vertically adjacent pixels of one column.
+//   Pixel j of the strip uses staged row r at vertical tap k = r - j, at
+//   the same horizontal tap l, so one shared load of in(c, r, x+l) feeds P
+//   pixels. A row outside a pixel's band [j, j+F) is masked, which costs
+//   (P-1)/(F+P-1) of the work; the rows inside every pixel's band (all but
+//   2(P-1)) run without masks.
+// - The taps of a pixel column are split across S = 2 neighbouring lanes,
+//   which take alternate taps (l = s mod 2): each lane holds 26 of the 51
+//   taps of each pixel in registers. A warp's 16 lane pairs read 17
+//   consecutive words a load, so there are no bank conflicts.
+// - Every index into a tap array is a compile-time constant (the tap loop
+//   is unrolled over the lane's 26 taps, a tap past F has weight 0), so
+//   the arrays stay in registers. The staged tile is kTW = 68 columns
+//   wide, zero past the F-1 halo columns, so the unpredicated 26th tap
+//   reads a zero.
+// - A block stages its input halo once, with cp.async (zero-fill form at
+//   the ragged edge), while the threads load their taps from device
+//   memory. Channels 0 and 1 are staged as pairs, so a tap takes one
+//   64-bit and one 32-bit shared load.
+// - The vertical taps of the next row are loaded a row ahead, at a
+//   running offset that also addresses gkv.
+// - Each thread owns its outputs: no atomics, and the sums are
+//   deterministic. Threads outside the map run to the end with zero taps,
+//   so every lane's shuffle partner is active; only the stores are masked.
+//
+// sepconv_fwd_kernel: P = 4, S = 2. A 128-thread block (4 warps of 16
+// columns, one strip each) covers a 16x16 pixel tile; halo (16+50) x 68 x
+// 3 floats = 52.6 KiB. Per lane and (row, tap): 2 shared loads feed 12
+// FMAs. Each row's horizontal sums u_j(c) are folded with kv_j(r-j) at
+// once, so the two lanes' outputs are summed by one shuffle at the end.
+// 168 registers, no spill: 3 blocks (12 warps) an SM by registers (shared
+// memory would allow 4), 768 blocks at 384x512 maps, 1.94 waves over the
+// 396 slots of 132 SMs.
+//
+// sepconv_grad_kernels_kernel: P = 2, S = 2, the fused form of the TPU
+// kernel. A 128-thread block covers a 16x8 pixel tile; halo (8+50) x 68 x
+// 3 floats = 46.2 KiB. Per lane and (row, tap): 2 shared loads feed 10 FP
+// operations (gw, then gkv and gkh). A warp's tap then takes 3 clocks of
+// the SM's shared pipe (3 wavefronts) and 3 of its issue slots (12
+// instructions over 4 schedulers): both pipes are equally loaded, and
+// neither runs full. Each lane holds kh and the gkh sums only for its own
+// taps, so gkh needs no combination; each row's gkv is the sum of the two
+// lanes' partials, one shuffle, stored by one lane.
+// 168 registers, no spill: 3 blocks an SM, 1,536 blocks, 3.88 waves.
+//
+// Times on the card, and the designs tried: PERF.md, section 6.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kFMax = 51;  // largest filter the unrolled tap loop takes
-constexpr int kC = 3;      // channels (RGB frames)
-constexpr int kBX = 32;    // block width: one warp is one output row
-constexpr int kBY = 8;     // block height
+constexpr int kFMax = 51;   // largest filter the unrolled tap loops take
+constexpr int kC = 3;       // channels (RGB frames)
+constexpr int kS = 2;       // lanes a pixel column, on alternate taps
+constexpr int kNT = (kFMax + kS - 1) / kS;  // taps a lane holds: 26
+constexpr int kTileW = 16;  // pixel columns a block: a warp's 16 lane pairs
+constexpr int kTW = kTileW + kS * kNT;      // staged width: 68
+constexpr int kWarps = 4;   // warps a block, one strip row each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kP1 = 4;  // forward: pixels a strip, so 16x16 tiles
+constexpr int kP2 = 2;  // gradient: pixels a strip, so 16x8 tiles
+constexpr int kRows1 = kP1 * kWarps;  // pixel rows a block
+constexpr int kRows2 = kP2 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
 
-// Stage rows [y0, y0+kBY+f-1) x cols [x0, x0+kBX+f-1) of every channel of
-// image n; positions past the input edge (ragged last blocks) read as 0
-// and feed only pixels that are never written.
-__device__ __forceinline__ void load_tile(float* tile, const float* in_n,
-                                          int hp, int wp, int th, int tw,
-                                          int y0, int x0) {
-  const int tid = threadIdx.y * kBX + threadIdx.x;
-  const int plane = th * tw;
-  for (int i = tid; i < kC * plane; i += kBX * kBY) {
-    const int c = i / plane;
-    const int r = (i - c * plane) / tw;
-    const int col = i - c * plane - r * tw;
-    const int gy = y0 + r, gx = x0 + col;
-    tile[i] = (gy < hp && gx < wp)
-                  ? in_n[(static_cast<size_t>(c) * hp + gy) * wp + gx]
-                  : 0.f;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start the copy of rows [y0, y0+th) x cols [x0, x0+kTW) of every channel
+// of image n into tile: channels 0 and 1 as pairs, (th, kTW, 2), so that
+// one 64-bit load reads both, then channel 2, (th, kTW). Columns past the
+// halo (col >= kTileW + f - 1) and positions past the input edge read as
+// 0: they meet only taps of weight 0 or pixels that are never written.
+__device__ __forceinline__ void stage(float* tile, const float* in_n, int hp,
+                                      int wp, int th, int f, int y0, int x0) {
+  const int plane = th * kTW;
+  const int halo_w = kTileW + f - 1;
+  for (int c = 0; c < kC; ++c) {
+    const float* in_c = in_n + static_cast<size_t>(c) * hp * wp;
+    for (int i = threadIdx.x; i < plane; i += kThreads) {
+      const int r = i / kTW, col = i - r * kTW;
+      const int gy = y0 + r, gx = x0 + col;
+      const bool valid = col < halo_w && gy < hp && gx < wp;
+      cp_async4(c < 2 ? tile + 2 * i + c : tile + 2 * plane + i,
+                valid ? in_c + static_cast<size_t>(gy) * wp + gx : in_c,
+                valid);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kBX * kBY)
+// The vertical taps of row r for the strip's pixels: kv_j(r - j), or 0
+// outside pixel j's band or the map. kv_r points at plane r of pixel 0;
+// plane r - j of pixel j is dj = w - h*w further (a row down, j planes up).
+template <int kP>
+__device__ __forceinline__ void load_kv(const float* kv_r, long long dj,
+                                        int r, int f,
+                                        const bool (&in_map)[kP],
+                                        float (&wv)[kP]) {
+#pragma unroll
+  for (int j = 0; j < kP; ++j) {
+    const bool band = static_cast<unsigned>(r - j) < static_cast<unsigned>(f);
+    wv[j] = in_map[j] && band ? __ldg(kv_r + j * dj) : 0.f;
+  }
+}
+
+// One staged row of the forward: each pixel's horizontal sums over this
+// lane's taps, folded at once with its vertical tap. t points at the row's
+// channel pair at the lane's first tap, t2 at its channel 2. kMasked: a
+// pixel of the strip lies outside its band on this row, and band says
+// which.
+template <bool kMasked>
+__device__ __forceinline__ void fwd_row(const float* t, const float* t2,
+                                        const float (&khr)[kP1][kNT],
+                                        const float (&wv)[kP1],
+                                        const bool (&band)[kP1],
+                                        float (&acc)[kP1][kC]) {
+  float u[kP1][kC] = {};
+#pragma unroll
+  for (int i = 0; i < kNT; ++i) {
+    const float2 v01 = *reinterpret_cast<const float2*>(t + 2 * kS * i);
+    const float v[kC] = {v01.x, v01.y, t2[kS * i]};
+#pragma unroll
+    for (int j = 0; j < kP1; ++j) {
+#pragma unroll
+      for (int c = 0; c < kC; ++c) u[j][c] = fmaf(v[c], khr[j][i], u[j][c]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kP1; ++j) {
+    if (!kMasked || band[j]) {
+#pragma unroll
+      for (int c = 0; c < kC; ++c) acc[j][c] = fmaf(wv[j], u[j][c], acc[j][c]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
 sepconv_fwd_kernel(const float* __restrict__ inp, const float* __restrict__ kv,
                    const float* __restrict__ kh, float* __restrict__ out,
                    int h, int w, int f) {
-  extern __shared__ float tile[];  // (kC, kBY+f-1, kBX+f-1)
-  const int hp = h + f - 1, wp = w + f - 1;
-  const int th = kBY + f - 1, tw = kBX + f - 1;
+  extern __shared__ float tile[];  // see stage()
+  const int hp = h + f - 1, wp = w + f - 1, th = kRows1 + f - 1;
   const int n = blockIdx.z;
-  const int y0 = blockIdx.y * kBY, x0 = blockIdx.x * kBX;
-  load_tile(tile, inp + static_cast<size_t>(n) * kC * hp * wp, hp, wp, th, tw,
-            y0, x0);
-  __syncthreads();
+  const int y0 = blockIdx.y * kRows1, x0 = blockIdx.x * kTileW;
+  stage(tile, inp + static_cast<size_t>(n) * kC * hp * wp, hp, wp, th, f, y0,
+        x0);
 
-  const int y = y0 + threadIdx.y, x = x0 + threadIdx.x;
-  if (y >= h || x >= w) return;
+  const int lane = threadIdx.x & 31, s = lane & 1, col = lane >> 1;
+  const int ys = (threadIdx.x >> 5) * kP1;  // the strip's first tile row
+  const int y = y0 + ys, x = x0 + col;
   const size_t hw = static_cast<size_t>(h) * w;
-  const size_t pix = static_cast<size_t>(y) * w + x;
-  const float* kv_p = kv + static_cast<size_t>(n) * f * hw + pix;
-  const float* kh_p = kh + static_cast<size_t>(n) * f * hw + pix;
+  const long long dj = static_cast<long long>(w) - static_cast<long long>(hw);
+  // plane k of pixel (y+j, x) of image n is at map0 + k*hw + j*w
+  const size_t map0 = static_cast<size_t>(n) * f * hw +
+                      static_cast<size_t>(y) * w + x;
+  bool in_map[kP1];
+#pragma unroll
+  for (int j = 0; j < kP1; ++j) in_map[j] = x < w && y + j < h;
 
-  float khr[kFMax];
+  // this lane's taps l = s + 2i, loaded while the halo copy runs
+  float khr[kP1][kNT];
 #pragma unroll
-  for (int l = 0; l < kFMax; ++l) khr[l] = l < f ? kh_p[l * hw] : 0.f;
-
-  float acc[kC];
+  for (int j = 0; j < kP1; ++j) {
 #pragma unroll
-  for (int c = 0; c < kC; ++c) acc[c] = 0.f;
-
-  const int plane = th * tw;
-  for (int k = 0; k < f; ++k) {
-    const float kvk = kv_p[k * hw];
-    const float* row = tile + (threadIdx.y + k) * tw + threadIdx.x;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const float* rc = row + c * plane;
-      float acc_h = 0.f;
-#pragma unroll
-      for (int l = 0; l < kFMax; ++l) {
-        if (l < f) acc_h = fmaf(rc[l], khr[l], acc_h);
-      }
-      acc[c] = fmaf(acc_h, kvk, acc[c]);
+    for (int i = 0; i < kNT; ++i) {
+      const int l = s + kS * i;
+      khr[j][i] =
+          in_map[j] && l < f ? __ldg(kh + map0 + l * hw + j * w) : 0.f;
     }
   }
+  const float* kv_r = kv + map0;  // plane r of pixel 0
+  float wn[kP1];
+  load_kv(kv_r, dj, 0, f, in_map, wn);
+  cp_async_wait_all();
+  __syncthreads();
 
-  float* out_p = out + static_cast<size_t>(n) * kC * hw + pix;
+  float acc[kP1][kC] = {};
+  const int plane = th * kTW;
+  const int rows = f + kP1 - 1;
+  const float* t = tile + 2 * (ys * kTW + col + s);
+  const float* t2 = tile + 2 * plane + ys * kTW + col + s;
+  for (int r = 0; r < rows; ++r, t += 2 * kTW, t2 += kTW) {
+    float wv[kP1];
+    bool band[kP1];
 #pragma unroll
-  for (int c = 0; c < kC; ++c) out_p[c * hw] = acc[c];
+    for (int j = 0; j < kP1; ++j) {
+      wv[j] = wn[j];
+      band[j] = static_cast<unsigned>(r - j) < static_cast<unsigned>(f);
+    }
+    load_kv(kv_r + hw, dj, r + 1, f, in_map, wn);  // a row ahead
+    // rows [kP1-1, f) have every pixel of the strip inside its band
+    if (r >= kP1 - 1 && r < f)
+      fwd_row<false>(t, t2, khr, wv, band, acc);
+    else
+      fwd_row<true>(t, t2, khr, wv, band, acc);
+    kv_r += hw;
+  }
+
+  // the two lanes' sums over their taps; lane s stores pixels j = s mod 2
+  float* out_p = out + static_cast<size_t>(n) * kC * hw +
+                 static_cast<size_t>(y) * w + x;
+#pragma unroll
+  for (int j = 0; j < kP1; ++j) {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const float sum = acc[j][c] + __shfl_xor_sync(kFull, acc[j][c], 1);
+      if ((j & 1) == s && in_map[j]) out_p[c * hw + j * w] = sum;
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kBX * kBY)
+// One staged row of the gradient, at vertical tap k = r - j for pixel j:
+// gw = sum_c g(c) in(c, .), then gkv_j(k) over this lane's taps and gkh_j
+// of each. t and t2 as for fwd_row; kMasked: a pixel of the strip lies
+// outside its band on this row, and band says which.
+template <bool kMasked>
+__device__ __forceinline__ void grad_row(const float* t, const float* t2,
+                                         const float (&gr)[kP2][kC],
+                                         const float (&khr)[kP2][kNT],
+                                         float (&gkh_acc)[kP2][kNT],
+                                         const float (&wv)[kP2],
+                                         const bool (&band)[kP2],
+                                         float (&gkv_row)[kP2]) {
+  float part[kP2] = {};
+#pragma unroll
+  for (int i = 0; i < kNT; ++i) {
+    const float2 v01 = *reinterpret_cast<const float2*>(t + 2 * kS * i);
+    const float v[kC] = {v01.x, v01.y, t2[kS * i]};
+#pragma unroll
+    for (int j = 0; j < kP2; ++j) {
+      float gw = gr[j][0] * v[0];
+#pragma unroll
+      for (int c = 1; c < kC; ++c) gw = fmaf(gr[j][c], v[c], gw);
+      part[j] = fmaf(khr[j][i], gw, part[j]);
+      if (!kMasked || band[j]) gkh_acc[j][i] = fmaf(wv[j], gw, gkh_acc[j][i]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kP2; ++j) gkv_row[j] = part[j];
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
 sepconv_grad_kernels_kernel(const float* __restrict__ inp,
                             const float* __restrict__ g,
                             const float* __restrict__ kv,
                             const float* __restrict__ kh,
                             float* __restrict__ gkv, float* __restrict__ gkh,
                             int h, int w, int f) {
-  extern __shared__ float tile[];  // (kC, kBY+f-1, kBX+f-1)
-  const int hp = h + f - 1, wp = w + f - 1;
-  const int th = kBY + f - 1, tw = kBX + f - 1;
+  extern __shared__ float tile[];  // see stage()
+  const int hp = h + f - 1, wp = w + f - 1, th = kRows2 + f - 1;
   const int n = blockIdx.z;
-  const int y0 = blockIdx.y * kBY, x0 = blockIdx.x * kBX;
-  load_tile(tile, inp + static_cast<size_t>(n) * kC * hp * wp, hp, wp, th, tw,
-            y0, x0);
+  const int y0 = blockIdx.y * kRows2, x0 = blockIdx.x * kTileW;
+  stage(tile, inp + static_cast<size_t>(n) * kC * hp * wp, hp, wp, th, f, y0,
+        x0);
+
+  const int lane = threadIdx.x & 31, s = lane & 1, col = lane >> 1;
+  const int ys = (threadIdx.x >> 5) * kP2;
+  const int y = y0 + ys, x = x0 + col;
+  const size_t hw = static_cast<size_t>(h) * w;
+  const long long dj = static_cast<long long>(w) - static_cast<long long>(hw);
+  const size_t pix = static_cast<size_t>(y) * w + x;
+  const size_t map0 = static_cast<size_t>(n) * f * hw + pix;
+  bool in_map[kP2];
+#pragma unroll
+  for (int j = 0; j < kP2; ++j) in_map[j] = x < w && y + j < h;
+
+  float gr[kP2][kC];
+#pragma unroll
+  for (int j = 0; j < kP2; ++j) {
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+      gr[j][c] = in_map[j] ? __ldg(g + static_cast<size_t>(n) * kC * hw +
+                                   c * hw + pix + j * w)
+                           : 0.f;
+  }
+  float khr[kP2][kNT], gkh_acc[kP2][kNT] = {};
+#pragma unroll
+  for (int j = 0; j < kP2; ++j) {
+#pragma unroll
+    for (int i = 0; i < kNT; ++i) {
+      const int l = s + kS * i;
+      khr[j][i] =
+          in_map[j] && l < f ? __ldg(kh + map0 + l * hw + j * w) : 0.f;
+    }
+  }
+  const float* kv_r = kv + map0;  // plane r of pixel 0
+  float wn[kP2];
+  load_kv(kv_r, dj, 0, f, in_map, wn);
+  cp_async_wait_all();
   __syncthreads();
 
-  const int y = y0 + threadIdx.y, x = x0 + threadIdx.x;
-  if (y >= h || x >= w) return;
-  const size_t hw = static_cast<size_t>(h) * w;
-  const size_t pix = static_cast<size_t>(y) * w + x;
-  const size_t map_off = static_cast<size_t>(n) * f * hw + pix;
-
-  float gr[kC];
+  const int plane = th * kTW;
+  const int rows = f + kP2 - 1;
+  const float* t = tile + 2 * (ys * kTW + col + s);
+  const float* t2 = tile + 2 * plane + ys * kTW + col + s;
+  for (int r = 0; r < rows; ++r, t += 2 * kTW, t2 += kTW) {
+    float wv[kP2];
+    bool band[kP2];
 #pragma unroll
-  for (int c = 0; c < kC; ++c)
-    gr[c] = g[static_cast<size_t>(n) * kC * hw + c * hw + pix];
-
-  float khr[kFMax], gkh_acc[kFMax];
-#pragma unroll
-  for (int l = 0; l < kFMax; ++l) {
-    khr[l] = l < f ? kh[map_off + l * hw] : 0.f;
-    gkh_acc[l] = 0.f;
-  }
-
-  const int plane = th * tw;
-  for (int k = 0; k < f; ++k) {
-    const float kvk = kv[map_off + k * hw];
-    const float* row = tile + (threadIdx.y + k) * tw + threadIdx.x;
-    float gkv_k = 0.f;
-#pragma unroll
-    for (int l = 0; l < kFMax; ++l) {
-      if (l < f) {
-        float gw = 0.f;
-#pragma unroll
-        for (int c = 0; c < kC; ++c) gw = fmaf(gr[c], row[c * plane + l], gw);
-        gkv_k = fmaf(khr[l], gw, gkv_k);
-        gkh_acc[l] = fmaf(kvk, gw, gkh_acc[l]);
-      }
+    for (int j = 0; j < kP2; ++j) {
+      wv[j] = wn[j];
+      band[j] = static_cast<unsigned>(r - j) < static_cast<unsigned>(f);
     }
-    gkv[map_off + k * hw] = gkv_k;
+    load_kv(kv_r + hw, dj, r + 1, f, in_map, wn);  // a row ahead
+    float gkv_row[kP2];
+    // rows [kP2-1, f) have every pixel of the strip inside its band
+    if (r >= kP2 - 1 && r < f)
+      grad_row<false>(t, t2, gr, khr, gkh_acc, wv, band, gkv_row);
+    else
+      grad_row<true>(t, t2, gr, khr, gkh_acc, wv, band, gkv_row);
+    // gkv_j(r - j), at the same offset as kv_j(r - j): the two lanes'
+    // partials; lane s stores pixels j = s mod 2
+    float* gkv_r = gkv + (kv_r - kv);
+#pragma unroll
+    for (int j = 0; j < kP2; ++j) {
+      const float sum = gkv_row[j] + __shfl_xor_sync(kFull, gkv_row[j], 1);
+      if ((j & 1) == s && in_map[j] && band[j]) gkv_r[j * dj] = sum;
+    }
+    kv_r += hw;
   }
 
 #pragma unroll
-  for (int l = 0; l < kFMax; ++l) {
-    if (l < f) gkh[map_off + l * hw] = gkh_acc[l];
+  for (int j = 0; j < kP2; ++j) {
+#pragma unroll
+    for (int i = 0; i < kNT; ++i) {
+      const int l = s + kS * i;
+      if (in_map[j] && l < f) gkh[map0 + l * hw + j * w] = gkh_acc[j][i];
+    }
   }
 }
 
 template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int n, int c, int h, int w, int f,
-                    dim3* grid, size_t* smem) {
+cudaError_t prepare(Kernel kernel, int rows, int n, int c, int h, int w,
+                    int f, dim3* grid, size_t* smem) {
   if (c != kC || f < 1 || f > kFMax || n < 1 || n > 65535 || h < 1 || w < 1)
     return cudaErrorInvalidValue;
-  *smem = sizeof(float) * kC * (kBY + f - 1) * (kBX + f - 1);
-  *grid = dim3((w + kBX - 1) / kBX, (h + kBY - 1) / kBY, n);
+  *smem = sizeof(float) * kC * (rows + f - 1) * kTW;
+  *grid = dim3((w + kTileW - 1) / kTileW, (h + rows - 1) / rows, n);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(*smem));
+  if (err != cudaSuccess) return err;
+  // all of the SM's unified memory as shared memory, so that the blocks
+  // the registers allow (3) are not cut by the carveout
   return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*smem));
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
@@ -191,9 +395,10 @@ extern "C" int sepconv_forward(const float* inp, const float* kv,
                                int h, int w, int f, void* stream) {
   dim3 grid;
   size_t smem;
-  cudaError_t err = prepare(sepconv_fwd_kernel, n, c, h, w, f, &grid, &smem);
+  cudaError_t err = prepare(sepconv_fwd_kernel, kRows1, n, c, h, w, f,
+                            &grid, &smem);
   if (err != cudaSuccess) return err;
-  sepconv_fwd_kernel<<<grid, dim3(kBX, kBY), smem,
+  sepconv_fwd_kernel<<<grid, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(inp, kv, kh, out,
                                                             h, w, f);
   return cudaGetLastError();
@@ -205,10 +410,10 @@ extern "C" int sepconv_grad_kernels(const float* inp, const float* g,
                                     int h, int w, int f, void* stream) {
   dim3 grid;
   size_t smem;
-  cudaError_t err =
-      prepare(sepconv_grad_kernels_kernel, n, c, h, w, f, &grid, &smem);
+  cudaError_t err = prepare(sepconv_grad_kernels_kernel, kRows2, n, c, h, w,
+                            f, &grid, &smem);
   if (err != cudaSuccess) return err;
-  sepconv_grad_kernels_kernel<<<grid, dim3(kBX, kBY), smem,
+  sepconv_grad_kernels_kernel<<<grid, kThreads, smem,
                                 static_cast<cudaStream_t>(stream)>>>(
       inp, g, kv, kh, gkv, gkh, h, w, f);
   return cudaGetLastError();

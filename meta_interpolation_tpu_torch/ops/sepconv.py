@@ -94,10 +94,8 @@ def grad_input_ref(g: torch.Tensor, kv: torch.Tensor, kh: torch.Tensor,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """csrc/sepconv.cu, built on first use, with its C signatures."""
-    lib = _build.load("sepconv")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of csrc/sepconv.cu's entry points on ``lib``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.sepconv_forward.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.sepconv_forward.restype = i32
@@ -106,11 +104,15 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda(inp: torch.Tensor, *maps: torch.Tensor):
-    """Validate what the kernels take; returns (n, c, h, w, f)."""
-    if inp.device.type != "cuda":
-        raise ValueError(f"sepconv kernels take CPU or CUDA tensors, got "
-                         f"{inp.device}")
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """csrc/sepconv.cu, built on first use, with its C signatures."""
+    return _bind(_build.load("sepconv"))
+
+
+def _kernel_shapes(inp: torch.Tensor, *maps: torch.Tensor):
+    """Validate the types and shapes the kernels take, on any device;
+    returns (n, c, h, w, f)."""
     n, c, h, w, f = _shapes(inp, maps[0])
     for t in (inp,) + maps:
         if t.device != inp.device or t.dtype != torch.float32:
@@ -124,6 +126,15 @@ def _check_cuda(inp: torch.Tensor, *maps: torch.Tensor):
             raise ValueError(f"kernel map of shape {tuple(t.shape)} does not "
                              f"match input {tuple(inp.shape)}")
     return n, c, h, w, f
+
+
+def _check_cuda(inp: torch.Tensor, *maps: torch.Tensor):
+    """Validate what the kernels take on the card; returns (n, c, h, w,
+    f)."""
+    if inp.device.type != "cuda":
+        raise ValueError(f"sepconv kernels take CPU or CUDA tensors, got "
+                         f"{inp.device}")
+    return _kernel_shapes(inp, *maps)
 
 
 def _raise_on_error(code: int, name: str):

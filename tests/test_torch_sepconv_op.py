@@ -39,7 +39,10 @@ def _np(t):
     return t.detach().numpy().transpose(0, 2, 3, 1)
 
 
-@pytest.mark.parametrize("n,h,w,f", [(2, 6, 7, 5), (1, 5, 9, 51)])
+# the shapes chip_smoke.py holds the kernels to, shrunk: N = 2, F small,
+# even and 51, H and W off every tile and strip
+@pytest.mark.parametrize("n,h,w,f", [(2, 6, 7, 5), (1, 5, 9, 51),
+                                     (2, 5, 7, 50), (2, 3, 5, 51)])
 def test_plain_forward_matches_jax_ref(n, h, w, f):
     inp, kv, kh, _ = _data(n, h, w, f, seed=f)
     expected = jax_sc.sepconv_ref(jnp.asarray(inp), jnp.asarray(kv),
@@ -48,7 +51,9 @@ def test_plain_forward_matches_jax_ref(n, h, w, f):
     np.testing.assert_allclose(_np(got), np.asarray(expected), rtol=FWD_RTOL)
 
 
-@pytest.mark.parametrize("n,h,w,f", [(1, 4, 5, 3), (1, 3, 4, 51)])
+@pytest.mark.parametrize("n,h,w,f", [(1, 4, 5, 3), (1, 3, 4, 51),
+                                     (2, 3, 5, 5), (1, 3, 4, 50),
+                                     (2, 2, 3, 51)])
 def test_plain_gradients_match_jax_grad(n, h, w, f):
     """gkv, gkh (K2's plain version) and gin against jax.grad of the JAX
     op's custom VJP on its plain path."""
@@ -119,3 +124,34 @@ def test_cpu_calls_count_no_launches_and_other_devices_raise():
         sc.sepconv_forward(*meta)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         sc.sepconv_grad_kernels(meta[0], _t(g).to("meta"), meta[1], meta[2])
+
+
+def _meta(n, c, h, w, f, dtype=torch.float32):
+    """Tensors of the kernels' shapes on the meta device: no storage."""
+    inp = torch.empty(n, c, h + f - 1, w + f - 1, dtype=dtype, device="meta")
+    kv = torch.empty(n, f, h, w, dtype=dtype, device="meta")
+    return inp, kv
+
+
+@pytest.mark.parametrize("n,h,w,f", [(1, 37, 53, 51), (2, 21, 70, 51),
+                                     (2, 21, 70, 5), (1, 37, 53, 50),
+                                     (1, 384, 512, 51)])
+def test_kernel_shapes_take_the_card_shapes(n, h, w, f):
+    inp, kv = _meta(n, 3, h, w, f)
+    assert sc._kernel_shapes(inp, kv, kv) == (n, 3, h, w, f)
+
+
+@pytest.mark.parametrize("c,f,dtype,match", [
+    (4, 5, torch.float32, "C=3"), (3, 52, torch.float32, "F<=51"),
+    (3, 5, torch.float64, "float32")])
+def test_kernel_shapes_refuse_what_the_kernels_do_not_take(c, f, dtype,
+                                                          match):
+    inp, kv = _meta(1, c, 4, 5, f, dtype)
+    with pytest.raises(ValueError, match=match):
+        sc._kernel_shapes(inp, kv, kv)
+
+
+def test_kernel_shapes_refuse_a_map_of_another_size():
+    inp, kv = _meta(2, 3, 4, 5, 7)
+    with pytest.raises(ValueError, match="does not match"):
+        sc._kernel_shapes(inp, kv, kv[:1])
