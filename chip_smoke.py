@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one CUDA card and check what comes out.
 
-    python3 chip_smoke.py [--earlier-sepconv PATH]
+    python3 chip_smoke.py [--earlier-sepconv PATH] [--earlier-projection PATH]
 
 Run from a checkout: the port's package must sit beside this script. It
 exits non-zero, printing no result, when there is no CUDA device or no
-package; any failed check raises. ``--earlier-sepconv`` names an earlier
-version of csrc/sepconv.cu (the same C interface, e.g. from ``git show
+package; any failed check raises. ``--earlier-sepconv`` and
+``--earlier-projection`` name an earlier version of csrc/sepconv.cu or
+csrc/flow_projection.cu (the same C interface, e.g. from ``git show
 <commit>:meta_interpolation_tpu_torch/csrc/sepconv.cu``): it is built
 beside the kernels and timed in turns with them. Phases, in order:
 
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every kernel under meta_interpolation_tpu_torch/csrc/, one
      nvcc per source, all started together; the registers and spill bytes
-     of each kernel (ptxas), and no spill allowed in K1/K2;
+     of each kernel (ptxas), and no spill allowed in K1, K2 and K4;
   3. kernels: each held against its plain PyTorch version on the card at
      its main-path shape and ragged ones, and timed beside that version,
      the card's bound and, where one exists, the one PyTorch call that
@@ -24,8 +25,13 @@ beside the kernels and timed in turns with them. Phases, in order:
        - the bounded warp K3 and its fy/fx gradient at image 1x3x256x512
          (RRIN's padded 256x448 frame), R = 8, floors over all of [-8, 7];
        - the bounded flow projection K4 at 1x256x448 (DAIN's served frame),
-         R = 8, with and without depth, and a ragged 2x37x53 with flows
-         over [-11, 11], past R, so that far sources are dropped;
+         R = 8, on a uniform and a smooth flow, and at 2x37x53 with R = 0,
+         1, 16 (over 48 KB of shared memory) and 40 (a halo staged in
+         bands), flows past R, integer landings on the bottom and right
+         edges, every source sent to one cell and every source of a tile
+         to one tile row; with and without depth; two calls must be
+         bitwise equal, and with --earlier-projection the earlier design's
+         proj and cnt too;
   4. main paths, each driven with every launch count set to 0 just before
      it and read just after:
        - SepConv: the CLI's scene-adaptive evaluation of the 8 synthetic
@@ -37,6 +43,10 @@ beside the kernels and timed in turns with them. Phases, in order:
          --fast_warp_range 8, the 256x448 episodes timed in turns with
          episodes on the exact warp (F.grid_sample, no kernel launched),
          and the forward's FLOPs counted;
+       - DAIN: a served 256x448 frame with the bounded projection (K4 also
+         timed on the two flows that frame projects), in turns with the
+         exact one; the CLI and an episode (exact projection, as the JAX
+         meta system); a 64x64 clip on the card against the CPU;
   5. a JSON line of per-kernel results, the card line again, and the last
      line {"ok": true, "device": {...}}.
 """
@@ -67,9 +77,11 @@ K2_PER_CLIP = PAIRS * CALLS * STEPS           # support backwards
 # 16x8 tiles and the 4- and 2-pixel strips; F odd, even and small
 KERNEL_SHAPES = [(1, 37, 53, 51), (2, 21, 70, 51), (2, 21, 70, 5),
                  (1, 37, 53, 50), (1, 384, 512, 51)]
-# ptxas names of the K1/K2 kernels in csrc/sepconv.cu
+# ptxas names of the K1/K2 kernels in csrc/sepconv.cu and of K4 in
+# csrc/flow_projection.cu
 SEPCONV_KERNELS = {"sepconv_forward": "sepconv_fwd_kernel",
                    "sepconv_grad_kernels": "sepconv_grad_kernels_kernel"}
+PROJECTION_KERNELS = {"flow_projection_bounded": "flow_projection_kernel"}
 CLI_CROP = 256                 # synthetic clips of the CLI run
 FULL_HW = (256, 448)           # the Vimeo frame (kernel maps 384x512)
 SMALL_HW = (64, 64)            # card vs CPU
@@ -93,7 +105,18 @@ WARP_SHAPES = [(37, 53, -WARP_R, WARP_R - 1),
 # run_dain.sh hyperparameters (no --dataset hd, no --resume) and tamed
 # random weights
 PROJ_R, DAIN_SEED = 8, 12345
-PROJ_SHAPES = [(1, 256, 448, float(PROJ_R)), (2, 37, 53, 11.0)]  # timed: 1st
+# (N, H, W, R, flow, span) of the K4 checks (flows of proj_flow); timed:
+# the first two, DAIN's served shape
+PROJ_CASES = [(1, 256, 448, PROJ_R, "uniform", PROJ_R),
+              (1, 256, 448, PROJ_R, "smooth", PROJ_R),
+              (2, 37, 53, PROJ_R, "uniform", 11),    # past R: some dropped
+              (2, 37, 53, 0, "uniform", 2),
+              (2, 37, 53, 1, "uniform", 3),
+              (2, 37, 53, 16, "uniform", 18),        # over 48 KB shared
+              (2, 37, 53, 40, "uniform", 42),        # a halo in bands
+              (2, 37, 53, PROJ_R, "integer", PROJ_R + 1),
+              (2, 37, 53, PROJ_R, "one_cell", 0),
+              (2, 37, 53, PROJ_R, "one_row", 0)]
 DAIN_QUERY = (2, 4)                # the served pair: frames 2 and 4
 K4_PER_FRAME = 2                   # one projection a direction
 DAIN_PTH = os.path.join(ROOT, "build", "dain_tamed.pth")
@@ -198,16 +221,18 @@ def ptxas_report(log):
     return report
 
 
-def sepconv_resources(log, what, no_spill=True):
-    """K1's and K2's registers and spill and stack bytes from the build log
-    of a sepconv source; None where this run reused a built library. Fails
-    on a spill if ``no_spill``: the tap arrays must stay in registers."""
+def kernel_resources(log, what, entries, no_spill=True):
+    """The registers and spill and stack bytes of the kernels ``entries``
+    names ({wrapper: ptxas entry name}) from the build log of a source;
+    None where this run reused a built library. Fails on a spill if
+    ``no_spill``: the kernels are designed to keep their state in
+    registers."""
     report = ptxas_report(log)
     if not report:
         print(f"[build] {what}: library reused, no ptxas report")
         return None
     resources = {}
-    for name, entry in SEPCONV_KERNELS.items():
+    for name, entry in entries.items():
         hits = [v for k, v in report.items() if entry in k]
         check(len(hits) == 1 and len(hits[0]) == 3,
               f"{what}: no ptxas report for {entry}")
@@ -219,25 +244,31 @@ def sepconv_resources(log, what, no_spill=True):
     return resources
 
 
-def on_library(sc, lib, fn):
-    """``fn`` run with the port's sepconv wrappers bound to ``lib``, a
-    built version of csrc/sepconv.cu (an earlier design, timed beside the
-    kernels the port runs) in place of the checkout's."""
+def sepconv_resources(log, what, no_spill=True):
+    """K1's and K2's resources from the build log of a sepconv source."""
+    return kernel_resources(log, what, SEPCONV_KERNELS, no_spill)
+
+
+def on_library(mod, lib, fn):
+    """``fn`` run with the wrappers of ``mod`` (ops/sepconv.py or
+    ops/flow_projection_bounded.py) bound to ``lib``, a built version of
+    their source (an earlier design, timed beside the kernels the port
+    runs) in place of the checkout's."""
     def run(*args):
-        real = sc._library
-        sc._library = lambda: lib
+        real = mod._library
+        mod._library = lambda: lib
         try:
             return fn(*args)
         finally:
-            sc._library = real
+            mod._library = real
     return run
 
 
-def start_sepconv_build(path, tag):
-    """Start nvcc on a version of csrc/sepconv.cu into build/<tag>/, with
+def start_build(path, tag, source):
+    """Start nvcc on a version of csrc/<source>.cu into build/<tag>/, with
     the kernels' own flags: (process, library path)."""
     from meta_interpolation_tpu_torch.ops import _build
-    lib = os.path.join(ROOT, "build", tag, "libsepconv.so")
+    lib = os.path.join(ROOT, "build", tag, f"lib{source}.so")
     os.makedirs(os.path.dirname(lib), exist_ok=True)
     proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
                              path], stdout=subprocess.PIPE,
@@ -245,14 +276,14 @@ def start_sepconv_build(path, tag):
     return proc, lib
 
 
-def finish_sepconv_build(sc, proc, lib, what):
-    """Wait for start_sepconv_build's nvcc, report its K1/K2 resources and
-    load it with the C signatures of the port's wrappers."""
+def finish_build(mod, proc, lib, what, entries):
+    """Wait for start_build's nvcc, report the resources of its kernels
+    ``entries`` and load it with the C signatures of ``mod``'s wrappers."""
     import ctypes
     log, _ = proc.communicate()
     check(proc.returncode == 0, f"{what} build failed:\n{log}")
-    sepconv_resources(log, what, no_spill=False)
-    return sc._bind(ctypes.CDLL(lib))
+    kernel_resources(log, what, entries, no_spill=False)
+    return mod._bind(ctypes.CDLL(lib))
 
 
 def in_turns(torch, fns):
@@ -465,39 +496,150 @@ def warp_kernel_phase(torch, wb, card):
     return records
 
 
-def projection_kernel_phase(torch, fpb, card):
-    """Hold K4 against its plain version; time both at DAIN's served shape
-    beside the exact scatter. Returns the kernel's record (launches filled
-    in later)."""
+def smooth_flow(torch, n, h, w, amplitude, seed, waves=3):
+    """Seeded smooth flows (N, H, W, 2) float32 on the CPU, the kind a
+    trained flow network gives: for each image and axis a sum of ``waves``
+    sinusoids of at most 2 periods across the frame, with amplitudes that
+    sum to at most ``amplitude`` pixels."""
+    gen = torch.Generator().manual_seed(seed)
+    ys = torch.arange(h, dtype=torch.float64)[:, None] / h
+    xs = torch.arange(w, dtype=torch.float64)[None, :] / w
+    flow = torch.zeros(n, h, w, 2, dtype=torch.float64)
+    for b in range(n):
+        for c in range(2):
+            for _ in range(waves):
+                ky, kx, phase, amp = torch.rand(4, generator=gen,
+                                                dtype=torch.float64)
+                flow[b, :, :, c] += (amplitude / waves * (0.5 + 0.5 * amp)
+                                     * torch.sin(2 * math.pi * (
+                                         2 * ky * ys + 2 * kx * xs + phase)))
+    return flow.float()
+
+
+def proj_flow(torch, kind, n, h, w, span, seed):
+    """A CPU flow (N, H, W, 2) of a K4 check. "uniform": in [-span, span];
+    "smooth": smooth_flow of amplitude span; "integer": integer offsets in
+    [-span, span] with the landings clipped to [-1, H-1] x [-1, W-1], so
+    that many land exactly on the bottom and right edges and some outside;
+    "one_cell": every source lands on the centre cell; "one_row": every
+    source lands on row 12 (tile row 1) in columns 0-31 (the first tile),
+    which fills that row's lists (sources farther than R are dropped)."""
+    gen = torch.Generator().manual_seed(seed)
+    ys = torch.arange(h, dtype=torch.float32)[None, :, None].expand(n, h, w)
+    xs = torch.arange(w, dtype=torch.float32)[None, None, :].expand(n, h, w)
+    if kind == "uniform":
+        return (torch.rand(n, h, w, 2, generator=gen) * 2 - 1) * span
+    if kind == "smooth":
+        return smooth_flow(torch, n, h, w, span, seed)
+    if kind == "integer":
+        k = torch.randint(-span, span + 1, (n, h, w, 2), generator=gen)
+        return torch.stack([(xs + k[..., 0]).clamp(-1, w - 1) - xs,
+                            (ys + k[..., 1]).clamp(-1, h - 1) - ys], -1)
+    if kind == "one_cell":
+        return torch.stack([w // 2 - xs, h // 2 - ys], -1)
+    if kind == "one_row":
+        return torch.stack([xs.clamp(0, 31) - xs, 12 - ys], -1)
+    raise ValueError(f"no flow kind {kind!r}")
+
+
+def k4_list_lengths(torch, flow, r):
+    """(mean, largest) length of the list a warp of K4 builds on ``flow``
+    (N, H, W, 2) at range r: for each tile row of 32 targets, the sources
+    that land on that row and in those columns within their [-R, R+1]
+    window, each counted once."""
+    n, h, w, _ = flow.shape
+    ys = torch.arange(h, device=flow.device)[None, :, None]
+    xs = torch.arange(w, device=flow.device)[None, None, :]
+    x2 = xs.to(torch.float32) + flow[..., 0]
+    y2 = ys.to(torch.float32) + flow[..., 1]
+    valid = (x2 >= 0) & (y2 >= 0) & (x2 <= w - 1) & (y2 <= h - 1)
+    t = torch.floor(y2).clamp(0, h - 1).long()
+    l = torch.floor(x2).clamp(0, w - 1).long()
+    bt, rt = (t + 1).clamp(max=h - 1), (l + 1).clamp(max=w - 1)
+
+    def kept(v, s):
+        return (v - s >= -r) & (v - s <= r + 1)
+
+    # the distinct rows a source lands on, and the distinct tiles of its
+    # columns, each with whether it is kept
+    rows = [(t, kept(t, ys)), (bt, kept(bt, ys) & ~(kept(t, ys) & (bt == t)))]
+    lt, rtt = l // 32, rt // 32
+    cols = [(lt, kept(l, xs)), (rtt, kept(rt, xs) & ~(kept(l, xs)
+                                                      & (rtt == lt)))]
+    tiles_x = (w + 31) // 32
+    image = torch.arange(n, device=flow.device)[:, None, None]
+    counts = torch.zeros(n * h * tiles_x, dtype=torch.long,
+                         device=flow.device)
+    for row, row_kept in rows:
+        for tile, col_kept in cols:
+            hit = valid & row_kept & col_kept
+            counts += torch.bincount(((image * h + row) * tiles_x + tile)[hit],
+                                     minlength=counts.numel())
+    return counts.float().mean().item(), int(counts.max())
+
+
+def k4_in_turns(torch, fpb, earlier, flow, depth, label):
+    """K4 on one flow at PROJ_R in turns with ``earlier`` (an earlier
+    design's wrapper): this, earlier, earlier, this."""
+    new, old = in_turns(torch, (
+        lambda: fpb.flow_projection_bounded(flow, depth, PROJ_R),
+        lambda: earlier(flow, depth, PROJ_R)))
+    print(f"[kernels] K4 on the {label} flow, in turns (this, earlier, "
+          f"earlier, this): this design {new[0]:.4f}, {new[1]:.4f} ms; "
+          f"earlier design {old[0]:.4f}, {old[1]:.4f} ms")
+
+
+def projection_kernel_phase(torch, fpb, card, resources=None, earlier=None):
+    """Hold K4 against its plain version at every PROJ_CASES entry, with
+    identical hole sets, bitwise repeatable and, where ``earlier`` (an
+    earlier design's wrapper) is given, bitwise equal to it; time K4 at
+    DAIN's served shape on a uniform and a smooth flow, beside the exact
+    scatter, in turns with ``earlier`` where given. Returns the kernel's
+    record (launches and the served frame's times filled in later)."""
     flops_peak, bw_peak = peaks(card)
     err = 0.0
-    for n, h, w, span in PROJ_SHAPES:
-        gen = torch.Generator().manual_seed(n * 1000 + h + w)
-        flow = ((torch.rand(n, h, w, 2, generator=gen) * 2 - 1) * span).cuda()
+    for n, h, w, r, kind, span in PROJ_CASES:
+        flow = proj_flow(torch, kind, n, h, w, span, n * 1000 + h + w + r
+                         ).cuda()
+        gen = torch.Generator().manual_seed(h + w + r)
         depth = (torch.rand(n, h, w, 1, generator=gen) + 0.3).cuda()
         for d in (depth, None):
-            what = (f"{n}x{h}x{w} flows in [-{span:g}, {span:g}], "
+            what = (f"{n}x{h}x{w} R={r} {kind} flow"
+                    f"{f' in [-{span}, {span}]' if span else ''}, "
                     f"{'depth' if d is not None else 'no depth'}")
-            proj, cnt = fpb.flow_projection_bounded(flow, d, PROJ_R)
-            rproj, rcnt = fpb.project_ref(flow, d, PROJ_R)
+            proj, cnt = fpb.flow_projection_bounded(flow, d, r)
+            again = fpb.flow_projection_bounded(flow, d, r)
+            rproj, rcnt = fpb.project_ref(flow, d, r)
             err = max(err, max_err(proj, rproj, f"K4 proj {what}"),
                       max_err(cnt, rcnt, f"K4 cnt {what}"))
             check(torch.equal(cnt > 0, rcnt > 0), f"K4 hole set {what}")
+            check(torch.equal(proj, again[0]) and torch.equal(cnt, again[1]),
+                  f"K4 {what}: two calls differ")
+            same = ""
+            if earlier is not None:
+                eproj, ecnt = earlier(flow, d, r)
+                check(torch.equal(proj, eproj) and torch.equal(cnt, ecnt),
+                      f"K4 {what}: not bitwise equal to the earlier design")
+                same = ", bitwise equal to the earlier design"
             torch.cuda.synchronize()
             print(f"[kernels] K4 {what}: agrees with the plain version "
                   f"(max|diff| {err:.3e}), hole sets identical, "
-                  f"{int((rcnt == 0).sum())} holes")
-            if span > PROJ_R and d is not None:
+                  f"{int((rcnt == 0).sum())} holes, two calls bitwise "
+                  f"equal{same}")
+            if kind == "uniform" and r == PROJ_R and span > r and d is not None:
                 exact, _ = fpb.project_ref(flow, d)
                 check((exact - proj).abs().max().item() > 1e-3,
                       "K4 dropped no source past R")
 
-    n, h, w, _ = PROJ_SHAPES[0]
+    n, h, w = 1, *FULL_HW
     gen = torch.Generator().manual_seed(7)
     flow = ((torch.rand(n, h, w, 2, generator=gen) * 2 - 1) * PROJ_R).cuda()
     depth = (torch.rand(n, h, w, 1, generator=gen) + 0.3).cuda()
+    smooth = smooth_flow(torch, n, h, w, PROJ_R, seed=8).cuda()
     fn = lambda: fpb.flow_projection_bounded(flow, depth, PROJ_R)
     ms, eager_ms = time_ms(torch, fn), call_ms(torch, fn)
+    smooth_ms = time_ms(
+        torch, lambda: fpb.flow_projection_bounded(smooth, depth, PROJ_R))
     plain_ms = time_ms(torch, lambda: fpb.project_ref(flow, depth, PROJ_R))
     exact_ms = time_ms(torch, lambda: fpb.project_ref(flow, depth))
     # the function's bytes: flow (2 planes) and depth read, proj (2) and
@@ -510,14 +652,32 @@ def projection_kernel_phase(torch, fpb, card):
            "launches": None, "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": None, "call_ms": eager_ms,
+           "library_ms": None, "call_ms": eager_ms, "smooth_ms": smooth_ms,
+           "served_ms": None,
            "shape": f"flow {n}x{h}x{w}x2, depth, R={PROJ_R}",
            "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
-    print(f"[kernels] flow_projection_bounded: {ms:.4f} ms, eager call "
-          f"{eager_ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-          f"{rec['bound_ms']:.6f} ms by {rec['bound_by']}; no single PyTorch "
-          f"call computes a scatter-average, so library_ms is null; the "
-          f"exact index_add scatter takes {exact_ms:.4f} ms)")
+    res = (resources or {}).get("flow_projection_bounded")
+    res_txt = (f"{res['registers']} registers, {res['spill']} bytes spilled"
+               if res else "registers not reported")
+    lists = {label: k4_list_lengths(torch, f, PROJ_R)
+             for label, f in (("uniform", flow), ("smooth", smooth))}
+    print(f"[kernels] flow_projection_bounded: {ms:.4f} ms on the uniform "
+          f"flow in [-{PROJ_R}, {PROJ_R}], {smooth_ms:.4f} ms on the smooth "
+          f"one, eager call {eager_ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+          f"{rec['bound_ms']:.6f} ms by {rec['bound_by']}, "
+          f"{rec['bound_ms'] / ms:.3f} of the bound reached; {res_txt}; "
+          f"lists a warp (mean, largest): " + ", ".join(
+              f"{label} {mean:.1f}, {top}" for label, (mean, top)
+              in lists.items()) +
+          f"; no single PyTorch call computes a scatter-average, so "
+          f"library_ms is null; the exact index_add scatter takes "
+          f"{exact_ms:.4f} ms)")
+    if earlier is None:
+        print("[kernels] flow_projection_bounded: earlier design not given "
+              "(--earlier-projection)")
+    else:
+        k4_in_turns(torch, fpb, earlier, flow, depth, "uniform")
+        k4_in_turns(torch, fpb, earlier, smooth, depth, "smooth")
     return [rec]
 
 
@@ -756,10 +916,13 @@ def dain_weights(torch):
     return model
 
 
-def dain_served_phase(torch, mods, model):
+def dain_served_phase(torch, mods, model, earlier_k4=None):
     """One frame pair at 256x448 through DAIN.forward with proj_range and
-    hole filling, timed in turns with the exact projection. Returns the
-    launches of the bounded runs per kernel."""
+    hole filling, timed in turns with the exact projection; K4 timed on the
+    two flows the frame projects, in turns with ``earlier_k4`` (an earlier
+    design's wrapper) where given. Returns the launches of the bounded runs
+    per kernel and K4's times on the frame's flows."""
+    from meta_interpolation_tpu_torch.ops import flow_projection_bounded as fpb
     from torch.utils.flop_counter import FlopCounterMode
 
     from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
@@ -829,6 +992,13 @@ def dain_served_phase(torch, mods, model):
                        for a, b in zip(offsets[:2], offsets[2:]))
         flow_diff = max((a[0][0] - b[0][0]).abs().max().item()
                         for a, b in zip(calls[:2], calls[2:]))
+        # K4 alone on the two (flow, depth) pairs the bounded frame projects
+        served = [(args[0].contiguous(), args[1].contiguous())
+                  for args, _ in calls[:2]]
+        served_ms = [time_ms(torch, lambda f=f, d=d:
+                             fpb.flow_projection_bounded(f, d, PROJ_R))
+                     for f, d in served]
+        served_lists = [k4_list_lengths(torch, f, PROJ_R) for f, _ in served]
         torch.cuda.reset_peak_memory_stats()
         runs["bounded"]()
         torch.cuda.synchronize()
@@ -851,11 +1021,18 @@ def dain_served_phase(torch, mods, model):
           f"max|value| {flow_max:.3f} px against R = {PROJ_R}; peak memory "
           f"{peak_gib:.2f} GiB; forward {counter.get_total_flops() / 1e9:.3f}"
           f" GFLOP (torch.utils.flop_counter)")
+    print(f"[main] dain served: K4 on the frame's own two flows "
+          f"{served_ms[0]:.4f}, {served_ms[1]:.4f} ms (lists a warp, mean "
+          f"and largest: " + "; ".join(f"{mean:.1f}, {top}" for mean, top
+                                       in served_lists) + ")")
+    if earlier_k4 is not None:
+        for (f, d), which in zip(served, ("first", "second")):
+            k4_in_turns(torch, fpb, earlier_k4, f, d, f"served frame's {which}")
     with torch.no_grad():
         profile_episode(torch, runs["bounded"],
                         f"dain served {FULL_HW[0]}x{FULL_HW[1]} frame",
                         "flow_projection")
-    return launches
+    return launches, served_ms
 
 
 def flip_mask(torch, values, delta):
@@ -950,10 +1127,11 @@ def dain_card_vs_cpu(torch, cfg, state):
           and dpsnr_kept <= PSNR_TOL_DB, msg)
     print(f"[main] {msg}")
 
-def dain_phase(torch, mods):
+def dain_phase(torch, mods, earlier_k4=None):
     """DAIN through the port's entry points on the card: served with the
     bounded projection, then the CLI and an episode with the exact one.
-    Returns the launches of the served runs (K4's main path) per kernel."""
+    Returns the launches of the served runs (K4's main path) per kernel and
+    K4's times on the served frame's flows."""
     from meta_interpolation_tpu_torch.config import get_args
     from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
     from meta_interpolation_tpu_torch.meta.system import (
@@ -961,7 +1139,7 @@ def dain_phase(torch, mods):
 
     model = dain_weights(torch)
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    launches = dain_served_phase(torch, mods, model)
+    launches, served_ms = dain_served_phase(torch, mods, model, earlier_k4)
     del model
 
     # the CLI: the meta system projects exactly, as the JAX one does
@@ -1001,15 +1179,22 @@ def dain_phase(torch, mods):
 
     # a small clip on the card against the same clip on the CPU
     dain_card_vs_cpu(torch, cfg, state)
-    return launches
+    return launches, served_ms
 
 
-def main():
+def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--earlier-sepconv", metavar="PATH",
                         help="an earlier csrc/sepconv.cu to time K1/K2 "
                              "against, in turns")
-    args = parser.parse_args()
+    parser.add_argument("--earlier-projection", metavar="PATH",
+                        help="an earlier csrc/flow_projection.cu to hold K4 "
+                             "to bit for bit and time it against, in turns")
+    return parser.parse_args(argv)
+
+
+def main():
+    args = parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1030,8 +1215,13 @@ def main():
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    earlier_build = (start_sepconv_build(args.earlier_sepconv, "earlier")
-                     if args.earlier_sepconv else None)
+    # earlier designs by source: (wrapper module, path, ptxas names)
+    earlier = {source: (mod, path, entries) for source, mod, path, entries in [
+        ("sepconv", sc, args.earlier_sepconv, SEPCONV_KERNELS),
+        ("flow_projection", fpb, args.earlier_projection,
+         PROJECTION_KERNELS)] if path}
+    builds = {source: start_build(path, "earlier", source)
+              for source, (_, path, _) in earlier.items()}
     report = _build.build()
     print(f"[build] {len(report)} source(s) in {time.perf_counter() - t0:.1f}"
           f" s")
@@ -1041,17 +1231,24 @@ def main():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build]   {line.strip()}")
     resources = sepconv_resources(report["sepconv"]["log"], "sepconv.cu")
-    earlier_lib = (finish_sepconv_build(sc, *earlier_build,
-                                        f"earlier {args.earlier_sepconv}")
-                   if earlier_build else None)
+    k4_resources = kernel_resources(report["flow_projection"]["log"],
+                                    "flow_projection.cu", PROJECTION_KERNELS)
+    libs = {source: finish_build(mod, *builds[source], f"earlier {path}",
+                                 entries)
+            for source, (mod, path, entries) in earlier.items()}
+    earlier_k4 = (on_library(fpb, libs["flow_projection"],
+                             fpb.flow_projection_bounded)
+                  if "flow_projection" in libs else None)
 
-    records = (kernel_phase(torch, sc, card, resources, earlier_lib)
+    records = (kernel_phase(torch, sc, card, resources, libs.get("sepconv"))
                + warp_kernel_phase(torch, wb, card)
-               + projection_kernel_phase(torch, fpb, card))
+               + projection_kernel_phase(torch, fpb, card, k4_resources,
+                                         earlier_k4))
     mods = (sc, wb, fpb)
-    sepconv_launches = main_path_phase(torch, mods, earlier_lib)
+    sepconv_launches = main_path_phase(torch, mods, libs.get("sepconv"))
     rrin_launches = rrin_phase(torch, mods)
-    dain_launches = dain_phase(torch, mods)
+    dain_launches, served_ms = dain_phase(torch, mods, earlier_k4)
+    records[-1]["served_ms"] = served_ms
     # each kernel's launches on the main path that runs it
     launches = {**{k: sepconv_launches[k] for k in KERNELS[:2]},
                 **{k: rrin_launches[k] for k in KERNELS[2:4]},

@@ -83,14 +83,18 @@ def project_ref(flow: torch.Tensor, depth_inv: Optional[torch.Tensor] = None,
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """csrc/flow_projection.cu, built on first use, with its C signature."""
-    lib = _build.load("flow_projection")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signature of csrc/flow_projection.cu on a loaded build."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flow_projection_bounded.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.flow_projection_bounded.restype = i32
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """csrc/flow_projection.cu, built on first use, with its C signature."""
+    return _bind(_build.load("flow_projection"))
 
 
 def _check_cuda(flow: torch.Tensor, depth_inv: Optional[torch.Tensor],

@@ -86,15 +86,16 @@ def main():
     print(card)
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    builds = {name: cs.start_sepconv_build(os.path.abspath(path),
-                                           f"variant_{name}")
+    builds = {name: cs.start_build(os.path.abspath(path), f"variant_{name}",
+                                   "sepconv")
               for name, path in versions.items()}
     log = _build.build(["sepconv"])["sepconv"]["log"]
     cs.sepconv_resources(log, "this checkout", no_spill=False)
     fns, failed = {}, []
     for name in versions:
         try:
-            lib = cs.finish_sepconv_build(sc, *builds[name], name)
+            lib = cs.finish_build(sc, *builds[name], name,
+                                  cs.SEPCONV_KERNELS)
             fns[name] = (cs.on_library(sc, lib, sc.sepconv_forward),
                          cs.on_library(sc, lib, sc.sepconv_grad_kernels))
         except AssertionError as err:
