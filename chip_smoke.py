@@ -2,19 +2,24 @@
 """Drive the PyTorch/H100 port on one CUDA card and check what comes out.
 
     python3 chip_smoke.py [--earlier-sepconv PATH] [--earlier-projection PATH]
+                          [--earlier-warp PATH]
 
 Run from a checkout: the port's package must sit beside this script. It
 exits non-zero, printing no result, when there is no CUDA device or no
-package; any failed check raises. ``--earlier-sepconv`` and
-``--earlier-projection`` name an earlier version of csrc/sepconv.cu or
-csrc/flow_projection.cu (the same C interface, e.g. from ``git show
-<commit>:meta_interpolation_tpu_torch/csrc/sepconv.cu``): it is built
-beside the kernels and timed in turns with them. Phases, in order:
+package; any failed check raises. ``--earlier-sepconv``,
+``--earlier-projection`` and ``--earlier-warp`` name an earlier version of
+csrc/sepconv.cu, csrc/flow_projection.cu or csrc/warp.cu (e.g. from ``git
+show <commit>:meta_interpolation_tpu_torch/csrc/sepconv.cu``): it is built
+beside the kernels and timed in turns with them. The first two take the
+checkout's C interface; the third takes the interface before the warp
+kernels took the grid (K3 and its fy/fx gradient on coordinate planes),
+and runs inside the plain glue of ``ops/warp_bounded.py``
+(``grid_sample_bounded_ref``), as that tree did. Phases, in order:
 
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every kernel under meta_interpolation_tpu_torch/csrc/, one
      nvcc per source, all started together; the registers and spill bytes
-     of each kernel (ptxas), and no spill allowed in K1, K2 and K4;
+     of each kernel (ptxas), and no spill allowed;
   3. kernels: each held against its plain PyTorch version on the card at
      its main-path shape and ragged ones, and timed beside that version,
      the card's bound and, where one exists, the one PyTorch call that
@@ -22,8 +27,11 @@ beside the kernels and timed in turns with them. Phases, in order:
        - SepConv K1/K2 at input 1x3x434x562, maps 1x51x384x512, and at
          edges of their tiles and strips: N = 2, F = 5 and F = 50, maps
          37x53 and 21x70;
-       - the bounded warp K3 and its fy/fx gradient at image 1x3x256x512
-         (RRIN's padded 256x448 frame), R = 8, floors over all of [-8, 7];
+       - the bounded grid sampler K3 and its grid gradient K3-grad at image
+         1x3x256x512 (RRIN's padded 256x448 frame) and 37x53, both padding
+         modes, both align_corners, R = 1, 3 and 8, displacements within
+         and past R, on whole pixels and off every edge; both also against
+         F.grid_sample and aten.grid_sampler_2d_backward within range;
        - the bounded flow projection K4 at 1x256x448 (DAIN's served frame),
          R = 8, on a uniform and a smooth flow, and at 2x37x53 with R = 0,
          1, 16 (over 48 KB of shared memory) and 40 (a halo staged in
@@ -41,12 +49,16 @@ beside the kernels and timed in turns with them. Phases, in order:
        - RRIN: the same three with the run_rrin.sh hyperparameters (Adam,
          LSLR, 0 training steps) plus 1 evaluation step and
          --fast_warp_range 8, the 256x448 episodes timed in turns with
-         episodes on the exact warp (F.grid_sample, no kernel launched),
-         and the forward's FLOPs counted;
+         episodes on the exact warp (F.grid_sample, no kernel launched) and,
+         with --earlier-warp, the earlier warp; the device time and device
+         ops of one warp call (forward and flow gradient) and of an episode
+         on each path; the forward's FLOPs counted;
        - DAIN: a served 256x448 frame with the bounded projection (K4 also
          timed on the two flows that frame projects), in turns with the
          exact one; the CLI and an episode (exact projection, as the JAX
-         meta system); a 64x64 clip on the card against the CPU;
+         meta system); a 64x64 clip on the card against the CPU, and a
+         served 64x64 frame on the card against the CPU given the card's
+         flows, depths and offsets;
   5. a JSON line of per-kernel results, the card line again, and the last
      line {"ok": true, "device": {...}}.
 """
@@ -87,6 +99,7 @@ FULL_HW = (256, 448)           # the Vimeo frame (kernel maps 384x512)
 SMALL_HW = (64, 64)            # card vs CPU
 # RRIN: run_rrin.sh's hyperparameters, one evaluation step, bounded warp
 WARP_R = 8
+WARP_RANGES = (1, 3, WARP_R)   # R of the K3 checks at the ragged shapes
 RRIN_FLAGS = ["--model", "rrin", "--mode", "val", "--optimizer", "Adam",
               "--inner_lr", "1e-5", "--loss", "1*L1",
               "--number_of_training_steps_per_iter", "0",
@@ -96,11 +109,19 @@ RRIN_STEPS, WARPS = 1, 2       # inner steps, warps a forward
 RRIN_QUERY = (2, 3, 4)         # (in0, target, in1) of the query
 K3_PER_CLIP = PAIRS * WARPS * RRIN_STEPS + WARPS   # support passes + query
 K3G_PER_CLIP = PAIRS * WARPS * RRIN_STEPS          # support backwards
-# (H, W, lowest floor, highest floor) of the warp checks; timed: last.
-# The middle one reaches past [-R, R-1], where only the window masks act.
+# (H, W, lowest floor, highest floor) of the displacements of the warp
+# checks' grids; timed: last. The middle one reaches past [-R, R-1], where
+# the clamp acts.
 WARP_SHAPES = [(37, 53, -WARP_R, WARP_R - 1),
                (37, 53, -WARP_R - 3, WARP_R + 2),
                (256, 512, -WARP_R, WARP_R - 1)]
+# ptxas names of K3 and K3-grad in csrc/warp.cu, and of the kernels of the
+# warp.cu that took coordinate planes (--earlier-warp)
+WARP_KERNELS = {"warp_sample_bounded_forward": "warp_sample_fwd_kernel",
+                "warp_sample_bounded_grad_grid": "warp_sample_grad_grid_kernel"}
+EARLIER_WARP_KERNELS = {"warp_bounded_forward": "warp_bounded_fwd_kernel",
+                        "warp_bounded_grad_frac":
+                            "warp_bounded_grad_frac_kernel"}
 # DAIN: served at 256x448 with the bounded projection; the CLI with the
 # run_dain.sh hyperparameters (no --dataset hd, no --resume) and tamed
 # random weights
@@ -130,8 +151,9 @@ DAIN_FLAGS = ["--model", "dain", "--mode", "val", "--optimizer", "Adamax",
 # flip) acts: the 2x2 cells a projected source lands on (1), the 4x4 filter
 # window (2) and the rectify net's 21x21 receptive field (10)
 NEAR_INT, FLIP_REACH = 1e-5, 13
-KERNELS = ("sepconv_forward", "sepconv_grad_kernels", "warp_bounded_forward",
-           "warp_bounded_grad_frac", "flow_projection_bounded")
+KERNELS = ("sepconv_forward", "sepconv_grad_kernels",
+           "warp_sample_bounded_forward", "warp_sample_bounded_grad_grid",
+           "flow_projection_bounded")
 # data-sheet peaks: fp32 outside the tensor cores (FLOP/s) and device
 # memory (bytes/s); first name that the card's name contains wins
 PEAKS = [("H100 PCIe", 51.2e12, 2.0e12), ("H100 NVL", 60.0e12, 3.9e12),
@@ -223,10 +245,10 @@ def ptxas_report(log):
 
 def kernel_resources(log, what, entries, no_spill=True):
     """The registers and spill and stack bytes of the kernels ``entries``
-    names ({wrapper: ptxas entry name}) from the build log of a source;
-    None where this run reused a built library. Fails on a spill if
-    ``no_spill``: the kernels are designed to keep their state in
-    registers."""
+    names ({wrapper: ptxas entry name}) from the build log of a source,
+    the most over a template's instances; None where this run reused a
+    built library. Fails on a spill if ``no_spill``: the kernels are
+    designed to keep their state in registers."""
     report = ptxas_report(log)
     if not report:
         print(f"[build] {what}: library reused, no ptxas report")
@@ -234,9 +256,10 @@ def kernel_resources(log, what, entries, no_spill=True):
     resources = {}
     for name, entry in entries.items():
         hits = [v for k, v in report.items() if entry in k]
-        check(len(hits) == 1 and len(hits[0]) == 3,
+        check(hits and all(len(hit) == 3 for hit in hits),
               f"{what}: no ptxas report for {entry}")
-        res = resources[name] = hits[0]
+        res = resources[name] = {key: max(hit[key] for hit in hits)
+                                 for key in hits[0]}
         print(f"[build] {what} {name}: {res['registers']} registers, "
               f"{res['spill']} bytes spilled, {res['stack']} bytes stack")
         check(not no_spill or res["spill"] == 0,
@@ -249,19 +272,24 @@ def sepconv_resources(log, what, no_spill=True):
     return kernel_resources(log, what, SEPCONV_KERNELS, no_spill)
 
 
+def with_attr(mod, name, value, fn):
+    """``fn`` run with ``mod.<name>`` set to ``value``, restored after."""
+    def run(*args):
+        real = getattr(mod, name)
+        setattr(mod, name, value)
+        try:
+            return fn(*args)
+        finally:
+            setattr(mod, name, real)
+    return run
+
+
 def on_library(mod, lib, fn):
     """``fn`` run with the wrappers of ``mod`` (ops/sepconv.py or
     ops/flow_projection_bounded.py) bound to ``lib``, a built version of
     their source (an earlier design, timed beside the kernels the port
     runs) in place of the checkout's."""
-    def run(*args):
-        real = mod._library
-        mod._library = lambda: lib
-        try:
-            return fn(*args)
-        finally:
-            mod._library = real
-    return run
+    return with_attr(mod, "_library", lambda: lib, fn)
 
 
 def start_build(path, tag, source):
@@ -276,22 +304,24 @@ def start_build(path, tag, source):
     return proc, lib
 
 
-def finish_build(mod, proc, lib, what, entries):
+def finish_build(bind, proc, lib, what, entries):
     """Wait for start_build's nvcc, report the resources of its kernels
-    ``entries`` and load it with the C signatures of ``mod``'s wrappers."""
+    ``entries`` and load it with the C signatures that ``bind`` sets (a
+    wrapper module's ``_bind``)."""
     import ctypes
     log, _ = proc.communicate()
     check(proc.returncode == 0, f"{what} build failed:\n{log}")
     kernel_resources(log, what, entries, no_spill=False)
-    return mod._bind(ctypes.CDLL(lib))
+    return bind(ctypes.CDLL(lib))
 
 
-def in_turns(torch, fns):
-    """time_ms of the two ``fns`` in turns (first, second, second, first):
-    one list of times per function."""
+def in_turns(torch, fns, timer=None):
+    """``timer`` (time_ms unless given) of the two ``fns`` in turns (first,
+    second, second, first): one list of times per function."""
+    timer = timer or time_ms
     times = ([], [])
     for i in (0, 1, 1, 0):
-        times[i].append(time_ms(torch, fns[i]))
+        times[i].append(timer(torch, fns[i]))
     return times
 
 
@@ -411,88 +441,300 @@ def device_time_by_kernel(torch, fn):
     return wall, sum(r[0] for r in rows), rows, host
 
 
-def warp_kernel_phase(torch, wb, card):
-    """Hold K3 and its fy/fx gradient against their plain versions; time
-    both at the RRIN main-path shape. Returns the per-kernel records
-    (launches filled in later)."""
+def warp_grid(torch, kind, n, h, w, lo, hi, align_corners, seed):
+    """A CPU grid (N, H, W, 2) float32 of a K3 check, normalised as
+    F.grid_sample reads it (made in float64). "uniform": displacements
+    uniform over [lo, hi + 1) per axis, floors over [lo, hi]; "integer":
+    whole displacements in [lo, hi], on whole pixels up to the float32
+    rounding of the grid; "outside": the frame zoomed out by 1.3 around its
+    centre, so that the edge pixels sample off every edge of the image;
+    "library": floors in [lo, hi] with fractions in [0.05, 0.95], away from
+    the whole pixels where another rounding of the coordinate (the library
+    sampler's) could take another floor; "smooth": displacements of
+    smooth_flow, at most min(-lo, hi) pixels, the kind a flow network
+    gives."""
+    gen = torch.Generator().manual_seed(seed)
+    f64 = torch.float64
+    ys = torch.arange(h, dtype=f64)[None, :, None].expand(n, h, w)
+    xs = torch.arange(w, dtype=f64)[None, None, :].expand(n, h, w)
+    pos = torch.stack([xs, ys], -1)
+    size = torch.tensor([w, h], dtype=f64)
+    shape = (n, h, w, 2)
+    uniform = lambda: torch.rand(shape, generator=gen, dtype=f64)
+    whole = lambda: torch.randint(lo, hi + 1, shape, generator=gen).to(f64)
+    if kind == "uniform":
+        coord = pos + lo + uniform() * (hi + 1 - lo)
+    elif kind == "integer":
+        coord = pos + whole()
+    elif kind == "outside":
+        centre = (size - 1) / 2
+        coord = (pos - centre) * 1.3 + centre + (uniform() - 0.5) * 0.6
+    elif kind == "library":
+        coord = pos + whole() + 0.05 + 0.9 * uniform()
+    elif kind == "smooth":
+        coord = pos + smooth_flow(torch, n, h, w, min(-lo, hi), seed).to(f64)
+    else:
+        raise ValueError(f"no grid kind {kind!r}")
+    if align_corners:
+        return (2 * coord / (size - 1) - 1).float()
+    return ((2 * coord + 1) / size - 1).float()
+
+
+def bind_earlier_warp(lib):
+    """The C signatures of a csrc/warp.cu from before the kernels took the
+    grid: K3 and its fy/fx gradient on coordinate planes."""
+    import ctypes
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.warp_bounded_forward.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.warp_bounded_forward.restype = i32
+    lib.warp_bounded_grad_frac.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+    lib.warp_bounded_grad_frac.restype = i32
+    return lib
+
+
+def earlier_warp(torch, wb, lib):
+    """The bounded sampler as the tree before the fused kernels ran it:
+    the plain glue of ``wb.grid_sample_bounded_ref`` around ``lib``'s K3
+    (on dy0/dx0 int32 and fy/fx planes) and its fy/fx gradient, each call
+    in a ``torch.cuda.device`` context as that tree's wrappers were (their
+    checks left out). Returns (sampler, K3, K3's fy/fx gradient)."""
+    import functools
+    from torch.autograd.function import once_differentiable
+
+    def launch(fn, *args):
+        with torch.cuda.device(args[0].device):
+            code = fn(*(a.data_ptr() if torch.is_tensor(a) else a
+                        for a in args),
+                      torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"earlier warp kernel: cudaError {code}")
+
+    def k3(img, dy0, dx0, fy, fx, r):
+        n, c, h, w = img.shape
+        out = torch.empty_like(img)
+        launch(lib.warp_bounded_forward, *(t.contiguous() for t in
+                                           (img, dy0, dx0, fy, fx)), out,
+               n, c, h, w, r)
+        return out
+
+    def k3_grad(img, dy0, dx0, fy, fx, g, r):
+        n, c, h, w = img.shape
+        gfy, gfx = torch.empty_like(fy), torch.empty_like(fx)
+        launch(lib.warp_bounded_grad_frac, *(t.contiguous() for t in
+                                             (img, dy0, dx0, fy, fx, g)),
+               gfy, gfx, n, c, h, w, r)
+        return gfy, gfx
+
+    class Accumulate(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, img, dy0, dx0, fy, fx, r):
+            ctx.save_for_backward(img, dy0, dx0, fy, fx)
+            ctx.r = r
+            return k3(img, dy0, dx0, fy, fx, r)
+
+        @staticmethod
+        @once_differentiable
+        def backward(ctx, g):
+            img, dy0, dx0, fy, fx = ctx.saved_tensors
+            gfy = gfx = gimg = None
+            if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+                gfy, gfx = k3_grad(img, dy0, dx0, fy, fx, g, ctx.r)
+            if ctx.needs_input_grad[0]:
+                gimg = wb.warp_bounded_grad_img_ref(img, dy0, dx0, fy, fx, g,
+                                                    ctx.r)
+            return gimg, None, None, gfy, gfx, None
+
+    return (functools.partial(wb.grid_sample_bounded_ref,
+                              warp=Accumulate.apply), k3, k3_grad)
+
+
+def warp_checks(torch, wb, case, earlier=None):
+    """Hold K3, K3-grad and GridSampleBoundedFunction against the plain
+    composition (autograd through wb.grid_sample_bounded_ref) and K3-grad
+    against the closed form, on one case (n, c, h, w, lo, hi, kind, R,
+    align_corners, padding); with ``earlier`` (earlier_warp's sampler) its
+    output and grid gradient too. Returns (K3 error, K3-grad error)."""
+    n, c, h, w, lo, hi, kind, r, align, padding = case
+    seed = h * 1000 + w + hi + 17 * r + 3 * align
+    gen = torch.Generator().manual_seed(seed)
+    img = torch.rand(n, c, h, w, generator=gen).cuda()
+    g = torch.randn(n, c, h, w, generator=gen).cuda()
+    grid = warp_grid(torch, kind, n, h, w, lo, hi, align, seed).cuda()
+    what = (f"{n}x{c}x{h}x{w} {kind} grid floors [{lo}, {hi}], R={r}, "
+            f"align_corners={align}, {padding}")
+    opts = (r, align, padding)
+    leaves = [t.clone().requires_grad_() for t in (img, grid)]
+    ref = wb.grid_sample_bounded_ref(*leaves, *opts)
+    (ref * g).sum().backward()
+    ref_gimg, ref_ggrid = (t.grad for t in leaves)
+    err_fwd = max_err(wb.warp_sample_bounded_forward(img, grid, *opts),
+                      ref.detach(), f"K3 {what}")
+    ggrid = wb.warp_sample_bounded_grad_grid(img, grid, g, *opts)
+    err_grad = max(
+        max_err(ggrid, wb.grid_sample_bounded_grad_grid_ref(img, grid, g,
+                                                            *opts),
+                f"K3-grad against the closed form, {what}"),
+        max_err(ggrid, ref_ggrid, f"K3-grad against autograd, {what}"))
+    leaves = [t.clone().requires_grad_() for t in (img, grid)]
+    out = wb.GridSampleBoundedFunction.apply(*leaves, *opts)
+    (out * g).sum().backward()
+    max_err(leaves[0].grad, ref_gimg, f"GridSampleBoundedFunction gimg {what}")
+    max_err(leaves[1].grad, ref_ggrid,
+            f"GridSampleBoundedFunction ggrid {what}")
+    if earlier is not None:
+        leaf = grid.clone().requires_grad_()
+        out = earlier(img, leaf, *opts)
+        (out * g).sum().backward()
+        max_err(out.detach(), ref.detach(), f"earlier warp {what}")
+        max_err(leaf.grad, ref_ggrid, f"earlier warp ggrid {what}")
+    torch.cuda.synchronize()
+    return err_fwd, err_grad
+
+
+def warp_cases():
+    """Every K3 check: (n, c, h, w, lo, hi, kind, R, align_corners,
+    padding). The whole-pixel and off-the-edge ones take 2 images of 2
+    channels: the kernels' instance for any C, and the batch index."""
+    cases = []
+    for align in (False, True):
+        for padding in ("zeros", "border"):
+            for h, w, lo, hi in WARP_SHAPES:
+                for r in (WARP_RANGES if h < 100 else (WARP_R,)):
+                    cases.append((1, 3, h, w, lo, hi, "uniform", r, align,
+                                  padding))
+            h, w, lo, hi = WARP_SHAPES[0]
+            for kind in ("integer", "outside"):
+                for r in (1, WARP_R):
+                    cases.append((2, 2, h, w, lo, hi, kind, r, align,
+                                  padding))
+    return cases
+
+
+def warp_kernel_phase(torch, wb, card, resources=None, earlier=None):
+    """Hold K3 and K3-grad against their plain versions at every
+    warp_cases() entry and against the library calls within range; time
+    both at the RRIN main-path shape and settings, beside the plain
+    version, the bound and the library call, and in turns with the earlier
+    design (``earlier``: earlier_warp's (sampler, K3, K3-grad)) where
+    given. Returns the per-kernel records (launches filled in later)."""
     import torch.nn.functional as F
     flops_peak, bw_peak = peaks(card)
-    r, n, c = WARP_R, 1, 3
-    errs = {"fwd": 0.0, "frac": 0.0}
-    for h, w, lo, hi in WARP_SHAPES:
-        gen = torch.Generator().manual_seed(h * 1000 + w + hi)
-        img = torch.rand(n, c, h, w, generator=gen).cuda()
-        dy0, dx0 = (torch.randint(lo, hi + 1, (n, h, w), generator=gen,
-                                  dtype=torch.int32).cuda() for _ in "yx")
-        fy, fx = (torch.rand(n, h, w, generator=gen).cuda() for _ in "yx")
-        g = torch.randn(n, c, h, w, generator=gen).cuda()
-        what = f"{h}x{w} floors [{lo}, {hi}]"
-        errs["fwd"] = max(errs["fwd"], max_err(
-            wb.warp_bounded_forward(img, dy0, dx0, fy, fx, r),
-            wb.warp_bounded_ref(img, dy0, dx0, fy, fx, r), f"K3 {what}"))
-        got = wb.warp_bounded_grad_frac(img, dy0, dx0, fy, fx, g, r)
-        want = wb.warp_bounded_grad_frac_ref(img, dy0, dx0, fy, fx, g, r)
-        errs["frac"] = max(errs["frac"],
-                           max_err(got[0], want[0], f"K3-grad gfy {what}"),
-                           max_err(got[1], want[1], f"K3-grad gfx {what}"))
-        # the autograd Function against autograd through the plain forward
-        grads = []
-        for fn in (wb.warp_bounded, wb.warp_bounded_ref):
-            leaves = [t.clone().requires_grad_() for t in (img, fy, fx)]
-            (fn(leaves[0], dy0, dx0, leaves[1], leaves[2], r) * g
-             ).sum().backward()
-            grads.append([t.grad for t in leaves])
-        for a, b, name in zip(*grads, ("gimg", "gfy", "gfx")):
-            max_err(a, b, f"WarpBoundedFunction {name} {what}")
-        torch.cuda.synchronize()
-        print(f"[kernels] {what}: K3 and K3-grad agree with the plain "
-              f"versions (max|diff| K3 {errs['fwd']:.3e}, K3-grad "
-              f"{errs['frac']:.3e})")
+    errs = {"fwd": 0.0, "grad": 0.0}
+    cases = warp_cases()
+    for case in cases:
+        fwd, grad = warp_checks(torch, wb, case,
+                                None if earlier is None else earlier[0])
+        errs["fwd"], errs["grad"] = (max(errs["fwd"], fwd),
+                                     max(errs["grad"], grad))
+    print(f"[kernels] K3 and K3-grad agree with the plain composition at "
+          f"{len(cases)} cases (max|diff| K3 {errs['fwd']:.3e}, K3-grad "
+          f"{errs['grad']:.3e}); the Function's gradients agree with "
+          f"autograd through it"
+          + ("; so does the earlier warp" if earlier is not None else ""))
 
-    # the library call that computes K3's function: border clamping of the
-    # coordinate equals clamping each tap to the edge
-    xs = torch.arange(w, device=img.device)[None, None, :] + dx0 + fx
-    ys = torch.arange(h, device=img.device)[None, :, None] + dy0 + fy
-    grid = torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1], -1)
-    library = lambda: F.grid_sample(img, grid, padding_mode="border",
-                                    align_corners=True)
-    max_err(library(), wb.warp_bounded_ref(img, dy0, dx0, fy, fx, r),
-            "F.grid_sample (border) against K3's plain version")
-    plane, image = 4 * n * h * w, 4 * n * c * h * w
+    # RRIN's settings at its padded frame, within range (floors in
+    # [-R, R-2], so that the clamp does not act and the library calls
+    # compute the same function), on random displacements and on smooth
+    # ones, the kind RRIN's flow network gives
+    n, c, (h, w), r = 1, 3, WARP_SHAPES[-1][:2], WARP_R
+    gen = torch.Generator().manual_seed(5)
+    img = torch.rand(n, c, h, w, generator=gen).cuda()
+    g = torch.randn(n, c, h, w, generator=gen).cuda()
+    opts = (r, False, "zeros")
+    grids = {kind: warp_grid(torch, kind, n, h, w, -r, r - 2, False, 6
+                             ).cuda() for kind in ("library", "smooth")}
+    calls = {}
+    for kind, grid in grids.items():
+        calls[kind] = {
+            "fwd": lambda grid=grid: wb.warp_sample_bounded_forward(
+                img, grid, *opts),
+            "grad": lambda grid=grid: wb.warp_sample_bounded_grad_grid(
+                img, grid, g, *opts),
+            "lib_fwd": lambda grid=grid: F.grid_sample(
+                img, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=False),
+            "lib_grad": lambda grid=grid: torch.ops.aten.grid_sampler_2d_backward(
+                g, img, grid, 0, 0, False, [False, True])[1],
+            "plain_fwd": lambda grid=grid: wb.grid_sample_bounded_ref(
+                img, grid, *opts),
+            "plain_grad": lambda grid=grid: wb.grid_sample_bounded_grad_grid_ref(
+                img, grid, g, *opts)}
+    # the library sampler may round a coordinate otherwise: held only on
+    # the grid whose fractions keep away from whole pixels
+    got = {k: calls["library"][k]() for k in ("fwd", "grad", "lib_fwd",
+                                              "lib_grad")}
+    lib_err = (max_err(got["fwd"], got["lib_fwd"],
+                       "K3 against F.grid_sample"),
+               max_err(got["grad"], got["lib_grad"],
+                       "K3-grad against aten.grid_sampler_2d_backward"))
+    print(f"[kernels] {n}x{c}x{h}x{w} in range, R={r}: K3 agrees with "
+          f"F.grid_sample (max|diff| {lib_err[0]:.3e}), K3-grad with "
+          f"aten.grid_sampler_2d_backward's grid gradient ({lib_err[1]:.3e})")
+    pixels = n * h * w
     records = []
-    for name, err, fn, plain, lib, ops, nbytes, replaces in [
-            ("warp_bounded_forward", errs["fwd"],
-             lambda: wb.warp_bounded_forward(img, dy0, dx0, fy, fx, r),
-             lambda: wb.warp_bounded_ref(img, dy0, dx0, fy, fx, r), library,
-             n * h * w * (9 * c + 6), 2 * image + 4 * plane,
+    for name, key, lib_name, ops, nbytes, replaces in [
+            ("warp_sample_bounded_forward", "fwd", "F.grid_sample",
+             pixels * (40 + 7 * c), pixels * (8 + 8 * c),
              "meta_interpolation_tpu/ops/warp_pallas.py:86"),
-            ("warp_bounded_grad_frac", errs["frac"],
-             lambda: wb.warp_bounded_grad_frac(img, dy0, dx0, fy, fx, g, r),
-             lambda: wb.warp_bounded_grad_frac_ref(img, dy0, dx0, fy, fx, g,
-                                                   r), None,
-             n * h * w * (22 * c + 6), 2 * image + 6 * plane,
+            ("warp_sample_bounded_grad_grid", "grad",
+             "aten.grid_sampler_2d_backward (grid only)",
+             pixels * (50 + 16 * c), pixels * (16 + 8 * c),
              "meta_interpolation_tpu/ops/warp.py:310")]:
-        ms = time_ms(torch, fn)
+        fn, smooth = calls["library"][key], calls["smooth"][key]
+        ms, smooth_ms = time_ms(torch, fn), time_ms(torch, smooth)
         eager_ms = call_ms(torch, fn)
-        plain_ms = time_ms(torch, plain)
-        library_ms = time_ms(torch, lib) if lib is not None else None
+        plain_ms = time_ms(torch, calls["library"][f"plain_{key}"])
+        library_ms = time_ms(torch, calls["library"][f"lib_{key}"])
+        library_smooth_ms = time_ms(torch, calls["smooth"][f"lib_{key}"])
         t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+        bound = max(t_ops, t_bytes)
         records.append({
             "name": name, "route": "cuda",
             "source": f"{PACKAGE}/csrc/warp.cu", "replaces": replaces,
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "launches": None, "max_abs_err": errs[key], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms, "call_ms": eager_ms,
-            "shape": f"img {n}x{c}x{h}x{w}, R={r}",
+            "smooth_ms": smooth_ms, "library_smooth_ms": library_smooth_ms,
+            "shape": f"img {n}x{c}x{h}x{w}, grid {n}x{h}x{w}x2 (random "
+                     f"displacements; smooth_ms: smooth ones), R={r}, zeros, "
+                     f"align_corners=False",
             "gflop": ops / 1e9, "mbytes": nbytes / 1e6})
-        lib_txt = (f"library F.grid_sample {library_ms:.4f} ms"
-                   if library_ms is not None else
-                   "no single PyTorch call computes it, so library_ms is "
-                   "null")
-        print(f"[kernels] {name}: {ms:.4f} ms, eager call {eager_ms:.4f} ms "
-              f"(plain {plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.6f} ms "
-              f"by {records[-1]['bound_by']}; {lib_txt})")
+        res = (resources or {}).get(name)
+        res_txt = (f"{res['registers']} registers, {res['spill']} bytes "
+                   f"spilled" if res else "registers not reported")
+        print(f"[kernels] {name}: {ms:.4f} ms on random displacements, "
+              f"{smooth_ms:.4f} ms on smooth ones, eager call "
+              f"{eager_ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+              f"{bound:.6f} ms by {records[-1]['bound_by']}, "
+              f"{bound / ms:.3f} and {bound / smooth_ms:.3f} of the bound "
+              f"reached; library {lib_name} {library_ms:.4f} and "
+              f"{library_smooth_ms:.4f} ms; {res_txt})")
+    if earlier is None:
+        print("[kernels] K3, K3-grad: earlier design not given "
+              "(--earlier-warp)")
+        return records
+    # the earlier K3 and its fy/fx gradient on the planes its glue makes
+    # of the same grids
+    for kind, grid in grids.items():
+        planes = []
+        wb.grid_sample_bounded_ref(img, grid, *opts,
+                                   warp=lambda *a: planes.append(a) or a[0])
+        planes = planes[0][:5]
+        for name, this, old in [
+                ("warp_sample_bounded_forward", calls[kind]["fwd"],
+                 lambda: earlier[1](*planes, r)),
+                ("warp_sample_bounded_grad_grid", calls[kind]["grad"],
+                 lambda: earlier[2](*planes, g, r))]:
+            new_ms, old_ms = in_turns(torch, (this, old))
+            new_call, old_call = in_turns(torch, (this, old), call_ms)
+            print(f"[kernels] {name}, {kind} grid, in turns (this, earlier, "
+                  f"earlier, this): card {new_ms[0]:.4f}, {new_ms[1]:.4f} "
+                  f"ms, eager call {new_call[0]:.4f}, {new_call[1]:.4f} ms; "
+                  f"the earlier "
+                  f"{'K3' if 'forward' in name else 'K3 fy/fx gradient'} "
+                  f"alone on its planes: card {old_ms[0]:.4f}, "
+                  f"{old_ms[1]:.4f} ms, eager call {old_call[0]:.4f}, "
+                  f"{old_call[1]:.4f} ms")
     return records
 
 
@@ -692,22 +934,28 @@ def launch_counts(mods):
 
 
 def profile_episode(torch, run, label, ours_key):
-    """One episode under torch.profiler: wall, device busy, idle share,
-    the share of the kernels whose names hold ``ours_key``, and the top
-    kernels by device time."""
+    """One episode under torch.profiler: wall, device busy, idle share, the
+    device ops (kernels, memsets, copies) and the host's cudaLaunchKernel
+    calls, the share of the kernels whose names hold ``ours_key``, and the
+    top kernels by device time. Returns (device ops, cudaLaunchKernel)."""
     wall, busy, top, host = device_time_by_kernel(torch, run)
     print(f"[profile] {label} host ops by self CPU time: " + "; ".join(
         f"{key} {ms:.1f} ms {count}x" for ms, count, key in host[:8]))
     if busy <= 0:
         print("[profile] torch.profiler recorded no device time")
-        return
+        return None, None
+    ops = sum(count for _, count, _ in top)
+    launches = sum(count for _, count, key in host
+                   if key == "cudaLaunchKernel")
     ours = [row for row in top if ours_key in row[2]]
     ours_ms = sum(ms for ms, _, _ in ours)
     print(f"[profile] one {label}: wall {wall:.1f} ms, device busy "
-          f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}, {ours_key} "
-          f"kernels {ours_ms:.3f} ms ({ours_ms / busy:.4f} of busy)")
+          f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}, {ops} device "
+          f"ops, {launches} cudaLaunchKernel, {ours_key} kernels "
+          f"{ours_ms:.3f} ms ({ours_ms / busy:.4f} of busy)")
     for ms, count, key in top[:12] + [r for r in ours if r not in top[:12]]:
         print(f"[profile]   {ms:9.3f} ms  {count:5d}x  {key[:90]}")
+    return ops, launches
 
 
 def card_vs_cpu(cfg, model):
@@ -826,8 +1074,70 @@ def main_path_phase(torch, mods, earlier_lib=None):
     return launches
 
 
-def rrin_phase(torch, mods):
-    """RRIN through the port's entry points on the card, bounded warp.
+def warp_call_phase(torch, mods, earlier=None, reps=10):
+    """One backward_warp_rrin at RRIN's padded frame, forward (with grad)
+    and the flow's gradient, on the bounded path, on the earlier warp
+    (``earlier``: earlier_warp's sampler) where given, and on the exact
+    path: device ops and device ms a call from torch.profiler over
+    ``reps`` calls, and the eager ms of forward and backward together
+    (CUDA events), in turns (bounded, earlier, exact, exact, earlier,
+    bounded). The bounded path must launch K3 and K3-grad once each a
+    call, the others neither."""
+    from meta_interpolation_tpu_torch.ops import warp as warp_ops
+    n, c, (h, w) = 1, 3, WARP_SHAPES[-1][:2]
+    gen = torch.Generator().manual_seed(9)
+    img = torch.rand(n, c, h, w, generator=gen).cuda()
+    g = torch.randn(n, c, h, w, generator=gen).cuda()
+    flow = smooth_flow(torch, n, h, w, 4.0, seed=10).cuda().requires_grad_()
+    paths = {"bounded": lambda: warp_ops.backward_warp_rrin(img, flow,
+                                                            WARP_R)}
+    if earlier is not None:
+        paths["earlier"] = with_attr(warp_ops, "grid_sample_bounded",
+                                     earlier, paths["bounded"])
+    paths["exact"] = lambda: warp_ops.backward_warp_rrin(img, flow, None)
+    flow_grad = lambda out: torch.autograd.grad(out, flow, g)[0]
+    if earlier is not None:   # the same glue and floors: the same result
+        max_err(flow_grad(paths["earlier"]()), flow_grad(paths["bounded"]()),
+                "warp call: the earlier path's flow gradient")
+    stats = {which: {"busy": [], "ms": []} for which in paths}
+    order = list(paths) + list(paths)[::-1]
+    for which in order:
+        fwd = paths[which]
+        reset_launches(mods)
+        _, fwd_busy, fwd_rows, _ = device_time_by_kernel(
+            torch, lambda: [fwd() for _ in range(reps)])
+        outs = [fwd() for _ in range(reps)]
+        _, bwd_busy, bwd_rows, _ = device_time_by_kernel(
+            torch, lambda: [flow_grad(o) for o in outs])
+        launched = launch_counts(mods)
+        want = {k: 0 for k in launched}
+        if which == "bounded":
+            want["warp_sample_bounded_forward"] = 2 * reps
+            want["warp_sample_bounded_grad_grid"] = reps
+        check(launched == want, f"warp call {which}: launches {launched}, "
+                                f"want {want}")
+        stats[which]["ops"] = (sum(k for _, k, _ in fwd_rows) / reps,
+                               sum(k for _, k, _ in bwd_rows) / reps)
+        stats[which]["busy"].append((fwd_busy / reps, bwd_busy / reps))
+    for which in order:   # eager, with the profiler off
+        stats[which]["ms"].append(
+            call_ms(torch, lambda: flow_grad(paths[which]())))
+    for which, st in stats.items():
+        print(f"[main] rrin warp call at {n}x{c}x{h}x{w}, {which} "
+              f"warp, in turns ({', '.join(order)}): forward "
+              f"{st['ops'][0]:.0f} device ops, backward {st['ops'][1]:.0f}; "
+              f"device ms forward " + ", ".join(f"{b[0]:.4f}" for b in
+                                                st["busy"])
+              + "; backward " + ", ".join(f"{b[1]:.4f}" for b in st["busy"])
+              + "; eager forward and backward " + ", ".join(
+                  f"{t:.4f}" for t in st["ms"]) + " ms")
+    return stats
+
+
+def rrin_phase(torch, mods, earlier=None):
+    """RRIN through the port's entry points on the card, bounded warp, with
+    the warp call and the 256x448 episode also on the exact warp and, where
+    ``earlier`` (earlier_warp's sampler) is given, on the earlier warp.
     Returns the launches of the CLI run (the main path) per kernel."""
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -835,14 +1145,19 @@ def rrin_phase(torch, mods):
     from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
     from meta_interpolation_tpu_torch.meta.system import (
         SceneAdaptiveInterpolation)
+    from meta_interpolation_tpu_torch.ops import warp as warp_ops
 
     # (a) the CLI: the synthetic validation clips
     launches = cli_phase(torch, mods, RRIN_FLAGS, "rrin",
-                         {"warp_bounded_forward": K3_PER_CLIP,
-                          "warp_bounded_grad_frac": K3G_PER_CLIP})
+                         {"warp_sample_bounded_forward": K3_PER_CLIP,
+                          "warp_sample_bounded_grad_grid": K3G_PER_CLIP})
 
-    # (b) the full Vimeo frame: the bounded warp, and the exact warp timed
-    # in turns with it (bounded, exact, exact, bounded, ...)
+    # (b) one warp call, forward and backward, on each path
+    warp_call_phase(torch, mods, earlier)
+
+    # (c) the full Vimeo frame: the bounded warp, and the exact (and the
+    # earlier) warp timed in turns with it (bounded, exact, exact, bounded,
+    # ...)
     frames = SyntheticSeptuplet(model="rrin", mode="val",
                                 size=FULL_HW)[0][0][None]
     systems = {"bounded": SceneAdaptiveInterpolation(get_args(RRIN_FLAGS))}
@@ -854,44 +1169,59 @@ def rrin_phase(torch, mods):
     check(systems["exact"].model.warp_range is None,
           "exact path still bounded")
     systems["exact"].run_validation_iter(frames)  # warm-up
-    reps = 4
-    times = {"bounded": [], "exact": []}
+    runs = {which: system.run_validation_iter
+            for which, system in systems.items()}
+    if earlier is not None:
+        runs["earlier"] = with_attr(warp_ops, "grid_sample_bounded", earlier,
+                                    systems["bounded"].run_validation_iter)
+        runs["earlier"](frames)                      # warm-up
+    pairs = 4
+    times = {which: [] for which in runs}
     out = {}
     reset_launches(mods)
-    for which in ["bounded", "exact", "exact", "bounded"] * (reps // 2):
+    turns = ["bounded", "exact", "exact", "bounded"] * pairs
+    if earlier is not None:
+        turns += ["earlier", "bounded", "bounded", "earlier"] * pairs
+    for which in turns:
         before = launch_counts(mods)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out[which] = systems[which].run_validation_iter(frames)
+        out[which] = runs[which](frames)
         torch.cuda.synchronize()
         times[which].append(time.perf_counter() - t0)
-        if which == "exact":
+        if which != "bounded":
             check(launch_counts(mods) == before,
-                  f"exact-warp episode launched kernels: {before} → "
+                  f"{which}-warp episode launched kernels: {before} → "
                   f"{launch_counts(mods)}")
     got = launch_counts(mods)
-    check(got["warp_bounded_forward"] == K3_PER_CLIP * reps
-          and got["warp_bounded_grad_frac"] == K3G_PER_CLIP * reps,
-          f"rrin {FULL_HW} launches {got} for {reps} clips")
+    n_bounded = len(times["bounded"])
+    check(got["warp_sample_bounded_forward"] == K3_PER_CLIP * n_bounded
+          and got["warp_sample_bounded_grad_grid"] == K3G_PER_CLIP * n_bounded,
+          f"rrin {FULL_HW} launches {got} for {n_bounded} clips")
     for which, (losses, preds) in out.items():
         check(tuple(preds.shape) == (1, 3) + FULL_HW
               and bool(torch.isfinite(preds).all())
               and math.isfinite(losses["psnr"]),
               f"rrin {FULL_HW} {which} output: {losses}")
-    diff = (out["bounded"][1] - out["exact"][1]).abs().max().item()
+    diff = {which: (out[which][1] - out["bounded"][1]).abs().max().item()
+            for which in out if which != "bounded"}
     for which in times:
-        extra = (f"launches K3 {got['warp_bounded_forward'] // reps} K3-grad "
-                 f"{got['warp_bounded_grad_frac'] // reps} per clip, peak "
-                 f"memory {peak_gib:.2f} GiB" if which == "bounded" else
-                 f"F.grid_sample; bounded vs exact max|pred diff| {diff:.3e}")
+        extra = (f"launches K3 {got['warp_sample_bounded_forward'] // n_bounded}"
+                 f" K3-grad {got['warp_sample_bounded_grad_grid'] // n_bounded}"
+                 f" per clip, peak memory {peak_gib:.2f} GiB"
+                 if which == "bounded" else
+                 f"max|pred diff| against the bounded {diff[which]:.3e}")
         print(f"[main] rrin {FULL_HW[0]}x{FULL_HW[1]} episode, {which} warp"
-              f"{f' R={WARP_R}' if which == 'bounded' else ''}: median "
-              f"{statistics.median(times[which]):.4f} s over {reps} in turns "
-              f"(all {[round(t, 4) for t in times[which]]}), PSNR "
+              f"{'' if which == 'exact' else f' R={WARP_R}'}: median "
+              f"{statistics.median(times[which]):.4f} s over "
+              f"{len(times[which])} in turns (all "
+              f"{[round(t, 4) for t in times[which]]}), PSNR "
               f"{out[which][0]['psnr']:.3f}, {extra}")
-    profile_episode(torch,
-                    lambda: systems["bounded"].run_validation_iter(frames),
-                    f"rrin {FULL_HW[0]}x{FULL_HW[1]} episode", "warp_bounded")
+    for which, run in runs.items():
+        profile_episode(torch, lambda: run(frames),
+                        f"rrin {FULL_HW[0]}x{FULL_HW[1]} episode, {which} "
+                        f"warp", "warp_sample" if which == "bounded" else
+                        "grid_sampler" if which == "exact" else "warp_bounded")
     clip = systems["bounded"]._frames(frames)[0]
     q0, _, q1 = RRIN_QUERY
     with FlopCounterMode(display=False) as counter, torch.no_grad():
@@ -900,7 +1230,7 @@ def rrin_phase(torch, mods):
           f"{counter.get_total_flops() / 1e9:.3f} GFLOP "
           f"(torch.utils.flop_counter)")
 
-    # (c) a small clip on the card against the same clip on the CPU
+    # (d) a small clip on the card against the same clip on the CPU
     card_vs_cpu(get_args(RRIN_FLAGS), "rrin")
     return launches
 
@@ -1127,6 +1457,70 @@ def dain_card_vs_cpu(torch, cfg, state):
           and dpsnr_kept <= PSNR_TOL_DB, msg)
     print(f"[main] {msg}")
 
+def dain_served_card_vs_cpu(torch, state):
+    """One served forward (proj_range=PROJ_R, hole filling) of the first
+    small synthetic clip's query pair on the card, then on the CPU with the
+    same weights, handed the card's PWC flows, log depths and projected
+    offsets (spies on DAIN.flows, depthNet and flow_projection), so that no
+    floor can flip: every pixel must lie within 1e-4·max|pred| + 1e-5, with
+    no mask."""
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.models.dain import model as dain_mod
+    frames = SyntheticSeptuplet(model="dain", mode="val", size=SMALL_HW)[0][0]
+    pair = [torch.tensor(frames[i]).permute(2, 0, 1)[None].contiguous()
+            for i in DAIN_QUERY]
+    seen = {"flows": [], "depth": [], "offsets": []}
+    real = dain_mod.flow_projection
+    preds = {}
+    for dev in ("cuda", "cpu"):
+        model = dain_mod.DAIN(torch.Generator().manual_seed(DAIN_SEED))
+        model.load_state_dict(state)
+        inputs = pair
+        if dev == "cuda":
+            model, inputs = model.cuda(), [f.cuda() for f in pair]
+            real_flows = model.flows
+
+            def flows(x0, x2):
+                out = real_flows(x0, x2)
+                seen["flows"].append(tuple(f.cpu() for f in out))
+                return out
+
+            def depth(module, args, out):
+                seen["depth"].append(out.cpu())
+
+            def project(*args, **kwargs):
+                out = real(*args, **kwargs)
+                seen["offsets"].append(out.cpu())
+                return out
+        else:
+            check(len(seen["flows"]) == 1 and len(seen["depth"]) == 1
+                  and len(seen["offsets"]) == 2,
+                  f"dain served: spies saw {[len(v) for v in seen.values()]}")
+            offsets = iter(seen["offsets"])
+            flows = lambda x0, x2: seen["flows"][0]
+            depth = lambda module, args, out: seen["depth"][0]
+            project = lambda *args, **kwargs: next(offsets)
+        model.flows = flows
+        hook = model.depthNet.register_forward_hook(depth)
+        dain_mod.flow_projection = project
+        try:
+            with torch.no_grad():
+                preds[dev] = model(*inputs, proj_range=PROJ_R,
+                                   fill_holes=True).cpu()
+        finally:
+            dain_mod.flow_projection = real
+            hook.remove()
+    diff = (preds["cuda"] - preds["cpu"]).abs()
+    lim = TOL_REL * preds["cpu"].abs().max().item() + TOL_ABS
+    beyond = int((diff > lim).sum())
+    msg = (f"dain served {SMALL_HW[0]}x{SMALL_HW[1]} frame, card vs CPU on "
+           f"the card's flows, log depths and offsets: max|pred diff| "
+           f"{diff.max().item():.3e}, {beyond} of {diff.numel()} values "
+           f"beyond {lim:.3e} (1e-4 max|pred| + 1e-5; must be 0, no mask)")
+    check(bool(torch.isfinite(preds["cuda"]).all()) and beyond == 0, msg)
+    print(f"[main] {msg}")
+
+
 def dain_phase(torch, mods, earlier_k4=None):
     """DAIN through the port's entry points on the card: served with the
     bounded projection, then the CLI and an episode with the exact one.
@@ -1177,8 +1571,10 @@ def dain_phase(torch, mods, earlier_k4=None):
                     f"dain {FULL_HW[0]}x{FULL_HW[1]} episode", "conv")
     del system
 
-    # a small clip on the card against the same clip on the CPU
+    # a small clip on the card against the same clip on the CPU, and a
+    # served frame on the CPU from the card's flows, depths and offsets
     dain_card_vs_cpu(torch, cfg, state)
+    dain_served_card_vs_cpu(torch, state)
     return launches, served_ms
 
 
@@ -1190,6 +1586,12 @@ def parse_args(argv=None):
     parser.add_argument("--earlier-projection", metavar="PATH",
                         help="an earlier csrc/flow_projection.cu to hold K4 "
                              "to bit for bit and time it against, in turns")
+    parser.add_argument("--earlier-warp", metavar="PATH",
+                        help="an earlier csrc/warp.cu (K3 and its fy/fx "
+                             "gradient on coordinate planes) to run in the "
+                             "plain glue, hold to the plain composition and "
+                             "time against K3, K3-grad, the warp call and "
+                             "the RRIN episode, in turns")
     return parser.parse_args(argv)
 
 
@@ -1215,11 +1617,15 @@ def main():
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    # earlier designs by source: (wrapper module, path, ptxas names)
-    earlier = {source: (mod, path, entries) for source, mod, path, entries in [
-        ("sepconv", sc, args.earlier_sepconv, SEPCONV_KERNELS),
-        ("flow_projection", fpb, args.earlier_projection,
-         PROJECTION_KERNELS)] if path}
+    # earlier designs by source: (C signature binder, path, ptxas names)
+    earlier = {source: (bind, path, entries)
+               for source, bind, path, entries in [
+                   ("sepconv", sc._bind, args.earlier_sepconv,
+                    SEPCONV_KERNELS),
+                   ("flow_projection", fpb._bind, args.earlier_projection,
+                    PROJECTION_KERNELS),
+                   ("warp", bind_earlier_warp, args.earlier_warp,
+                    EARLIER_WARP_KERNELS)] if path}
     builds = {source: start_build(path, "earlier", source)
               for source, (_, path, _) in earlier.items()}
     report = _build.build()
@@ -1231,22 +1637,27 @@ def main():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build]   {line.strip()}")
     resources = sepconv_resources(report["sepconv"]["log"], "sepconv.cu")
+    k3_resources = kernel_resources(report["warp"]["log"], "warp.cu",
+                                    WARP_KERNELS)
     k4_resources = kernel_resources(report["flow_projection"]["log"],
                                     "flow_projection.cu", PROJECTION_KERNELS)
-    libs = {source: finish_build(mod, *builds[source], f"earlier {path}",
+    libs = {source: finish_build(bind, *builds[source], f"earlier {path}",
                                  entries)
-            for source, (mod, path, entries) in earlier.items()}
+            for source, (bind, path, entries) in earlier.items()}
     earlier_k4 = (on_library(fpb, libs["flow_projection"],
                              fpb.flow_projection_bounded)
                   if "flow_projection" in libs else None)
+    earlier_k3 = (earlier_warp(torch, wb, libs["warp"]) if "warp" in libs
+                  else None)
 
     records = (kernel_phase(torch, sc, card, resources, libs.get("sepconv"))
-               + warp_kernel_phase(torch, wb, card)
+               + warp_kernel_phase(torch, wb, card, k3_resources, earlier_k3)
                + projection_kernel_phase(torch, fpb, card, k4_resources,
                                          earlier_k4))
     mods = (sc, wb, fpb)
     sepconv_launches = main_path_phase(torch, mods, libs.get("sepconv"))
-    rrin_launches = rrin_phase(torch, mods)
+    rrin_launches = rrin_phase(torch, mods,
+                               earlier_k3[0] if earlier_k3 else None)
     dain_launches, served_ms = dain_phase(torch, mods, earlier_k4)
     records[-1]["served_ms"] = served_ms
     # each kernel's launches on the main path that runs it

@@ -1,179 +1,274 @@
-// Bounded bilinear warp for Hopper (sm_90a): the accumulation of the flow
-// models' fast warp.
+// Bounded bilinear grid sampler for Hopper (sm_90a): the flow models' fast
+// warp, grid in, output (forward) or grid gradient (backward) out.
 //
-//   out(n, c, y, x) = sum_{d, e in [-R, R+1]} wy_d * wx_e * img_edge(n, c, y+d, x+e)
-//   wy_d = [dy0 == d] (1 - fy) + [dy0 == d-1] fy          (wx_e likewise)
+// Layouts: img and out (N, C, H, W) float32; grid and ggrid (N, H, W, 2)
+// float32 with (gx, gy) last, as F.grid_sample takes them; g (N, C, H, W);
+// all contiguous. Per output pixel (n, y, x) and axis (x shown):
 //
-// Layouts: img and out (N, C, H, W) float32; dy0/dx0 int32 and fy/fx float32
-// (N, H, W); all contiguous. img_edge clamps rows to [0, H-1] and columns to
-// [0, W-1].
+//   ix = ((gx + 1) W - 1) / 2        ((gx + 1) / 2 (W - 1) with align_corners)
+//   border: ix = clamp(ix, 0, W-1);  zeros: valid iff -1 < ix < W (both axes)
+//   dx = clamp(ix - x, -R, R-1),  dx0 = floor(dx),  fx = dx - dx0
+//   out_c = edge-clamped bilinear tap of img_c at (y + dy0 + fy, x + dx0 + fx)
+//   zeros: out_c *= mass = (wy0 my0 + wy1 my1)(wx0 mx0 + wx1 mx1), with
+//          wx1 = ix - floor(ix), wx0 = 1 - wx1 and mx0, mx1 the in-image
+//          masks of the columns floor(ix) and floor(ix) + 1; 0 where invalid.
 //
-// warp_bounded_forward replaces the TPU kernel
-// meta_interpolation_tpu/ops/warp_pallas.py:86 (warp_bounded_pallas /
-// _warp_kernel). warp_bounded_grad_frac is the gradient with respect to fy
-// and fx, which the TPU path gets by autodiff of the XLA sweep
-// (meta_interpolation_tpu/ops/warp.py:305-319):
-//   gfy = sum_c g_c [my1 (wx0 v10 + wx1 v11) - my0 (wx0 v00 + wx1 v01)]
-//   gfx = sum_c g_c [mx1 (wy0 v01 + wy1 v11) - mx0 (wy0 v00 + wy1 v10)]
+// The backward is the grid gradient that autograd gives through that
+// composition (ops/warp_bounded.py, grid_sample_bounded_ref), by hand:
 //
-// Contract (the caller's, as in the JAX package: ops/warp.py clips before
-// it calls): dy0, dx0 in [-R, R-1]. Then only d = dy0 and d = dy0+1 carry
-// weight, and the sum is one edge-clamped bilinear 2x2 tap at
-// (y+dy0+fy, x+dx0+fx). The kernels compute exactly that: what the TPU
-// kernel computes, not how. The Pallas kernel sweeps all (2R+2)^2 shifted
-// windows with pltpu.roll because a TPU has no cheap gather; on Hopper a
-// direct 4-tap gather per pixel is the natural form. R enters only through
-// the window masks my0/my1/mx0/mx1 (1 where the tap's shift lies in
-// [-R, R+1]), so that the kernels equal the sweep even outside the contract.
-// None of the Mosaic constraints carry over (W % 128, H % 8, halos, column
-// pads): one thread owns one output pixel, the grid is 1-D over N*H*W, and
-// the last block masks its own ragged edge.
+//   g_ix = sum_c g_c [mass cx dbil_c/dfx + bil_c dmass/dix]   (zeros, valid)
+//   g_ix = bx cx sum_c g_c dbil_c/dfx                          (border)
+//   dbil/dfx = wy0 (v01 - v00) + wy1 (v11 - v10),  dmass/dix = Y (mx1 - mx0)
+//   cx = [-R <= ix - x <= R-1] (torch's clamp gradient, inclusive at both
+//   ends), bx = [0 <= ix <= W-1], Y = wy0 my0 + wy1 my1; the floors pass no
+//   gradient. g_gx = g_ix W / 2 ((W - 1) / 2 with align_corners).
 //
-// Bound on an H100 (N=1, C=3, 256x512, the RRIN main path): bytes. The
-// forward moves ~40 B a pixel (four 4-byte index/fraction planes, C=3 image
-// reads that mostly hit L1/L2, C=3 writes), ~5.2 MB, ~1.6 us at 3.35 TB/s;
-// it does ~30 operations a pixel, nowhere near the fp32 rate. The gradient
-// adds C=3 reads of g and writes two planes instead of C. At this size launch
-// overhead dominates both: that is recorded, not fixed, here. Each thread
-// owns its pixel, so the channel sums are deterministic and need no atomics.
+// warp_sample_bounded_forward replaces the TPU kernel
+// meta_interpolation_tpu/ops/warp_pallas.py:86 (warp_bounded_pallas) with
+// the coordinate math that XLA fuses around it
+// (meta_interpolation_tpu/ops/warp.py:218-245 and :259-271);
+// warp_sample_bounded_grad_grid is the gradient of the whole sampler with
+// respect to the grid, which the TPU path gets by autodiff of the XLA sweep
+// under its custom VJP (meta_interpolation_tpu/ops/warp.py:299-319). What
+// the TPU kernel computes, not how: the Pallas kernel sweeps all (2R+2)^2
+// shifted windows with pltpu.roll because a TPU has no cheap gather; the
+// floors lie in [-R, R-1], so on Hopper the sweep is one direct 2x2 gather
+// a pixel, and R enters only through the clamp.
+//
+// Rounding: ix, iy, the clamps and the floors are written with __fadd_rn /
+// __fsub_rn / __fmul_rn in PyTorch's operation order, so that they are
+// bitwise equal to the plain composition's on the card and on the CPU: an
+// FMA-contracted ((gx + 1) W - 1) / 2 could flip a floor next to an integer,
+// where the output is continuous but its gradient jumps. Only the channel
+// sums and the mass products may round otherwise.
+//
+// Bound on an H100 (N = 1, C = 3, 256x512, the RRIN main path): bytes. The
+// forward reads the grid (8 B a pixel) and the image (12 B) and writes the
+// output (12 B): 4.19 MB, 1.25 us at 3.35 TB/s; the backward also reads g
+// and writes ggrid instead of the output: 40 B a pixel, 5.24 MB, 1.56 us.
+// Both do ~40-80 operations a pixel, far from the fp32 rate, and at this
+// size a launch's fixed cost is of the bound's order. Design: a 3-D launch
+// (column chunk, row, image) with threads along x, no 64-bit division; each
+// thread takes kPix pixels of its row, kThreads apart, so that every grid
+// load (float2), g load and output store of a warp is one coalesced run;
+// all of a thread's grid loads are issued before their use, then all of a
+// pixel's taps, with the channel loop unrolled for C = 3. With |flow| <= R
+// a warp's taps fall in a band ~2R + 2 rows deep that L1 holds, so taps go
+// through the read-only path (__ldg): staging the tile's halo in shared
+// memory with cp.async lost to it, and 1 or 4 pixels a thread, 64 or 256
+// threads a block and g loaded ahead in the backward did not win (PERF.md).
+// The backward recomputes the four taps and keeps its three channel sums
+// in registers: no atomics, deterministic.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // threads a block, along x
+constexpr int kPix = 2;        // pixels a thread, kThreads apart
 
-struct Taps {
-  size_t o00, o01, o10, o11;  // offsets of the four taps in one (H, W) plane
-  float my0, my1, mx0, mx1;   // 1 where the tap's shift lies in [-R, R+1]
+// One axis of one pixel: the two clamped tap indices and their weights, and
+// what the zero padding and the gradient need.
+struct Axis {
+  int i0, i1;      // edge-clamped tap indices
+  float w0, w1;    // bilinear weights 1 - f, f
+  float m;         // zeros: in-image mass w0' m0 + w1' m1 of this axis
+  float dm;        // zeros: m1 - m0, the mass's derivative in the coordinate
+  float c;         // gradient pass-through of the clamps (0 or 1)
+  bool valid;      // zeros: -1 < coordinate < size
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__device__ __forceinline__ float in_window(int d, int r) {
-  return (d >= -r && d <= r + 1) ? 1.f : 0.f;
+__device__ __forceinline__ Axis axis(float g, int pos, int size, int r,
+                                     bool align, bool border) {
+  const float fsize = static_cast<float>(size);
+  const float last = static_cast<float>(size - 1);
+  float i = align
+      ? __fmul_rn(__fmul_rn(__fadd_rn(g, 1.f), 0.5f), last)
+      : __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.f), fsize), 1.f), 0.5f);
+  Axis a;
+  float pass = 1.f;
+  if (border) {
+    pass = (i >= 0.f && i <= last) ? 1.f : 0.f;
+    i = fminf(fmaxf(i, 0.f), last);
+    a.valid = true;
+    a.m = 1.f;
+    a.dm = 0.f;
+  } else {
+    a.valid = i > -1.f && i < fsize;
+    const float i0 = floorf(i);
+    const float w1 = __fsub_rn(i, i0), w0 = __fsub_rn(1.f, w1);
+    const float m0 = (i0 >= 0.f && i0 <= last) ? 1.f : 0.f;
+    const float i1 = __fadd_rn(i0, 1.f);
+    const float m1 = (i1 >= 0.f && i1 <= last) ? 1.f : 0.f;
+    a.m = __fadd_rn(__fmul_rn(w0, m0), __fmul_rn(w1, m1));
+    a.dm = m1 - m0;
+  }
+  // fminf/fmaxf also send a NaN coordinate to -R: every tap stays in range
+  const float d = __fsub_rn(i, static_cast<float>(pos));
+  a.c = (d >= static_cast<float>(-r) && d <= static_cast<float>(r - 1))
+      ? pass : 0.f;
+  const float dc = fminf(fmaxf(d, static_cast<float>(-r)),
+                         static_cast<float>(r - 1));
+  const float d0 = floorf(dc);
+  const float f = __fsub_rn(dc, d0);
+  const int k = pos + static_cast<int>(d0);
+  a.i0 = clampi(k, 0, size - 1);
+  a.i1 = clampi(k + 1, 0, size - 1);
+  a.w0 = __fsub_rn(1.f, f);
+  a.w1 = f;
+  return a;
 }
 
-__device__ __forceinline__ Taps taps(int y, int x, int dy, int dx, int h,
-                                     int w, int r) {
-  const int y0 = clampi(y + dy, 0, h - 1), y1 = clampi(y + dy + 1, 0, h - 1);
-  const int x0 = clampi(x + dx, 0, w - 1), x1 = clampi(x + dx + 1, 0, w - 1);
-  Taps t;
-  t.o00 = static_cast<size_t>(y0) * w + x0;
-  t.o01 = static_cast<size_t>(y0) * w + x1;
-  t.o10 = static_cast<size_t>(y1) * w + x0;
-  t.o11 = static_cast<size_t>(y1) * w + x1;
-  t.my0 = in_window(dy, r);
-  t.my1 = in_window(dy + 1, r);
-  t.mx0 = in_window(dx, r);
-  t.mx1 = in_window(dx + 1, r);
-  return t;
-}
-
+// kC: the channel count when it is known at compile time (3, every flow
+// model's frames: the channel loop unrolls and all of a pixel's taps are
+// issued together), or 0 to take it at run time.
+template <int kC>
 __global__ void __launch_bounds__(kThreads)
-warp_bounded_fwd_kernel(const float* __restrict__ img,
-                        const int* __restrict__ dy0,
-                        const int* __restrict__ dx0,
-                        const float* __restrict__ fy,
-                        const float* __restrict__ fx,
-                        float* __restrict__ out, int n, int c, int h, int w,
-                        int r) {
+warp_sample_fwd_kernel(const float* __restrict__ img,
+                       const float2* __restrict__ grid,
+                       float* __restrict__ out, int c, int h, int w, int r,
+                       bool align, bool border) {
+  const int y = blockIdx.y, b = blockIdx.z;
+  const int x_base = blockIdx.x * (kThreads * kPix) + threadIdx.x;
+  const int nc = kC > 0 ? kC : c;
   const size_t hw = static_cast<size_t>(h) * w;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= static_cast<size_t>(n) * hw) return;
-  const int b = static_cast<int>(idx / hw);
-  const size_t pix = idx - b * hw;
-  const int y = static_cast<int>(pix / w), x = static_cast<int>(pix % w);
-  const Taps t = taps(y, x, dy0[idx], dx0[idx], h, w, r);
-  const float fyv = fy[idx], fxv = fx[idx];
-  const float wy0 = t.my0 * (1.f - fyv), wy1 = t.my1 * fyv;
-  const float wx0 = t.mx0 * (1.f - fxv), wx1 = t.mx1 * fxv;
-  const float* p = img + static_cast<size_t>(b) * c * hw;
-  float* o = out + static_cast<size_t>(b) * c * hw + pix;
-  for (int ch = 0; ch < c; ++ch, p += hw) {
-    const float top = fmaf(wx0, __ldg(p + t.o00), wx1 * __ldg(p + t.o01));
-    const float bot = fmaf(wx0, __ldg(p + t.o10), wx1 * __ldg(p + t.o11));
-    o[ch * hw] = fmaf(wy0, top, wy1 * bot);
+  const float2* grow = grid + (static_cast<size_t>(b) * h + y) * w;
+  float2 gv[kPix];
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    const int x = x_base + p * kThreads;
+    gv[p] = x < w ? __ldg(grow + x) : make_float2(0.f, 0.f);
+  }
+  const float* plane = img + static_cast<size_t>(b) * nc * hw;
+  float* orow = out + static_cast<size_t>(b) * nc * hw
+      + static_cast<size_t>(y) * w;
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    const int x = x_base + p * kThreads;
+    if (x >= w) break;
+    const Axis ax = axis(gv[p].x, x, w, r, align, border);
+    const Axis ay = axis(gv[p].y, y, h, r, align, border);
+    const float scale = border ? 1.f
+        : ((ax.valid && ay.valid) ? __fmul_rn(ay.m, ax.m) : 0.f);
+    const int o00 = ay.i0 * w + ax.i0, o01 = ay.i0 * w + ax.i1;
+    const int o10 = ay.i1 * w + ax.i0, o11 = ay.i1 * w + ax.i1;
+    const float* q = plane;
+#pragma unroll
+    for (int ch = 0; ch < nc; ++ch, q += hw) {
+      const float top = fmaf(ax.w0, __ldg(q + o00), ax.w1 * __ldg(q + o01));
+      const float bot = fmaf(ax.w0, __ldg(q + o10), ax.w1 * __ldg(q + o11));
+      orow[ch * hw + x] = fmaf(ay.w0, top, ay.w1 * bot) * scale;
+    }
   }
 }
 
+template <int kC>
 __global__ void __launch_bounds__(kThreads)
-warp_bounded_grad_frac_kernel(const float* __restrict__ img,
-                              const int* __restrict__ dy0,
-                              const int* __restrict__ dx0,
-                              const float* __restrict__ fy,
-                              const float* __restrict__ fx,
-                              const float* __restrict__ g,
-                              float* __restrict__ gfy,
-                              float* __restrict__ gfx, int n, int c, int h,
-                              int w, int r) {
+warp_sample_grad_grid_kernel(const float* __restrict__ img,
+                             const float2* __restrict__ grid,
+                             const float* __restrict__ g,
+                             float2* __restrict__ ggrid, int c, int h, int w,
+                             int r, bool align, bool border) {
+  const int y = blockIdx.y, b = blockIdx.z;
+  const int x_base = blockIdx.x * (kThreads * kPix) + threadIdx.x;
+  const int nc = kC > 0 ? kC : c;
   const size_t hw = static_cast<size_t>(h) * w;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= static_cast<size_t>(n) * hw) return;
-  const int b = static_cast<int>(idx / hw);
-  const size_t pix = idx - b * hw;
-  const int y = static_cast<int>(pix / w), x = static_cast<int>(pix % w);
-  const Taps t = taps(y, x, dy0[idx], dx0[idx], h, w, r);
-  const float fyv = fy[idx], fxv = fx[idx];
-  const float wy0 = t.my0 * (1.f - fyv), wy1 = t.my1 * fyv;
-  const float wx0 = t.mx0 * (1.f - fxv), wx1 = t.mx1 * fxv;
-  const float* p = img + static_cast<size_t>(b) * c * hw;
-  const float* gp = g + static_cast<size_t>(b) * c * hw + pix;
-  float sy = 0.f, sx = 0.f;
-  for (int ch = 0; ch < c; ++ch, p += hw) {
-    const float v00 = __ldg(p + t.o00), v01 = __ldg(p + t.o01);
-    const float v10 = __ldg(p + t.o10), v11 = __ldg(p + t.o11);
-    const float gc = __ldg(gp + ch * hw);
-    const float dy = t.my1 * fmaf(wx0, v10, wx1 * v11)
-                     - t.my0 * fmaf(wx0, v00, wx1 * v01);
-    const float dx = t.mx1 * fmaf(wy0, v01, wy1 * v11)
-                     - t.mx0 * fmaf(wy0, v00, wy1 * v10);
-    sy = fmaf(gc, dy, sy);
-    sx = fmaf(gc, dx, sx);
+  const size_t row = (static_cast<size_t>(b) * h + y) * w;
+  const float* grow = g + static_cast<size_t>(b) * nc * hw
+      + static_cast<size_t>(y) * w;
+  float2 gv[kPix];
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    const int x = x_base + p * kThreads;
+    gv[p] = x < w ? __ldg(grid + row + x) : make_float2(0.f, 0.f);
   }
-  gfy[idx] = sy;
-  gfx[idx] = sx;
+  const float* plane = img + static_cast<size_t>(b) * nc * hw;
+  // g_coordinate = g_grid * s: W / 2, or (W - 1) / 2 with align_corners
+  const float sx = 0.5f * static_cast<float>(align ? w - 1 : w);
+  const float sy = 0.5f * static_cast<float>(align ? h - 1 : h);
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    const int x = x_base + p * kThreads;
+    if (x >= w) break;
+    const Axis ax = axis(gv[p].x, x, w, r, align, border);
+    const Axis ay = axis(gv[p].y, y, h, r, align, border);
+    const int o00 = ay.i0 * w + ax.i0, o01 = ay.i0 * w + ax.i1;
+    const int o10 = ay.i1 * w + ax.i0, o11 = ay.i1 * w + ax.i1;
+    // sums over channels of g times dbil/dfx, dbil/dfy and bil
+    float sdx = 0.f, sdy = 0.f, sb = 0.f;
+    const float* q = plane;
+#pragma unroll
+    for (int ch = 0; ch < nc; ++ch, q += hw) {
+      const float v00 = __ldg(q + o00), v01 = __ldg(q + o01);
+      const float v10 = __ldg(q + o10), v11 = __ldg(q + o11);
+      const float gc = __ldg(grow + ch * hw + x);
+      const float top = fmaf(ax.w0, v00, ax.w1 * v01);
+      const float bot = fmaf(ax.w0, v10, ax.w1 * v11);
+      sdx = fmaf(gc, fmaf(ay.w0, v01 - v00, ay.w1 * (v11 - v10)), sdx);
+      sdy = fmaf(gc, bot - top, sdy);
+      sb = fmaf(gc, fmaf(ay.w0, top, ay.w1 * bot), sb);
+    }
+    float gx, gy;
+    if (border) {
+      gx = ax.c * sdx;
+      gy = ay.c * sdy;
+    } else if (ax.valid && ay.valid) {
+      const float mass = ay.m * ax.m;
+      gx = fmaf(mass * ax.c, sdx, ay.m * ax.dm * sb);
+      gy = fmaf(mass * ay.c, sdy, ax.m * ay.dm * sb);
+    } else {
+      gx = gy = 0.f;
+    }
+    ggrid[row + x] = make_float2(gx * sx, gy * sy);
+  }
 }
 
 cudaError_t grid_for(int n, int c, int h, int w, int r, dim3* grid) {
-  if (n < 1 || c < 1 || h < 1 || w < 1 || r < 1)
+  if (n < 1 || c < 1 || h < 1 || w < 1 || r < 1 || n > 65535 || h > 65535)
     return cudaErrorInvalidValue;
-  const size_t total = static_cast<size_t>(n) * h * w;
-  const size_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffu) return cudaErrorInvalidValue;
-  *grid = dim3(static_cast<unsigned>(blocks));
+  if (static_cast<long long>(h) * w > 0x7fffffffLL)
+    return cudaErrorInvalidValue;  // tap offsets within a plane are int
+  *grid = dim3((w + kThreads * kPix - 1) / (kThreads * kPix), h, n);
   return cudaSuccess;
 }
 
 }  // namespace
 
 // Both entry points launch on `stream`, do not synchronise, and return the
-// launch status (cudaGetLastError) as an int: 0 is success.
-extern "C" int warp_bounded_forward(const float* img, const int* dy0,
-                                    const int* dx0, const float* fy,
-                                    const float* fx, float* out, int n, int c,
-                                    int h, int w, int r, void* stream) {
-  dim3 grid;
-  cudaError_t err = grid_for(n, c, h, w, r, &grid);
+// launch status (cudaGetLastError) as an int: 0 is success. border: 1 for
+// padding_mode 'border', 0 for 'zeros'.
+extern "C" int warp_sample_bounded_forward(const float* img, const float* grid,
+                                           float* out, int n, int c, int h,
+                                           int w, int r, int align_corners,
+                                           int border, void* stream) {
+  dim3 blocks;
+  cudaError_t err = grid_for(n, c, h, w, r, &blocks);
   if (err != cudaSuccess) return err;
-  warp_bounded_fwd_kernel<<<grid, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      img, dy0, dx0, fy, fx, out, n, c, h, w, r);
+  (c == 3 ? warp_sample_fwd_kernel<3> : warp_sample_fwd_kernel<0>)
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      img, reinterpret_cast<const float2*>(grid), out, c, h, w, r,
+      align_corners != 0, border != 0);
   return cudaGetLastError();
 }
 
-extern "C" int warp_bounded_grad_frac(const float* img, const int* dy0,
-                                      const int* dx0, const float* fy,
-                                      const float* fx, const float* g,
-                                      float* gfy, float* gfx, int n, int c,
-                                      int h, int w, int r, void* stream) {
-  dim3 grid;
-  cudaError_t err = grid_for(n, c, h, w, r, &grid);
+extern "C" int warp_sample_bounded_grad_grid(const float* img,
+                                             const float* grid,
+                                             const float* g, float* ggrid,
+                                             int n, int c, int h, int w,
+                                             int r, int align_corners,
+                                             int border, void* stream) {
+  dim3 blocks;
+  cudaError_t err = grid_for(n, c, h, w, r, &blocks);
   if (err != cudaSuccess) return err;
-  warp_bounded_grad_frac_kernel<<<grid, kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      img, dy0, dx0, fy, fx, g, gfy, gfx, n, c, h, w, r);
+  (c == 3 ? warp_sample_grad_grid_kernel<3>
+          : warp_sample_grad_grid_kernel<0>)
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      img, reinterpret_cast<const float2*>(grid), g,
+      reinterpret_cast<float2*>(ggrid), c, h, w, r, align_corners != 0,
+      border != 0);
   return cudaGetLastError();
 }

@@ -9,8 +9,8 @@ them, with grid (x, y) in [−1, 1] and flow (u = dx, v = dy) in pixels.
     any TPU kernel).
   * :func:`grid_sample_bounded` — exact for samples within R pixels of
     their output location, clamped beyond: the fast path of
-    ``--fast_warp_range``. The coordinate math and the zero-padding mass
-    rescale are plain PyTorch here; the accumulation is kernel K3
+    ``--fast_warp_range``. On the card the whole sampler is one kernel
+    each way, grid in: K3 for the output, K3-grad for the grid gradient
     (``ops/warp_bounded.py``, ``csrc/warp.cu``).
   * :func:`sample` dispatches between the two; :func:`backward_warp` and
     :func:`backward_warp_rrin` (RRIN's half-pixel quirk ``2·(x/W − 0.5)``)
@@ -23,21 +23,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .warp_bounded import warp_bounded
-
-
-def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
-    """Index and weight math runs at float32 or wider."""
-    return torch.promote_types(dtype, torch.float32)
-
-
-def _unnormalize(grid: torch.Tensor, h: int, w: int, align_corners: bool):
-    """grid (N, Ho, Wo, 2) → pixel coordinates (ix, iy), each (N, Ho, Wo)."""
-    ct = _compute_dtype(grid.dtype)
-    gx, gy = grid[..., 0].to(ct), grid[..., 1].to(ct)
-    if align_corners:
-        return (gx + 1.0) * 0.5 * (w - 1), (gy + 1.0) * 0.5 * (h - 1)
-    return ((gx + 1.0) * w - 1.0) * 0.5, ((gy + 1.0) * h - 1.0) * 0.5
+from . import warp_bounded
+from .warp_bounded import _compute_dtype
 
 
 def grid_sample(img: torch.Tensor, grid: torch.Tensor,
@@ -54,43 +41,14 @@ def grid_sample_bounded(img: torch.Tensor, grid: torch.Tensor,
                         padding_mode: str = "zeros") -> torch.Tensor:
     """Bilinear sampling exact for displacements (per axis) in [−R, R−1]
     from the output pixel and clamped to that window beyond. The grid must
-    have the image's H×W. Out-of-image samples follow ``padding_mode``:
-    edge clamping is 'border'; the in-bounds bilinear mass and a validity
-    mask reproduce 'zeros'."""
-    n, c, h, w = img.shape
-    ix, iy = _unnormalize(grid, h, w, align_corners)
-    ct = ix.dtype
-    if padding_mode == "border":
-        ix = ix.clamp(0.0, w - 1)
-        iy = iy.clamp(0.0, h - 1)
-    else:
-        # zeros: samples whose 2×2 support is wholly outside read 0
-        inb = (ix > -1.0) & (ix < w) & (iy > -1.0) & (iy < h)
-
-    xs = torch.arange(w, dtype=ct, device=img.device)[None, None, :]
-    ys = torch.arange(h, dtype=ct, device=img.device)[None, :, None]
-    r = int(max_displacement)
-    dy = (iy - ys).clamp(-r, r - 1)
-    dx = (ix - xs).clamp(-r, r - 1)
-    dy0f, dx0f = torch.floor(dy), torch.floor(dx)
-    fy = (dy - dy0f).to(img.dtype)
-    fx = (dx - dx0f).to(img.dtype)
-    out = warp_bounded(img, dy0f.to(torch.int32), dx0f.to(torch.int32),
-                       fy, fx, r)
-
-    if padding_mode != "border":
-        # zero padding: re-weight by the in-bounds bilinear mass
-        ix0, iy0 = torch.floor(ix), torch.floor(iy)
-        wx1, wy1 = ix - ix0, iy - iy0
-        wx0, wy0 = 1 - wx1, 1 - wy1
-        mx0 = ((ix0 >= 0) & (ix0 <= w - 1)).to(ct)
-        mx1 = ((ix0 + 1 >= 0) & (ix0 + 1 <= w - 1)).to(ct)
-        my0 = ((iy0 >= 0) & (iy0 <= h - 1)).to(ct)
-        my1 = ((iy0 + 1 >= 0) & (iy0 + 1 <= h - 1)).to(ct)
-        mass = (wy0 * my0 + wy1 * my1) * (wx0 * mx0 + wx1 * mx1)
-        out = out * mass.to(out.dtype)[:, None]
-        out = torch.where(inb[:, None], out, 0.0)
-    return out
+    have the image's H×W. Out-of-image samples follow ``padding_mode``
+    ('zeros' or 'border'). One kernel launch each way on the card
+    (``ops/warp_bounded.py``); the plain composition on the CPU."""
+    if padding_mode not in warp_bounded.PADDING_MODES:
+        raise ValueError(f"the bounded sampler takes padding "
+                         f"{warp_bounded.PADDING_MODES}, got {padding_mode!r}")
+    return warp_bounded.GridSampleBoundedFunction.apply(
+        img, grid, int(max_displacement), align_corners, padding_mode)
 
 
 def sample(img: torch.Tensor, grid: torch.Tensor, align_corners: bool,

@@ -1,30 +1,48 @@
-"""Bounded bilinear warp — the accumulation at the heart of the fast warp.
+"""Bounded bilinear grid sampler — the fast warp of ``--fast_warp_range``.
+
+Exact bilinear sampling for samples whose displacement from their output
+pixel lies in [−R, R−1] per axis, clamped to that window beyond. Per output
+pixel the grid is unnormalised to (ix, iy) as ``F.grid_sample`` does; the
+displacement dy = clamp(iy − y, −R, R−1) splits into a floor dy0 and a
+fraction fy (dx likewise), and the sample is the accumulation
 
     out(n, c, y, x) = Σ_{d,e ∈ [−R, R+1]} wy_d · wx_e · img_edge(n, c, y+d, x+e)
     wy_d = [dy0 = d](1 − fy) + [dy0 = d − 1]·fy      (wx_e likewise)
 
-with ``img_edge`` the edge-clamped image. For floor displacements
-dy0, dx0 ∈ [−R, R−1] (the caller clips them, ``ops/warp.py``) this is an
-edge-clamped bilinear 2×2 tap at (y+dy0+fy, x+dx0+fx). Layout: img and
-out (N, C, H, W) float32; dy0/dx0 int32 and fy/fx float32, (N, H, W).
+over the edge-clamped image: with dy0, dx0 ∈ [−R, R−1] an edge-clamped
+bilinear 2×2 tap at (y+dy0+fy, x+dx0+fx). Padding 'border' clamps the
+coordinate to the image first; 'zeros' rescales by the in-bounds bilinear
+mass and zeroes samples whose 2×2 support lies wholly outside. Layout: img
+and out (N, C, H, W); grid (N, H, W, 2) with (gx, gy) last, the image's
+H×W.
 
-Two hand-written CUDA kernels (``csrc/warp.cu``) carry it on the card;
-each has a plain PyTorch version here that runs for CPU tensors and that
-the kernels are held against:
+Plain PyTorch pieces (they run for CPU tensors; the kernels are held
+against them on the card):
 
-  * :func:`warp_bounded_forward` — K3, replaces the TPU kernel
-    ``meta_interpolation_tpu/ops/warp_pallas.py:86``
-    (``warp_bounded_pallas``); plain version :func:`warp_bounded_ref`.
-  * :func:`warp_bounded_grad_frac` — the gradient with respect to fy and
-    fx, through which the flow's gradient runs; plain version
-    :func:`warp_bounded_grad_frac_ref`. The JAX package has no TPU kernel
-    for it (its custom VJP autodiffs the XLA sweep); on the card the
-    support backward needs one so that no plain version runs there.
+  * :func:`warp_bounded_ref` — the (2R+2)² sweep, as the JAX package's
+    ``ops/warp.py`` ``_warp_bounded_xla``, with its fy/fx gradient
+    :func:`warp_bounded_grad_frac_ref` and image gradient
+    :func:`warp_bounded_grad_img_ref`, joined by :class:`WarpBoundedRef`.
+  * :func:`grid_sample_bounded_ref` — the whole sampler: the coordinate
+    math, the sweep and the zero-padding mass, as the JAX package's
+    ``grid_sample_bounded``. Differentiable by autograd.
+  * :func:`grid_sample_bounded_grad_grid_ref` — its grid gradient in closed
+    form, the formula the backward kernel computes.
 
-The gradient of the image stays plain PyTorch
-(:func:`warp_bounded_grad_img_ref`). A wrapper given a CUDA tensor
-launches its kernel or raises; it never falls back to the plain version.
-Each wrapper counts its launches in ``<wrapper>.launches``.
+Two hand-written CUDA kernels (``csrc/warp.cu``) carry the sampler on the
+card, each one launch, grid in:
+
+  * :func:`warp_sample_bounded_forward` — K3, replaces the TPU kernel
+    ``meta_interpolation_tpu/ops/warp_pallas.py:86`` (``warp_bounded_pallas``)
+    together with the coordinate math XLA fuses around it.
+  * :func:`warp_sample_bounded_grad_grid` — the grid gradient, for the
+    autodiff of the XLA sweep under the JAX package's custom VJP.
+
+:class:`GridSampleBoundedFunction` joins them; the image gradient, which
+the RRIN path never needs, stays plain (autograd through the plain
+composition). A wrapper given a CUDA tensor launches its kernel or raises;
+it never falls back to the plain version. Each wrapper counts its launches
+in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -37,6 +55,22 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 
+PADDING_MODES = ("zeros", "border")
+
+
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Index and weight math runs at float32 or wider."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _unnormalize(grid: torch.Tensor, h: int, w: int, align_corners: bool):
+    """grid (N, Ho, Wo, 2) → pixel coordinates (ix, iy), each (N, Ho, Wo)."""
+    ct = _compute_dtype(grid.dtype)
+    gx, gy = grid[..., 0].to(ct), grid[..., 1].to(ct)
+    if align_corners:
+        return (gx + 1.0) * 0.5 * (w - 1), (gy + 1.0) * 0.5 * (h - 1)
+    return ((gx + 1.0) * w - 1.0) * 0.5, ((gy + 1.0) * h - 1.0) * 0.5
+
 
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
@@ -46,8 +80,8 @@ def warp_bounded_ref(img: torch.Tensor, dy0: torch.Tensor, dx0: torch.Tensor,
                      fy: torch.Tensor, fx: torch.Tensor, r: int
                      ) -> torch.Tensor:
     """The (2R+2)² weighted sweep over an edge-padded copy, as the JAX
-    package's ``ops/warp.py`` ``_warp_bounded_xla`` computes it.
-    Differentiable by autograd."""
+    package's ``ops/warp.py`` ``_warp_bounded_xla`` computes it. dy0/dx0
+    int32, fy/fx (N, H, W). Differentiable by autograd."""
     h, w = img.shape[2], img.shape[3]
     imgp = F.pad(img, (r, r + 1, r, r + 1), mode="replicate")
     shifts = range(-r, r + 2)
@@ -124,112 +158,10 @@ def warp_bounded_grad_img_ref(img: torch.Tensor, dy0: torch.Tensor,
     return gimg.reshape(n, c, h, w)
 
 
-# ---------------------------------------------------------------------------
-# kernel wrappers
-# ---------------------------------------------------------------------------
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """csrc/warp.cu, built on first use, with its C signatures."""
-    lib = _build.load("warp")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.warp_bounded_forward.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    lib.warp_bounded_forward.restype = i32
-    lib.warp_bounded_grad_frac.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
-    lib.warp_bounded_grad_frac.restype = i32
-    return lib
-
-
-def _check_cuda(img: torch.Tensor, dy0: torch.Tensor, dx0: torch.Tensor,
-                fy: torch.Tensor, fx: torch.Tensor, r: int, g=None):
-    """Validate what the kernels take; returns (n, c, h, w)."""
-    if img.device.type != "cuda":
-        raise ValueError(f"warp kernels take CPU or CUDA tensors, got "
-                         f"{img.device}")
-    if img.dim() != 4:
-        raise ValueError(f"image must be (N, C, H, W), got {tuple(img.shape)}")
-    n, c, h, w = img.shape
-    for t, dtype in [(img, torch.float32), (dy0, torch.int32),
-                     (dx0, torch.int32), (fy, torch.float32),
-                     (fx, torch.float32)] + (
-                         [] if g is None else [(g, torch.float32)]):
-        if t.device != img.device or t.dtype != dtype:
-            raise ValueError(f"warp kernels take {dtype} here, got {t.dtype} "
-                             f"on {t.device}")
-    for t in (dy0, dx0, fy, fx):
-        if tuple(t.shape) != (n, h, w):
-            raise ValueError(f"coordinate plane of shape {tuple(t.shape)} "
-                             f"does not match image {tuple(img.shape)}")
-    if g is not None and g.shape != img.shape:
-        raise ValueError(f"output gradient of shape {tuple(g.shape)} does "
-                         f"not match image {tuple(img.shape)}")
-    if r < 1:
-        raise ValueError(f"warp range must be >= 1, got {r}")
-    return n, c, h, w
-
-
-def _raise_on_error(code: int, name: str):
-    if code != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {code}")
-
-
-def warp_bounded_forward(img: torch.Tensor, dy0: torch.Tensor,
-                         dx0: torch.Tensor, fy: torch.Tensor,
-                         fx: torch.Tensor, r: int) -> torch.Tensor:
-    """K3: the forward. Plain version on CPU tensors, kernel on CUDA."""
-    if img.device.type == "cpu":
-        return warp_bounded_ref(img, dy0, dx0, fy, fx, r)
-    n, c, h, w = _check_cuda(img, dy0, dx0, fy, fx, r)
-    ins = [t.contiguous() for t in (img, dy0, dx0, fy, fx)]
-    out = torch.empty((n, c, h, w), device=img.device, dtype=torch.float32)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = _library().warp_bounded_forward(
-            *(t.data_ptr() for t in ins), out.data_ptr(), n, c, h, w, r,
-            stream)
-    _raise_on_error(code, "warp_bounded_forward")
-    warp_bounded_forward.launches += 1
-    return out
-
-
-warp_bounded_forward.launches = 0
-
-
-def warp_bounded_grad_frac(img: torch.Tensor, dy0: torch.Tensor,
-                           dx0: torch.Tensor, fy: torch.Tensor,
-                           fx: torch.Tensor, g: torch.Tensor, r: int):
-    """(gfy, gfx): plain version on CPU tensors, kernel on CUDA."""
-    if img.device.type == "cpu":
-        return warp_bounded_grad_frac_ref(img, dy0, dx0, fy, fx, g, r)
-    n, c, h, w = _check_cuda(img, dy0, dx0, fy, fx, r, g)
-    ins = [t.contiguous() for t in (img, dy0, dx0, fy, fx, g)]
-    gfy = torch.empty((n, h, w), device=img.device, dtype=torch.float32)
-    gfx = torch.empty_like(gfy)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = _library().warp_bounded_grad_frac(
-            *(t.data_ptr() for t in ins), gfy.data_ptr(), gfx.data_ptr(),
-            n, c, h, w, r, stream)
-    _raise_on_error(code, "warp_bounded_grad_frac")
-    warp_bounded_grad_frac.launches += 1
-    return gfy, gfx
-
-
-warp_bounded_grad_frac.launches = 0
-
-
-def reset_launches():
-    warp_bounded_forward.launches = 0
-    warp_bounded_grad_frac.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# autograd
-# ---------------------------------------------------------------------------
-
-class WarpBoundedFunction(torch.autograd.Function):
-    """Forward is K3; backward is the fy/fx gradient kernel plus the plain
-    image gradient when the image needs one. dy0/dx0 are integers and get
+class WarpBoundedRef(torch.autograd.Function):
+    """The sweep with its closed-form gradients: forward
+    :func:`warp_bounded_ref`, backward :func:`warp_bounded_grad_frac_ref`
+    and :func:`warp_bounded_grad_img_ref`. dy0/dx0 are integers and get
     none. The backward is not itself differentiable
     (``once_differentiable``), like the JAX custom VJP."""
 
@@ -237,7 +169,7 @@ class WarpBoundedFunction(torch.autograd.Function):
     def forward(ctx, img, dy0, dx0, fy, fx, r):
         ctx.save_for_backward(img, dy0, dx0, fy, fx)
         ctx.r = r
-        return warp_bounded_forward(img, dy0, dx0, fy, fx, r)
+        return warp_bounded_ref(img, dy0, dx0, fy, fx, r)
 
     @staticmethod
     @once_differentiable
@@ -245,13 +177,267 @@ class WarpBoundedFunction(torch.autograd.Function):
         img, dy0, dx0, fy, fx = ctx.saved_tensors
         gfy = gfx = gimg = None
         if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
-            gfy, gfx = warp_bounded_grad_frac(img, dy0, dx0, fy, fx, g, ctx.r)
+            gfy, gfx = warp_bounded_grad_frac_ref(img, dy0, dx0, fy, fx, g,
+                                                  ctx.r)
         if ctx.needs_input_grad[0]:
             gimg = warp_bounded_grad_img_ref(img, dy0, dx0, fy, fx, g, ctx.r)
         return gimg, None, None, gfy, gfx, None
 
 
-def warp_bounded(img: torch.Tensor, dy0: torch.Tensor, dx0: torch.Tensor,
-                 fy: torch.Tensor, fx: torch.Tensor, r: int) -> torch.Tensor:
-    """img (N, C, H, W); dy0/dx0 int32, fy/fx (N, H, W) → (N, C, H, W)."""
-    return WarpBoundedFunction.apply(img, dy0, dx0, fy, fx, r)
+def grid_sample_bounded_ref(img: torch.Tensor, grid: torch.Tensor, r: int,
+                            align_corners: bool = False,
+                            padding_mode: str = "zeros",
+                            warp=WarpBoundedRef.apply) -> torch.Tensor:
+    """The whole sampler in plain PyTorch, as the JAX package's
+    ``grid_sample_bounded``; ``warp(img, dy0, dx0, fy, fx, r)`` is the
+    accumulation (the sweep; ``chip_smoke.py --earlier-warp`` passes an
+    earlier kernel's). Differentiable by autograd."""
+    n, c, h, w = img.shape
+    ix, iy = _unnormalize(grid, h, w, align_corners)
+    ct = ix.dtype
+    if padding_mode == "border":
+        ix = ix.clamp(0.0, w - 1)
+        iy = iy.clamp(0.0, h - 1)
+    else:
+        # zeros: samples whose 2×2 support is wholly outside read 0
+        inb = (ix > -1.0) & (ix < w) & (iy > -1.0) & (iy < h)
+
+    xs = torch.arange(w, dtype=ct, device=img.device)[None, None, :]
+    ys = torch.arange(h, dtype=ct, device=img.device)[None, :, None]
+    dy = (iy - ys).clamp(-r, r - 1)
+    dx = (ix - xs).clamp(-r, r - 1)
+    dy0f, dx0f = torch.floor(dy), torch.floor(dx)
+    fy = (dy - dy0f).to(img.dtype)
+    fx = (dx - dx0f).to(img.dtype)
+    out = warp(img, dy0f.to(torch.int32), dx0f.to(torch.int32), fy, fx, r)
+
+    if padding_mode != "border":
+        # zero padding: re-weight by the in-bounds bilinear mass
+        ix0, iy0 = torch.floor(ix), torch.floor(iy)
+        wx1, wy1 = ix - ix0, iy - iy0
+        wx0, wy0 = 1 - wx1, 1 - wy1
+        mx0 = ((ix0 >= 0) & (ix0 <= w - 1)).to(ct)
+        mx1 = ((ix0 + 1 >= 0) & (ix0 + 1 <= w - 1)).to(ct)
+        my0 = ((iy0 >= 0) & (iy0 <= h - 1)).to(ct)
+        my1 = ((iy0 + 1 >= 0) & (iy0 + 1 <= h - 1)).to(ct)
+        mass = (wy0 * my0 + wy1 * my1) * (wx0 * mx0 + wx1 * mx1)
+        out = out * mass.to(out.dtype)[:, None]
+        out = torch.where(inb[:, None], out, 0.0)
+    return out
+
+
+def _axis(i: torch.Tensor, pos: torch.Tensor, size: int, r: int,
+          border: bool):
+    """One axis of the sampler at the coordinates ``i`` of the outputs at
+    ``pos``: (floor displacement int32, fraction, in-image mass, its
+    derivative, the clamps' gradient pass-through, validity or None), with
+    the operations of :func:`grid_sample_bounded_ref` in its order."""
+    if border:
+        passes = ((i >= 0.0) & (i <= size - 1)).to(i.dtype)
+        i = i.clamp(0.0, size - 1)
+        mass, dmass, valid = 1.0, 0.0, None
+    else:
+        passes = 1.0
+        valid = (i > -1.0) & (i < size)
+        i0 = torch.floor(i)
+        w1 = i - i0
+        m0 = ((i0 >= 0) & (i0 <= size - 1)).to(i.dtype)
+        m1 = ((i0 + 1 >= 0) & (i0 + 1 <= size - 1)).to(i.dtype)
+        mass, dmass = (1 - w1) * m0 + w1 * m1, m1 - m0
+    d = i - pos
+    passes = ((d >= -r) & (d <= r - 1)).to(i.dtype) * passes
+    d = d.clamp(-r, r - 1)
+    d0 = torch.floor(d)
+    return d0.to(torch.int32), d - d0, mass, dmass, passes, valid
+
+
+def grid_sample_bounded_grad_grid_ref(img: torch.Tensor, grid: torch.Tensor,
+                                      g: torch.Tensor, r: int,
+                                      align_corners: bool = False,
+                                      padding_mode: str = "zeros"
+                                      ) -> torch.Tensor:
+    """The grid gradient (N, H, W, 2) of :func:`grid_sample_bounded_ref`
+    for the output gradient g, in closed form, per axis (x shown):
+
+        g_ix = Σ_c g_c·[mass·cx·∂bil_c/∂fx + bil_c·Y·(mx1 − mx0)]  (zeros)
+        g_ix = bx·cx·Σ_c g_c·∂bil_c/∂fx                            (border)
+
+    with ∂bil/∂fx = wy0(v01 − v00) + wy1(v11 − v10), cx = [−R ≤ ix − x ≤
+    R−1] (the clamp's gradient, inclusive), bx = [0 ≤ ix ≤ W−1], Y the
+    y axis's in-image mass; 0 where a 'zeros' sample is invalid. Then g_gx
+    = g_ix·W/2 ((W−1)/2 with align_corners)."""
+    n, c, h, w = img.shape
+    border = padding_mode == "border"
+    ix, iy = _unnormalize(grid, h, w, align_corners)
+    xs = torch.arange(w, dtype=ix.dtype, device=img.device)[None, None, :]
+    ys = torch.arange(h, dtype=ix.dtype, device=img.device)[None, :, None]
+    dx0, fx, mx, dmx, cx, vx = _axis(ix, xs, w, r, border)
+    dy0, fy, my, dmy, cy, vy = _axis(iy, ys, h, r, border)
+    (v00, v01, v10, v11), _, _ = _taps(img, dy0, dx0, r)
+    fx, fy = fx.to(img.dtype)[:, None], fy.to(img.dtype)[:, None]
+    top = (1 - fx) * v00 + fx * v01
+    bot = (1 - fx) * v10 + fx * v11
+    sdx = (g * ((1 - fy) * (v01 - v00) + fy * (v11 - v10))).sum(1)
+    sdy = (g * (bot - top)).sum(1)
+    if border:
+        gix, giy = cx * sdx, cy * sdy
+    else:
+        sb = (g * ((1 - fy) * top + fy * bot)).sum(1)
+        mass, valid = my * mx, vx & vy
+        gix = torch.where(valid, mass * cx * sdx + my * dmx * sb, 0.0)
+        giy = torch.where(valid, mass * cy * sdy + mx * dmy * sb, 0.0)
+    sx = 0.5 * ((w - 1) if align_corners else w)
+    sy = 0.5 * ((h - 1) if align_corners else h)
+    return torch.stack([gix * sx, giy * sy], -1).to(grid.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of csrc/warp.cu on a loaded build."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.warp_sample_bounded_forward.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
+    lib.warp_sample_bounded_forward.restype = i32
+    lib.warp_sample_bounded_grad_grid.argtypes = ([ptr] * 4 + [i32] * 7
+                                                  + [ptr])
+    lib.warp_sample_bounded_grad_grid.restype = i32
+    return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """csrc/warp.cu, built on first use, with its C signatures."""
+    return _bind(_build.load("warp"))
+
+
+def _check(img: torch.Tensor, grid: torch.Tensor, r: int, padding_mode: str,
+           g=None):
+    """Validate what the kernels take, in one pass; returns (n, c, h, w)."""
+    if img.device.type != "cuda":
+        raise ValueError(f"warp kernels take CPU or CUDA tensors, got "
+                         f"{img.device}")
+    n, c, h, w = img.shape
+    if (tuple(grid.shape) != (n, h, w, 2) or grid.device != img.device
+            or img.dtype != torch.float32 or grid.dtype != torch.float32
+            or (g is not None and (g.shape != img.shape
+                                   or g.device != img.device
+                                   or g.dtype != torch.float32))
+            or r < 1 or padding_mode not in PADDING_MODES):
+        raise ValueError(
+            f"warp kernels take a float32 image (N, C, H, W), a float32 grid "
+            f"(N, H, W, 2) and output gradient of the image's shape on one "
+            f"device, R >= 1 and padding {PADDING_MODES}; got image "
+            f"{tuple(img.shape)} {img.dtype}, grid {tuple(grid.shape)} "
+            f"{grid.dtype} on {grid.device}"
+            + ("" if g is None else f", g {tuple(g.shape)} {g.dtype}")
+            + f", R={r}, padding {padding_mode!r}")
+    return n, c, h, w
+
+
+def _launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream, switching the
+    current device only when it is another."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def _aligned(grid: torch.Tensor) -> torch.Tensor:
+    """The grid, contiguous; the kernels read a pixel's (gx, gy) as one
+    8-byte load, so a grid that is not 8-byte aligned is copied."""
+    grid = grid.contiguous()
+    if grid.data_ptr() % 8:
+        grid = grid.clone()
+    return grid
+
+
+def warp_sample_bounded_forward(img: torch.Tensor, grid: torch.Tensor,
+                                r: int, align_corners: bool = False,
+                                padding_mode: str = "zeros") -> torch.Tensor:
+    """K3: the sampler's output (N, C, H, W). Plain version on CPU tensors,
+    the kernel on CUDA."""
+    if img.device.type == "cpu":
+        return grid_sample_bounded_ref(img, grid, r, align_corners,
+                                       padding_mode)
+    n, c, h, w = _check(img, grid, r, padding_mode)
+    img, grid = img.contiguous(), _aligned(grid)
+    out = torch.empty_like(img)
+    code = _launch(_library().warp_sample_bounded_forward, img.device,
+                   img.data_ptr(), grid.data_ptr(), out.data_ptr(), n, c, h,
+                   w, r, int(align_corners), int(padding_mode == "border"))
+    if code != 0:
+        raise RuntimeError(f"warp_sample_bounded_forward launch failed: "
+                           f"cudaError {code}")
+    warp_sample_bounded_forward.launches += 1
+    return out
+
+
+warp_sample_bounded_forward.launches = 0
+
+
+def warp_sample_bounded_grad_grid(img: torch.Tensor, grid: torch.Tensor,
+                                  g: torch.Tensor, r: int,
+                                  align_corners: bool = False,
+                                  padding_mode: str = "zeros"
+                                  ) -> torch.Tensor:
+    """K3-grad: the grid gradient (N, H, W, 2) for the output gradient g.
+    The closed form on CPU tensors, the kernel on CUDA."""
+    if img.device.type == "cpu":
+        return grid_sample_bounded_grad_grid_ref(img, grid, g, r,
+                                                 align_corners, padding_mode)
+    n, c, h, w = _check(img, grid, r, padding_mode, g)
+    img, grid, g = img.contiguous(), _aligned(grid), g.contiguous()
+    ggrid = torch.empty_like(grid)
+    code = _launch(_library().warp_sample_bounded_grad_grid, img.device,
+                   img.data_ptr(), grid.data_ptr(), g.data_ptr(),
+                   ggrid.data_ptr(), n, c, h, w, r, int(align_corners),
+                   int(padding_mode == "border"))
+    if code != 0:
+        raise RuntimeError(f"warp_sample_bounded_grad_grid launch failed: "
+                           f"cudaError {code}")
+    warp_sample_bounded_grad_grid.launches += 1
+    return ggrid
+
+
+warp_sample_bounded_grad_grid.launches = 0
+
+
+def reset_launches():
+    warp_sample_bounded_forward.launches = 0
+    warp_sample_bounded_grad_grid.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+class GridSampleBoundedFunction(torch.autograd.Function):
+    """Inputs (img, grid), with R, align_corners and padding_mode fixed.
+    Forward is K3; backward is K3-grad for the grid and, only when the
+    image needs one, the plain image gradient (autograd through
+    :func:`grid_sample_bounded_ref`). The backward is not itself
+    differentiable (``once_differentiable``), like the JAX custom VJP."""
+
+    @staticmethod
+    def forward(ctx, img, grid, r, align_corners, padding_mode):
+        ctx.save_for_backward(img, grid)
+        ctx.opts = (r, align_corners, padding_mode)
+        return warp_sample_bounded_forward(img, grid, *ctx.opts)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        img, grid = ctx.saved_tensors
+        gimg = ggrid = None
+        if ctx.needs_input_grad[1]:
+            ggrid = warp_sample_bounded_grad_grid(img, grid, g, *ctx.opts)
+        if ctx.needs_input_grad[0]:
+            with torch.enable_grad():
+                leaf = img.detach().requires_grad_()
+                out = grid_sample_bounded_ref(leaf, grid.detach(), *ctx.opts)
+                gimg, = torch.autograd.grad(out, leaf, g)
+        return gimg, ggrid, None, None, None
+

@@ -70,7 +70,7 @@ def main():
     fns, failed = {}, []
     for name in versions:
         try:
-            lib = cs.finish_build(fpb, *builds[name], name,
+            lib = cs.finish_build(fpb._bind, *builds[name], name,
                                   cs.PROJECTION_KERNELS)
             fns[name] = cs.on_library(fpb, lib, fpb.flow_projection_bounded)
             if not args.no_check:

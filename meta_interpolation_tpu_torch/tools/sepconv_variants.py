@@ -94,7 +94,7 @@ def main():
     fns, failed = {}, []
     for name in versions:
         try:
-            lib = cs.finish_build(sc, *builds[name], name,
+            lib = cs.finish_build(sc._bind, *builds[name], name,
                                   cs.SEPCONV_KERNELS)
             fns[name] = (cs.on_library(sc, lib, sc.sepconv_forward),
                          cs.on_library(sc, lib, sc.sepconv_grad_kernels))

@@ -128,3 +128,77 @@ def test_proj_flow_makes_each_kind(kind):
         assert bool((y2 == h // 2).all() and (x2 == w // 2).all())
     else:
         assert bool((y2 == 12).all() and (x2 <= 31).all())
+
+
+@pytest.mark.parametrize("argv, want", [
+    ([], None), (["--earlier-warp", "build/warp.cu"], "build/warp.cu")])
+def test_parse_args_takes_an_earlier_warp(argv, want):
+    args = chip_smoke.parse_args(argv)
+    assert args.earlier_warp == want
+    assert args.earlier_projection is None and args.earlier_sepconv is None
+
+
+def test_kernel_resources_take_the_most_over_template_instances():
+    """K3 is built for C = 3 and for any C: two entries, one wrapper."""
+    log = "".join(
+        f"""ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122warp_sample_fwd_kernelILi{k}EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for x
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used {regs} registers
+""" for k, regs in ((3, 40), (0, 36)))
+    res = chip_smoke.kernel_resources(
+        log, "warp.cu", {"warp_sample_bounded_forward":
+                         "warp_sample_fwd_kernel"})
+    assert res == {"warp_sample_bounded_forward": {"stack": 0, "spill": 0,
+                                                   "registers": 40}}
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("kind", ["uniform", "integer", "outside", "library",
+                                  "smooth"])
+def test_warp_grid_makes_each_kind(kind, align_corners):
+    """Each K3 check grid, unnormalised as F.grid_sample reads it: seeded;
+    uniform floors over [lo, hi]; integer ones on whole pixels; outside
+    ones off every edge of the image; library ones with fractions away
+    from whole pixels; smooth ones within min(-lo, hi) pixels."""
+    import torch
+    n, h, w, lo, hi = 2, 37, 53, -8, 6
+    grid = chip_smoke.warp_grid(torch, kind, n, h, w, lo, hi, align_corners,
+                                seed=3)
+    assert grid.shape == (n, h, w, 2) and grid.dtype == torch.float32
+    assert torch.equal(grid, chip_smoke.warp_grid(
+        torch, kind, n, h, w, lo, hi, align_corners, 3))
+    size = torch.tensor([w, h], dtype=torch.float64)
+    g = grid.double()
+    coord = ((g + 1) / 2 * (size - 1) if align_corners
+             else ((g + 1) * size - 1) / 2)
+    pos = torch.stack(torch.meshgrid(torch.arange(w), torch.arange(h),
+                                     indexing="xy"), -1).double()
+    disp, frac = coord - pos, coord - coord.floor()
+    if kind in ("uniform", "library"):
+        assert disp.floor().min() == lo and disp.floor().max() == hi
+    if kind == "integer":
+        assert (coord - coord.round()).abs().max() < 1e-4
+        assert disp.round().min() == lo and disp.round().max() == hi
+    elif kind == "outside":
+        for axis, extent in ((0, w), (1, h)):
+            assert coord[..., axis].min() < -1
+            assert coord[..., axis].max() > extent
+    elif kind == "library":
+        assert frac.min() > 0.05 - 1e-4 and frac.max() < 0.95 + 1e-4
+    elif kind == "smooth":
+        assert disp.abs().max() <= min(-lo, hi) + 1e-4
+
+
+def test_warp_cases_cover_every_setting():
+    """Both paddings and both align_corners; R = 1, 3 and 8 on the ragged
+    shapes; every displacement kind; C = 3 and another C, N = 1 and 2; the
+    main-path shape at R = 8."""
+    cases = chip_smoke.warp_cases()
+    assert {(c[8], c[9]) for c in cases} == {
+        (a, p) for a in (False, True) for p in ("zeros", "border")}
+    assert {c[7] for c in cases} == {1, 3, 8}
+    assert {c[6] for c in cases} == {"uniform", "integer", "outside"}
+    assert {c[:2] for c in cases} == {(1, 3), (2, 2)}
+    assert (1, 3, 256, 512, -8, 7, "uniform", 8, False, "zeros") in cases
+    assert any(c[5] > c[7] for c in cases)   # displacements past R

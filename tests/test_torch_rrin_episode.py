@@ -128,5 +128,5 @@ def test_cli_val_runs_rrin_on_the_cpu(tmp_path, capsys):
     assert out.count("[val epoch 0] loss") == 1
     assert np.isfinite(stats["psnr"]) and np.isfinite(stats["ssim"])
     # the CPU path runs the plain versions, never a kernel
-    assert wb.warp_bounded_forward.launches == 0
-    assert wb.warp_bounded_grad_frac.launches == 0
+    assert wb.warp_sample_bounded_forward.launches == 0
+    assert wb.warp_sample_bounded_grad_grid.launches == 0

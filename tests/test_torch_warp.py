@@ -5,7 +5,8 @@ the CPU.
 On CPU tensors the port's wrappers run their plain PyTorch versions; the
 CUDA kernels they stand for are held against the same plain versions on
 the card by chip_smoke.py. Inputs come from a numpy seed; JAX images are
-NHWC, the port's NCHW; coordinate planes are (N, H, W) in both.
+NHWC, the port's NCHW; coordinate planes are (N, H, W) and grids
+(N, H, W, 2) in both.
 """
 import jax
 import jax.numpy as jnp
@@ -62,7 +63,7 @@ def test_plain_forward_matches_pallas_interpret():
     coords = _coords(1, 16, 128, r, seed=9)
     want = warp_pallas.warp_bounded_pallas(
         jnp.asarray(img), *map(jnp.asarray, coords), r, interpret=True)
-    got = wb.warp_bounded_forward(_t(img), *_torch_coords(*coords), r)
+    got = wb.warp_bounded_ref(_t(img), *_torch_coords(*coords), r)
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=ATOL)
 
 
@@ -75,7 +76,7 @@ def test_plain_forward_matches_xla_sweep(n, h, w, c, r, lo, hi):
     coords = _coords(n, h, w, r, seed=w, lo=lo, hi=hi)
     want = jax_warp._warp_bounded_xla(jnp.asarray(img),
                                       *map(jnp.asarray, coords), r)
-    got = wb.warp_bounded_forward(_t(img), *_torch_coords(*coords), r)
+    got = wb.warp_bounded_ref(_t(img), *_torch_coords(*coords), r)
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=ATOL)
 
 
@@ -90,7 +91,7 @@ def test_plain_forward_is_the_clamped_bilinear_tap():
     grid = torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1], -1)
     want = torch.nn.functional.grid_sample(
         img, grid, padding_mode="border", align_corners=True)
-    got = wb.warp_bounded_forward(img, dy0, dx0, fy, fx, r)
+    got = wb.warp_bounded_ref(img, dy0, dx0, fy, fx, r)
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
 
 
@@ -110,8 +111,8 @@ def test_function_gradients_match_jax_vjp():
     t_img = _t(img).requires_grad_()
     t_fy = torch.from_numpy(fy).requires_grad_()
     t_fx = torch.from_numpy(fx).requires_grad_()
-    out = wb.warp_bounded(t_img, torch.from_numpy(dy0),
-                          torch.from_numpy(dx0), t_fy, t_fx, r)
+    out = wb.WarpBoundedRef.apply(t_img, torch.from_numpy(dy0),
+                                  torch.from_numpy(dx0), t_fy, t_fx, r)
     (out * _t(g)).sum().backward()
     for got, want, name in [(_np(t_img.grad), j_img, "gimg"),
                             (t_fy.grad.numpy(), j_fy, "gfy"),
@@ -130,36 +131,51 @@ def test_plain_frac_gradient_matches_autograd_of_sweep(lo, hi):
     fy.requires_grad_()
     fx.requires_grad_()
     (wb.warp_bounded_ref(img, dy0, dx0, fy, fx, r) * g).sum().backward()
-    gfy, gfx = wb.warp_bounded_grad_frac(img, dy0, dx0, fy.detach(),
-                                         fx.detach(), g, r)
+    gfy, gfx = wb.warp_bounded_grad_frac_ref(img, dy0, dx0, fy.detach(),
+                                             fx.detach(), g, r)
     torch.testing.assert_close(gfy, fy.grad, rtol=GRAD_RTOL, atol=GRAD_ATOL)
     torch.testing.assert_close(gfx, fx.grad, rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
-def test_function_skips_the_image_gradient_when_not_needed():
+@pytest.mark.parametrize("function", ["sweep", "sampler"])
+def test_function_skips_the_image_gradient_when_not_needed(function):
+    """The sweep's Function with only fy needing a gradient, and the
+    sampler's (GridSampleBoundedFunction) with only the grid needing one:
+    the image gets none."""
     n, h, w, c, r = 1, 6, 7, 3, 2
     img = _t(np.random.RandomState(7).rand(n, h, w, c).astype(np.float32))
-    dy0, dx0, fy, fx = _torch_coords(*_coords(n, h, w, r, seed=8))
-    fy.requires_grad_()
-    wb.warp_bounded(img, dy0, dx0, fy, fx, r).sum().backward()
-    assert img.grad is None and fx.grad is None
-    assert torch.isfinite(fy.grad).all() and fy.grad.abs().sum() > 0
+    if function == "sweep":
+        dy0, dx0, leaf, fx = _torch_coords(*_coords(n, h, w, r, seed=8))
+        leaf.requires_grad_()
+        wb.WarpBoundedRef.apply(img, dy0, dx0, leaf, fx, r).sum().backward()
+        assert fx.grad is None
+    else:
+        leaf = torch.from_numpy(_grid(n, h, w, False, 3, seed=8))
+        leaf.requires_grad_()
+        wb.GridSampleBoundedFunction.apply(img, leaf, r, False, "zeros"
+                                           ).sum().backward()
+    assert img.grad is None
+    assert torch.isfinite(leaf.grad).all() and leaf.grad.abs().sum() > 0
 
 
 def test_cpu_calls_count_no_launches_and_other_devices_raise():
     n, h, w, c, r = 1, 4, 5, 3, 2
     img = _t(np.random.RandomState(9).rand(n, h, w, c).astype(np.float32))
-    coords = _torch_coords(*_coords(n, h, w, r, seed=10))
+    grid = torch.from_numpy(_grid(n, h, w, False, 3, seed=10))
     wb.reset_launches()
-    out = wb.warp_bounded_forward(img, *coords, r)
-    wb.warp_bounded_grad_frac(img, *coords, out, r)
-    assert wb.warp_bounded_forward.launches == 0
-    assert wb.warp_bounded_grad_frac.launches == 0
-    meta = [t.to("meta") for t in [img] + coords]
+    out = wb.warp_sample_bounded_forward(img, grid, r)
+    wb.warp_sample_bounded_grad_grid(img, grid, out, r)
+    leaf = grid.clone().requires_grad_()
+    warp.grid_sample_bounded(img, leaf, r).sum().backward()
+    assert wb.warp_sample_bounded_forward.launches == 0
+    assert wb.warp_sample_bounded_grad_grid.launches == 0
+    meta = [t.to("meta") for t in (img, grid)]
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        wb.warp_bounded_forward(*meta, r)
+        wb.warp_sample_bounded_forward(*meta, r)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        wb.warp_bounded_grad_frac(*meta, out.to("meta"), r)
+        wb.warp_sample_bounded_grad_grid(*meta, out.to("meta"), r)
+    with pytest.raises(ValueError, match="padding"):
+        warp.grid_sample_bounded(img, grid, r, padding_mode="reflection")
 
 
 # --- (c) the warp API ---------------------------------------------------------
@@ -251,7 +267,109 @@ def test_backward_warp_rrin_and_its_flow_gradient_match_jax(warp_range):
                                rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
-# --- (d) reflect padding ------------------------------------------------------
+# --- (d) the bounded sampler's Function and its closed-form grid gradient --
+
+SAMPLER_R = 3
+GRID_KINDS = ["within", "past", "integer", "outside"]
+
+
+def _sampler_grid(kind, align_corners, seed, ties=False, n=2):
+    """(h, w, grid) for a grid kind, at 8×16 (9×17 with align_corners), where
+    a whole pixel coordinate normalises exactly in float32. "within":
+    displacements in (−R, R−1) off the clamp's ends; "past": up to ±(R+4),
+    clamped; "integer": whole displacements in [−R+1, R−2] landing in
+    [1, W−2], off the clamps' ties (JAX's clip passes half a gradient at a
+    tie, torch's clamp all of it), or with ``ties`` in [−R−1, R] anywhere in
+    the image; "outside": the frame zoomed out by 1.3 around its centre, so
+    that the edge pixels sample off every edge of the image."""
+    h, w = (9, 17) if align_corners else (8, 16)
+    r = SAMPLER_R
+    rs = np.random.RandomState(seed)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    pos = np.stack([xs, ys], -1)[None].astype(np.float64)
+    size = np.array([w, h], np.float64)
+    if kind == "within":
+        coord = pos + rs.uniform(-r + 0.01, r - 1.01, (n, h, w, 2))
+    elif kind == "past":
+        coord = pos + rs.uniform(-r - 4, r + 4, (n, h, w, 2))
+    elif kind == "integer":
+        lo, hi = (-r - 1, r) if ties else (-r + 1, r - 2)
+        coord = pos + rs.randint(lo, hi + 1, (n, h, w, 2))
+        if not ties:
+            coord = np.clip(coord, 1, size - 2)
+    else:
+        centre = (size - 1) / 2
+        coord = ((pos - centre) * 1.3 + centre
+                 + rs.uniform(-0.3, 0.3, (n, h, w, 2)))
+    if align_corners:
+        grid = 2 * coord / (size - 1) - 1
+    else:
+        grid = (2 * coord + 1) / size - 1
+    return h, w, grid.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", GRID_KINDS)
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_sampler_function_and_its_gradients_match_jax(align_corners,
+                                                      padding_mode, kind):
+    """GridSampleBoundedFunction's output and its grid and image gradients
+    against JAX's grid_sample_bounded and its jax.vjp."""
+    c, r = 3, SAMPLER_R
+    h, w, grid = _sampler_grid(kind, align_corners, seed=len(kind))
+    rs = np.random.RandomState(11)
+    img = rs.rand(2, h, w, c).astype(np.float32)
+    g = rs.randn(2, h, w, c).astype(np.float32)
+    kw = dict(align_corners=align_corners, padding_mode=padding_mode)
+    want, vjp = jax.vjp(
+        lambda i, gr: jax_warp.grid_sample_bounded(i, gr, r, **kw),
+        jnp.asarray(img), jnp.asarray(grid))
+    j_img, j_grid = vjp(jnp.asarray(g))
+
+    t_img = _t(img).requires_grad_()
+    t_grid = torch.from_numpy(grid).requires_grad_()
+    got = wb.GridSampleBoundedFunction.apply(t_img, t_grid, r, align_corners,
+                                             padding_mode)
+    (got * _t(g)).sum().backward()
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=ATOL)
+    for got_g, want_g, name in [(t_grid.grad.numpy(), j_grid, "grid"),
+                                (_np(t_img.grad), j_img, "img")]:
+        np.testing.assert_allclose(got_g, np.asarray(want_g), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=name)
+    if kind == "past":   # the clamp really bit
+        exact = warp.grid_sample(_t(img), torch.from_numpy(grid), **kw)
+        assert (got - exact).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("kind", GRID_KINDS)
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_closed_form_grid_gradient_matches_autograd(align_corners,
+                                                    padding_mode, kind):
+    """The closed form the backward kernel computes (and the Function runs
+    on the CPU) against autograd through the plain composition, the clamps'
+    ties included; the Function's forward is the plain composition, bit
+    for bit."""
+    c, r = 3, SAMPLER_R
+    h, w, grid = _sampler_grid(kind, align_corners, seed=7 + len(kind),
+                               ties=True)
+    rs = np.random.RandomState(12)
+    img = _t(rs.rand(2, h, w, c).astype(np.float32))
+    g = _t(rs.randn(2, h, w, c).astype(np.float32))
+    leaf = torch.from_numpy(grid).requires_grad_()
+    want = wb.grid_sample_bounded_ref(img, leaf, r, align_corners,
+                                      padding_mode)
+    (want * g).sum().backward()
+    got = wb.grid_sample_bounded_grad_grid_ref(img, leaf.detach(), g, r,
+                                               align_corners, padding_mode)
+    torch.testing.assert_close(got, leaf.grad, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+    assert got.abs().max() > 0
+    assert torch.equal(wb.GridSampleBoundedFunction.apply(
+        img, leaf.detach(), r, align_corners, padding_mode), want.detach())
+
+
+# --- (e) reflect padding ------------------------------------------------------
 
 @pytest.mark.parametrize("shape,pad", [
     ((1, 5, 6, 2), 2),
