@@ -46,6 +46,16 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
          validation clips (crop 256, Adamax, Meta-SGD, 3 inner steps), full
          256x448 Vimeo-size clips through run_validation_iter, and a
          crop-64 clip on the card against the same clip on the CPU;
+       - SepConv meta-training (run_sepconv.sh: batch 3, Adamax, Meta-SGD,
+         3 inner steps, first order): the double backward of the sepconv
+         op (two K1 and one K2) against autograd through the plain
+         version; the training CLI at crop 256 for 4 iterations with its
+         checkpoint, K1/K2 launches per train iteration and per validation
+         clip, and a run resumed from the checkpoint; seconds per train
+         iteration, its profile and peak memory; one second-order
+         iteration with the plain sepconv patched to raise, and its
+         launches against the count derived above; first- and
+         second-order outer gradients on the card against the CPU;
        - RRIN: the same three with the run_rrin.sh hyperparameters (Adam,
          LSLR, 0 training steps) plus 1 evaluation step and
          --fast_warp_range 8, the 256x448 episodes timed in turns with
@@ -59,8 +69,9 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
          meta system); a 64x64 clip on the card against the CPU, and a
          served 64x64 frame on the card against the CPU given the card's
          flows, depths and offsets;
-  5. a JSON line of per-kernel results, the card line again, and the last
-     line {"ok": true, "device": {...}}.
+  5. a JSON line of per-kernel results (K1/K2 launches: the training
+     CLI's), the card line again, and the last line {"ok": true, "device":
+     {...}}.
 """
 import argparse
 import json
@@ -85,6 +96,32 @@ EVAL_FLAGS = ["--model", "sepconv", "--mode", "val", "--optimizer", "Adamax",
 STEPS, PAIRS, CALLS = 3, 2, 2   # inner steps, support pairs, sepconvs a pass
 K1_PER_CLIP = PAIRS * CALLS * STEPS + CALLS   # support passes + the query
 K2_PER_CLIP = PAIRS * CALLS * STEPS           # support backwards
+# SepConv meta-training: scripts/run_sepconv.sh (first order)
+TRAIN_FLAGS = ["--model", "sepconv", "--mode", "train", "--dataset",
+               "synthetic", "--loss", "1*L1", "--optimizer", "Adamax",
+               "--batch_size", "3", "--val_batch_size", "1", "--inner_lr",
+               "1e-5", "--outer_lr", "1e-5",
+               "--number_of_training_steps_per_iter", "3",
+               "--number_of_evaluation_steps_per_iter", "3", "--metasgd"]
+TASKS = 3                      # the preset's batch
+TRAIN_ITERS, TRAIN_REPS = 4, 5  # CLI iterations; timed iterations
+# first order, a task: the evaluation episode's launches with the query on
+# the tape, plus its backward (a K2 a query sepconv)
+K1_PER_TRAIN_ITER = TASKS * K1_PER_CLIP
+K2_PER_TRAIN_ITER = TASKS * (K2_PER_CLIP + CALLS)
+# second order, a task: a support sepconv runs K1 forward and K2 in the
+# inner gradient; the outer backward gives each such K2 node its double
+# backward (2 K1, 1 K2) and each support K1 node its K2; the query runs
+# K1 and K2 as in first order
+K1_PER_TASK_SECOND_ORDER = 3 * PAIRS * CALLS * STEPS + CALLS
+K2_PER_TASK_SECOND_ORDER = 3 * PAIRS * CALLS * STEPS + CALLS
+# (N, H, W, F) of the double-backward checks: a ragged map, SepConv's
+DOUBLE_BACKWARD_SHAPES = [(1, 37, 53, 51), (1, 384, 512, 51)]
+# card vs CPU outer gradients: the loss, and each parameter group's
+# gradient in norm (an inner Adamax step is ~lr·sign(g): an element whose
+# support gradient is within the devices' rounding of zero may step the
+# other way on one of them)
+LOSS_RTOL, OUTER_GRAD_RTOL = 1e-5, 1e-3
 # (N, H, W, F) of the K1/K2 checks; timed: last. H and W off the 16x16 and
 # 16x8 tiles and the 4- and 2-pixel strips; F odd, even and small
 KERNEL_SHAPES = [(1, 37, 53, 51), (2, 21, 70, 51), (2, 21, 70, 5),
@@ -1074,6 +1111,253 @@ def main_path_phase(torch, mods, earlier_lib=None):
     return launches
 
 
+def double_backward_phase(torch, sc):
+    """SepConvGradKernelsFunction's vector-Jacobian products w.r.t. g, kv
+    and kh, built from K1 and K2, against autograd through the plain
+    grad_kernels_ref, at a ragged map and at the SepConv shape. Returns
+    the K1 and K2 launches of one double backward."""
+    counts = None
+    for n, h, w, f in DOUBLE_BACKWARD_SHAPES:
+        gen = torch.Generator().manual_seed(h * 1000 + w)
+        inp = torch.rand(n, 3, h + f - 1, w + f - 1, generator=gen).cuda()
+        g, kv, kh = (torch.randn(n, *shape, generator=gen).cuda()
+                     for shape in ((3, h, w), (f, h, w), (f, h, w)))
+        cot = [torch.randn(n, f, h, w, generator=gen).cuda()
+               for _ in range(2)]
+        grads = []
+        for fn in (sc.SepConvGradKernelsFunction.apply, sc.grad_kernels_ref):
+            leaves = [t.clone().requires_grad_() for t in (g, kv, kh)]
+            out = fn(inp, *leaves)
+            reset_launches((sc,))
+            grads.append(torch.autograd.grad(out, leaves, cot))
+            if counts is None:
+                torch.cuda.synchronize()
+                counts = launch_counts((sc,))
+        what = f"{n}x{h}x{w} F={f}"
+        errs = [max_err(a, b, f"double backward d{name} {what}")
+                for a, b, name in zip(*grads, ("g", "kv", "kh"))]
+        print(f"[train] double backward {what}: dg, dkv, dkh agree with "
+              f"autograd through grad_kernels_ref (max|diff| "
+              + ", ".join(f"{e:.3e}" for e in errs) + ")")
+    check(counts == {"sepconv_forward": 2, "sepconv_grad_kernels": 1},
+          f"one double backward launched {counts}")
+    print(f"[train] one double backward launches {counts}: two K1 for dg, "
+          f"one K2 (its maps the two cotangents) for dkv and dkh")
+    return counts
+
+
+def count_calls(torch, mods, cls, name, log):
+    """``cls.<name>`` wrapped to append (epoch argument, launches during
+    the call, conv1 weight before the call, result) to ``log``."""
+    real = getattr(cls, name)
+
+    def wrapped(self, frames, *args, **kwargs):
+        torch.cuda.synchronize()
+        before = launch_counts(mods)
+        w0 = self.meta_params["net"]["moduleConv1.0.weight"].detach().clone()
+        out = real(self, frames, *args, **kwargs)
+        torch.cuda.synchronize()
+        after = launch_counts(mods)
+        log.append((args[0] if args else None,
+                    {k: after[k] - before[k] for k in after}, w0, out))
+        return out
+    return wrapped
+
+
+def timed_iters(torch, run, reps, warmup=2):
+    for _ in range(warmup):
+        run()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def train_cli_phase(torch, mods):
+    """The training CLI with the run_sepconv.sh preset at crop 256 for 4
+    iterations, its checkpoint in a directory under build/, then a run
+    resumed from it. Returns the launches of the first run."""
+    import shutil
+    import tempfile
+    from meta_interpolation_tpu_torch.core.checkpoint import load_checkpoint
+    from meta_interpolation_tpu_torch.main import main as port_main
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation as System)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="smoke_ckpt_",
+                                dir=os.path.join(ROOT, "build"))
+    flags = TRAIN_FLAGS + ["--crop_size", str(CLI_CROP), "--exp_name",
+                           "smoke", "--checkpoint_dir", ckpt_dir]
+    try:
+        trains, vals = [], []
+        run = with_attr(System, "run_train_iter",
+                        count_calls(torch, mods, System, "run_train_iter",
+                                    trains),
+                        with_attr(System, "run_validation_iter",
+                                  count_calls(torch, mods, System,
+                                              "run_validation_iter", vals),
+                                  port_main))
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        stats = run(flags + ["--max_epoch", "1", "--total_iter_per_epoch",
+                             str(TRAIN_ITERS)])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts(mods)
+        want_train = {"sepconv_forward": K1_PER_TRAIN_ITER,
+                      "sepconv_grad_kernels": K2_PER_TRAIN_ITER}
+        want_val = {"sepconv_forward": K1_PER_CLIP,
+                    "sepconv_grad_kernels": K2_PER_CLIP}
+        check(len(trains) == TRAIN_ITERS and len(vals) == TRAIN_ITERS,
+              f"train CLI: {len(trains)} train and {len(vals)} val calls")
+        for _, got, _, (losses, preds) in trains:
+            check({k: got[k] for k in want_train} == want_train,
+                  f"train iteration launches {got}, want {want_train}")
+            check(all(math.isfinite(v) for v in losses.values())
+                  and bool(torch.isfinite(preds).all()),
+                  f"train iteration losses {losses}")
+        for _, got, _, _ in vals:
+            check({k: got[k] for k in want_val} == want_val,
+                  f"validation clip launches {got}, want {want_val}")
+        exp = os.path.join(ckpt_dir, "smoke")
+        state = load_checkpoint(exp)
+        check(state is not None and state["epoch"] == 1
+              and math.isfinite(stats["best_psnr"]),
+              f"train CLI checkpoint {os.listdir(exp)}, stats {stats}")
+        print(f"[train] CLI: {TRAIN_ITERS} iterations of batch 3 at "
+              f"{CLI_CROP}x{CLI_CROP} and {TRAIN_ITERS} validation clips in "
+              f"{dt:.2f} s (set-up and checkpoint included), losses "
+              + ", ".join(f"{t[3][0]['loss']:.4f}" for t in trains)
+              + f", launches {launches}: K1/K2 "
+              f"{[t[1]['sepconv_forward'] for t in trains]}/"
+              f"{[t[1]['sepconv_grad_kernels'] for t in trains]} per train "
+              f"iteration, {want_val} per validation clip; wrote "
+              f"{sorted(os.listdir(exp))}")
+        saved = state["system"]["meta_params"]["net"]["moduleConv1.0.weight"]
+        trains.clear()
+        run(flags + ["--max_epoch", "2", "--total_iter_per_epoch", "1",
+                     "--resume"])
+        epoch, _, w0, _ = trains[0]
+        check(epoch == 1 and torch.equal(w0.cpu(), saved),
+              f"resumed run: epoch {epoch}, meta-parameters "
+              f"{'equal' if torch.equal(w0.cpu(), saved) else 'differ'}")
+        print(f"[train] --resume: started at epoch {epoch} from the saved "
+              f"meta-parameters; checkpoint epoch "
+              f"{load_checkpoint(exp)['epoch']}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return launches
+
+
+def train_phase(torch, mods, sc, card):
+    """SepConv meta-training on the card: the double backward against
+    plain, the CLI (and a resumed run), seconds per first-order iteration
+    with its profile and peak memory, one second-order iteration with no
+    plain sepconv allowed, and outer gradients on the card against the
+    CPU. Returns the launches of the training CLI."""
+    import numpy as np
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    double_backward_phase(torch, sc)
+    launches = train_cli_phase(torch, mods)
+
+    clips = SyntheticSeptuplet(mode="train", size=(CLI_CROP, CLI_CROP))
+    frames = np.stack([clips[i][0] for i in range(3)])
+    system = SceneAdaptiveInterpolation(get_args(TRAIN_FLAGS))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    times = timed_iters(torch, lambda: system.run_train_iter(frames, 0),
+                        TRAIN_REPS)
+    got = launch_counts(mods)
+    n = TRAIN_REPS + 2
+    check(got["sepconv_forward"] == K1_PER_TRAIN_ITER * n
+          and got["sepconv_grad_kernels"] == K2_PER_TRAIN_ITER * n,
+          f"train iterations launched {got} in {n}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train] first order, batch 3, {CLI_CROP}x{CLI_CROP}, "
+          f"{STEPS} steps ({card}): median {statistics.median(times):.4f} s "
+          f"a train iteration over {TRAIN_REPS} after 2 warm-ups (all "
+          f"{[round(t, 4) for t in times]}), peak memory {peak:.2f} GiB, "
+          f"launches K1 {K1_PER_TRAIN_ITER} K2 {K2_PER_TRAIN_ITER} an "
+          f"iteration")
+    profile_episode(torch, lambda: system.run_train_iter(frames, 0),
+                    f"sepconv train iteration ({card})", "sepconv")
+    del system
+
+    # second order: every sepconv through the kernels, none plain
+    def plain_called(*_args):
+        raise AssertionError("a plain sepconv ran on the card")
+
+    second = SceneAdaptiveInterpolation(get_args(
+        TRAIN_FLAGS + ["--batch_size", "1", "--second_order"]))
+    one = frames[:1]
+    run = with_attr(sc, "sepconv_ref", plain_called, with_attr(
+        sc, "grad_kernels_ref", plain_called,
+        lambda: second.run_train_iter(one, 0)))
+    run()   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    times = timed_iters(torch, run, 1, warmup=0)
+    got = launch_counts(mods)
+    want = {"sepconv_forward": K1_PER_TASK_SECOND_ORDER,
+            "sepconv_grad_kernels": K2_PER_TASK_SECOND_ORDER}
+    check({k: got[k] for k in want} == want,
+          f"second-order iteration launched {got}, want {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train] second order, batch 1, {CLI_CROP}x{CLI_CROP}, {STEPS} "
+          f"steps ({card}): {times[0]:.4f} s an iteration, peak memory "
+          f"{peak:.2f} GiB, launches K1 {got['sepconv_forward']} K2 "
+          f"{got['sepconv_grad_kernels']} (want {want}), no plain sepconv")
+    del second
+    train_card_vs_cpu(torch)
+    return launches
+
+
+def train_card_vs_cpu(torch):
+    """First- and second-order outer gradients of one 64x64 clip on the
+    card and on the CPU, from the same weights."""
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    clip = SyntheticSeptuplet(mode="train", size=SMALL_HW)[0][0][None]
+    for order, extra in (("first", []), ("second", ["--second_order"])):
+        cfg = get_args(TRAIN_FLAGS + ["--batch_size", "1"] + extra)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            loss, _, grads = SceneAdaptiveInterpolation(
+                cfg, device=dev).outer_grads(clip, 0)
+            out[dev] = float(loss), {g: {k: v.cpu() for k, v in t.items()}
+                                     for g, t in grads.items()}
+        (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+        check(abs(l_card - l_cpu) <= LOSS_RTOL * abs(l_cpu),
+              f"{order}-order outer loss card {l_card} vs CPU {l_cpu}")
+        ratios = {}
+        for g in g_cpu:
+            diff = math.sqrt(sum(float((g_card[g][k] - v).norm()) ** 2
+                                 for k, v in g_cpu[g].items()))
+            ref = math.sqrt(sum(float(v.norm()) ** 2
+                                for v in g_cpu[g].values()))
+            ratios[g] = diff / ref
+            check(diff <= OUTER_GRAD_RTOL * ref,
+                  f"{order}-order outer gradient of {g}: card vs CPU "
+                  f"{diff:.3e} > {OUTER_GRAD_RTOL} x {ref:.3e}")
+        worst = max(float((g_card[g][k] - v).norm() / max(float(v.norm()),
+                                                           1e-30))
+                    for g in g_cpu for k, v in g_cpu[g].items())
+        print(f"[train] {order}-order outer gradient, {SMALL_HW[0]}x"
+              f"{SMALL_HW[1]} clip, card vs CPU: loss {l_card:.6f} vs "
+              f"{l_cpu:.6f}, |diff|/|cpu| net {ratios['net']:.3e} lrs "
+              f"{ratios['lrs']:.3e} (limit {OUTER_GRAD_RTOL}); worst single "
+              f"tensor {worst:.3e}")
+
+
 def warp_call_phase(torch, mods, earlier=None, reps=10):
     """One backward_warp_rrin at RRIN's padded frame, forward (with grad)
     and the flow's gradient, on the bounded path, on the earlier warp
@@ -1655,7 +1939,8 @@ def main():
                + projection_kernel_phase(torch, fpb, card, k4_resources,
                                          earlier_k4))
     mods = (sc, wb, fpb)
-    sepconv_launches = main_path_phase(torch, mods, libs.get("sepconv"))
+    main_path_phase(torch, mods, libs.get("sepconv"))
+    sepconv_launches = train_phase(torch, mods, sc, card)
     rrin_launches = rrin_phase(torch, mods,
                                earlier_k3[0] if earlier_k3 else None)
     dain_launches, served_ms = dain_phase(torch, mods, earlier_k4)

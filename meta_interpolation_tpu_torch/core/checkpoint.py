@@ -1,5 +1,11 @@
-"""Weight bridge between JAX parameter trees, reference ``.pth`` files and
-PyTorch state dicts.
+"""Checkpoints of the port, and the weight bridge between JAX parameter
+trees, reference ``.pth`` files and PyTorch state dicts.
+
+:func:`save_checkpoint` / :func:`load_checkpoint` keep a run's state as
+``torch.save`` of ``{epoch, arch, system, best_PSNR}`` in
+``checkpoint_dir/exp_name/checkpoint.pth`` (and ``model_best.pth``), the
+reference's file names (``utils.py:34-60``). The JAX package's
+``checkpoint.pkl`` pickles optax state objects and is not read here.
 
 Counterpart of ``meta_interpolation_tpu/core/checkpoint.py:95-171``. The
 JAX trees mirror the torch module names (``tree['moduleConv1']['0']
@@ -18,11 +24,45 @@ plus a layout rule per leaf kind:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Set, Tuple
+import os
+import shutil
+from typing import Any, Dict, Optional, Set, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+# a run's state, and its copy when the run is the best so far (reference
+# utils.py:34-60)
+CHECKPOINT, BEST = "checkpoint.pth", "model_best.pth"
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu() if torch.is_tensor(tree) else tree
+
+
+def save_checkpoint(state: Dict[str, Any], directory: str,
+                    is_best: bool = False):
+    """``torch.save`` of ``state`` with its tensors on the CPU to
+    ``directory/checkpoint.pth``, copied to ``model_best.pth`` when the run
+    is the best so far."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, CHECKPOINT)
+    torch.save(_to_cpu(state), path)
+    if is_best:
+        shutil.copyfile(path, os.path.join(directory, BEST))
+
+
+def load_checkpoint(directory: str) -> Optional[Dict[str, Any]]:
+    """The state :func:`save_checkpoint` wrote, tensors on the CPU; None
+    when there is no such file."""
+    path = os.path.join(directory, CHECKPOINT)
+    if not os.path.exists(path):
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True)
+
 
 _BN_FROM_JAX = {"mean": "running_mean", "var": "running_var",
                 "scale": "weight"}

@@ -1,25 +1,30 @@
-"""Experiment runner — evaluation.
+"""Experiment runner — training and evaluation.
 
-Counterpart of ``meta_interpolation_tpu/core/experiment.py:76-97,124-170,
-217-234`` (reference ``experiment_builder.py``): the validation loop with
-recursive spatial tiling of oversized frames and PSNR/SSIM on the
-stitched full-frame prediction. Training and the ×2 slow-motion test mode
-are later slices.
+Counterpart of ``meta_interpolation_tpu/core/experiment.py`` (reference
+``experiment_builder.py``): the epoch loop (train, validate, plateau
+schedule, best-PSNR checkpoint; resume from the checkpoint), and the
+validation loop with recursive spatial tiling of oversized frames and
+PSNR/SSIM on the stitched full-frame prediction. The ×2 slow-motion test
+mode is a later slice.
 """
 from __future__ import annotations
+
+import os
+import time
 
 import numpy as np
 import torch
 
 from ..config import Config
 from ..utils.meters import AverageMeter
+from . import checkpoint as ckpt_lib
 from . import metrics as metrics_lib
 
 
 class ExperimentBuilder:
     def __init__(self, cfg: Config, data, system):
         unported = [flag for flag, on in [
-            ("--resume", cfg.resume), ("--viz", cfg.viz),
+            ("--viz", cfg.viz),
             ("--lpips", cfg.lpips), ("--use_tensorboard", cfg.use_tensorboard),
             ("--profile_dir", cfg.profile_dir)] if on]
         if unported:
@@ -28,6 +33,31 @@ class ExperimentBuilder:
         self.cfg = cfg
         self.data = data
         self.system = system
+        self.best_psnr = 0.0
+        self.start_epoch = cfg.start_epoch
+        self.exp_dir = os.path.join(cfg.checkpoint_dir, cfg.exp_name)
+        if cfg.resume:
+            self._resume()
+
+    def _resume(self):
+        exp = self.cfg.resume_exp or self.cfg.exp_name
+        state = ckpt_lib.load_checkpoint(
+            os.path.join(self.cfg.checkpoint_dir, exp))
+        if state is None:
+            print("[resume] no checkpoint found — training from scratch")
+            return
+        self.system.load_state_dict(state["system"])
+        self.best_psnr = float(state.get("best_PSNR", 0.0))
+        self.start_epoch = int(state.get("epoch", 0))
+        print(f"[resume] epoch {self.start_epoch}, best PSNR "
+              f"{self.best_psnr:.2f}")
+
+    def _save(self, epoch: int, is_best: bool):
+        ckpt_lib.save_checkpoint(
+            {"epoch": epoch + 1, "arch": vars(self.cfg),
+             "system": self.system.state_dict(),
+             "best_PSNR": self.best_psnr},
+            self.exp_dir, is_best=is_best)
 
     def _tiled_val_iter(self, frames: np.ndarray, limit: float):
         """Recursively split H or W in half while H·W exceeds the limit;
@@ -45,6 +75,23 @@ class ExperimentBuilder:
         losses = {k: (losses_a[k] + losses_b[k]) / 2.0 for k in losses_a}
         # preds are (B, C, H, W): H is dim 2, W dim 3
         return losses, torch.cat([preds_a, preds_b], dim=dim)
+
+    def train_epoch(self, epoch: int):
+        loss_meter, psnr_meter = AverageMeter(), AverageMeter()
+        t0 = time.time()
+        for it, (frames, _meta) in enumerate(self.data.get_train_batches(
+                total_batches=self.cfg.total_iter_per_epoch, epoch=epoch)):
+            losses, _ = self.system.run_train_iter(
+                frames, epoch, do_evaluation=(it % self.cfg.eval_iter == 0))
+            loss_meter.update(losses["loss"])
+            if "psnr" in losses:
+                psnr_meter.update(losses["psnr"])
+            if it % self.cfg.log_iter == 0:
+                msg = f"[epoch {epoch} it {it}] loss {loss_meter.avg:.4f}"
+                if psnr_meter.count:
+                    msg += f" psnr {psnr_meter.avg:.2f}"
+                print(msg + f" ({time.time() - t0:.1f}s)")
+        return loss_meter.avg
 
     def validate(self, epoch: int = 0, total_batches: int = -1):
         loss_meter, psnr_meter, ssim_meter = (AverageMeter(), AverageMeter(),
@@ -72,6 +119,16 @@ class ExperimentBuilder:
     def run_experiment(self):
         if self.cfg.mode == "val":
             return self.validate()
-        raise NotImplementedError(
-            f"--mode {self.cfg.mode} is not ported to PyTorch yet; the port "
-            f"runs --mode val")
+        if self.cfg.mode != "train":
+            raise NotImplementedError(
+                f"--mode {self.cfg.mode} is not ported to PyTorch yet; the "
+                f"port runs --mode train and --mode val")
+        for epoch in range(self.start_epoch, self.cfg.max_epoch):
+            self.train_epoch(epoch)
+            val_stats = self.validate(
+                epoch, total_batches=self.cfg.total_iter_per_epoch)
+            self.system.epoch_end(val_stats["loss"])
+            is_best = val_stats["psnr"] > self.best_psnr
+            self.best_psnr = max(self.best_psnr, val_stats["psnr"])
+            self._save(epoch, is_best)
+        return {"best_psnr": self.best_psnr}

@@ -4,6 +4,12 @@
         --dataset synthetic --optimizer Adamax --metasgd --inner_lr 1e-5 \
         --number_of_evaluation_steps_per_iter 3 --val_batch_size 1 \
         --loss 1*L1 [--device cpu]
+    python -m meta_interpolation_tpu_torch.main --model sepconv --mode train \
+        --dataset synthetic --loss 1*L1 --optimizer Adamax --batch_size 3 \
+        --val_batch_size 1 --inner_lr 1e-5 --outer_lr 1e-5 \
+        --number_of_training_steps_per_iter 3 \
+        --number_of_evaluation_steps_per_iter 3 --metasgd [--second_order] \
+        [--use_multi_step_loss_optimization] [--resume] [--device cpu]
     python -m meta_interpolation_tpu_torch.main --model rrin --mode val \
         --dataset synthetic --optimizer Adam --inner_lr 1e-5 --loss 1*L1 \
         --number_of_training_steps_per_iter 0 \
@@ -20,7 +26,9 @@ state dict whose depth head is tamed (``models/dain/model.
 tame_depth_head_``); the meta system projects the flows exactly, as the
 JAX package's does.
 
-Runs on the CUDA card unless ``--device cpu`` is given.
+Training writes ``checkpoint_dir/exp_name/checkpoint.pth`` every epoch
+(and ``model_best.pth``); ``--resume`` continues from it. Runs on the CUDA
+card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -47,6 +55,9 @@ def main(argv=None):
         system.load_net(merged)
         print(f"[checkpoint] loaded {sum(loaded.values())}/{len(loaded)} "
               f"tensors")
+        if cfg.fix_loaded:
+            system.freeze_loaded(loaded)
+            print("[fix_loaded] frozen the loaded parameters")
     data = MetaLearningSystemDataLoader(cfg)
     return ExperimentBuilder(cfg, data, system).run_experiment()
 

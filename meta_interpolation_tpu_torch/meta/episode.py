@@ -1,24 +1,27 @@
-"""Scene-adaptation episodes, first order.
+"""Scene-adaptation episodes: evaluation and meta-training, first and
+second order.
 
 Counterpart of ``meta_interpolation_tpu/meta/episode.py`` (reference
 ``meta_learning_system.py:346-472``). Where the JAX package compiles a
 vmap over tasks and a scan over inner steps, this runs Python loops:
 
-  * tasks        → a loop in :meth:`EpisodeBuilder.batched_episode`;
+  * tasks        → a loop in :meth:`EpisodeBuilder.batched_episode`, in
+                   training one backward a task;
   * inner steps  → a loop in :meth:`EpisodeBuilder.adapt`, each step one
-                   ``torch.autograd.grad`` of the summed support losses
-                   w.r.t. detached copies of the adaptable parameters
-                   (first order: ``create_graph=False``);
+                   ``torch.autograd.grad`` of the summed support losses;
   * support pairs → a loop in :meth:`EpisodeBuilder._support_loss`.
 
 The model runs through ``torch.func.functional_call`` with a dict of
 adapted tensors. Inner-frozen parameters are left out of the gradient
 list, the counterpart of the JAX ``_prune_frozen``/``_masked`` pair: their
-gradients are never computed and they are never updated.
+inner gradients are never computed and they are never updated.
 
-Only evaluation is ported: training episodes (the outer loss and its
-gradient, MSL), second order, L2F attenuation and per-step BN raise
-``NotImplementedError``.
+First order takes each support gradient on detached copies
+(``create_graph=False``); second order takes it on the live parameters
+with ``create_graph=True``, while the inner-frozen ones stay the outer
+leaves, so the cross term d(inner grad)/d(frozen leaf) reaches their
+outer gradient. In training the update ``θ − lr·step`` is on the tape
+either way. L2F attenuation and per-step BN raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -95,63 +98,99 @@ class EpisodeBuilder:
         return total
 
     def adapt(self, net_params: Params, lrs: Params, frames: torch.Tensor,
-              spec: EpisodeSpec) -> Params:
+              spec: EpisodeSpec, msl_losses: Optional[list] = None
+              ) -> Params:
         """Inner-loop adaptation on one task; frames (T, C, H, W).
-        Returns the adapted parameters (inner-frozen ones unchanged)."""
-        if spec.second_order:
-            raise NotImplementedError(
-                "second-order adaptation is not ported to PyTorch yet")
+
+        Returns the adapted parameters (inner-frozen ones unchanged); given
+        ``msl_losses``, appends to it the query loss after each of steps
+        0..n−2 (MSL). The update is recorded on the tape wherever
+        ``net_params`` or ``lrs`` require grad; the support gradient is on
+        detached copies unless ``spec.second_order``."""
         live = [k for k in net_params
                 if self.inner_keep is None or self.inner_keep[k]]
-        params = {k: v.detach() for k, v in net_params.items()}
-        state = self.inner_opt.init_state({k: params[k] for k in live})
+        params = dict(net_params)
+        state = self.inner_opt.init_state(
+            {k: params[k].detach() for k in live})
+        q0, qt, q1 = spec.target_idxs
         for step in range(spec.num_steps):
-            src = {k: params[k].requires_grad_(True) for k in live}
-            loss = self._support_loss({**params, **src}, frames, spec)
-            grads = torch.autograd.grad(loss, [src[k] for k in live])
-            with torch.no_grad():
-                new, state = self.inner_opt.update(
-                    {k: src[k].detach() for k in live},
-                    dict(zip(live, grads)), lrs, state, step)
+            if spec.second_order:
+                loss = self._support_loss(params, frames, spec)
+                grads = torch.autograd.grad(
+                    loss, [params[k] for k in live], create_graph=True)
+            else:
+                src = {k: v.detach() for k, v in params.items()}
+                for k in live:
+                    src[k].requires_grad_(True)
+                loss = self._support_loss(src, frames, spec)
+                grads = torch.autograd.grad(loss, [src[k] for k in live])
+            new, state = self.inner_opt.update(
+                {k: params[k] for k in live}, dict(zip(live, grads)), lrs,
+                state, step)
             params.update(new)
+            if msl_losses is not None and step < spec.num_steps - 1:
+                msl_losses.append(self._pair_loss(
+                    params, frames[q0], frames[q1], frames[qt])[0])
         return params
 
     def task_episode(self, meta_params: Dict[str, Params],
                      frames: torch.Tensor, msl_weights, spec: EpisodeSpec,
                      training: bool = False):
-        """Full episode on one task → (outer_loss, pred, query_loss); in
-        evaluation the outer loss is the post-adaptation query loss."""
-        if training:
-            raise NotImplementedError("training is a later slice")
+        """Full episode on one task → (outer_loss, pred, query_loss), the
+        prediction and query loss detached. Training keeps the outer loss
+        on the tape: under MSL the weighted query losses of steps 0..n−2
+        plus the last weight times the final query loss (JAX
+        ``task_episode``, :524-581). In evaluation the query runs under
+        no-grad and the outer loss is the query loss."""
+        msl = training and spec.use_msl and spec.num_steps > 0
+        step_losses = [] if msl else None
         adapted = self.adapt(meta_params["net"], meta_params["lrs"], frames,
-                             spec)
+                             spec, msl_losses=step_losses)
         q0, qt, q1 = spec.target_idxs
-        with torch.no_grad():
+        with torch.set_grad_enabled(training):
             q_loss, pred = self._pair_loss(adapted, frames[q0], frames[q1],
                                            frames[qt])
-        return q_loss, pred, q_loss
+        outer = q_loss
+        if msl:
+            n = spec.num_steps
+            outer = float(msl_weights[n - 1]) * q_loss
+            for w, loss in zip(msl_weights[:n - 1], step_losses):
+                outer = outer + float(w) * loss
+        return outer, pred.detach(), q_loss.detach()
 
     def batched_episode(self, meta_params: Dict[str, Params],
                         frames: torch.Tensor, msl_weights, spec: EpisodeSpec,
                         training: bool = False, with_metrics: bool = False):
         """Loop over tasks; frames (B, T, C, H, W). Returns (mean outer
         loss, aux) with aux['preds'] (B, C, H, W), aux['query_loss'] and,
-        ``with_metrics``, the task-mean aux['psnr'] / aux['ssim']."""
+        ``with_metrics``, the task-mean aux['psnr'] / aux['ssim'].
+
+        Training backpropagates each task's outer loss over B as soon as
+        it is taken, so the leaves of ``meta_params`` accumulate the
+        gradient of the mean with only one task's graph alive (JAX's vmap
+        and mean compute the same); the loss returned is detached."""
         outer, preds, q_losses = [], [], []
         for task in frames:
             o, pred, q = self.task_episode(meta_params, task, msl_weights,
                                            spec, training=training)
+            if training:
+                (o / len(frames)).backward()
+                o = o.detach()
             outer.append(o)
             preds.append(pred)
             q_losses.append(q)
         preds = torch.stack(preds)
         aux = {"preds": preds, "query_loss": torch.stack(q_losses).mean()}
         if with_metrics:
-            qt = spec.target_idxs[1]
-            dn_pred = self.denormalize(preds)
-            dn_tgt = self.denormalize(frames[:, qt])
-            psnr, ssim = zip(*(metrics_lib.calc_metrics(p, t)
-                               for p, t in zip(dn_pred, dn_tgt)))
-            aux["psnr"] = torch.stack(psnr).mean()
-            aux["ssim"] = torch.stack(ssim).mean()
+            aux.update(self.metrics(preds, frames, spec))
         return torch.stack(outer).mean(), aux
+
+    def metrics(self, preds: torch.Tensor, frames: torch.Tensor,
+                spec: EpisodeSpec) -> Dict[str, torch.Tensor]:
+        """Task-mean PSNR and SSIM of ``preds`` (B, C, H, W) against the
+        query targets of ``frames`` (B, T, C, H, W)."""
+        dn_tgt = self.denormalize(frames[:, spec.target_idxs[1]])
+        psnr, ssim = zip(*(metrics_lib.calc_metrics(p, t) for p, t in
+                           zip(self.denormalize(preds), dn_tgt)))
+        return {"psnr": torch.stack(psnr).mean(),
+                "ssim": torch.stack(ssim).mean()}

@@ -42,6 +42,8 @@ class ModelDef:
     loss_fn: Optional[Callable] = None
     # config → keyword arguments of ``build`` (the model's CLI flags)
     build_kwargs: Callable[[Any], Dict[str, Any]] = lambda cfg: {}
+    # meta-training (--mode train, --second_order) is ported
+    trainable: bool = False
 
 
 def _identity(x):
@@ -61,7 +63,7 @@ def get(name: str) -> ModelDef:
         from . import sepconv
         return ModelDef("sepconv", sepconv.SepConv, _identity, _identity,
                         tile_pixel_limit=5e5,
-                        inner_mask_fn=sepconv.inner_mask)
+                        inner_mask_fn=sepconv.inner_mask, trainable=True)
     if name == "rrin":
         from . import rrin
         return ModelDef("rrin", rrin.RRIN, _identity, _identity,

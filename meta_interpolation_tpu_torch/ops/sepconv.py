@@ -21,6 +21,11 @@ The gradient of the input stays plain PyTorch (:func:`grad_input_ref`), as
 it stays plain jnp in the JAX package. A wrapper given a CUDA tensor
 launches its kernel or raises; it never falls back to the plain version.
 Each wrapper counts its launches in ``<wrapper>.launches``.
+
+:func:`sepconv` is twice differentiable from the two kernels (second-order
+meta-training differentiates through its backward): the backward is K2
+wrapped in :class:`SepConvGradKernelsFunction`, whose own backward is two
+K1 calls and one K2 call, with the input's part plain.
 """
 from __future__ import annotations
 
@@ -29,7 +34,6 @@ import functools
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -199,9 +203,9 @@ def reset_launches():
 # ---------------------------------------------------------------------------
 
 class SepConvFunction(torch.autograd.Function):
-    """Forward is K1; backward is K2 for the kernel maps plus the plain
-    input gradient when the input needs one. The backward is not itself
-    differentiable (``once_differentiable``), like the JAX custom VJP."""
+    """Forward is K1; backward is K2 for the kernel maps (through
+    :class:`SepConvGradKernelsFunction`, so it is differentiable again)
+    plus the plain input gradient when the input needs one."""
 
     @staticmethod
     def forward(ctx, inp, kv, kh):
@@ -209,14 +213,49 @@ class SepConvFunction(torch.autograd.Function):
         return sepconv_forward(inp, kv, kh)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         inp, kv, kh = ctx.saved_tensors
-        gkv, gkh = sepconv_grad_kernels(inp, g, kv, kh)
+        gkv, gkh = SepConvGradKernelsFunction.apply(inp, g, kv, kh)
         gin = None
         if ctx.needs_input_grad[0]:
             gin = grad_input_ref(g, kv, kh, inp.shape[2], inp.shape[3])
         return gin, gkv, gkh
+
+
+class SepConvGradKernelsFunction(torch.autograd.Function):
+    """(gkv, gkh) = K2(inp, g, kv, kh), differentiable in all four.
+
+    With gw(i,j) = Σ_c g_c·in_c(y+i, x+j), the products against cotangents
+    (a_kv, a_kh) sum Σ_ij gw(i,j)·(a_kv_i·kh_j + kv_i·a_kh_j), so
+
+      * ∂/∂g   = K1(inp, a_kv, kh) + K1(inp, kv, a_kh);
+      * ∂/∂kv  = Σ_j a_kh_j·gw(i,j) and ∂/∂kh = Σ_i a_kv_i·gw(i,j): both
+                 come from one K2 call with (a_kv, a_kh) as its maps;
+      * ∂/∂inp = grad_input_ref(g, a_kv, kh) + grad_input_ref(g, kv, a_kh),
+                 plain, as the first input gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, inp, g, kv, kh):
+        ctx.save_for_backward(inp, g, kv, kh)
+        return sepconv_grad_kernels(inp, g, kv, kh)
+
+    @staticmethod
+    def backward(ctx, a_kv, a_kh):
+        inp, g, kv, kh = ctx.saved_tensors
+        need_in, need_g, need_kv, need_kh = ctx.needs_input_grad
+        d_in = d_g = d_kv = d_kh = None
+        if need_g:
+            d_g = (SepConvFunction.apply(inp, a_kv, kh)
+                   + SepConvFunction.apply(inp, kv, a_kh))
+        if need_kv or need_kh:
+            d_kv, d_kh = SepConvGradKernelsFunction.apply(inp, g, a_kv, a_kh)
+        if need_in:
+            hp, wp = inp.shape[2], inp.shape[3]
+            d_in = (grad_input_ref(g, a_kv, kh, hp, wp)
+                    + grad_input_ref(g, kv, a_kh, hp, wp))
+        return (d_in, d_g, d_kv if need_kv else None,
+                d_kh if need_kh else None)
 
 
 def sepconv(inp: torch.Tensor, kv: torch.Tensor, kh: torch.Tensor

@@ -202,3 +202,44 @@ def test_warp_cases_cover_every_setting():
     assert {c[:2] for c in cases} == {(1, 3), (2, 2)}
     assert (1, 3, 256, 512, -8, 7, "uniform", 8, False, "zeros") in cases
     assert any(c[5] > c[7] for c in cases)   # displacements past R
+
+
+def test_training_launch_counts_are_derived_from_the_preset():
+    """run_sepconv.sh: 3 tasks of 3 inner steps, 2 support pairs, 2
+    sepconvs a forward. First order, 14 K1 and 14 K2 a task; second order,
+    12n + 2 of each a task (one K2 per double backward)."""
+    assert chip_smoke.K1_PER_TRAIN_ITER == chip_smoke.K2_PER_TRAIN_ITER == 42
+    assert (chip_smoke.K1_PER_TASK_SECOND_ORDER
+            == chip_smoke.K2_PER_TASK_SECOND_ORDER == 12 * 3 + 2)
+    assert "--second_order" not in chip_smoke.TRAIN_FLAGS
+    assert chip_smoke.TRAIN_FLAGS[chip_smoke.TRAIN_FLAGS.index(
+        "--batch_size") + 1] == str(chip_smoke.TASKS)
+
+
+def test_count_calls_records_the_launches_of_each_call():
+    from types import SimpleNamespace
+
+    import torch
+
+    def sepconv_forward():
+        sepconv_forward.launches += 1
+    sepconv_forward.launches = 0
+    mod = SimpleNamespace(sepconv_forward=sepconv_forward)
+    card = SimpleNamespace(cuda=SimpleNamespace(synchronize=lambda: None))
+
+    class System:
+        meta_params = {"net": {"moduleConv1.0.weight": torch.ones(2)}}
+
+        def run_train_iter(self, frames, epoch):
+            sepconv_forward()
+            sepconv_forward()
+            return {"loss": 1.0}, frames
+
+    log = []
+    wrapped = chip_smoke.count_calls(card, (mod,), System, "run_train_iter",
+                                     log)
+    out = wrapped(System(), "frames", 3)
+    assert out == ({"loss": 1.0}, "frames")
+    epoch, launches, w0, result = log[0]
+    assert (epoch, launches["sepconv_forward"], result) == (3, 2, out)
+    assert torch.equal(w0, torch.ones(2))

@@ -114,3 +114,57 @@ def test_tiled_val_iter_matches_jax():
                                   j_preds)
     np.testing.assert_array_equal(j_preds, frames[:, 3])
     assert losses == j_losses
+
+
+def _vimeo_tree(root, seqs=("00001/0001", "00002/0007"), hw=(40, 48)):
+    """A Vimeo90K-shaped tree: septuplets of 7 PNGs, train and test
+    lists."""
+    from PIL import Image
+    rs = np.random.RandomState(5)
+    for seq in seqs:
+        d = root / "sequences" / seq
+        d.mkdir(parents=True)
+        for i in range(1, 8):
+            Image.fromarray(rs.randint(0, 256, hw + (3,), np.uint8)).save(
+                d / f"im{i}.png")
+    (root / "sep_trainlist.txt").write_text("\n".join(seqs) + "\n")
+    (root / "sep_testlist.txt").write_text(seqs[0] + "\n")
+    return root
+
+
+@pytest.mark.parametrize("dataset", ["synthetic", "vimeo90k absent",
+                                     "vimeo90k"])
+def test_train_batches_match_jax(dataset, tmp_path):
+    """The same training clips in the same order over two epochs: the
+    shuffle, and on a Vimeo90K tree the crop offsets and temporal flips
+    drawn from the seeded stream (40×48 frames cropped to 32)."""
+    root = (_vimeo_tree(tmp_path / "vimeo") if dataset == "vimeo90k"
+            else tmp_path / "absent")
+    kw = dict(model="sepconv", mode="train", dataset=dataset.split()[0],
+              crop_size=32, data_root=str(root), batch_size=1)
+    got_loader = MetaLearningSystemDataLoader(Config(**kw))
+    want_loader = JaxLoader(JaxConfig(**kw))
+    for epoch in (0, 1):
+        got = list(got_loader.get_train_batches(3, epoch=epoch))
+        want = list(want_loader.get_train_batches(3, epoch=epoch))
+        assert len(got) == len(want) == (2 if dataset == "vimeo90k" else 3)
+        for (g, g_meta), (w, w_meta) in zip(got, want):
+            assert g.shape == w.shape == (1, 7, 32, 32, 3)
+            # the JAX package's native path scales by 1/255 where numpy
+            # divides: the same 8-bit values up to one rounding
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-7)
+            assert g_meta == w_meta
+    if dataset == "vimeo90k":
+        # the stream's draws show: flipped and unflipped clips, and more
+        # than one crop offset
+        from meta_interpolation_tpu_torch.data.datasets import load_image
+        offsets, flips = set(), set()
+        for e in (0, 1):
+            for frames, meta in got_loader.get_train_batches(-1, epoch=e):
+                paths = meta[0]["imgpaths"]
+                flips.add(paths[0].endswith("im7.png"))
+                full = load_image(paths[0])
+                offsets |= {(y, x) for y in range(9) for x in range(17)
+                            if np.array_equal(full[y:y + 32, x:x + 32],
+                                              frames[0, 0])}
+        assert flips == {True, False} and len(offsets) > 1, (flips, offsets)

@@ -133,9 +133,13 @@ def test_run_validation_iter_matches_jax(systems):
 
 
 def test_system_refuses_what_it_does_not_run():
-    with pytest.raises(NotImplementedError, match="training"):
-        SceneAdaptiveInterpolation(Config(**CFG, device="cpu")
-                                   ).run_train_iter(None, 0)
+    for model in ("rrin", "dain"):
+        for flags in ({"mode": "train"}, {"second_order": True}):
+            with pytest.raises(NotImplementedError,
+                               match=f"meta-training .* of '{model}'.*"
+                                     f"Queue 1 item 9"):
+                SceneAdaptiveInterpolation(Config(**dict(
+                    CFG, model=model, **flags), device="cpu"))
     with pytest.raises(NotImplementedError, match="--attenuate"):
         SceneAdaptiveInterpolation(Config(**CFG, device="cpu",
                                           attenuate=True))

@@ -155,3 +155,43 @@ def test_kernel_shapes_refuse_a_map_of_another_size():
     inp, kv = _meta(2, 3, 4, 5, 7)
     with pytest.raises(ValueError, match="does not match"):
         sc._kernel_shapes(inp, kv, kv[:1])
+
+
+def test_sepconv_is_twice_differentiable_gradgradcheck():
+    """gradgradcheck in float64: the backward of the backward
+    (SepConvGradKernelsFunction) against finite differences, with the
+    input and both kernel maps requiring grad."""
+    inp, kv, kh, _ = _data(1, 4, 5, 5, seed=20)
+    args = [_t(x).double().requires_grad_() for x in (inp, kv, kh)]
+    assert torch.autograd.gradcheck(sc.sepconv, args)
+    assert torch.autograd.gradgradcheck(sc.sepconv, args)
+
+
+@pytest.mark.parametrize("input_grad", [False, True])
+def test_double_backward_matches_autograd_of_plain_forward(input_grad):
+    """F = 51 on a 3x4 map: vector-Jacobian products of the first
+    gradients (w.r.t. g, kv, kh and the input) built from the kernels'
+    plain versions, against autograd twice through sepconv_ref."""
+    inp, kv, kh, g = _data(1, 3, 4, 51, seed=21)
+    rs = np.random.RandomState(22)
+    a_in = torch.from_numpy(rs.randn(1, 3, 53, 54).astype(np.float32))
+    a_kv, a_kh = (_t(rs.randn(1, 3, 4, 51).astype(np.float32))
+                  for _ in range(2))
+
+    def second(fn):
+        i = _t(inp).requires_grad_(input_grad)
+        v, hh = _t(kv).requires_grad_(), _t(kh).requires_grad_()
+        tg = _t(g).requires_grad_()
+        first = torch.autograd.grad(fn(i, v, hh), [i, v, hh] if input_grad
+                                    else [v, hh], tg, create_graph=True)
+        cot = ([a_in] if input_grad else []) + [a_kv, a_kh]
+        wrt = [tg, v, hh] + ([i] if input_grad else [])
+        return torch.autograd.grad(first, wrt, cot)
+
+    sc.reset_launches()
+    got = second(sc.sepconv)
+    assert sc.sepconv_forward.launches == 0     # CPU: plain versions
+    want = second(sc.sepconv_ref)
+    for a, b, name in zip(got, want, ("g", "kv", "kh", "inp")):
+        torch.testing.assert_close(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   msg=name)
