@@ -30,8 +30,10 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
        - the bounded grid sampler K3 and its grid gradient K3-grad at image
          1x3x256x512 (RRIN's padded 256x448 frame) and 37x53, both padding
          modes, both align_corners, R = 1, 3 and 8, displacements within
-         and past R, on whole pixels and off every edge; both also against
-         F.grid_sample and aten.grid_sampler_2d_backward within range;
+         and past R, on whole pixels and off every edge, and at 1x3x256x448
+         with border padding and align_corners=True (VoxelFlow's call);
+         both also against F.grid_sample and aten.grid_sampler_2d_backward
+         within range, and timed at RRIN's and at VoxelFlow's call;
        - the bounded flow projection K4 at 1x256x448 (DAIN's served frame),
          R = 8, on a uniform and a smooth flow, and at 2x37x53 with R = 0,
          1, 16 (over 48 KB of shared memory) and 40 (a halo staged in
@@ -56,22 +58,32 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
          iteration with the plain sepconv patched to raise, and its
          launches against the count derived above; first- and
          second-order outer gradients on the card against the CPU;
-       - RRIN: the same three with the run_rrin.sh hyperparameters (Adam,
-         LSLR, 0 training steps) plus 1 evaluation step and
-         --fast_warp_range 8, the 256x448 episodes timed in turns with
-         episodes on the exact warp (F.grid_sample, no kernel launched) and,
-         with --earlier-warp, the earlier warp; the device time and device
-         ops of one warp call (forward and flow gradient) and of an episode
-         on each path; the forward's FLOPs counted;
+       - the warp models, one phase each, all with --fast_warp_range 8:
+         RRIN (run_rrin.sh: Adam, LSLR, 0 training steps, plus 1
+         evaluation step), SuperSloMo (run_superslomo.sh: Adam, Meta-SGD,
+         1*Super, 1 + 1 steps) and VoxelFlow (run_voxelflow.sh: the same
+         with 1*MSE): the CLI's clips with K3 and K3-grad launches a clip
+         held to 6 and 4 (RRIN), 18 and 12 (SuperSloMo), 6 and 4
+         (VoxelFlow), the plain sampler patched to raise; 256x448 episodes
+         on the bounded and the exact warp (F.grid_sample, no kernel of
+         ours) in turns and, with --earlier-warp, the earlier warp, with
+         peak memory, profiles and the FLOPs of a forward; the largest
+         blocks live at a bounded episode's peak (the allocator's recorded
+         history); FlowStats' share of displacements past R on an exact
+         episode; a 64x64 clip on the
+         card against the CPU; then the device time and device ops of one
+         RRIN warp call (forward and flow gradient) on each path;
        - DAIN: a served 256x448 frame with the bounded projection (K4 also
          timed on the two flows that frame projects), in turns with the
          exact one; the CLI and an episode (exact projection, as the JAX
          meta system); a 64x64 clip on the card against the CPU, and a
          served 64x64 frame on the card against the CPU given the card's
          flows, depths and offsets;
-  5. a JSON line of per-kernel results (K1/K2 launches: the training
-     CLI's), the card line again, and the last line {"ok": true, "device":
-     {...}}.
+  5. a JSON line of per-kernel results, each with its launches on every
+     main path that runs it (``launches_by_path``: K1/K2 the training
+     CLI's; K3/K3-grad the RRIN, SuperSloMo and VoxelFlow CLIs'; K4 the
+     served DAIN frames') and their sum (``launches``), the card line
+     again, and the last line {"ok": true, "device": {...}}.
 """
 import argparse
 import json
@@ -143,9 +155,35 @@ RRIN_FLAGS = ["--model", "rrin", "--mode", "val", "--optimizer", "Adam",
               "--number_of_evaluation_steps_per_iter", "1",
               "--val_batch_size", "1", "--fast_warp_range", str(WARP_R)]
 RRIN_STEPS, WARPS = 1, 2       # inner steps, warps a forward
-RRIN_QUERY = (2, 3, 4)         # (in0, target, in1) of the query
+QUERY = (2, 3, 4)         # (in0, target, in1) of the query
 K3_PER_CLIP = PAIRS * WARPS * RRIN_STEPS + WARPS   # support passes + query
 K3G_PER_CLIP = PAIRS * WARPS * RRIN_STEPS          # support backwards
+# SuperSloMo (run_superslomo.sh) and VoxelFlow (run_voxelflow.sh): Adam,
+# Meta-SGD, 1 training and 1 evaluation step, plus the bounded warp. Every
+# warp's grid depends on the flow and every warped frame reaches the loss,
+# so each support pass runs K3-grad once a warp; the frames are data, so no
+# image gradient runs
+WARP_MODEL_FLAGS = ["--mode", "val", "--optimizer", "Adam", "--metasgd",
+                    "--inner_lr", "1e-5",
+                    "--number_of_training_steps_per_iter", "1",
+                    "--number_of_evaluation_steps_per_iter", "1",
+                    "--val_batch_size", "1", "--fast_warp_range", str(WARP_R)]
+SSM_FLAGS = ["--model", "superslomo", "--loss", "1*Super"] + WARP_MODEL_FLAGS
+VF_FLAGS = ["--model", "voxelflow", "--loss", "1*MSE"] + WARP_MODEL_FLAGS
+WARP_MODEL_STEPS = 1
+SSM_WARPS, VF_WARPS = 6, 2     # warps a forward
+K3_PER_CLIP_SSM = PAIRS * SSM_WARPS * WARP_MODEL_STEPS + SSM_WARPS   # 18
+K3G_PER_CLIP_SSM = PAIRS * SSM_WARPS * WARP_MODEL_STEPS             # 12
+K3_PER_CLIP_VF = PAIRS * VF_WARPS * WARP_MODEL_STEPS + VF_WARPS      # 6
+K3G_PER_CLIP_VF = PAIRS * VF_WARPS * WARP_MODEL_STEPS               # 4
+# the warp models' main paths: (flags, K3, K3-grad launches a clip)
+WARP_MODELS = {"rrin": (RRIN_FLAGS, K3_PER_CLIP, K3G_PER_CLIP),
+               "superslomo": (SSM_FLAGS, K3_PER_CLIP_SSM, K3G_PER_CLIP_SSM),
+               "voxelflow": (VF_FLAGS, K3_PER_CLIP_VF, K3G_PER_CLIP_VF)}
+# VoxelFlow's K3 call: one frame of its padded 256x448 input, border
+# padding, align_corners=True
+VF_WARP_CASE = (1, 3, 256, 448, -WARP_R, WARP_R - 1, "uniform", WARP_R,
+                True, "border")
 # (H, W, lowest floor, highest floor) of the displacements of the warp
 # checks' grids; timed: last. The middle one reaches past [-R, R-1], where
 # the clamp acts.
@@ -478,6 +516,60 @@ def device_time_by_kernel(torch, fn):
     return wall, sum(r[0] for r in rows), rows, host
 
 
+def peak_blocks(trace, top=6):
+    """Replay one device's allocator trace (torch.cuda.memory._snapshot()
+    "device_traces"): the most bytes that its allocations held at once and
+    the ``top`` largest blocks live at that moment, each as (bytes, the
+    innermost frame, the innermost frame in the port's package)."""
+    def frame(ev, where=""):
+        for f in ev.get("frames") or ():
+            if where in f["filename"]:
+                return (f"{os.path.basename(f['filename'])}:{f['line']} "
+                        f"{f['name']}")
+        return "?"
+    cur = peak = peak_at = 0
+    for i, ev in enumerate(trace):
+        if ev["action"] == "alloc":
+            cur += ev["size"]
+            if cur > peak:
+                peak, peak_at = cur, i
+        elif ev["action"] == "free_completed":
+            cur -= ev["size"]
+    live = {}
+    for ev in trace[:peak_at + 1]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+        elif ev["action"] == "free_completed":
+            live.pop(ev["addr"], None)
+    largest = sorted(live.values(), key=lambda ev: -ev["size"])[:top]
+    return peak, [(ev["size"], frame(ev),
+                   frame(ev, "meta_interpolation_tpu_torch"))
+                  for ev in largest]
+
+
+def peak_memory_by_block(torch, run, label):
+    """One run of ``run`` with the allocator's history recorded: the bytes
+    held before it, its own peak above them, and the largest blocks live at
+    that peak (peak_blocks)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(max_entries=1_000_000,
+                                             stacks="python")
+    try:
+        run()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    trace = snap["device_traces"][torch.cuda.current_device()]
+    peak, blocks = peak_blocks(trace)
+    print(f"[memory] {label}: {base / 2**30:.3f} GiB held before, its own "
+          f"peak {peak / 2**30:.3f} GiB above that over {len(trace)} "
+          f"allocator events; largest blocks live at the peak:")
+    for size, inner, ours in blocks:
+        print(f"[memory]   {size / 2**20:10.1f} MiB  {inner}  ({ours})")
+
+
 def warp_grid(torch, kind, n, h, w, lo, hi, align_corners, seed):
     """A CPU grid (N, H, W, 2) float32 of a K3 check, normalised as
     F.grid_sample reads it (made in float64). "uniform": displacements
@@ -643,7 +735,7 @@ def warp_cases():
                 for r in (1, WARP_R):
                     cases.append((2, 2, h, w, lo, hi, kind, r, align,
                                   padding))
-    return cases
+    return cases + [VF_WARP_CASE]
 
 
 def warp_kernel_phase(torch, wb, card, resources=None, earlier=None):
@@ -746,6 +838,10 @@ def warp_kernel_phase(torch, wb, card, resources=None, earlier=None):
               f"{bound / ms:.3f} and {bound / smooth_ms:.3f} of the bound "
               f"reached; library {lib_name} {library_ms:.4f} and "
               f"{library_smooth_ms:.4f} ms; {res_txt})")
+    for rec, timing in zip(records, border_warp_timing(torch, wb,
+                                                        flops_peak,
+                                                        bw_peak)):
+        rec["voxelflow_call"] = timing
     if earlier is None:
         print("[kernels] K3, K3-grad: earlier design not given "
               "(--earlier-warp)")
@@ -773,6 +869,63 @@ def warp_kernel_phase(torch, wb, card, resources=None, earlier=None):
                   f"{old_ms[1]:.4f} ms, eager call {old_call[0]:.4f}, "
                   f"{old_call[1]:.4f} ms")
     return records
+
+
+def border_warp_timing(torch, wb, flops_peak, bw_peak):
+    """K3 and K3-grad at VoxelFlow's call (VF_WARP_CASE's shape, border
+    padding, align_corners=True), within range, against F.grid_sample and
+    aten.grid_sampler_2d_backward's grid gradient (border is padding mode
+    1): errors, card ms, the plain version's and the library's ms, and the
+    bound. Returns one dict a kernel (K3, K3-grad)."""
+    import torch.nn.functional as F
+    n, c, h, w, _, _, _, r, align, padding = VF_WARP_CASE
+    gen = torch.Generator().manual_seed(15)
+    img = torch.rand(n, c, h, w, generator=gen).cuda()
+    g = torch.randn(n, c, h, w, generator=gen).cuda()
+    grid = warp_grid(torch, "library", n, h, w, -r, r - 2, align, 16).cuda()
+    opts = (r, align, padding)
+    calls = {
+        "fwd": (lambda: wb.warp_sample_bounded_forward(img, grid, *opts),
+                lambda: wb.grid_sample_bounded_ref(img, grid, *opts),
+                lambda: F.grid_sample(img, grid, mode="bilinear",
+                                      padding_mode=padding,
+                                      align_corners=align)),
+        "grad": (lambda: wb.warp_sample_bounded_grad_grid(img, grid, g,
+                                                          *opts),
+                 lambda: wb.grid_sample_bounded_grad_grid_ref(img, grid, g,
+                                                              *opts),
+                 lambda: torch.ops.aten.grid_sampler_2d_backward(
+                     g, img, grid, 0, 1, align, [False, True])[1])}
+    pixels = n * h * w
+    out = []
+    for key, ops, nbytes in (("fwd", pixels * (40 + 7 * c),
+                              pixels * (8 + 8 * c)),
+                             ("grad", pixels * (50 + 16 * c),
+                              pixels * (16 + 8 * c))):
+        kernel, plain, library = calls[key]
+        name = "K3" if key == "fwd" else "K3-grad"
+        got = kernel()
+        err = max_err(got, plain(), f"{name} at VoxelFlow's call against "
+                                    f"plain")
+        lib_err = max_err(got, library(), f"{name} at VoxelFlow's call "
+                                          f"against the library")
+        t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+        timing = {"shape": f"img {n}x{c}x{h}x{w}, grid {n}x{h}x{w}x2, R={r}, "
+                           f"{padding}, align_corners={align}",
+                  "max_abs_err": err, "library_err": lib_err,
+                  "ms": time_ms(torch, kernel),
+                  "plain_ms": time_ms(torch, plain),
+                  "library_ms": time_ms(torch, library),
+                  "bound_ms": max(t_ops, t_bytes),
+                  "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        print(f"[kernels] {name} at VoxelFlow's call ({timing['shape']}): "
+              f"max|diff| against "
+              f"plain {err:.3e}, against the library {lib_err:.3e}; "
+              f"{timing['ms']:.4f} ms (plain {timing['plain_ms']:.4f}, "
+              f"library {timing['library_ms']:.4f}, bound "
+              f"{timing['bound_ms']:.6f} ms by {timing['bound_by']})")
+        out.append(timing)
+    return out
 
 
 def smooth_flow(torch, n, h, w, amplitude, seed, waves=3):
@@ -1014,7 +1167,8 @@ def card_vs_cpu(cfg, model):
           f"{model} card vs CPU at {SMALL_HW}: max|pred diff| {diff:.3e}, "
           f"PSNR diff {dpsnr:.3e} dB")
     print(f"[main] {model} {SMALL_HW[0]}x{SMALL_HW[1]} clip, card vs CPU: "
-          f"max|pred diff| {diff:.3e}, PSNR diff {dpsnr:.3e} dB")
+          f"max|pred diff| {diff:.3e}, PSNR {psnr_by_dev['cuda']:.4f} dB, "
+          f"diff {dpsnr:.3e} dB")
 
 
 def cli_phase(torch, mods, flags, model, per_clip):
@@ -1418,11 +1572,32 @@ def warp_call_phase(torch, mods, earlier=None, reps=10):
     return stats
 
 
-def rrin_phase(torch, mods, earlier=None):
-    """RRIN through the port's entry points on the card, bounded warp, with
-    the warp call and the 256x448 episode also on the exact warp and, where
-    ``earlier`` (earlier_warp's sampler) is given, on the earlier warp.
-    Returns the launches of the CLI run (the main path) per kernel."""
+def plain_warp_forbidden(wb, fn):
+    """``fn`` run with the bounded sampler's plain versions (the
+    composition and its closed-form grid gradient) patched to raise: on
+    the card the sampler must run K3 and K3-grad only, and no plain image
+    gradient (GridSampleBoundedFunction takes it through the plain
+    composition, and only when the image needs one)."""
+    def forbidden(*_args, **_kw):
+        raise AssertionError("a plain bounded-sampler version ran on the "
+                             "card")
+    return with_attr(wb, "grid_sample_bounded_ref", forbidden,
+                     with_attr(wb, "grid_sample_bounded_grad_grid_ref",
+                               forbidden, fn))
+
+
+def warp_model_phase(torch, mods, wb, model, flags, k3, k3g, earlier=None):
+    """RRIN, SuperSloMo or VoxelFlow through the port's entry points on the
+    card: (a) the CLI on the synthetic clips with ``flags`` (bounded warp),
+    K3 and K3-grad launches a clip held to ``k3`` and ``k3g``; (b) 256x448
+    episodes on the bounded and the exact warp in turns (the exact launches
+    no kernel of ours) and, where ``earlier`` (earlier_warp's sampler) is
+    given, on the earlier warp: s/episode, peak memory, a profile of each,
+    the FLOPs of one forward; (c) FlowStats over an exact episode: the
+    share of displacements past R; (d) a 64x64 clip on the card against the
+    same clip on the CPU. No plain bounded sampler runs on the card in the
+    CLI or the timed bounded episodes. Returns the CLI's launches per
+    kernel."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from meta_interpolation_tpu_torch.config import get_args
@@ -1431,91 +1606,99 @@ def rrin_phase(torch, mods, earlier=None):
         SceneAdaptiveInterpolation)
     from meta_interpolation_tpu_torch.ops import warp as warp_ops
 
-    # (a) the CLI: the synthetic validation clips
-    launches = cli_phase(torch, mods, RRIN_FLAGS, "rrin",
-                         {"warp_sample_bounded_forward": K3_PER_CLIP,
-                          "warp_sample_bounded_grad_grid": K3G_PER_CLIP})
+    # (a) the CLI
+    launches = plain_warp_forbidden(wb, lambda: cli_phase(
+        torch, mods, flags, model,
+        {"warp_sample_bounded_forward": k3,
+         "warp_sample_bounded_grad_grid": k3g}))()
 
-    # (b) one warp call, forward and backward, on each path
-    warp_call_phase(torch, mods, earlier)
-
-    # (c) the full Vimeo frame: the bounded warp, and the exact (and the
-    # earlier) warp timed in turns with it (bounded, exact, exact, bounded,
-    # ...)
-    frames = SyntheticSeptuplet(model="rrin", mode="val",
+    # (b) the full Vimeo frame, bounded and exact (and earlier) in turns
+    frames = SyntheticSeptuplet(model=model, mode="val",
                                 size=FULL_HW)[0][0][None]
-    systems = {"bounded": SceneAdaptiveInterpolation(get_args(RRIN_FLAGS))}
-    torch.cuda.reset_peak_memory_stats()
-    systems["bounded"].run_validation_iter(frames)  # warm-up
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    systems["exact"] = SceneAdaptiveInterpolation(
-        get_args(RRIN_FLAGS + ["--fast_warp_range", "0"]))
+    systems, peak_gib = {}, {}
+    for which, extra in (("bounded", []),
+                         ("exact", ["--fast_warp_range", "0"])):
+        systems[which] = SceneAdaptiveInterpolation(get_args(flags + extra))
+        torch.cuda.reset_peak_memory_stats()
+        systems[which].run_validation_iter(frames)   # warm-up
+        peak_gib[which] = torch.cuda.max_memory_allocated() / 2**30
     check(systems["exact"].model.warp_range is None,
           "exact path still bounded")
-    systems["exact"].run_validation_iter(frames)  # warm-up
-    runs = {which: system.run_validation_iter
-            for which, system in systems.items()}
+    runs = {"bounded": plain_warp_forbidden(
+                wb, systems["bounded"].run_validation_iter),
+            "exact": systems["exact"].run_validation_iter}
+    turns = ["bounded", "exact", "exact", "bounded"] * 3
     if earlier is not None:
         runs["earlier"] = with_attr(warp_ops, "grid_sample_bounded", earlier,
                                     systems["bounded"].run_validation_iter)
         runs["earlier"](frames)                      # warm-up
-    pairs = 4
+        turns += ["earlier", "bounded", "bounded", "earlier"] * 2
     times = {which: [] for which in runs}
     out = {}
-    reset_launches(mods)
-    turns = ["bounded", "exact", "exact", "bounded"] * pairs
-    if earlier is not None:
-        turns += ["earlier", "bounded", "bounded", "earlier"] * pairs
     for which in turns:
-        before = launch_counts(mods)
+        reset_launches(mods)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out[which] = runs[which](frames)
         torch.cuda.synchronize()
         times[which].append(time.perf_counter() - t0)
-        if which != "bounded":
-            check(launch_counts(mods) == before,
-                  f"{which}-warp episode launched kernels: {before} → "
-                  f"{launch_counts(mods)}")
-    got = launch_counts(mods)
-    n_bounded = len(times["bounded"])
-    check(got["warp_sample_bounded_forward"] == K3_PER_CLIP * n_bounded
-          and got["warp_sample_bounded_grad_grid"] == K3G_PER_CLIP * n_bounded,
-          f"rrin {FULL_HW} launches {got} for {n_bounded} clips")
+        got = launch_counts(mods)
+        want = {k: 0 for k in got}
+        if which == "bounded":
+            want.update(warp_sample_bounded_forward=k3,
+                        warp_sample_bounded_grad_grid=k3g)
+        check(got == want, f"{model} {FULL_HW} {which} episode launches "
+                           f"{got}, want {want}")
     for which, (losses, preds) in out.items():
         check(tuple(preds.shape) == (1, 3) + FULL_HW
               and bool(torch.isfinite(preds).all())
               and math.isfinite(losses["psnr"]),
-              f"rrin {FULL_HW} {which} output: {losses}")
+              f"{model} {FULL_HW} {which} output: {losses}")
     diff = {which: (out[which][1] - out["bounded"][1]).abs().max().item()
-            for which in out if which != "bounded"}
-    for which in times:
-        extra = (f"launches K3 {got['warp_sample_bounded_forward'] // n_bounded}"
-                 f" K3-grad {got['warp_sample_bounded_grad_grid'] // n_bounded}"
-                 f" per clip, peak memory {peak_gib:.2f} GiB"
+            for which in out}
+    for which in runs:
+        extra = (f"launches K3 {k3} K3-grad {k3g} per clip"
                  if which == "bounded" else
-                 f"max|pred diff| against the bounded {diff[which]:.3e}")
-        print(f"[main] rrin {FULL_HW[0]}x{FULL_HW[1]} episode, {which} warp"
-              f"{'' if which == 'exact' else f' R={WARP_R}'}: median "
+                 f"no kernel of ours launched, max|pred diff| against the "
+                 f"bounded {diff[which]:.3e}")
+        peak = (f", peak memory {peak_gib[which]:.2f} GiB"
+                if which in peak_gib else "")
+        print(f"[main] {model} {FULL_HW[0]}x{FULL_HW[1]} episode, {which} "
+              f"warp{'' if which == 'exact' else f' R={WARP_R}'}: median "
               f"{statistics.median(times[which]):.4f} s over "
               f"{len(times[which])} in turns (all "
               f"{[round(t, 4) for t in times[which]]}), PSNR "
-              f"{out[which][0]['psnr']:.3f}, {extra}")
+              f"{out[which][0]['psnr']:.3f}{peak}, {extra}")
+    ours_key = {"bounded": "warp_sample", "exact": "grid_sampler",
+                "earlier": "warp_bounded"}
     for which, run in runs.items():
         profile_episode(torch, lambda: run(frames),
-                        f"rrin {FULL_HW[0]}x{FULL_HW[1]} episode, {which} "
-                        f"warp", "warp_sample" if which == "bounded" else
-                        "grid_sampler" if which == "exact" else "warp_bounded")
+                        f"{model} {FULL_HW[0]}x{FULL_HW[1]} episode, {which} "
+                        f"warp", ours_key[which])
+    peak_memory_by_block(torch, lambda: runs["bounded"](frames),
+                         f"{model} {FULL_HW[0]}x{FULL_HW[1]} episode, "
+                         f"bounded warp")
     clip = systems["bounded"]._frames(frames)[0]
-    q0, _, q1 = RRIN_QUERY
+    q0, _, q1 = QUERY
     with FlopCounterMode(display=False) as counter, torch.no_grad():
         systems["bounded"].model(clip[q0][None], clip[q1][None])
-    print(f"[main] rrin forward at {FULL_HW[0]}x{FULL_HW[1]}: "
+    print(f"[main] {model} forward at {FULL_HW[0]}x{FULL_HW[1]}: "
           f"{counter.get_total_flops() / 1e9:.3f} GFLOP "
           f"(torch.utils.flop_counter)")
 
+    # (c) the displacements the exact sampler sees over one episode
+    with warp_ops.FlowStats(r=WARP_R) as fs:
+        runs["exact"](frames)
+    check(fs.calls == k3, f"{model} FlowStats recorded {fs.calls} exact "
+                          f"samples, want {k3}")
+    print(f"[main] {model} {FULL_HW[0]}x{FULL_HW[1]} exact episode, "
+          f"FlowStats over {fs.calls} samples: share past R={WARP_R} "
+          f"{fs.frac_beyond:.6f} ({fs.n_beyond} of {fs.n_total}), largest "
+          f"displacement {fs.max_disp:.3f} px")
+    del systems, runs, out
+
     # (d) a small clip on the card against the same clip on the CPU
-    card_vs_cpu(get_args(RRIN_FLAGS), "rrin")
+    card_vs_cpu(get_args(flags), model)
     return launches
 
 
@@ -1941,20 +2124,28 @@ def main():
     mods = (sc, wb, fpb)
     main_path_phase(torch, mods, libs.get("sepconv"))
     sepconv_launches = train_phase(torch, mods, sc, card)
-    rrin_launches = rrin_phase(torch, mods,
-                               earlier_k3[0] if earlier_k3 else None)
+    earlier_sampler = earlier_k3[0] if earlier_k3 else None
+    warp_paths = {model: warp_model_phase(torch, mods, wb, model, *preset,
+                                          earlier=earlier_sampler)
+                  for model, preset in WARP_MODELS.items()}
+    warp_call_phase(torch, mods, earlier_sampler)
     dain_launches, served_ms = dain_phase(torch, mods, earlier_k4)
     records[-1]["served_ms"] = served_ms
-    # each kernel's launches on the main path that runs it
-    launches = {**{k: sepconv_launches[k] for k in KERNELS[:2]},
-                **{k: rrin_launches[k] for k in KERNELS[2:4]},
-                **{k: dain_launches[k] for k in KERNELS[4:]}}
+    # each kernel's launches on the main paths that run it: K3 and K3-grad
+    # on three, each read on its own
+    by_path = {**{k: {"sepconv_train": sepconv_launches[k]}
+                  for k in KERNELS[:2]},
+               **{k: {path: counts[k] for path, counts in warp_paths.items()}
+                  for k in KERNELS[2:4]},
+               **{k: {"dain_served": dain_launches[k]} for k in KERNELS[4:]}}
     check([rec["name"] for rec in records] == list(KERNELS),
           f"kernel records {[rec['name'] for rec in records]}")
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
-        check(rec["launches"] > 0, f"{rec['name']} never ran on the main "
-                                   f"path")
+        rec["launches_by_path"] = by_path[rec["name"]]
+        rec["launches"] = sum(by_path[rec["name"]].values())
+        check(all(n > 0 for n in by_path[rec["name"]].values()),
+              f"{rec['name']} never ran on a main path: "
+              f"{by_path[rec['name']]}")
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -189,12 +189,18 @@ _BOOL_FLAGS = {
 
 
 _HELP = {
-    "model": "backbone: sepconv, rrin or dain (the others raise "
-             "NotImplementedError). dain adapts only its rectify net, "
-             "trains on its own charbonnier loss whatever --loss says and "
-             "projects flows exactly; random weights need a tamed depth "
-             "head (models/dain/model.tame_depth_head_)",
-    "fast_warp_range": "bounded warp for rrin (0 = the exact sampler)",
+    "model": "backbone: sepconv, rrin, dain, superslomo or voxelflow "
+             "(cain raises NotImplementedError; only sepconv trains). dain "
+             "adapts only its rectify net, trains on its own charbonnier "
+             "loss whatever --loss says and projects flows exactly; random "
+             "weights need a tamed depth head "
+             "(models/dain/model.tame_depth_head_). superslomo takes "
+             "--loss 1*Super (VGG16 features) or 1*SuperNoPrcp",
+    "fast_warp_range": "bounded warp for rrin, superslomo and voxelflow "
+                       "(0 = the exact sampler)",
+    "enable_inner_loop_optimizable_bn_params":
+        "adapt the batch-norm scale and bias in the inner loop too "
+        "(voxelflow); the statistics stay frozen",
     "device": "cuda (the hand-written kernels) or cpu (their plain "
               "PyTorch versions)",
 }

@@ -21,6 +21,9 @@ plus a layout rule per leaf kind:
   * batch norm ``mean``/``var`` ↔ the ``running_mean``/``running_var``
     buffers, ``scale`` ↔ ``weight`` (affine only);
   * ``bias`` as it is.
+
+The VGG16 weights of SuperSloMo's ``Super`` loss, which are the loss's and
+not the model's, bridge with :func:`vgg16_params_from_jax`.
 """
 from __future__ import annotations
 
@@ -142,6 +145,37 @@ def params_to_jax(state: Dict[str, torch.Tensor], model: nn.Module
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(value)
     return tree
+
+
+def vgg16_params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX package's VGG16 loss params (``{'conv_i': {'kernel' HWIO,
+    'bias'}}``, ``core/losses.init_vgg16_params``) → the port's loss params
+    (``{'conv_i': {'weight' OIHW, 'bias'}}``), every name and shape checked
+    against ``core/losses.vgg16_shapes``."""
+    from .losses import vgg16_shapes
+    shapes = vgg16_shapes()
+    if set(tree) != set(shapes):
+        raise ValueError(f"VGG16 tree names {sorted(tree)} are not "
+                         f"{sorted(shapes)}")
+    params = {}
+    for name, (w_shape, b_shape) in shapes.items():
+        w = torch.tensor(np.asarray(tree[name]["kernel"]).transpose(3, 2, 0,
+                                                                    1))
+        b = torch.tensor(np.asarray(tree[name]["bias"]))
+        if tuple(w.shape) != w_shape or tuple(b.shape) != b_shape:
+            raise ValueError(f"VGG16 {name}: {tuple(w.shape)}, "
+                             f"{tuple(b.shape)}; want {w_shape}, {b_shape}")
+        params[name] = {"weight": w, "bias": b}
+    return params
+
+
+def vgg16_params_to_jax(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`vgg16_params_from_jax`."""
+    return {name: {"kernel": np.ascontiguousarray(
+                       p["weight"].detach().cpu().numpy().transpose(2, 3, 1,
+                                                                    0)),
+                   "bias": p["bias"].detach().cpu().numpy()}
+            for name, p in params.items()}
 
 
 def load_torch_file(path: str) -> Dict[str, torch.Tensor]:

@@ -15,6 +15,16 @@
         --number_of_training_steps_per_iter 0 \
         --number_of_evaluation_steps_per_iter 1 --fast_warp_range 8 \
         [--device cpu]
+    python -m meta_interpolation_tpu_torch.main --model superslomo \
+        --mode val --dataset synthetic --loss 1*Super --optimizer Adam \
+        --metasgd --inner_lr 1e-5 --number_of_training_steps_per_iter 1 \
+        --number_of_evaluation_steps_per_iter 1 --fast_warp_range 8 \
+        [--device cpu]
+    python -m meta_interpolation_tpu_torch.main --model voxelflow \
+        --mode val --dataset synthetic --loss 1*MSE --optimizer Adam \
+        --metasgd --inner_lr 1e-5 --number_of_training_steps_per_iter 1 \
+        --number_of_evaluation_steps_per_iter 1 --fast_warp_range 8 \
+        [--enable_inner_loop_optimizable_bn_params] [--device cpu]
     python -m meta_interpolation_tpu_torch.main --model dain --mode val \
         --dataset synthetic --optimizer Adamax --metasgd --inner_lr 1e-5 \
         --loss 1*L1 --number_of_training_steps_per_iter 1 \

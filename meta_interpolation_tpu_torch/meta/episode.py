@@ -66,28 +66,38 @@ class EpisodeSpec:
 class EpisodeBuilder:
     """Per-task and batched episodes for one model.
 
-    ``model(f0, f1, **apply_kwargs) -> pred`` on NCHW frames;
-    ``loss_fn(pred, target) -> {..., 'total'}``; ``inner_keep``: optional
-    {param name: adapted?}; ``apply_kwargs``: passed to every forward.
+    ``model(f0, f1, **apply_kwargs) -> pred`` on NCHW frames, or ``(pred,
+    aux)`` when ``returns_aux`` (SuperSloMo); ``loss_fn(pred, target, aux)
+    -> {..., 'total'}``, aux None unless the model returns one;
+    ``inner_keep``: optional {param name: adapted?}; ``apply_kwargs``:
+    passed to every forward.
     """
 
     def __init__(self, model: nn.Module, loss_fn: Callable,
                  inner_opt: InnerOptimizer,
                  denormalize: Callable = lambda x: x,
                  inner_keep: Optional[Dict[str, bool]] = None,
-                 apply_kwargs: Optional[Dict[str, Any]] = None):
+                 apply_kwargs: Optional[Dict[str, Any]] = None,
+                 returns_aux: bool = False):
         self.model = model
         self.apply_kwargs = dict(apply_kwargs or {})
         self.loss_fn = loss_fn
         self.inner_opt = inner_opt
         self.denormalize = denormalize
         self.inner_keep = inner_keep
+        self.returns_aux = returns_aux
 
     def _pair_loss(self, params: Params, f0, f1, target):
-        """One criterion call → (loss_total, pred); frames are CHW."""
-        pred = functional_call(self.model, params, (f0[None], f1[None]),
-                               self.apply_kwargs)
-        return self.loss_fn(pred, target[None])["total"], pred[0]
+        """One criterion call → (loss_total, pred); frames are CHW. A
+        model's aux gains the unpadded inputs ``I0``, ``I1`` (batch 1), as
+        JAX ``_pair_loss`` adds them (``meta/episode.py:239-261``)."""
+        out = functional_call(self.model, params, (f0[None], f1[None]),
+                              self.apply_kwargs)
+        aux = None
+        if self.returns_aux:
+            out, aux = out
+            aux = {**aux, "I0": f0[None], "I1": f1[None]}
+        return self.loss_fn(out, target[None], aux)["total"], out[0]
 
     def _support_loss(self, params: Params, frames, spec: EpisodeSpec):
         total = 0.0

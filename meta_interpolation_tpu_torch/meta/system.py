@@ -6,7 +6,7 @@ Counterpart of ``meta_interpolation_tpu/meta/system.py`` (reference
 the loss, the outer optimizer and its plateau schedule, and drives
 meta-training (:meth:`run_train_iter`, first or second order, with MSL)
 and scene-adaptive evaluation (:meth:`run_validation_iter`). Training is
-ported for SepConv; RRIN and DAIN evaluate only.
+ported for SepConv; RRIN, DAIN, SuperSloMo and VoxelFlow evaluate only.
 """
 from __future__ import annotations
 
@@ -89,6 +89,18 @@ def _unported(cfg: Config):
     ] if on]
 
 
+def _adapt_bn_affine(inner_keep: Dict[str, bool]) -> Dict[str, bool]:
+    """--enable_inner_loop_optimizable_bn_params (JAX meta/system.py
+    :206-220): the scale and bias of every batch norm (a module named
+    ``*_bn``) adapt in the inner loop too. Its statistics are buffers and
+    stay frozen."""
+    def in_bn_affine(name: str) -> bool:
+        *parents, leaf = name.split(".")
+        return (leaf in ("weight", "bias")
+                and any(p.endswith("_bn") for p in parents))
+    return {k: keep or in_bn_affine(k) for k, keep in inner_keep.items()}
+
+
 class SceneAdaptiveInterpolation:
     """Meta-learning system: build with a Config, drive with run_*_iter."""
 
@@ -129,12 +141,19 @@ class SceneAdaptiveInterpolation:
             "net": net, "lrs": self.inner_opt.init_lrs(net, cfg.inner_lr)}
         inner_keep = (self.model_def.inner_mask_fn(self.model)
                       if self.model_def.inner_mask_fn is not None else None)
-        self.loss_fn = (self.model_def.loss_fn
-                        or losses_lib.make_loss_fn(cfg.loss))
+        if inner_keep is not None and \
+                cfg.enable_inner_loop_optimizable_bn_params:
+            inner_keep = _adapt_bn_affine(inner_keep)
+        # the loss's own weights (the Super term's VGG16) from another
+        # stream than the model's
+        self.loss_fn = (self.model_def.loss_fn or losses_lib.make_loss_fn(
+            cfg.loss, generator=torch.Generator().manual_seed(
+                cfg.random_seed + 1), device=self.device))
         self.builder = episode_lib.EpisodeBuilder(
             self.model, self.loss_fn, self.inner_opt,
             denormalize=self.model_def.denormalize, inner_keep=inner_keep,
-            apply_kwargs=self.model_def.meta_apply_kwargs)
+            apply_kwargs=self.model_def.meta_apply_kwargs,
+            returns_aux=self.model_def.returns_aux)
         self.trainable = {"net": {k: True for k in net},
                           "lrs": {k: self.inner_opt.learnable for k in net}}
         if cfg.use_multi_step_loss_optimization and cfg.num_inner_steps == 0:

@@ -1,4 +1,4 @@
-"""The layers SepConv, RRIN and DAIN use, in NCHW.
+"""The layers of the ported models, in NCHW.
 
 Counterparts of ``meta_interpolation_tpu/models/layers.py``, which works
 in NHWC with HWIO kernels; here activations are NCHW and conv weights
@@ -26,16 +26,22 @@ def full_float32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def conv3x3(in_ch: int, out_ch: int,
-            generator: Optional[torch.Generator] = None) -> nn.Conv2d:
-    """3×3 stride-1 conv, padding 1, xavier-uniform weight and zero bias
-    (``meta_interpolation_tpu/models/cain.py:34`` ``_xavier_conv``)."""
-    conv = nn.Conv2d(in_ch, out_ch, 3, padding=1)
-    bound = math.sqrt(6.0 / ((in_ch + out_ch) * 9))
+def xavier_conv(in_ch: int, out_ch: int, k: int,
+                generator: Optional[torch.Generator] = None) -> nn.Conv2d:
+    """k×k stride-1 conv, padding k // 2, xavier-uniform weight and zero
+    bias (``meta_interpolation_tpu/models/cain.py:34`` ``_xavier_conv``)."""
+    conv = nn.Conv2d(in_ch, out_ch, k, padding=k // 2)
+    bound = math.sqrt(6.0 / ((in_ch + out_ch) * k * k))
     with torch.no_grad():
         conv.weight.uniform_(-bound, bound, generator=generator)
         conv.bias.zero_()
     return conv
+
+
+def conv3x3(in_ch: int, out_ch: int,
+            generator: Optional[torch.Generator] = None) -> nn.Conv2d:
+    """3×3 :func:`xavier_conv`."""
+    return xavier_conv(in_ch, out_ch, 3, generator)
 
 
 def torch_default_init_(conv: nn.Module,
@@ -63,10 +69,14 @@ def normal_init_(conv: nn.Module, std: float,
 
 class EvalBatchNorm2d(nn.Module):
     """Batch norm with stored statistics only (the JAX package's
-    ``hourglass._bn``): ``(x − running_mean)/√(running_var + eps)``, then
-    ``·weight + bias`` when affine. Unlike ``nn.BatchNorm2d`` it never
-    switches to batch statistics, whatever ``self.training`` says. Names
-    follow ``nn.BatchNorm2d``'s state dict, so reference weights load."""
+    ``hourglass._bn``, and with ``affine`` its frozen ``batch_norm_init`` /
+    ``batch_norm_apply``, ``models/layers.py:527-543``):
+    ``(x − running_mean)/√(running_var + eps)``, then ``·weight + bias``
+    when affine. Unlike ``nn.BatchNorm2d`` it never switches to batch
+    statistics, whatever ``self.training`` says. The statistics are
+    buffers, so ``named_parameters()`` (the meta-parameters) never holds
+    them; the affine pair are parameters. Names follow
+    ``nn.BatchNorm2d``'s state dict, so reference weights load."""
 
     def __init__(self, ch: int, affine: bool = False, eps: float = 1e-5):
         super().__init__()

@@ -1,19 +1,25 @@
 """Model registry — dispatch by ``--model`` name.
 
 Counterpart of ``meta_interpolation_tpu/models/registry.py``. SepConv,
-RRIN and DAIN are ported so far; every other model of the JAX package
-raises ``NotImplementedError`` until its slice lands.
+RRIN, DAIN, SuperSloMo and VoxelFlow are ported so far; CAIN raises
+``NotImplementedError`` until its slice lands.
+
+``normalize`` maps a [0, 1] clip to model input space on numpy arrays with
+the channel last (the datasets'); ``denormalize`` maps back on tensors
+with the channel third from last (the episode's NCHW and CHW frames).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
+import torch
 from torch import nn
 
 # the JAX package's models, for a clear error on the ones not ported yet
 JAX_MODELS = ("cain", "dain", "rrin", "sepconv", "superslomo", "voxelflow")
-PORTED = ["dain", "rrin", "sepconv"]
+PORTED = ["dain", "rrin", "sepconv", "superslomo", "voxelflow"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,24 +43,51 @@ class ModelDef:
     # port ({'fill_holes': True}). A standalone forward keeps
     # fill_holes=False, as a freshly built reference MetaDAIN.
     meta_apply_kwargs: Optional[Dict[str, Any]] = None
-    # the meta system's loss, (pred, target) → {..., 'total'}; None takes
-    # the one --loss names
+    # the meta system's loss, (pred, target, aux) → {..., 'total'}; None
+    # takes the one --loss names
     loss_fn: Optional[Callable] = None
     # config → keyword arguments of ``build`` (the model's CLI flags)
     build_kwargs: Callable[[Any], Dict[str, Any]] = lambda cfg: {}
     # meta-training (--mode train, --second_order) is ported
     trainable: bool = False
+    # the forward returns (pred, aux) and the loss reads aux
+    returns_aux: bool = False
 
 
 def _identity(x):
     return x
 
 
-def _rrin_build_kwargs(cfg) -> Dict[str, Any]:
-    """--fast_warp_range R > 0 takes the bounded warp (JAX
-    meta/system.py:147-149)."""
+def _warp_build_kwargs(cfg) -> Dict[str, Any]:
+    """--fast_warp_range R > 0 takes the bounded warp, for each model that
+    warps by a grid (JAX meta/system.py:147-149)."""
     return ({"warp_range": cfg.fast_warp_range}
             if cfg.fast_warp_range > 0 else {})
+
+
+# SuperSloMo's input mean (JAX models/registry.py:110-119)
+SSM_MEAN = np.asarray([0.429, 0.431, 0.397], np.float32)
+
+
+def _ssm_normalize(x: np.ndarray) -> np.ndarray:
+    return x - SSM_MEAN
+
+
+def _ssm_denormalize(x: torch.Tensor) -> torch.Tensor:
+    return x + torch.as_tensor(SSM_MEAN, device=x.device)[:, None, None]
+
+
+def _vf_normalize(x):
+    # the reference keeps 0-255, then Normalize(mean=127.5, std=127.5)
+    return (x * 255.0 - 127.5) / 127.5
+
+
+def _vf_denormalize(x: torch.Tensor) -> torch.Tensor:
+    # divided by a tensor on x's device: CUDA divides by a Python scalar as
+    # a product with its reciprocal, which differs from the CPU's division
+    # in the last bit, and the metrics' 8-bit rounding turns such a bit at
+    # a tie into a whole level
+    return (x * 127.5 + 127.5) / x.new_full((), 255.0)
 
 
 def get(name: str) -> ModelDef:
@@ -68,11 +101,21 @@ def get(name: str) -> ModelDef:
         from . import rrin
         return ModelDef("rrin", rrin.RRIN, _identity, _identity,
                         tile_pixel_limit=3e5, inner_mask_fn=rrin.inner_mask,
-                        build_kwargs=_rrin_build_kwargs)
+                        build_kwargs=_warp_build_kwargs)
+    if name == "superslomo":
+        from . import superslomo
+        return ModelDef("superslomo", superslomo.SuperSloMo, _ssm_normalize,
+                        _ssm_denormalize, build_kwargs=_warp_build_kwargs,
+                        returns_aux=True)
+    if name == "voxelflow":
+        from . import voxelflow
+        return ModelDef("voxelflow", voxelflow.VoxelFlow, _vf_normalize,
+                        _vf_denormalize, inner_mask_fn=voxelflow.inner_mask,
+                        build_kwargs=_warp_build_kwargs)
     if name == "dain":
         from .dain import model as dain
 
-        def charbonnier(pred, target):
+        def charbonnier(pred, target, aux=None):
             # DAIN trains on its own loss whatever --loss says (JAX
             # meta/system.py:237-246, reference meta_learning_system.py
             # :503-505)

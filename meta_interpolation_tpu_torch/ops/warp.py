@@ -13,13 +13,18 @@ them, with grid (x, y) in [−1, 1] and flow (u = dx, v = dy) in pixels.
     each way, grid in: K3 for the output, K3-grad for the grid gradient
     (``ops/warp_bounded.py``, ``csrc/warp.cu``).
   * :func:`sample` dispatches between the two; :func:`backward_warp` and
-    :func:`backward_warp_rrin` (RRIN's half-pixel quirk ``2·(x/W − 0.5)``)
-    build the grid from a flow.
+    :func:`backward_warp_rrin` (RRIN's and SuperSloMo's half-pixel quirk
+    ``2·(x/W − 0.5)``) build the grid from a flow, and
+    :func:`voxelflow_sample` is VoxelFlow's symmetric two-frame sampler
+    (border padding, align_corners=True).
+  * :class:`FlowStats` records the displacements the exact sampler sees.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -27,10 +32,75 @@ from . import warp_bounded
 from .warp_bounded import _compute_dtype
 
 
+class FlowStats:
+    """Record the pixel displacements the exact sampler sees (JAX
+    ``ops/warp.py:83-158``): the measured ground truth for choosing
+    ``warp_range`` (the bounded sampler is exact for per-axis displacements
+    in [−R, R−1] and clamps beyond).
+
+        with warp.FlowStats(r=8) as fs:
+            model(f0, f1)                      # warp_range None
+        fs.frac_beyond, fs.max_disp            # over every exact call
+
+    The displacement is the sample coordinate less the output pixel
+    (ix − x, iy − y), computed from the grid as :func:`grid_sample` reads
+    it, so each model's grid convention is folded in. Every call of
+    :func:`grid_sample` inside the context records (one host read each)."""
+
+    _active: Optional["FlowStats"] = None
+
+    def __init__(self, r: int = 8):
+        self.r = r
+        self.n_beyond = 0
+        self.n_total = 0
+        self.max_disp = 0.0
+        self.calls = 0
+
+    def __enter__(self):
+        FlowStats._active = self
+        return self
+
+    def __exit__(self, *exc):
+        FlowStats._active = None
+        return False
+
+    @property
+    def frac_beyond(self) -> float:
+        return self.n_beyond / max(self.n_total, 1)
+
+    def _record(self, ix: torch.Tensor, iy: torch.Tensor):
+        h, w = ix.shape[-2], ix.shape[-1]
+        dx = ix - torch.arange(w, dtype=ix.dtype, device=ix.device)
+        dy = iy - torch.arange(h, dtype=iy.dtype,
+                               device=iy.device)[:, None]
+        r = self.r
+        beyond = (dx < -r) | (dx > r - 1) | (dy < -r) | (dy > r - 1)
+        self.n_beyond += int(beyond.sum())
+        self.n_total += beyond.numel()
+        self.max_disp = max(self.max_disp, float(dx.abs().max()),
+                            float(dy.abs().max()))
+        self.calls += 1
+
+
+def _source_coords(grid: torch.Tensor, h: int, w: int, align_corners: bool):
+    """(ix, iy), the pixel coordinates a grid samples, in the compute
+    dtype: the formula of the JAX ``grid_sample``."""
+    ct = _compute_dtype(grid.dtype)
+    gx, gy = grid[..., 0].to(ct), grid[..., 1].to(ct)
+    if align_corners:
+        return (gx + 1.0) * 0.5 * (w - 1), (gy + 1.0) * 0.5 * (h - 1)
+    return ((gx + 1.0) * w - 1.0) * 0.5, ((gy + 1.0) * h - 1.0) * 0.5
+
+
 def grid_sample(img: torch.Tensor, grid: torch.Tensor,
                 align_corners: bool = False,
                 padding_mode: str = "zeros") -> torch.Tensor:
-    """Exact bilinear sampling. img (N, C, H, W); grid (N, Ho, Wo, 2)."""
+    """Exact bilinear sampling. img (N, C, H, W); grid (N, Ho, Wo, 2).
+    Inside a :class:`FlowStats` context the call records its
+    displacements."""
+    if FlowStats._active is not None:
+        FlowStats._active._record(*_source_coords(
+            grid.detach(), img.shape[2], img.shape[3], align_corners))
     return F.grid_sample(img, grid.to(img.dtype), mode="bilinear",
                          padding_mode=padding_mode,
                          align_corners=align_corners)
@@ -97,3 +167,49 @@ def backward_warp_rrin(img: torch.Tensor, flow: torch.Tensor,
     gx, gy = 2.0 * (x / w - 0.5), 2.0 * (y / h - 0.5)
     return sample(img, torch.stack([gx, gy], dim=-1), align_corners=False,
                   padding_mode="zeros", warp_range=warp_range)
+
+
+@functools.lru_cache(maxsize=16)
+def linspace(n: int, device: torch.device) -> torch.Tensor:
+    """linspace(−1, 1, n) in float32 on ``device``, bit for bit as the JAX
+    model's compiled ``jnp.linspace`` gives it: step = i·(1/(n−1)), value
+    −(1 − step) + step, and the end point 1 exactly. ``torch.linspace``
+    differs in the last bit at many points, and at small flow the floor of
+    a coordinate, and so K3-grad's derivative, can turn on that bit. Made
+    once a size and device, in numpy; callers must not write to it."""
+    one = np.float32(1.0)
+    if n == 1:
+        values = np.full(1, -1.0, np.float32)
+    else:
+        step = np.arange(n - 1, dtype=np.float32) * (one / np.float32(n - 1))
+        values = np.append(np.float32(-1.0) * (one - step) + step, one)
+    return torch.from_numpy(values.astype(np.float32)).to(device)
+
+
+def voxelflow_sample(frame0: torch.Tensor, frame1: torch.Tensor,
+                     flow: torch.Tensor, mask: torch.Tensor,
+                     warp_range: Optional[int] = None,
+                     offsets: Tuple[float, float] = (-1.0, 1.0)
+                     ) -> torch.Tensor:
+    """DVF's trilinear sampling (JAX ``ops/warp.py:381-403``, reference
+    voxel_flow.py:471-507). frames (N, C, H, W); ``flow`` (N, H, W, 2) in
+    normalised grid units (the tanh head already halved); ``mask`` (N, 1,
+    H, W) in [−1, 1]. frame0 is sampled at linspace + offsets[0]·flow,
+    frame1 at linspace + offsets[1]·flow, border padding,
+    align_corners=True, through :func:`sample`; the two are blended with
+    (1 + mask)/2. The default (−1, 1) interpolates (JAX's function);
+    VoxelFlow's extrapolation passes (−2, −1) (JAX ``models/voxelflow.py``
+    :195-207)."""
+    h, w = frame0.shape[2], frame0.shape[3]
+    gx = linspace(w, flow.device)[None, None, :]
+    gy = linspace(h, flow.device)[None, :, None]
+    u, v = flow[..., 0], flow[..., 1]
+    a, b = offsets
+    grid1 = torch.stack([gx + a * u, gy + a * v], dim=-1)
+    grid2 = torch.stack([gx + b * u, gy + b * v], dim=-1)
+    out1 = sample(frame0, grid1, align_corners=True, padding_mode="border",
+                  warp_range=warp_range)
+    out2 = sample(frame1, grid2, align_corners=True, padding_mode="border",
+                  warp_range=warp_range)
+    m = 0.5 * (1.0 + mask)
+    return m * out1 + (1.0 - m) * out2

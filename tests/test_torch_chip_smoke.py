@@ -243,3 +243,138 @@ def test_count_calls_records_the_launches_of_each_call():
     epoch, launches, w0, result = log[0]
     assert (epoch, launches["sepconv_forward"], result) == (3, 2, out)
     assert torch.equal(w0, torch.ones(2))
+
+
+def test_warp_model_launch_counts_are_derived_from_the_presets():
+    """run_superslomo.sh and run_voxelflow.sh: 1 evaluation step over 2
+    support pairs, then the query; 6 and 2 warps a forward, each with a
+    K3-grad in a support backward."""
+    assert (chip_smoke.K3_PER_CLIP_SSM, chip_smoke.K3G_PER_CLIP_SSM) == (18,
+                                                                          12)
+    assert (chip_smoke.K3_PER_CLIP_VF, chip_smoke.K3G_PER_CLIP_VF) == (6, 4)
+    for flags, loss in ((chip_smoke.SSM_FLAGS, "1*Super"),
+                        (chip_smoke.VF_FLAGS, "1*MSE")):
+        assert loss in flags and "--metasgd" in flags
+        assert flags[flags.index("--optimizer") + 1] == "Adam"
+        assert flags[flags.index("--fast_warp_range") + 1] == "8"
+        for steps in ("--number_of_training_steps_per_iter",
+                      "--number_of_evaluation_steps_per_iter"):
+            assert flags[flags.index(steps) + 1] == "1"
+
+
+def test_warp_cases_hold_voxelflows_call():
+    """K3 is checked at VoxelFlow's main-path call: one 256x448 frame,
+    border padding, align_corners=True, R = 8."""
+    case = chip_smoke.VF_WARP_CASE
+    assert case in chip_smoke.warp_cases()
+    assert case[:4] == (1, 3, 256, 448) and case[7:] == (8, True, "border")
+
+
+@pytest.fixture
+def counted_warp(monkeypatch):
+    """The K3 and K3-grad wrappers counting on the CPU (where they run
+    their plain versions and count nothing)."""
+    from meta_interpolation_tpu_torch.ops import warp_bounded as wb
+    ref = wb.grid_sample_bounded_ref
+    ref_grad = wb.grid_sample_bounded_grad_grid_ref
+
+    def fwd(img, grid, r, align_corners=False, padding_mode="zeros"):
+        fwd.launches += 1
+        return ref(img, grid, r, align_corners, padding_mode)
+
+    def grad(img, grid, g, r, align_corners=False, padding_mode="zeros"):
+        grad.launches += 1
+        return ref_grad(img, grid, g, r, align_corners, padding_mode)
+    fwd.launches = grad.launches = 0
+    monkeypatch.setattr(wb, "warp_sample_bounded_forward", fwd)
+    monkeypatch.setattr(wb, "warp_sample_bounded_grad_grid", grad)
+    return wb
+
+
+@pytest.mark.parametrize("model", ["rrin", "superslomo", "voxelflow"])
+def test_warp_model_episode_launches_what_is_derived(counted_warp, model):
+    """One 64x64 episode of each preset on the CPU, with the plain sampler
+    forbidden outside the counted wrappers (so no plain image gradient
+    runs): the launches chip_smoke.py holds the card to."""
+    import torch
+
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    wb = counted_warp
+    flags, k3, k3g = chip_smoke.WARP_MODELS[model]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        system = SceneAdaptiveInterpolation(get_args(flags + ["--device",
+                                                              "cpu"]))
+        clip = SyntheticSeptuplet(model=model, mode="val",
+                                  size=(64, 64))[0][0][None]
+        chip_smoke.plain_warp_forbidden(wb, system.run_validation_iter)(clip)
+    finally:
+        torch.set_num_threads(threads)
+    assert wb.warp_sample_bounded_forward.launches == k3
+    assert wb.warp_sample_bounded_grad_grid.launches == k3g
+
+
+def test_plain_warp_forbidden_raises_on_an_image_gradient_and_restores():
+    import torch
+
+    from meta_interpolation_tpu_torch.ops import warp_bounded as wb
+    real = wb.grid_sample_bounded_ref
+    img = torch.rand(1, 2, 5, 6, requires_grad=True)
+    grid = torch.rand(1, 5, 6, 2) * 2 - 1
+
+    def run():
+        wb.GridSampleBoundedFunction.apply(img, grid, 2, False,
+                                           "zeros").sum().backward()
+    with pytest.raises(AssertionError, match="plain bounded-sampler"):
+        chip_smoke.plain_warp_forbidden(wb, run)()
+    assert wb.grid_sample_bounded_ref is real
+
+
+@pytest.mark.parametrize("model", ["rrin", "superslomo", "voxelflow"])
+def test_exact_episode_samples_once_a_bounded_launch(model):
+    """The exact path's episode samples (FlowStats' calls) as often as the
+    bounded path launches K3: warp_model_phase holds FlowStats to it."""
+    import torch
+
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    from meta_interpolation_tpu_torch.ops import warp as warp_ops
+    flags, k3, _ = chip_smoke.WARP_MODELS[model]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        system = SceneAdaptiveInterpolation(get_args(
+            flags + ["--fast_warp_range", "0", "--device", "cpu"]))
+        clip = SyntheticSeptuplet(model=model, mode="val",
+                                  size=(64, 64))[0][0][None]
+        with warp_ops.FlowStats(r=chip_smoke.WARP_R) as fs:
+            system.run_validation_iter(clip)
+    finally:
+        torch.set_num_threads(threads)
+    assert system.model.warp_range is None
+    assert fs.calls == k3 and fs.n_total > 0
+
+
+def test_peak_blocks_replays_the_trace_to_its_peak():
+    """Blocks a (100) and b (300) live together at the peak of 400; c (50)
+    comes after a is freed, so it is not live there."""
+    def alloc(addr, size, name):
+        return {"action": "alloc", "addr": addr, "size": size, "frames": [
+            {"filename": "/x/torch/nn/functional.py", "line": 1,
+             "name": "conv2d"},
+            {"filename": "/x/meta_interpolation_tpu_torch/models/m.py",
+             "line": 7, "name": name}]}
+    trace = [alloc(1, 100, "a"), alloc(2, 300, "b"),
+             {"action": "free_requested", "addr": 1, "size": 100},
+             {"action": "free_completed", "addr": 1, "size": 100},
+             alloc(3, 50, "c")]
+    peak, blocks = chip_smoke.peak_blocks(trace)
+    assert peak == 400
+    assert blocks == [(300, "functional.py:1 conv2d", "m.py:7 b"),
+                      (100, "functional.py:1 conv2d", "m.py:7 a")]
