@@ -79,11 +79,27 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
          meta system); a 64x64 clip on the card against the CPU, and a
          served 64x64 frame on the card against the CPU given the card's
          flows, depths and offsets;
+       - CAIN in evaluation (run_cain.sh's hyperparameters: Adam,
+         Meta-SGD, 1*L1, 1 step; full architecture): the CLI's clips, 256x448
+         episodes with peak memory, a profile and the FLOPs of a forward,
+         and a 64x64 clip on the card against the CPU; no kernel of ours;
+       - CAIN meta-training (run_cain.sh: batch 8, 1 step, first order):
+         the training CLI for one iteration with its checkpoint, seconds
+         per train iteration with peak memory and a profile, one
+         second-order iteration at batch 1, and the first-order outer
+         gradient of a 64x64 clip on the card against the CPU;
+       - --mode test (run_test.sh: CAIN, one evaluation step; then SepConv
+         with Adamax and Meta-SGD) on 6 synthetic 256x448 frames in a
+         temporary directory, x2 and then x4 on its own output: the names
+         the JAX package writes, no frame overwritten, SepConv's K1 and K2
+         launches a clip (6 and 4), and a written 64x64 frame on the card
+         against the CPU within one 8-bit level;
   5. a JSON line of per-kernel results, each with its launches on every
      main path that runs it (``launches_by_path``: K1/K2 the training
-     CLI's; K3/K3-grad the RRIN, SuperSloMo and VoxelFlow CLIs'; K4 the
-     served DAIN frames') and their sum (``launches``), the card line
-     again, and the last line {"ok": true, "device": {...}}.
+     CLI's and the SepConv test runs'; K3/K3-grad the RRIN, SuperSloMo and
+     VoxelFlow CLIs'; K4 the served DAIN frames') and their sum
+     (``launches``), the card line again, and the last line {"ok": true,
+     "device": {...}}.
 """
 import argparse
 import json
@@ -134,6 +150,13 @@ DOUBLE_BACKWARD_SHAPES = [(1, 37, 53, 51), (1, 384, 512, 51)]
 # support gradient is within the devices' rounding of zero may step the
 # other way on one of them)
 LOSS_RTOL, OUTER_GRAD_RTOL = 1e-5, 1e-3
+# an adapted weight of CAIN's episode may differ between card and CPU by
+# more than STEP_ATOL_OF_LR x the inner rate (a step of ~lr·sign(g) taken
+# the other way, at g within rounding of zero) on this share of the
+# weights: 8.4e-6 between a float32 and a float64 episode on the CPU, and
+# the card's convolutions sum in other orders than the CPU's; a fault
+# moves most weights
+STEP_ATOL_OF_LR, CAIN_FLIP_SHARE = 0.1, 1e-4
 # (N, H, W, F) of the K1/K2 checks; timed: last. H and W off the 16x16 and
 # 16x8 tiles and the 4- and 2-pixel strips; F odd, even and small
 KERNEL_SHAPES = [(1, 37, 53, 51), (2, 21, 70, 51), (2, 21, 70, 5),
@@ -226,6 +249,40 @@ DAIN_FLAGS = ["--model", "dain", "--mode", "val", "--optimizer", "Adamax",
 # flip) acts: the 2x2 cells a projected source lands on (1), the 4x4 filter
 # window (2) and the rectify net's 21x21 receptive field (10)
 NEAR_INT, FLIP_REACH = 1e-5, 13
+# CAIN: run_cain.sh's hyperparameters (Adam, Meta-SGD, 1*L1, 1 training
+# and 1 evaluation step) at the full architecture (depth 3, 5 groups of 12
+# RCABs, 192 channels); evaluation at --val_batch_size 1, training at its
+# batch 8, first order. Only cuDNN convolutions: no kernel of ours
+CAIN_FLAGS = ["--model", "cain", "--loss", "1*L1", "--optimizer", "Adam",
+              "--metasgd", "--inner_lr", "1e-5", "--outer_lr", "1e-5",
+              "--number_of_training_steps_per_iter", "1",
+              "--number_of_evaluation_steps_per_iter", "1",
+              "--val_batch_size", "1"]
+CAIN_EVAL_FLAGS = CAIN_FLAGS + ["--mode", "val"]
+CAIN_TRAIN_FLAGS = CAIN_FLAGS + ["--mode", "train", "--batch_size", "8"]
+CAIN_TASKS, CAIN_PARAMS = 8, 42_780_432
+CAIN_EPISODE_REPS = 6
+# --mode test: run_test.sh (CAIN, Adam, one evaluation step), and the same
+# flags with SepConv's Adamax and Meta-SGD, on a directory of TEST_FRAMES
+# frames f00.png ... f05.png, then again on its own output
+TEST_FLAGS = ["--mode", "test", "--dataset", "test", "--img_fmt", "png",
+              "--number_of_evaluation_steps_per_iter", "1"]
+TEST_MODELS = {"cain": ["--model", "cain"],
+               "sepconv": ["--model", "sepconv", "--optimizer", "Adamax",
+                           "--metasgd"]}
+TEST_FRAMES, TEST_STEPS = 6, 1
+# a test clip: n steps on the two support pairs, then one forward
+K1_PER_TEST_CLIP = PAIRS * CALLS * TEST_STEPS + CALLS     # 4n + 2
+K2_PER_TEST_CLIP = PAIRS * CALLS * TEST_STEPS             # 4n
+# what the JAX package's writer names: the inputs renamed to
+# name_0.000000.png; x2 writes the midpoint of each window's frames 1 and 2
+# (a zero second index counts as 1.0), x4 then between those
+TEST_INPUTS = [f"f{i:02d}_0.000000.png" for i in range(TEST_FRAMES)]
+TEST_NAMES = {"x2": ["f01_0.500000.png", "f02_0.500000.png",
+                     "f03_0.500000.png"],
+              "x4": ["f01_0.250000.png", "f01_0.750000.png",
+                     "f02_0.250000.png", "f02_0.750000.png",
+                     "f03_0.250000.png", "f03_0.750000.png"]}
 KERNELS = ("sepconv_forward", "sepconv_grad_kernels",
            "warp_sample_bounded_forward", "warp_sample_bounded_grad_grid",
            "flow_projection_bounded")
@@ -1113,6 +1170,14 @@ def projection_kernel_phase(torch, fpb, card, resources=None, earlier=None):
     return [rec]
 
 
+def timed(label, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, with its wall time printed."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def reset_launches(mods):
     for mod in mods:
         mod.reset_launches()
@@ -1137,12 +1202,13 @@ def profile_episode(torch, run, label, ours_key):
     ops = sum(count for _, count, _ in top)
     launches = sum(count for _, count, key in host
                    if key == "cudaLaunchKernel")
-    ours = [row for row in top if ours_key in row[2]]
+    ours = [row for row in top if ours_key and ours_key in row[2]]
     ours_ms = sum(ms for ms, _, _ in ours)
     print(f"[profile] one {label}: wall {wall:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}, {ops} device "
-          f"ops, {launches} cudaLaunchKernel, {ours_key} kernels "
-          f"{ours_ms:.3f} ms ({ours_ms / busy:.4f} of busy)")
+          f"ops, {launches} cudaLaunchKernel" + (
+              f", {ours_key} kernels {ours_ms:.3f} ms "
+              f"({ours_ms / busy:.4f} of busy)" if ours_key else ""))
     for ms, count, key in top[:12] + [r for r in ours if r not in top[:12]]:
         print(f"[profile]   {ms:9.3f} ms  {count:5d}x  {key[:90]}")
     return ops, launches
@@ -1473,16 +1539,21 @@ def train_phase(torch, mods, sc, card):
     return launches
 
 
-def train_card_vs_cpu(torch):
-    """First- and second-order outer gradients of one 64x64 clip on the
-    card and on the CPU, from the same weights."""
+def train_card_vs_cpu(torch, flags=TRAIN_FLAGS, model="sepconv",
+                      orders=("first", "second"), hold_grads=True):
+    """Outer gradients of one 64x64 clip on the card and on the CPU, from
+    the same weights, for each order of ``orders``: the loss within
+    LOSS_RTOL and, with ``hold_grads``, each parameter group's gradient
+    within OUTER_GRAD_RTOL in norm (else the distance is shown)."""
     from meta_interpolation_tpu_torch.config import get_args
     from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
     from meta_interpolation_tpu_torch.meta.system import (
         SceneAdaptiveInterpolation)
-    clip = SyntheticSeptuplet(mode="train", size=SMALL_HW)[0][0][None]
-    for order, extra in (("first", []), ("second", ["--second_order"])):
-        cfg = get_args(TRAIN_FLAGS + ["--batch_size", "1"] + extra)
+    clip = SyntheticSeptuplet(model=model, mode="train",
+                              size=SMALL_HW)[0][0][None]
+    for order in orders:
+        extra = ["--second_order"] if order == "second" else []
+        cfg = get_args(flags + ["--batch_size", "1"] + extra)
         out = {}
         for dev in ("cuda", "cpu"):
             loss, _, grads = SceneAdaptiveInterpolation(
@@ -1499,17 +1570,18 @@ def train_card_vs_cpu(torch):
             ref = math.sqrt(sum(float(v.norm()) ** 2
                                 for v in g_cpu[g].values()))
             ratios[g] = diff / ref
-            check(diff <= OUTER_GRAD_RTOL * ref,
+            check(diff <= OUTER_GRAD_RTOL * ref or not hold_grads,
                   f"{order}-order outer gradient of {g}: card vs CPU "
                   f"{diff:.3e} > {OUTER_GRAD_RTOL} x {ref:.3e}")
         worst = max(float((g_card[g][k] - v).norm() / max(float(v.norm()),
                                                            1e-30))
                     for g in g_cpu for k, v in g_cpu[g].items())
-        print(f"[train] {order}-order outer gradient, {SMALL_HW[0]}x"
-              f"{SMALL_HW[1]} clip, card vs CPU: loss {l_card:.6f} vs "
-              f"{l_cpu:.6f}, |diff|/|cpu| net {ratios['net']:.3e} lrs "
-              f"{ratios['lrs']:.3e} (limit {OUTER_GRAD_RTOL}); worst single "
-              f"tensor {worst:.3e}")
+        limit = OUTER_GRAD_RTOL if hold_grads else "none"
+        print(f"[train] {model} {order}-order outer gradient, inner "
+              f"{cfg.optimizer}, {SMALL_HW[0]}x{SMALL_HW[1]} clip, card vs "
+              f"CPU: loss {l_card:.6f} vs {l_cpu:.6f}, |diff|/|cpu| net "
+              f"{ratios['net']:.3e} lrs {ratios['lrs']:.3e} (limit {limit}); "
+              f"worst single tensor {worst:.3e}")
 
 
 def warp_call_phase(torch, mods, earlier=None, reps=10):
@@ -2045,6 +2117,339 @@ def dain_phase(torch, mods, earlier_k4=None):
     return launches, served_ms
 
 
+def cain_phase(torch, mods, card):
+    """CAIN in evaluation, run_cain.sh's hyperparameters, through the
+    port's entry points on the card: (a) the CLI on the synthetic clips,
+    no kernel of ours launched; (b) 256x448 episodes: median of
+    CAIN_EPISODE_REPS after a warm-up, peak memory, a profile, the FLOPs
+    of a forward; (c) a 64x64 clip on the card against the CPU."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+
+    # (a) the CLI
+    cli_phase(torch, mods, CAIN_EVAL_FLAGS, "cain", {})
+
+    # (b) the full Vimeo frame
+    cfg = get_args(CAIN_EVAL_FLAGS)
+    system = SceneAdaptiveInterpolation(cfg)
+    n_params = sum(v.numel() for v in system.meta_params["net"].values())
+    check(n_params == CAIN_PARAMS, f"cain has {n_params} parameters, want "
+                                   f"{CAIN_PARAMS}")
+    frames = SyntheticSeptuplet(model="cain", mode="val",
+                                size=FULL_HW)[0][0][None]
+    out = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    times = timed_iters(
+        torch, lambda: out.append(system.run_validation_iter(frames)),
+        CAIN_EPISODE_REPS, warmup=1)
+    got = launch_counts(mods)
+    check(not any(got.values()), f"cain episodes launched {got}")
+    losses, preds = out[-1]
+    check(tuple(preds.shape) == (1, 3) + FULL_HW
+          and bool(torch.isfinite(preds).all())
+          and math.isfinite(losses["psnr"]), f"cain {FULL_HW}: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[main] cain {FULL_HW[0]}x{FULL_HW[1]} episode ({card}): median "
+          f"{statistics.median(times):.4f} s over {CAIN_EPISODE_REPS} after "
+          f"a warm-up (all {[round(t, 4) for t in times]}), PSNR "
+          f"{losses['psnr']:.3f}, max|pred| {preds.abs().max().item():.3f}, "
+          f"peak memory {peak:.2f} GiB, {n_params} parameters, no kernel "
+          f"of ours launched")
+    profile_episode(torch, lambda: system.run_validation_iter(frames),
+                    f"cain {FULL_HW[0]}x{FULL_HW[1]} episode", None)
+    clip = system._frames(frames)[0]
+    q0, _, q1 = QUERY
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        system.model(clip[q0][None], clip[q1][None])
+    print(f"[main] cain forward at {FULL_HW[0]}x{FULL_HW[1]}: "
+          f"{counter.get_total_flops() / 1e9:.3f} GFLOP "
+          f"(torch.utils.flop_counter)")
+    del system, out
+
+    # (c) a small clip on the card against the same clip on the CPU
+    cain_card_vs_cpu(torch, cfg)
+
+
+def cain_card_vs_cpu(torch, cfg):
+    """CAIN's first small synthetic clip on the card and on the CPU. The
+    preset's first inner Adam step moves a weight by lr·g/(|g| + eps),
+    about lr·sign(g), so a weight whose support gradient is within the
+    devices' rounding of zero steps the other way on one of them (358 of
+    the 42,780,432 between a float32 and a float64 episode on the CPU),
+    and the random-init prediction, ~10² from 60 residual blocks, carries
+    that to ~1e-3. So: (a) the episode on each device, PSNR within
+    PSNR_TOL_DB, and each adapted weight within STEP_ATOL_OF_LR·lr of the
+    other device's but for a share of at most CAIN_FLIP_SHARE; (b) the query on
+    the CPU handed the card's adapted weights, every pixel within
+    1e-4·max|pred| + 1e-5 of the card's (DAIN's rule for a frame handed the
+    card's flows)."""
+    from torch.func import functional_call
+
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta import episode as episode_lib
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    clip = SyntheticSeptuplet(model="cain", mode="val",
+                              size=SMALL_HW)[0][0][None]
+    spec = episode_lib.EpisodeSpec(support_idxs=cfg.support_idxs("train"),
+                                   num_steps=cfg.num_eval_steps)
+    q0, _, q1 = QUERY
+    out = {}
+    for dev in ("cuda", "cpu"):
+        system = SceneAdaptiveInterpolation(cfg, device=dev)
+        losses, preds = system.run_validation_iter(clip)
+        frames = system._frames(clip)[0]
+        adapted = system.builder.adapt(system.meta_params["net"],
+                                       system.meta_params["lrs"], frames,
+                                       spec)
+        out[dev] = (system, frames, losses["psnr"], preds.cpu(),
+                    {k: v.detach().cpu() for k, v in adapted.items()})
+    (card, card_frames, psnr_card, pred_card, w_card) = out["cuda"]
+    (cpu, cpu_frames, psnr_cpu, pred_cpu, w_cpu) = out["cpu"]
+    dpsnr = abs(psnr_card - psnr_cpu)
+    diff = (pred_card - pred_cpu).abs().max().item()
+    step_atol = STEP_ATOL_OF_LR * cfg.inner_lr
+    flips = sum(int(((w_card[k] - w).abs() > step_atol).sum())
+                for k, w in w_cpu.items())
+    total = sum(w.numel() for w in w_cpu.values())
+    worst = max((w_card[k] - w).abs().max().item() for k, w in w_cpu.items())
+    check(dpsnr <= PSNR_TOL_DB and flips <= CAIN_FLIP_SHARE * total,
+          f"cain card vs CPU at {SMALL_HW}: PSNR diff {dpsnr:.3e} dB, "
+          f"{flips} of {total} adapted weights differ by more than "
+          f"{step_atol:.1e}")
+    with torch.no_grad():
+        handed = functional_call(cpu.model, w_card, (cpu_frames[q0][None],
+                                                     cpu_frames[q1][None]))
+        mine = functional_call(card.model, {k: v.cuda() for k, v in
+                                            w_card.items()},
+                               (card_frames[q0][None],
+                                card_frames[q1][None])).cpu()
+    handed_diff = (handed - mine).abs().max().item()
+    limit = 1e-4 * mine.abs().max().item() + 1e-5
+    check(handed_diff <= limit,
+          f"cain query on the CPU handed the card's adapted weights: "
+          f"max|diff| {handed_diff:.3e} > {limit:.3e}")
+    print(f"[main] cain {SMALL_HW[0]}x{SMALL_HW[1]} clip, card vs CPU: PSNR "
+          f"{psnr_card:.4f} dB, diff {dpsnr:.3e} dB; max|pred diff| "
+          f"{diff:.3e} at max|pred| {pred_cpu.abs().max().item():.3f}; "
+          f"adapted weights: {flips} of {total} differ by more than "
+          f"{step_atol:.1e} (largest {worst:.3e}); the query on the CPU "
+          f"handed the card's adapted weights: max|diff| {handed_diff:.3e} "
+          f"(limit {limit:.3e})")
+
+
+def cain_train_phase(torch, mods, card):
+    """CAIN meta-training, run_cain.sh as it stands (batch 8, 1 step, first
+    order), on the card: (a) the training CLI at crop 256 for one
+    iteration and its validation clip, with its checkpoint (removed
+    after); (b) seconds per train iteration, median of TRAIN_REPS after 2
+    warm-ups, peak memory, a profile; (c) one second-order iteration at
+    batch 1; (d) the first-order outer gradient of a 64x64 clip on the card
+    against the CPU. No kernel of ours runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.core.checkpoint import load_checkpoint
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.main import main as port_main
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+
+    # (a) the training CLI
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="smoke_ckpt_cain_",
+                                dir=os.path.join(ROOT, "build"))
+    try:
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        stats = port_main(CAIN_TRAIN_FLAGS + [
+            "--dataset", "synthetic", "--crop_size", str(CLI_CROP),
+            "--max_epoch", "1", "--total_iter_per_epoch", "1",
+            "--exp_name", "smoke", "--checkpoint_dir", ckpt_dir])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = launch_counts(mods)
+        state = load_checkpoint(os.path.join(ckpt_dir, "smoke"))
+        check(not any(got.values()), f"cain train CLI launched {got}")
+        check(state is not None and state["epoch"] == 1
+              and math.isfinite(stats["best_psnr"]),
+              f"cain train CLI: stats {stats}")
+        print(f"[train] cain CLI: 1 iteration of batch {CAIN_TASKS} at "
+              f"{CLI_CROP}x{CLI_CROP} and its validation clip in {dt:.2f} s "
+              f"(set-up and checkpoint included), best PSNR "
+              f"{stats['best_psnr']:.3f}, checkpoint epoch {state['epoch']}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # (b) seconds per train iteration
+    clips = SyntheticSeptuplet(model="cain", mode="train",
+                               size=(CLI_CROP, CLI_CROP))
+    frames = np.stack([clips[i][0] for i in range(CAIN_TASKS)])
+    system = SceneAdaptiveInterpolation(get_args(CAIN_TRAIN_FLAGS))
+    out = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    times = timed_iters(
+        torch, lambda: out.append(system.run_train_iter(frames, 0)),
+        TRAIN_REPS)
+    got = launch_counts(mods)
+    check(not any(got.values()), f"cain train iterations launched {got}")
+    losses, preds = out[-1]
+    check(all(math.isfinite(v) for v in losses.values())
+          and tuple(preds.shape) == (CAIN_TASKS, 3, CLI_CROP, CLI_CROP)
+          and bool(torch.isfinite(preds).all()),
+          f"cain train iteration: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train] cain first order, batch {CAIN_TASKS}, {CLI_CROP}x"
+          f"{CLI_CROP}, 1 step ({card}): median "
+          f"{statistics.median(times):.4f} s a train iteration over "
+          f"{TRAIN_REPS} after 2 warm-ups (all "
+          f"{[round(t, 4) for t in times]}), loss {losses['loss']:.4f}, "
+          f"peak memory {peak:.2f} GiB")
+    profile_episode(torch, lambda: system.run_train_iter(frames, 0),
+                    f"cain train iteration ({card})", None)
+    del system, out
+
+    # (c) second order, batch 1
+    second = SceneAdaptiveInterpolation(get_args(
+        CAIN_TRAIN_FLAGS + ["--batch_size", "1", "--second_order"]))
+    out = []
+    torch.cuda.reset_peak_memory_stats()
+    times = timed_iters(
+        torch, lambda: out.append(second.run_train_iter(frames[:1], 0)), 1,
+        warmup=1)
+    losses, _ = out[-1]
+    check(all(math.isfinite(v) for v in losses.values()),
+          f"cain second-order iteration: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train] cain second order, batch 1, {CLI_CROP}x{CLI_CROP}, 1 "
+          f"step ({card}): {times[0]:.4f} s an iteration after a warm-up, "
+          f"peak memory {peak:.2f} GiB")
+    del second, out
+
+    # (d) the first-order outer gradient, card against CPU: at the inner SGD
+    # rule, smooth in the support gradient, each group within
+    # OUTER_GRAD_RTOL; at the preset's Adam, whose first step is about
+    # lr·sign(g) (see cain_card_vs_cpu), the loss, the distance shown
+    train_card_vs_cpu(torch, CAIN_TRAIN_FLAGS + ["--optimizer", "SGD"],
+                      "cain", orders=("first",))
+    train_card_vs_cpu(torch, CAIN_TRAIN_FLAGS, "cain", orders=("first",),
+                      hold_grads=False)
+
+
+def md5s(directory):
+    import hashlib
+    out = {}
+    for name in sorted(os.listdir(directory)):
+        with open(os.path.join(directory, name), "rb") as f:
+            out[name] = hashlib.md5(f.read()).hexdigest()
+    return out
+
+
+def write_frames(directory, hw, count):
+    """``count`` synthetic frames at ``hw`` from the seeded clips, as
+    f00.png, f01.png, ..."""
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.utils.viz import save_image
+    os.makedirs(directory)
+    clip = SyntheticSeptuplet(mode="test", size=hw, num_frames=count)[0][0]
+    for i, frame in enumerate(clip):
+        save_image(frame, os.path.join(directory, f"f{i:02d}.png"))
+
+
+def run_test_mode(flags, directory, device=None):
+    from meta_interpolation_tpu_torch.main import main as port_main
+    extra = ["--device", device] if device else []
+    return port_main(TEST_FLAGS + flags + [
+        "--data_root", directory, "--checkpoint_dir",
+        os.path.join(os.path.dirname(directory), "ckpt")] + extra)
+
+
+def test_mode_phase(torch, mods):
+    """--mode test on a directory of TEST_FRAMES synthetic 256x448 frames
+    in a temporary directory, for each model of TEST_MODELS on a fresh copy:
+    x2, then x4 on its own output. The frames written hold the JAX
+    package's names, no file is overwritten or changed, and SepConv
+    launches K1_PER_TEST_CLIP / K2_PER_TEST_CLIP a clip (CAIN none). Then a
+    4-frame 64x64 directory on the card and on the CPU: the written frame
+    within one 8-bit level. Returns the launches of the SepConv runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from meta_interpolation_tpu_torch.data.datasets import load_image
+
+    tmp = tempfile.mkdtemp(prefix="smoke_test_mode_")
+    try:
+        src = os.path.join(tmp, "frames")
+        write_frames(src, FULL_HW, TEST_FRAMES)
+        sepconv_launches = {}
+        for model, flags in TEST_MODELS.items():
+            d = os.path.join(tmp, model)
+            shutil.copytree(src, d)
+            per_clip = ({"sepconv_forward": K1_PER_TEST_CLIP,
+                         "sepconv_grad_kernels": K2_PER_TEST_CLIP}
+                        if model == "sepconv" else {})
+            # the inputs as the first run renames them
+            held = {f"{name[:-4]}_0.000000.png": digest
+                    for name, digest in md5s(d).items()}
+            for run in ("x2", "x4"):
+                n_clips = len(held) - 3
+                reset_launches(mods)
+                t0 = time.perf_counter()
+                count = run_test_mode(flags, d)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                got = launch_counts(mods)
+                now = md5s(d)
+                want_names = sorted(held) + TEST_NAMES[run]
+                check(count == len(TEST_NAMES[run])
+                      and sorted(now) == sorted(want_names),
+                      f"{model} test {run}: wrote {count}, directory "
+                      f"{sorted(now)}, want {sorted(want_names)}")
+                check(all(now[k] == v for k, v in held.items()),
+                      f"{model} test {run} changed an existing frame")
+                want = {k: per_clip.get(k, 0) * n_clips for k in got}
+                check(got == want, f"{model} test {run} launches {got} for "
+                                   f"{n_clips} clips, want {want}")
+                frame = load_image(os.path.join(d, TEST_NAMES[run][0]))
+                check(frame.shape == FULL_HW + (3,),
+                      f"{model} test frame {frame.shape}")
+                if model == "sepconv":
+                    for k, v in got.items():
+                        sepconv_launches[k] = sepconv_launches.get(k, 0) + v
+                print(f"[test] {model} {run}: {n_clips} clips at "
+                      f"{FULL_HW[0]}x{FULL_HW[1]} in {dt:.2f} s (set-up "
+                      f"included), wrote {TEST_NAMES[run]}, launches {got}")
+                held = now
+        for model, flags in TEST_MODELS.items():
+            written = {}
+            for dev in ("cuda", "cpu"):
+                d = os.path.join(tmp, f"small_{model}_{dev}")
+                write_frames(d, SMALL_HW, 4)
+                run_test_mode(flags, d, dev)
+                written[dev] = np.asarray(load_image(os.path.join(
+                    d, TEST_NAMES["x2"][0])))
+            levels = float(np.abs(written["cuda"] - written["cpu"]).max()
+                           * 255.0)
+            check(levels <= 1.0 + 1e-3, f"{model} test frame card vs CPU "
+                                        f"differs by {levels} levels")
+            print(f"[test] {model} {SMALL_HW[0]}x{SMALL_HW[1]} written frame "
+                  f"card vs CPU: max {levels:.0f} 8-bit level(s)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return sepconv_launches
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--earlier-sepconv", metavar="PATH",
@@ -2117,23 +2522,31 @@ def main():
     earlier_k3 = (earlier_warp(torch, wb, libs["warp"]) if "warp" in libs
                   else None)
 
-    records = (kernel_phase(torch, sc, card, resources, libs.get("sepconv"))
-               + warp_kernel_phase(torch, wb, card, k3_resources, earlier_k3)
-               + projection_kernel_phase(torch, fpb, card, k4_resources,
-                                         earlier_k4))
+    records = (timed("kernels", kernel_phase, torch, sc, card, resources,
+                     libs.get("sepconv"))
+               + timed("warp_kernels", warp_kernel_phase, torch, wb, card,
+                       k3_resources, earlier_k3)
+               + timed("projection_kernel", projection_kernel_phase, torch,
+                       fpb, card, k4_resources, earlier_k4))
     mods = (sc, wb, fpb)
-    main_path_phase(torch, mods, libs.get("sepconv"))
-    sepconv_launches = train_phase(torch, mods, sc, card)
+    timed("sepconv", main_path_phase, torch, mods, libs.get("sepconv"))
+    sepconv_launches = timed("sepconv_train", train_phase, torch, mods, sc,
+                             card)
     earlier_sampler = earlier_k3[0] if earlier_k3 else None
-    warp_paths = {model: warp_model_phase(torch, mods, wb, model, *preset,
-                                          earlier=earlier_sampler)
+    warp_paths = {model: timed(model, warp_model_phase, torch, mods, wb,
+                               model, *preset, earlier=earlier_sampler)
                   for model, preset in WARP_MODELS.items()}
-    warp_call_phase(torch, mods, earlier_sampler)
-    dain_launches, served_ms = dain_phase(torch, mods, earlier_k4)
+    timed("warp_call", warp_call_phase, torch, mods, earlier_sampler)
+    dain_launches, served_ms = timed("dain", dain_phase, torch, mods,
+                                     earlier_k4)
     records[-1]["served_ms"] = served_ms
-    # each kernel's launches on the main paths that run it: K3 and K3-grad
-    # on three, each read on its own
-    by_path = {**{k: {"sepconv_train": sepconv_launches[k]}
+    timed("cain", cain_phase, torch, mods, card)
+    timed("cain_train", cain_train_phase, torch, mods, card)
+    test_launches = timed("test_mode", test_mode_phase, torch, mods)
+    # each kernel's launches on the main paths that run it, each read on
+    # its own: K1 and K2 on two, K3 and K3-grad on three
+    by_path = {**{k: {"sepconv_train": sepconv_launches[k],
+                      "sepconv_test": test_launches[k]}
                   for k in KERNELS[:2]},
                **{k: {path: counts[k] for path, counts in warp_paths.items()}
                   for k in KERNELS[2:4]},

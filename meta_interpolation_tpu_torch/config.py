@@ -189,13 +189,25 @@ _BOOL_FLAGS = {
 
 
 _HELP = {
-    "model": "backbone: sepconv, rrin, dain, superslomo or voxelflow "
-             "(cain raises NotImplementedError; only sepconv trains). dain "
-             "adapts only its rectify net, trains on its own charbonnier "
-             "loss whatever --loss says and projects flows exactly; random "
-             "weights need a tamed depth head "
+    "model": "backbone: cain (default), sepconv, rrin, dain, superslomo or "
+             "voxelflow; cain and sepconv also meta-train (--mode train). "
+             "dain adapts only its rectify net, trains on its own "
+             "charbonnier loss whatever --loss says and projects flows "
+             "exactly; random weights need a tamed depth head "
              "(models/dain/model.tame_depth_head_). superslomo takes "
              "--loss 1*Super (VGG16 features) or 1*SuperNoPrcp",
+    "mode": "train, val (scene-adaptive evaluation) or test (x2 slow "
+            "motion: writes name_<mean index>.<img_fmt> beside each pair "
+            "of a --dataset test frame directory; run again for x4)",
+    "viz": "--mode val: write each prediction under "
+           "<checkpoint_dir>/<exp_name>/<dataset>",
+    "fuse_pad": "cain: the body convs' border: false (the reference's "
+                "reflect pad), true (zero padding) or reflect (the same "
+                "math as false)",
+    "fuse_groups": "cain: a border mode per residual group (R/Z/X letters, "
+                   "e.g. RZZZZ), bwJ or bwJx5 (the first J blocks in "
+                   "reflect, the rest zero), or exact|zero|reflect; "
+                   "overrides --fuse_pad",
     "fast_warp_range": "bounded warp for rrin, superslomo and voxelflow "
                        "(0 = the exact sampler)",
     "enable_inner_loop_optimizable_bn_params":

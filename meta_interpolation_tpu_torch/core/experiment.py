@@ -4,8 +4,8 @@ Counterpart of ``meta_interpolation_tpu/core/experiment.py`` (reference
 ``experiment_builder.py``): the epoch loop (train, validate, plateau
 schedule, best-PSNR checkpoint; resume from the checkpoint), and the
 validation loop with recursive spatial tiling of oversized frames and
-PSNR/SSIM on the stitched full-frame prediction. The ×2 slow-motion test
-mode is a later slice.
+PSNR/SSIM on the stitched full-frame prediction (and, with ``--viz``, its
+images), and the ×2 slow-motion writer of ``--mode test``.
 """
 from __future__ import annotations
 
@@ -24,7 +24,6 @@ from . import metrics as metrics_lib
 class ExperimentBuilder:
     def __init__(self, cfg: Config, data, system):
         unported = [flag for flag, on in [
-            ("--viz", cfg.viz),
             ("--lpips", cfg.lpips), ("--use_tensorboard", cfg.use_tensorboard),
             ("--profile_dir", cfg.profile_dir)] if on]
         if unported:
@@ -93,13 +92,14 @@ class ExperimentBuilder:
                 print(msg + f" ({time.time() - t0:.1f}s)")
         return loss_meter.avg
 
-    def validate(self, epoch: int = 0, total_batches: int = -1):
+    def validate(self, epoch: int = 0, total_batches: int = -1,
+                 save_images: bool = False):
         loss_meter, psnr_meter, ssim_meter = (AverageMeter(), AverageMeter(),
                                               AverageMeter())
         limit = self.system.model_def.tile_pixel_limit
         dn = self.system.model_def.denormalize
         qt = self.cfg.target_idxs[1]
-        for frames, _meta in self.data.get_val_batches(total_batches):
+        for frames, meta in self.data.get_val_batches(total_batches):
             frames_np = np.asarray(frames)
             losses, preds = self._tiled_val_iter(frames_np, limit)
             loss_meter.update(losses["loss"])
@@ -111,18 +111,55 @@ class ExperimentBuilder:
             psnr_v, ssim_v = metrics_lib.calc_metrics(dn(preds[0]), dn(tgt0))
             psnr_meter.update(float(psnr_v))
             ssim_meter.update(float(ssim_v))
+            if save_images and self.cfg.viz:
+                from ..utils.viz import save_batch_images
+                save_batch_images(preds, meta, os.path.join(
+                    self.exp_dir, self.cfg.dataset))
         print(f"[val epoch {epoch}] loss {loss_meter.avg:.4f} "
               f"PSNR {psnr_meter.avg:.3f} SSIM {ssim_meter.avg:.4f}")
         return {"loss": loss_meter.avg, "psnr": psnr_meter.avg,
                 "ssim": ssim_meter.avg}
 
+    def test(self) -> int:
+        """×2 slow motion: write each clip's synthesized midpoint beside its
+        inputs, named with the mean of the pair's float indices, so a run
+        on the output directory doubles the frame rate again (reference
+        :184-209). Returns the count of frames written."""
+        from ..utils.viz import save_image, to_hwc
+        count = 0
+        for frames, meta in self.data.get_test_batches():
+            preds = self.system.run_test_iter(np.asarray(frames))
+            for b in range(preds.shape[0]):
+                paths = meta[b]["imgpaths"]
+                p1, p2 = str(paths[1]), str(paths[2])
+                idx1, idx2 = _float_index(p1), _float_index(p2)
+                # a zero second index counts as 1.0 (reference :201-202): in
+                # a freshly renamed directory every index is 0.000000, and
+                # the frame goes at 0.5 between the pair instead of over the
+                # first input
+                if idx2 == 0:
+                    idx2 = 1.0
+                mid = (idx1 + idx2) / 2.0
+                stem = (p1.rsplit("_", 1)[0] if "_" in os.path.basename(p1)
+                        else p1.rsplit(".", 1)[0])
+                if "://" in stem:
+                    # a pseudo-path (synthetic://0/1) has no directory:
+                    # write under the experiment's
+                    rel = stem.split("://", 1)[1].replace("/", "_")
+                    stem = os.path.join(self.exp_dir, "test_output", rel)
+                    os.makedirs(os.path.dirname(stem), exist_ok=True)
+                out_path = f"{stem}_{mid:.06f}.{self.cfg.img_fmt}"
+                pred01 = to_hwc(self.system.model_def.denormalize(preds[b]))
+                save_image(np.clip(pred01, 0, 1), out_path)
+                count += 1
+        print(f"[test] wrote {count} interpolated frames")
+        return count
+
     def run_experiment(self):
         if self.cfg.mode == "val":
-            return self.validate()
-        if self.cfg.mode != "train":
-            raise NotImplementedError(
-                f"--mode {self.cfg.mode} is not ported to PyTorch yet; the "
-                f"port runs --mode train and --mode val")
+            return self.validate(save_images=True)
+        if self.cfg.mode == "test":
+            return self.test()
         for epoch in range(self.start_epoch, self.cfg.max_epoch):
             self.train_epoch(epoch)
             val_stats = self.validate(
@@ -132,3 +169,12 @@ class ExperimentBuilder:
             self.best_psnr = max(self.best_psnr, val_stats["psnr"])
             self._save(epoch, is_best)
         return {"best_psnr": self.best_psnr}
+
+
+def _float_index(path: str) -> float:
+    """The float index of a ``name_%.06f.ext`` frame; 0.0 for any other
+    name."""
+    try:
+        return float(path.split("_")[-1].rsplit(".", 1)[0])
+    except ValueError:
+        return 0.0

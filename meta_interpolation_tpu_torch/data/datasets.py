@@ -1,17 +1,21 @@
 """Datasets: numpy (T, H, W, C) float32 clips in model input space.
 
-The port's own copy of the parts of ``meta_interpolation_tpu/data/
-datasets.py`` this slice runs: Vimeo90K septuplets (reference
-data/vimeo_septuplet.py:10-89), the procedural :class:`SyntheticSeptuplet`
-and the :func:`get_dataset` dispatch with its fallback to synthetic data
-when Vimeo90K is missing. Each dataset exposes ``switch_set(name)``,
-``__len__`` and ``__getitem__(i) -> (frames, {'imgpaths': [...]})``.
+The port's own copy of ``meta_interpolation_tpu/data/datasets.py``:
+Vimeo90K septuplets (reference data/vimeo_septuplet.py:10-89), the
+Middlebury, HD, SNU-FILM and DAVIS evaluation sets, the frame directory
+of ``--mode test`` (:class:`VideoDataset`), the procedural
+:class:`SyntheticSeptuplet`, and the :func:`get_dataset` dispatch with its
+fallback to synthetic data when Vimeo90K is missing. Each dataset exposes
+``switch_set(name)``, ``__len__`` and ``__getitem__(i) -> (frames,
+{'imgpaths': [...]})``. The JAX package's native C++ decode path is not
+ported (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
+import glob
 import os
 import random
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -23,9 +27,13 @@ except ImportError:  # pragma: no cover
 
 def normalize_for_model(img01: np.ndarray, model: str) -> np.ndarray:
     """[0,1] HWC float32 → model input space, via the registry's
-    ``ModelDef.normalize``."""
+    ``ModelDef.normalize``. A name the registry does not know passes
+    through unchanged."""
     from ..models import registry
-    return np.asarray(registry.get(model).normalize(img01), np.float32)
+    try:
+        return np.asarray(registry.get(model).normalize(img01), np.float32)
+    except NotImplementedError:
+        return img01
 
 
 def load_image(path: str) -> np.ndarray:
@@ -85,6 +93,161 @@ class VimeoSeptuplet(_Base):
         frames = np.stack([normalize_for_model(im, self.model)
                            for im in images])
         return frames, {"imgpaths": paths}
+
+
+def _load_clip(paths, model: str) -> np.ndarray:
+    return np.stack([normalize_for_model(load_image(p), model)
+                     for p in paths])
+
+
+class Middlebury(_Base):
+    """Middlebury OTHERS evaluation set (reference data/middlebury.py
+    :12-109): of each directory of 8 frames the middle 4 and the
+    ground truth ``frame10i11.png``, packed as the pseudo-septuplet [i0, 0,
+    i1, gt, i2, 0, i3]."""
+
+    def __init__(self, data_root: str, model: str = "cain"):
+        self.model = model
+        image_root = os.path.join(data_root, "other-data-all")
+        gt_root = os.path.join(data_root, "other-gt-interp")
+        self.imglist: List[List[str]] = []
+        self.gt_list: List[str] = []
+        for d in sorted(glob.glob(image_root + "/*")):
+            imgs = sorted(glob.glob(d + "/*.png"))
+            if len(imgs) == 8:
+                self.imglist.append(imgs[2:6])
+                self.gt_list.append(os.path.join(
+                    gt_root, os.path.basename(d), "frame10i11.png"))
+        self.current_set_name = "val"
+        self.data_length = {"train": 0, "val": len(self.imglist), "test": 0}
+
+    def __getitem__(self, index):
+        imgs = _load_clip(self.imglist[index], self.model)
+        gt = normalize_for_model(load_image(self.gt_list[index]), self.model)
+        dummy = np.zeros_like(gt)
+        frames = np.stack([imgs[0], dummy, imgs[1], gt, imgs[2], dummy,
+                           imgs[3]])
+        i0, i1, i2, i3 = self.imglist[index]
+        return frames, {"imgpaths": [i0, "", i1, self.gt_list[index], i2,
+                                     "", i3]}
+
+
+class HDDataset(_Base):
+    """HD (1080p/720p) sequences as 7-frame windows at stride 2 (reference
+    data/hd_dataset.py:11-81). A window that would run past the end is the
+    last 7 frames, once for every stride step left (hd_dataset.py:24-34),
+    and a directory of fewer than 7 frames is one clip a step."""
+
+    def __init__(self, data_root: str, model: str = "cain"):
+        self.model = model
+        self.clips: List[List[str]] = []
+        for d in sorted(glob.glob(os.path.join(data_root, "*"))):
+            if not os.path.isdir(d):
+                continue
+            imgs = sorted(glob.glob(os.path.join(d, "*.png")))
+            for t in range(0, len(imgs), 2):
+                if len(imgs) < 7:
+                    self.clips.append(imgs)
+                else:
+                    self.clips.append(imgs[t:t + 7] if t + 7 <= len(imgs)
+                                      else imgs[-7:])
+        self.current_set_name = "val"
+        self.data_length = {"train": 0, "val": len(self.clips), "test": 0}
+
+    def __getitem__(self, index):
+        paths = self.clips[index]
+        return _load_clip(paths, self.model), {"imgpaths": paths}
+
+
+class SNUFILM(_Base):
+    """SNU-FILM quintuplets from ``test-{test_mode}-meta.txt`` (reference
+    data/snufilm.py:8-67), zero-padded to septuplets [a, 0, b, c, d, 0, e]:
+    the support (0, 2, 4) is (a, b, d) and the query (b, d) → c. The
+    reference reads the hard list whatever ``--test_mode`` says; here, as
+    in the JAX package, ``test_mode`` picks the list."""
+
+    def __init__(self, data_root: str, model: str = "cain",
+                 test_mode: str = "hard"):
+        self.model = model
+        list_file = os.path.join(data_root, f"test-{test_mode}-meta.txt")
+        self.quintuplets: List[List[str]] = []
+        if os.path.exists(list_file):
+            with open(list_file) as f:
+                for line in f.read().splitlines():
+                    parts = line.split(" ")
+                    if parts and parts[0]:
+                        self.quintuplets.append(parts)
+        self.current_set_name = "val"
+        self.data_length = {"train": 0, "val": len(self.quintuplets),
+                            "test": 0}
+
+    def __getitem__(self, index):
+        paths = self.quintuplets[index]
+        imgs = _load_clip(paths, self.model)
+        zero = np.zeros_like(imgs[0])
+        frames = np.stack([imgs[0], zero, imgs[1], imgs[2], imgs[3], zero,
+                           imgs[4]])
+        return frames, {"imgpaths": [paths[0], "", paths[1], paths[2],
+                                     paths[3], "", paths[4]]}
+
+
+class VideoDataset(_Base):
+    """A directory of frames for ×2 slow motion (reference data/video.py
+    :9-60), served as sliding windows of 4. Frames not yet named
+    ``name_%.06f.ext`` are renamed on disk to ``name_0.000000.ext``, so
+    the float indices of the frames that ``--mode test``
+    writes sort between them, and a run on the output directory doubles
+    the frame rate again. A directory of 1 to 3 frames is one window, its
+    last frame repeated."""
+
+    def __init__(self, data_root: str, model: str = "cain",
+                 img_fmt: str = "png"):
+        self.model = model
+        ext = len(img_fmt) + 1
+        pattern = os.path.join(data_root, f"*.{img_fmt}")
+        for im in sorted(glob.glob(pattern)):
+            try:
+                float(im.split("_")[-1][:-ext])
+            except ValueError:
+                os.rename(im, "%s_%.06f.%s" % (im[:-ext], 0.0, img_fmt))
+        images = sorted(glob.glob(pattern))
+        if images and len(images) < 4:
+            self.imglist = [images + [images[-1]] * (4 - len(images))]
+        else:
+            self.imglist = [images[i:i + 4] for i in range(len(images) - 3)]
+        self.current_set_name = "test"
+        self.data_length = {"train": 0, "val": 0, "test": len(self.imglist)}
+
+    def __getitem__(self, index):
+        paths = self.imglist[index]
+        return _load_clip(paths, self.model), {"imgpaths": paths}
+
+
+class DAVIS(_Base):
+    """DAVIS sequences (``JPEGImages/480p/<seq>/*.jpg``, or directories of
+    frames directly under the root) as 7-frame windows at stride 2. The
+    reference dispatches to a ``data.davis`` module it does not have; this
+    is the JAX package's reader."""
+
+    def __init__(self, data_root: str, model: str = "cain"):
+        self.model = model
+        self.clips: List[List[str]] = []
+        seq_root = os.path.join(data_root, "JPEGImages", "480p")
+        if not os.path.isdir(seq_root):
+            seq_root = data_root
+        for d in sorted(glob.glob(os.path.join(seq_root, "*"))):
+            if not os.path.isdir(d):
+                continue
+            imgs = sorted(glob.glob(os.path.join(d, "*.jpg"))
+                          or glob.glob(os.path.join(d, "*.png")))
+            for s in range(0, len(imgs) - 6, 2):
+                self.clips.append(imgs[s:s + 7])
+        self.current_set_name = "val"
+        self.data_length = {"train": 0, "val": len(self.clips), "test": 0}
+
+    def __getitem__(self, index):
+        paths = self.clips[index]
+        return _load_clip(paths, self.model), {"imgpaths": paths}
 
 
 class SyntheticSeptuplet(_Base):
@@ -151,7 +314,8 @@ class SyntheticSeptuplet(_Base):
 
 
 def get_dataset(name: str, data_root: str, model: str, mode: str,
-                crop_size: int = 256, **_kw):
+                crop_size: int = 256, test_mode: str = "hard",
+                img_fmt: str = "png"):
     """Dataset dispatch (reference data/__init__.py:535-552). Falls back to
     SyntheticSeptuplet when the Vimeo90K root is missing."""
     name = name.lower()
@@ -165,7 +329,14 @@ def get_dataset(name: str, data_root: str, model: str, mode: str,
                                       size=(crop_size, crop_size))
         return VimeoSeptuplet(data_root, model=model, mode=mode,
                               crop_size=crop_size)
-    if name in ("middlebury", "davis", "hd", "snufilm", "test"):
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported to PyTorch yet")
+    if name == "middlebury":
+        return Middlebury(data_root, model=model)
+    if name == "davis":
+        return DAVIS(data_root, model=model)
+    if name == "hd":
+        return HDDataset(data_root, model=model)
+    if name == "snufilm":
+        return SNUFILM(data_root, model=model, test_mode=test_mode)
+    if name == "test":
+        return VideoDataset(data_root, model=model, img_fmt=img_fmt)
     raise NotImplementedError(f"dataset {name!r}")

@@ -96,7 +96,9 @@ class MetaLearningSystemDataLoader:
         from .datasets import get_dataset
         self.cfg = cfg
         self.dataset = get_dataset(cfg.dataset, cfg.data_root, cfg.model,
-                                   cfg.mode, crop_size=cfg.crop_size)
+                                   cfg.mode, crop_size=cfg.crop_size,
+                                   test_mode=cfg.test_mode,
+                                   img_fmt=cfg.img_fmt)
         self.batch_size = {"train": cfg.batch_size,
                            "val": cfg.val_batch_size,
                            "test": cfg.test_batch_size}

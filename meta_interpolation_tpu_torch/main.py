@@ -1,5 +1,18 @@
 """CLI entry point.
 
+    python -m meta_interpolation_tpu_torch.main --model cain --mode val \
+        --dataset synthetic --loss 1*L1 --optimizer Adam --metasgd \
+        --inner_lr 1e-5 --number_of_evaluation_steps_per_iter 1 \
+        --val_batch_size 1 [--viz] [--device cpu]
+    python -m meta_interpolation_tpu_torch.main --model cain --mode train \
+        --dataset synthetic --loss 1*L1 --optimizer Adam --batch_size 8 \
+        --val_batch_size 1 --inner_lr 1e-5 --outer_lr 1e-5 \
+        --number_of_training_steps_per_iter 1 \
+        --number_of_evaluation_steps_per_iter 1 --metasgd [--second_order] \
+        [--device cpu]
+    python -m meta_interpolation_tpu_torch.main --model cain --mode test \
+        --dataset test --data_root <frames> --img_fmt png \
+        --number_of_evaluation_steps_per_iter 1 [--device cpu]
     python -m meta_interpolation_tpu_torch.main --model sepconv --mode val \
         --dataset synthetic --optimizer Adamax --metasgd --inner_lr 1e-5 \
         --number_of_evaluation_steps_per_iter 3 --val_batch_size 1 \
@@ -35,6 +48,13 @@ DAIN's random-init depth net overflows, so a random-weight run loads a
 state dict whose depth head is tamed (``models/dain/model.
 tame_depth_head_``); the meta system projects the flows exactly, as the
 JAX package's does.
+
+A CPU run of CAIN takes a tiny one: ``--depth 2 --n_resblocks 1
+--crop_size 64``. ``--mode test`` renames the frames of ``--data_root`` to
+``name_0.000000.<img_fmt>`` and writes each synthesized midpoint beside
+them; a second run on the directory doubles the frame rate again. The
+other readers: ``--dataset middlebury``, ``hd``, ``snufilm`` (with
+``--test_mode``) and ``davis``.
 
 Training writes ``checkpoint_dir/exp_name/checkpoint.pth`` every epoch
 (and ``model_best.pth``); ``--resume`` continues from it. Runs on the CUDA

@@ -1,5 +1,5 @@
-"""Scene-adaptation episodes: evaluation and meta-training, first and
-second order.
+"""Scene-adaptation episodes: evaluation, ×2 slow motion and
+meta-training, first and second order.
 
 Counterpart of ``meta_interpolation_tpu/meta/episode.py`` (reference
 ``meta_learning_system.py:346-472``). Where the JAX package compiles a
@@ -167,6 +167,25 @@ class EpisodeBuilder:
             for w, loss in zip(msl_weights[:n - 1], step_losses):
                 outer = outer + float(w) * loss
         return outer, pred.detach(), q_loss.detach()
+
+    def test_episode(self, meta_params: Dict[str, Params],
+                     frames: torch.Tensor, spec: EpisodeSpec
+                     ) -> torch.Tensor:
+        """×2 slow motion (JAX ``test_episode``, reference run_test_iter
+        :630-697): for each task of 4 consecutive frames, adapt on
+        ``spec.support_idxs`` ((0, 1, 2) and (1, 2, 3)), then synthesize the
+        midpoint of frames 1 and 2 under no-grad. frames (B, 4, C, H, W) →
+        (B, C, H, W)."""
+        preds = []
+        for task in frames:
+            adapted = self.adapt(meta_params["net"], meta_params["lrs"],
+                                 task, spec)
+            with torch.no_grad():
+                out = functional_call(self.model, adapted,
+                                      (task[1][None], task[2][None]),
+                                      self.apply_kwargs)
+            preds.append((out[0] if self.returns_aux else out)[0])
+        return torch.stack(preds)
 
     def batched_episode(self, meta_params: Dict[str, Params],
                         frames: torch.Tensor, msl_weights, spec: EpisodeSpec,

@@ -4,9 +4,10 @@ Counterpart of ``meta_interpolation_tpu/meta/system.py`` (reference
 ``meta_learning_system.py:29-697``): holds the model, the meta-parameters
 (net weights + inner learning rates), the inner rule, the inner mask and
 the loss, the outer optimizer and its plateau schedule, and drives
-meta-training (:meth:`run_train_iter`, first or second order, with MSL)
-and scene-adaptive evaluation (:meth:`run_validation_iter`). Training is
-ported for SepConv; RRIN, DAIN, SuperSloMo and VoxelFlow evaluate only.
+meta-training (:meth:`run_train_iter`, first or second order, with MSL),
+scene-adaptive evaluation (:meth:`run_validation_iter`) and ×2 slow
+motion (:meth:`run_test_iter`). Training is ported for CAIN and SepConv;
+RRIN, DAIN, SuperSloMo and VoxelFlow evaluate only.
 """
 from __future__ import annotations
 
@@ -264,6 +265,21 @@ class SceneAdaptiveInterpolation:
         losses = {"loss": float(loss), "total": float(aux["query_loss"]),
                   "psnr": float(aux["psnr"]), "ssim": float(aux["ssim"])}
         return losses, aux["preds"]
+
+    def run_test_iter(self, frames) -> torch.Tensor:
+        """×2 slow motion on 4 consecutive frames (reference :630-697):
+        adapt for ``num_eval_steps`` on the support (0, 1, 2) and (1, 2,
+        3), then synthesize the midpoint of frames 1 and 2. frames (B, 4,
+        H, W, C) in model input space → preds (B, C, H, W) on the device.
+        First order whatever --second_order says (JAX passes it on):
+        nothing differentiates the adapted weights, so the order changes
+        no value."""
+        spec = episode_lib.EpisodeSpec(
+            support_idxs=self.cfg.support_idxs("test"),
+            target_idxs=self.cfg.target_idxs,
+            num_steps=self.cfg.num_eval_steps)
+        return self.builder.test_episode(self.meta_params,
+                                         self._frames(frames), spec)
 
     def epoch_end(self, val_loss: float):
         """The plateau schedule, once an epoch on the validation loss; the

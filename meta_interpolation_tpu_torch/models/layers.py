@@ -145,6 +145,28 @@ def unpad(x: torch.Tensor, pads: Sequence[int]) -> torch.Tensor:
     return x[..., top:h - bottom, left:w - right]
 
 
+def pixel_shuffle(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Depth to space for ``scale`` ≥ 1, space to depth for ``scale`` < 1
+    (JAX ``layers.pixel_shuffle``, reference model_utils.py:202-228). Both
+    take the reference's channel order, (C, s_h, s_w) with the channel
+    outermost, which is ``F.pixel_shuffle`` / ``F.pixel_unshuffle``'s."""
+    if scale >= 1:
+        return F.pixel_shuffle(x, int(scale))
+    return F.pixel_unshuffle(x, int(round(1.0 / scale)))
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """NCHW → NC11, the spatial mean (reference AdaptiveAvgPool2d(1))."""
+    return x.mean(dim=(-2, -1), keepdim=True)
+
+
+def sub_mean(x: torch.Tensor):
+    """Subtract each image's per-channel spatial mean (model_utils.py
+    :11-15). Returns (x − mean, mean)."""
+    mean = global_avg_pool(x)
+    return x - mean, mean
+
+
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope)
 

@@ -1,8 +1,8 @@
 """Model registry — dispatch by ``--model`` name.
 
-Counterpart of ``meta_interpolation_tpu/models/registry.py``. SepConv,
-RRIN, DAIN, SuperSloMo and VoxelFlow are ported so far; CAIN raises
-``NotImplementedError`` until its slice lands.
+Counterpart of ``meta_interpolation_tpu/models/registry.py``: CAIN,
+SepConv, RRIN, DAIN, SuperSloMo and VoxelFlow; CAIN and SepConv
+meta-train.
 
 ``normalize`` maps a [0, 1] clip to model input space on numpy arrays with
 the channel last (the datasets'); ``denormalize`` maps back on tensors
@@ -17,9 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-# the JAX package's models, for a clear error on the ones not ported yet
-JAX_MODELS = ("cain", "dain", "rrin", "sepconv", "superslomo", "voxelflow")
-PORTED = ["dain", "rrin", "sepconv", "superslomo", "voxelflow"]
+PORTED = ["cain", "dain", "rrin", "sepconv", "superslomo", "voxelflow"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +56,19 @@ def _identity(x):
     return x
 
 
+def _cain_build_kwargs(cfg) -> Dict[str, Any]:
+    """--depth, --n_resblocks, --pad_multiple and the border mode: a
+    --fuse_groups token overrides --fuse_pad (JAX meta/system.py
+    :134-146)."""
+    from . import cain
+    fuse = cfg.fuse_pad_mode
+    if cfg.fuse_groups:
+        fuse = cain.parse_fuse_spec(cfg.fuse_groups,
+                                    n_resblocks=cfg.n_resblocks)
+    return {"depth": cfg.depth, "n_resblocks": cfg.n_resblocks,
+            "pad_multiple": cfg.pad_multiple, "fuse_pad": fuse}
+
+
 def _warp_build_kwargs(cfg) -> Dict[str, Any]:
     """--fast_warp_range R > 0 takes the bounded warp, for each model that
     warps by a grid (JAX meta/system.py:147-149)."""
@@ -92,6 +103,11 @@ def _vf_denormalize(x: torch.Tensor) -> torch.Tensor:
 
 def get(name: str) -> ModelDef:
     name = name.lower()
+    if name == "cain":
+        from . import cain
+        return ModelDef("cain", cain.CAIN, _identity, _identity,
+                        tile_pixel_limit=5e5,
+                        build_kwargs=_cain_build_kwargs, trainable=True)
     if name == "sepconv":
         from . import sepconv
         return ModelDef("sepconv", sepconv.SepConv, _identity, _identity,
@@ -126,8 +142,5 @@ def get(name: str) -> ModelDef:
                         inner_mask_fn=dain.inner_mask,
                         meta_apply_kwargs={"fill_holes": True},
                         loss_fn=charbonnier)
-    if name in JAX_MODELS:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet; ported: {PORTED}")
     raise NotImplementedError(
         f"Model {name!r} not implemented; available: {PORTED}")

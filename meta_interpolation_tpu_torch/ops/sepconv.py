@@ -55,14 +55,15 @@ def _shapes(inp: torch.Tensor, kv: torch.Tensor):
 def sepconv_ref(inp: torch.Tensor, kv: torch.Tensor, kh: torch.Tensor
                 ) -> torch.Tensor:
     """Shift-and-accumulate over the vertical taps k, with the horizontal
-    taps l gathered by ``unfold``. Differentiable by autograd."""
+    taps l gathered by ``unfold`` and summed by a broadcast product (an
+    einsum here runs a batched matrix product per pixel, ~5× slower on the
+    CPU). Differentiable by autograd."""
     n, c, h, w, f = _shapes(inp, kv)
-    kh_l = kh.permute(0, 2, 3, 1)  # (N, H, W, F)
+    kh_l = kh.permute(0, 2, 3, 1)[:, None]  # (N, 1, H, W, F)
     out = inp.new_zeros((n, c, h, w))
     for k in range(f):
         win = inp[:, :, k:k + h, :].unfold(3, f, 1)  # (N, C, H, W, F)
-        acc_h = torch.einsum("nchwl,nhwl->nchw", win, kh_l)
-        out = out + acc_h * kv[:, None, k]
+        out = out + (win * kh_l).sum(-1) * kv[:, None, k]
     return out
 
 
@@ -75,7 +76,7 @@ def grad_kernels_ref(inp: torch.Tensor, g: torch.Tensor, kv: torch.Tensor,
     gkh = torch.zeros_like(kh)
     for k in range(f):
         win = inp[:, :, k:k + h, :].unfold(3, f, 1)  # (N, C, H, W, F)
-        gw = torch.einsum("nchwl,nchw->nlhw", win, g)  # (N, F, H, W) over l
+        gw = (win * g[..., None]).sum(1).permute(0, 3, 1, 2)  # (N, F, H, W)
         gkv[:, k] = (gw * kh).sum(1)
         gkh += gw * kv[:, k:k + 1]
     return gkv, gkh

@@ -1,0 +1,227 @@
+"""The port's CAIN scene-adaptive evaluation, ×2 slow-motion test episode
+and meta-training held against the JAX system on the CPU, at
+``run_cain.sh``'s hyperparameters (Adam, Meta-SGD, 1*L1, one training and
+one evaluation step) on a tiny CAIN (depth 2, 48 channels, 5 groups of
+one RCAB), with the JAX init (and in training its Meta-SGD rates) bridged
+into the port.
+
+Tolerances: evaluation and test episodes as every other backbone's,
+1e-4 in the prediction and 1e-3 dB in PSNR; training as SepConv's, the
+outer loss to 1e-5 and each tensor's outer gradient within 1e-3 of its
+norm (an inner Adam step on a gradient within rounding of zero may go the
+other way), except where the second order runs through the inner Adam
+step (see that test).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from meta_interpolation_tpu.config import Config as JaxConfig
+from meta_interpolation_tpu.meta import episode as jax_episode
+from meta_interpolation_tpu.meta.system import (
+    SceneAdaptiveInterpolation as JaxSystem)
+from meta_interpolation_tpu_torch.config import Config
+from meta_interpolation_tpu_torch.core import checkpoint as bridge
+from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+from meta_interpolation_tpu_torch.main import main
+from meta_interpolation_tpu_torch.meta import episode
+from meta_interpolation_tpu_torch.meta.system import (
+    SceneAdaptiveInterpolation)
+
+PRED_ATOL = 1e-4
+PSNR_TOL_DB = 1e-3
+SSIM_ATOL = 1e-5
+LOSS_RTOL = 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-12
+CROP = 32
+CFG = dict(model="cain", depth=2, n_resblocks=1, loss="1*L1",
+           optimizer="Adam", metasgd=True, inner_lr=1e-5, outer_lr=1e-5,
+           number_of_training_steps_per_iter=1,
+           number_of_evaluation_steps_per_iter=1, crop_size=CROP)
+
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _bridge_meta(jsys, tsys):
+    """The JAX meta-parameters (net and Meta-SGD rates) into the port's."""
+    np_tree = jax.tree.map(np.asarray, jsys.meta_params)
+    with torch.no_grad():
+        for group in ("net", "lrs"):
+            for name, value in bridge.params_from_jax(np_tree[group],
+                                                      tsys.model).items():
+                tsys.meta_params[group][name].copy_(value)
+
+
+def _systems(**extra):
+    cfg = dict(CFG, **extra)
+    jsys = JaxSystem(JaxConfig(**cfg))
+    tsys = SceneAdaptiveInterpolation(Config(**cfg, device="cpu"))
+    _bridge_meta(jsys, tsys)
+    return jsys, tsys
+
+
+@pytest.fixture(scope="module")
+def eval_systems():
+    return _systems(mode="val")
+
+
+def _clips(mode, n):
+    data = SyntheticSeptuplet(model="cain", mode=mode, size=(CROP, CROP))
+    return np.stack([np.asarray(data[i][0]) for i in range(n)])
+
+
+def test_run_validation_iter_matches_jax(eval_systems):
+    jsys, tsys = eval_systems
+    frames = _clips("val", 1)
+    j_losses, j_preds = jsys.run_validation_iter(frames)
+    t_losses, t_preds = tsys.run_validation_iter(frames)
+    assert t_preds.shape == (1, 3, CROP, CROP)
+    np.testing.assert_allclose(t_preds.numpy().transpose(0, 2, 3, 1),
+                               np.asarray(j_preds), atol=PRED_ATOL)
+    assert abs(t_losses["psnr"] - j_losses["psnr"]) <= PSNR_TOL_DB
+    assert abs(t_losses["ssim"] - j_losses["ssim"]) <= SSIM_ATOL
+    np.testing.assert_allclose(t_losses["loss"], j_losses["loss"],
+                               rtol=LOSS_RTOL)
+
+
+def test_run_test_iter_matches_jax(eval_systems):
+    """×2 slow motion on 4 consecutive frames of 2 clips: the support
+    (0, 1, 2) and (1, 2, 3), then the midpoint of frames 1 and 2."""
+    jsys, tsys = eval_systems
+    frames = _clips("test", 2)[:, 1:5]
+    want = np.asarray(jsys.run_test_iter(frames))
+    got = tsys.run_test_iter(frames)
+    assert got.shape == (2, 3, CROP, CROP)
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), want,
+                               atol=PRED_ATOL)
+    # the adapted model, not the initial one, made the frame
+    with torch.no_grad():
+        clip = tsys._frames(frames)[0]
+        unadapted = tsys.model(clip[1][None], clip[2][None])[0]
+    assert not torch.equal(unadapted, got[0])
+
+
+def _jax_outer(jsys, frames, second_order):
+    """The JAX outer loss and masked gradient: jax.value_and_grad of its
+    training task episode on each task, averaged (what its vmap and mean
+    compute)."""
+    spec = jsys._episode_spec("train", 1, second_order, jsys._msl_active(0))
+    msl_w = jnp.asarray(jax_episode.per_step_loss_importance(1, 0, 1))
+
+    def outer(mp, task):
+        return jsys.builder.task_episode(mp, task, msl_w, spec,
+                                         training=True)[0]
+
+    step = jax.jit(jax.value_and_grad(outer))
+    runs = [step(jsys.meta_params, jnp.asarray(task)) for task in frames]
+    grads = jax.tree.map(lambda *g: sum(g) / len(g), *[g for _, g in runs])
+    grads = jax.tree.map(lambda g, m: g * float(m), grads,
+                         jsys._trainable_mask)
+    return float(sum(o for o, _ in runs) / len(runs)), grads
+
+
+def _per_tensor_within(got, want, tsys):
+    want = jax.tree.map(np.asarray, want)
+    for group in ("net", "lrs"):
+        for name, w in bridge.params_from_jax(want[group],
+                                              tsys.model).items():
+            g = got[group][name]
+            err = float((g - w).norm())
+            assert err <= GRAD_RTOL * float(w.norm()) + GRAD_ATOL, (
+                group, name, err, float(w.norm()))
+
+
+@pytest.mark.parametrize("order,rule,batch", [("first", "Adam", 2),
+                                              ("second", "SGD", 1)])
+def test_outer_loss_and_gradient_match_jax(order, rule, batch):
+    """First order at run_cain.sh's Adam; second order through the model's
+    double backward at the inner SGD rule (run_cain.sh's Adam in second
+    order: the next test)."""
+    jsys, tsys = _systems(mode="train", batch_size=batch, optimizer=rule,
+                          second_order=order == "second")
+    frames = _clips("train", batch)
+    want_loss, want = _jax_outer(jsys, frames, order == "second")
+    loss, aux, got = tsys.outer_grads(frames, 0)
+    np.testing.assert_allclose(float(loss), want_loss, rtol=LOSS_RTOL)
+    assert aux["preds"].shape == (batch, 3, CROP, CROP)
+    _per_tensor_within(got, want, tsys)
+    assert float(got["lrs"]["encoder.interpolate.headConv.weight"].norm()) > 0
+
+
+def _group_rel(got, want):
+    """‖got − want‖ / ‖want‖ over each parameter group."""
+    out = {}
+    for group in want:
+        diff = sum(float((got[group][k].double() - w.double()).norm()) ** 2
+                   for k, w in want[group].items())
+        ref = sum(float(w.double().norm()) ** 2
+                  for w in want[group].values())
+        out[group] = (diff / ref) ** 0.5
+    return out
+
+
+def test_second_order_through_the_inner_adam_step():
+    """run_cain.sh's Adam in second order, batch 1. The first inner Adam
+    step moves a weight by lr·g/(|g| + eps), whose derivative eps/(|g| +
+    eps)² reaches 1/eps = 1e8 where the support gradient g is near zero:
+    the second-order term multiplies the rounding of such elements, so no
+    float32 evaluation holds another to 1e-3 a tensor (measured on the
+    CPU: the port against JAX up to 6e-2 a tensor and 1.9e-2 over the
+    net's gradient; JAX 2.2e-2 from the port's float64 evaluation, the
+    port 4.6e-3). Held here: the loss to JAX's (1e-5), the Meta-SGD rates'
+    gradient to JAX's within 1e-3 over the group, and the net's gradient
+    to the port's own float64 evaluation within 1e-2 over the group."""
+    jsys, tsys = _systems(mode="train", batch_size=1, second_order=True)
+    frames = _clips("train", 1)
+    want_loss, want = _jax_outer(jsys, frames, True)
+    loss, _, got = tsys.outer_grads(frames, 0)
+    np.testing.assert_allclose(float(loss), want_loss, rtol=LOSS_RTOL)
+    want = {g: bridge.params_from_jax(jax.tree.map(np.asarray, want[g]),
+                                      tsys.model) for g in ("net", "lrs")}
+    assert _group_rel(got, want)["lrs"] <= GRAD_RTOL
+
+    tsys.model.double()
+    spec = episode.EpisodeSpec(support_idxs=tsys.cfg.support_idxs("train"),
+                               num_steps=1, second_order=True)
+    leaves = {g: {k: v.detach().double().requires_grad_()
+                  for k, v in tree.items()}
+              for g, tree in tsys.meta_params.items()}
+    tsys.builder.batched_episode(leaves, tsys._frames(frames).double(),
+                                 np.ones(1), spec, training=True)
+    exact = {g: {k: v.grad for k, v in tree.items()}
+             for g, tree in leaves.items()}
+    assert _group_rel(got, exact)["net"] <= 1e-2
+
+
+@pytest.mark.parametrize("mode", ["val", "train"])
+def test_cli_runs_cain_on_the_cpu(mode, tmp_path, capsys):
+    """run_cain.sh's flags through the CLI with --device cpu, on the tiny
+    CAIN: a validation over the 8 synthetic clips, or one training
+    iteration with its validation clip and checkpoint."""
+    stats = main(["--model", "cain", "--mode", mode, "--dataset",
+                  "synthetic", "--depth", "2", "--n_resblocks", "1",
+                  "--crop_size", str(CROP), "--loss", "1*L1", "--optimizer",
+                  "Adam", "--metasgd", "--inner_lr", "1e-5", "--outer_lr",
+                  "1e-5", "--batch_size", "2", "--val_batch_size", "1",
+                  "--number_of_training_steps_per_iter", "1",
+                  "--number_of_evaluation_steps_per_iter", "1",
+                  "--max_epoch", "1", "--total_iter_per_epoch", "1",
+                  "--checkpoint_dir", str(tmp_path), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "device: cpu" in out and out.count("[val epoch 0] loss") == 1
+    if mode == "train":
+        assert "[epoch 0 it 0] loss" in out
+        assert np.isfinite(stats["best_psnr"])
+        assert (tmp_path / "exp" / "checkpoint.pth").exists()
+    else:
+        assert np.isfinite(stats["psnr"]) and np.isfinite(stats["ssim"])

@@ -378,3 +378,134 @@ def test_peak_blocks_replays_the_trace_to_its_peak():
     assert peak == 400
     assert blocks == [(300, "functional.py:1 conv2d", "m.py:7 b"),
                       (100, "functional.py:1 conv2d", "m.py:7 a")]
+
+
+def _script_flags(name):
+    """The flags of scripts/<name> (the JAX package's presets), as
+    {flag: value or True}."""
+    words = (ROOT / "scripts" / name).read_text().replace("\\\n", " ").split()
+    flags, i = {}, words.index("meta_interpolation_tpu.main") + 1
+    while i < len(words) and words[i].startswith("--"):
+        if i + 1 < len(words) and not words[i + 1].startswith("--") \
+                and words[i + 1] != '"$@"':
+            flags[words[i]] = words[i + 1].strip('"')
+            i += 2
+        else:
+            flags[words[i]] = True
+            i += 1
+    return flags
+
+
+def _as_dict(flags):
+    out, i = {}, 0
+    while i < len(flags):
+        if i + 1 < len(flags) and not flags[i + 1].startswith("--"):
+            out[flags[i]] = flags[i + 1]
+            i += 2
+        else:
+            out[flags[i]] = True
+            i += 1
+    return out
+
+
+def test_cain_and_test_mode_presets_are_the_scripts():
+    """CAIN's phases run run_cain.sh's hyperparameters (its batch in
+    training, --val_batch_size 1 in evaluation), the test-mode phase
+    run_test.sh's; the script's run-length and logging flags aside."""
+    cain = _script_flags("run_cain.sh")
+    for flags in (chip_smoke.CAIN_EVAL_FLAGS, chip_smoke.CAIN_TRAIN_FLAGS):
+        got = _as_dict(flags)
+        for flag in ("--model", "--loss", "--optimizer", "--inner_lr",
+                     "--outer_lr", "--val_batch_size", "--metasgd",
+                     "--number_of_training_steps_per_iter",
+                     "--number_of_evaluation_steps_per_iter"):
+            assert got[flag] == cain[flag], flag
+    assert _as_dict(chip_smoke.CAIN_TRAIN_FLAGS)["--batch_size"] == cain[
+        "--batch_size"] == str(chip_smoke.CAIN_TASKS)
+    test = _script_flags("run_test.sh")
+    got = _as_dict(chip_smoke.TEST_FLAGS + chip_smoke.TEST_MODELS["cain"])
+    for flag in ("--model", "--mode", "--dataset", "--img_fmt",
+                 "--number_of_evaluation_steps_per_iter"):
+        assert got[flag] == test[flag], flag
+    assert (chip_smoke.K1_PER_TEST_CLIP, chip_smoke.K2_PER_TEST_CLIP) == (6,
+                                                                          4)
+
+
+@pytest.fixture
+def counted_sepconv(monkeypatch):
+    """The K1 and K2 wrappers counting on the CPU around their plain
+    versions."""
+    from meta_interpolation_tpu_torch.ops import sepconv as sc
+    ref, grad_ref = sc.sepconv_ref, sc.grad_kernels_ref
+
+    def fwd(inp, kv, kh):
+        fwd.launches += 1
+        return ref(inp, kv, kh)
+
+    def grad(inp, g, kv, kh):
+        grad.launches += 1
+        return grad_ref(inp, g, kv, kh)
+    fwd.launches = grad.launches = 0
+    monkeypatch.setattr(sc, "sepconv_forward", fwd)
+    monkeypatch.setattr(sc, "sepconv_grad_kernels", grad)
+    return sc
+
+
+def test_sepconv_test_clip_launches_what_is_derived(counted_sepconv):
+    """One SepConv test clip on the CPU (run_test.sh with Adamax and
+    Meta-SGD, 1 step): 4n + 2 K1 and 4n K2, the counts chip_smoke.py holds
+    the card to."""
+    import numpy as np
+    import torch
+
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    sc = counted_sepconv
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        system = SceneAdaptiveInterpolation(get_args(
+            chip_smoke.TEST_FLAGS + chip_smoke.TEST_MODELS["sepconv"]
+            + ["--device", "cpu"]))
+        clip = SyntheticSeptuplet(mode="test", size=(32, 32))[0][0]
+        preds = system.run_test_iter(np.asarray(clip)[None, :4])
+    finally:
+        torch.set_num_threads(threads)
+    assert preds.shape == (1, 3, 32, 32)
+    assert sc.sepconv_forward.launches == chip_smoke.K1_PER_TEST_CLIP
+    assert sc.sepconv_grad_kernels.launches == chip_smoke.K2_PER_TEST_CLIP
+
+
+def test_test_mode_names_are_what_the_writer_gives(tmp_path, monkeypatch):
+    """The test-mode phase's expected names, from the port's CLI on a tiny
+    CAIN over TEST_FRAMES frames written as the phase writes them (the
+    CLI's names are held to the JAX package's in test_torch_test_mode.py):
+    the inputs renamed, then x2, then x4 on that output."""
+    import os
+
+    import torch
+
+    monkeypatch.setattr(chip_smoke, "TEST_FLAGS", chip_smoke.TEST_FLAGS + [
+        "--depth", "2", "--n_resblocks", "1"])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        d = str(tmp_path / "frames")
+        chip_smoke.write_frames(d, (16, 24), chip_smoke.TEST_FRAMES)
+        seen = []
+        for run in ("x2", "x4"):
+            count = chip_smoke.run_test_mode(
+                chip_smoke.TEST_MODELS["cain"], d, "cpu")
+            assert count == len(chip_smoke.TEST_NAMES[run])
+            seen += chip_smoke.TEST_NAMES[run]
+            assert sorted(os.listdir(d)) == sorted(chip_smoke.TEST_INPUTS
+                                                   + seen)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_timed_returns_what_it_ran_and_prints_its_time(capsys):
+    assert chip_smoke.timed("phase", lambda a, b=0: a + b, 2, b=3) == 5
+    assert capsys.readouterr().out.startswith("[time] phase: ")

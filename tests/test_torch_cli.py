@@ -28,6 +28,19 @@ from meta_interpolation_tpu_torch.models.sepconv import SepConv
 
 PSNR_TOL_DB = 0.01
 
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    """Two intra-op threads for this file's PyTorch work: the tier-1 run
+    puts six test processes on the machine's cores, where every process
+    taking a thread a core oversubscribes them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 
 def _argv(pth, ckpt_dir):
     return ["--model", "sepconv", "--mode", "val", "--dataset", "synthetic",
@@ -81,8 +94,12 @@ def test_val_batches_match_jax(dataset, tmp_path):
         np.testing.assert_array_equal(g, w)
         assert g_meta == w_meta
     assert got[0][0].shape == (3, 7, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_dataset("middlebury", str(tmp_path), "sepconv", "val")
+    # every reader of the JAX package is served; a name neither knows is
+    # refused
+    assert type(get_dataset("middlebury", str(tmp_path), "sepconv",
+                            "val")).__name__ == "Middlebury"
+    with pytest.raises(NotImplementedError, match="nosuchset"):
+        get_dataset("nosuchset", str(tmp_path), "sepconv", "val")
 
 
 class _EchoSystem:

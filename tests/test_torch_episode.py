@@ -40,6 +40,20 @@ CFG = dict(model="sepconv", optimizer="Adamax", metasgd=True, inner_lr=LR,
            loss="1*L1")
 
 
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    """Two intra-op threads for this file's PyTorch work: the tier-1 run
+    puts six test processes on the machine's cores, where every process
+    taking a thread a core oversubscribes them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("rule", ["SGD", "Adam", "Adamax"])
 @pytest.mark.parametrize("lr_mode", ["metasgd", "lslr"])
 def test_inner_update_matches_jax(rule, lr_mode):

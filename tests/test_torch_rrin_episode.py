@@ -10,6 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from meta_interpolation_tpu.config import Config as JaxConfig
 from meta_interpolation_tpu.meta.system import (
@@ -38,6 +39,20 @@ PRESET = dict(model="rrin", optimizer="Adam", inner_lr=LR, loss="1*L1",
               number_of_evaluation_steps_per_iter=0, crop_size=64,
               mode="val")
 CFG = dict(PRESET, number_of_evaluation_steps_per_iter=1, fast_warp_range=4)
+
+
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    """Two intra-op threads for this file's PyTorch work: the tier-1 run
+    puts six test processes on the machine's cores, where every process
+    taking a thread a core oversubscribes them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _systems(cfg):

@@ -1,8 +1,10 @@
-"""The port's SuperSloMo and VoxelFlow scene-adaptive evaluation held against
-the JAX system on the CPU: run_superslomo.sh (Adam, Meta-SGD, 1*Super, 1 +
-1 steps) and run_voxelflow.sh (Adam, Meta-SGD, 1*MSE, 1 + 1 steps), each
+"""The port's VoxelFlow scene-adaptive evaluation held against the JAX
+system on the CPU: run_voxelflow.sh (Adam, Meta-SGD, 1*MSE, 1 + 1 steps)
 with --fast_warp_range 4 and as it is (the exact warp); the CLI; and the
-training CLI refusing both.
+training CLI refusing it. SuperSloMo's cases (run_superslomo.sh: the same
+with 1*Super) are in tests/test_torch_superslomo_episode.py, which shares
+this file's presets and helpers: in a file of their own, another test
+process runs them beside these.
 
 Each test builds a JAX system and a port system, with the JAX init (and,
 for the Super loss, JAX's VGG16 weights) bridged into the port. The JAX
@@ -86,12 +88,9 @@ def _hold_episode_to_jax(jsys, tsys, frames):
                                rtol=LOSS_RTOL)
 
 
-@pytest.mark.parametrize("model,warp_range", [
-    ("voxelflow", 0), ("voxelflow", 4), ("superslomo", 0),
-    ("superslomo", 4)])
-def test_run_validation_iter_matches_jax(model, warp_range):
-    """The preset plus --fast_warp_range 4, and the preset as it is (the
-    exact F.grid_sample)."""
+def hold_preset_to_jax(model, warp_range):
+    """The preset plus --fast_warp_range ``warp_range`` (0: as it is, the
+    exact F.grid_sample), its episode held to JAX's."""
     jsys, tsys, frames = _systems(dict(PRESETS[model],
                                        fast_warp_range=warp_range))
     assert tsys.model.warp_range == (warp_range or None)
@@ -100,14 +99,18 @@ def test_run_validation_iter_matches_jax(model, warp_range):
     _hold_episode_to_jax(jsys, tsys, frames)
 
 
-@pytest.mark.parametrize("model,eval_steps", [("superslomo", 0),
-                                              ("voxelflow", 1)])
-def test_cli_val_runs_on_the_cpu(model, eval_steps, tmp_path, capsys):
+@pytest.mark.parametrize("model,warp_range", [
+    ("voxelflow", 0), ("voxelflow", 4)])
+def test_run_validation_iter_matches_jax(model, warp_range):
+    hold_preset_to_jax(model, warp_range)
+
+
+def run_cli_on_the_cpu(model, eval_steps, tmp_path, capsys):
     """The 8 synthetic clips through the CLI. Both models pad a 32x32 crop
     to 64x64; SuperSloMo's clips take the query only (its Super loss and
     aux included), since 8 full episodes of two 40 M-parameter U-Nets
-    would cost more CPU seconds than the episode tests above, which hold
-    its adaptation."""
+    would cost more CPU seconds than the episode tests, which hold its
+    adaptation."""
     cfg = PRESETS[model]
     wb.reset_launches()
     stats = main(["--model", model, "--mode", "val", "--dataset",
@@ -126,8 +129,12 @@ def test_cli_val_runs_on_the_cpu(model, eval_steps, tmp_path, capsys):
     assert wb.warp_sample_bounded_grad_grid.launches == 0
 
 
-@pytest.mark.parametrize("model", ["superslomo", "voxelflow"])
-def test_training_is_refused(model, tmp_path):
+@pytest.mark.parametrize("model,eval_steps", [("voxelflow", 1)])
+def test_cli_val_runs_on_the_cpu(model, eval_steps, tmp_path, capsys):
+    run_cli_on_the_cpu(model, eval_steps, tmp_path, capsys)
+
+
+def refuse_training(model, tmp_path):
     with pytest.raises(NotImplementedError,
                        match=f"meta-training .* of '{model}'"):
         main(["--model", model, "--mode", "train", "--dataset", "synthetic",
@@ -137,3 +144,8 @@ def test_training_is_refused(model, tmp_path):
         SceneAdaptiveInterpolation(Config(**PRESETS["voxelflow"],
                                           per_step_bn_statistics=True,
                                           device="cpu"))
+
+
+@pytest.mark.parametrize("model", ["voxelflow"])
+def test_training_is_refused(model, tmp_path):
+    refuse_training(model, tmp_path)
