@@ -27,13 +27,17 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
        - SepConv K1/K2 at input 1x3x434x562, maps 1x51x384x512, and at
          edges of their tiles and strips: N = 2, F = 5 and F = 50, maps
          37x53 and 21x70;
-       - the bounded grid sampler K3 and its grid gradient K3-grad at image
-         1x3x256x512 (RRIN's padded 256x448 frame) and 37x53, both padding
-         modes, both align_corners, R = 1, 3 and 8, displacements within
-         and past R, on whole pixels and off every edge, and at 1x3x256x448
-         with border padding and align_corners=True (VoxelFlow's call);
-         both also against F.grid_sample and aten.grid_sampler_2d_backward
-         within range, and timed at RRIN's and at VoxelFlow's call;
+       - the bounded grid sampler K3, its grid gradient K3-grad and that
+         gradient's derivative K3-grad² at image 1x3x256x512 (RRIN's padded
+         256x448 frame) and 37x53, both padding modes, both align_corners,
+         R = 1, 3 and 8, displacements within and past R, smooth ones, on
+         whole pixels and off every edge, and at 1x3x256x448 with border
+         padding and align_corners=True (VoxelFlow's call); the autograd
+         Function's first and second derivatives against the plain
+         versions'; K3 and K3-grad also against F.grid_sample and
+         aten.grid_sampler_2d_backward within range, K3-grad² against
+         F.grid_sample's double backward where this PyTorch has one; all
+         three timed at RRIN's and at VoxelFlow's call;
        - the bounded flow projection K4 at 1x256x448 (DAIN's served frame),
          R = 8, on a uniform and a smooth flow, and at 2x37x53 with R = 0,
          1, 16 (over 48 KB of shared memory) and 40 (a halo staged in
@@ -73,6 +77,17 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
          episode; a 64x64 clip on the
          card against the CPU; then the device time and device ops of one
          RRIN warp call (forward and flow gradient) on each path;
+       - meta-training of the warp models with --fast_warp_range 8
+         (run_rrin.sh, run_superslomo.sh, run_voxelflow.sh as they stand)
+         and of DAIN (run_dain.sh's hyperparameters, --mode train, tamed
+         weights): a first-order train iteration at the preset's batch on
+         256x256 crops (median of 3 after a warm-up, peak memory, profile
+         and idle share), one second-order iteration at batch 1 (RRIN with
+         1 inner step), K3 / K3-grad / K3-grad² launches held to the counts
+         derived at WARP_TRAIN with the plain sampler patched to raise, and
+         the outer gradient of a 64x64 clip on the card against the CPU
+         (first order at the preset's rule, second order at the inner SGD
+         rule; DAIN's CPU run handed the card's rectify inputs);
        - DAIN: a served 256x448 frame with the bounded projection (K4 also
          timed on the two flows that frame projects), in turns with the
          exact one; the CLI and an episode (exact projection, as the JAX
@@ -97,9 +112,10 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
   5. a JSON line of per-kernel results, each with its launches on every
      main path that runs it (``launches_by_path``: K1/K2 the training
      CLI's and the SepConv test runs'; K3/K3-grad the RRIN, SuperSloMo and
-     VoxelFlow CLIs'; K4 the served DAIN frames') and their sum
-     (``launches``), the card line again, and the last line {"ok": true,
-     "device": {...}}.
+     VoxelFlow CLIs' and their training paths'; K3-grad² their
+     second-order training paths'; K4 the served DAIN frames') and their
+     sum (``launches``), the card line again, and the last line {"ok":
+     true, "device": {...}}.
 """
 import argparse
 import json
@@ -203,6 +219,48 @@ K3G_PER_CLIP_VF = PAIRS * VF_WARPS * WARP_MODEL_STEPS               # 4
 WARP_MODELS = {"rrin": (RRIN_FLAGS, K3_PER_CLIP, K3G_PER_CLIP),
                "superslomo": (SSM_FLAGS, K3_PER_CLIP_SSM, K3G_PER_CLIP_SSM),
                "voxelflow": (VF_FLAGS, K3_PER_CLIP_VF, K3G_PER_CLIP_VF)}
+# meta-training of the warp models with --fast_warp_range 8
+# (scripts/run_rrin.sh, run_superslomo.sh and run_voxelflow.sh as they
+# stand) and of DAIN (run_dain.sh's hyperparameters with --mode train,
+# tamed weights, the exact projection): (flags, batch, inner steps, warps a
+# forward). A task of n inner steps runs 2n support forwards and the query:
+# first order (2n + 1)·w K3 and as many K3-grad (each support backward and
+# the outer backward of the query); second order, the inner gradients on
+# the tape, K3-grad² once a support warp (the outer backward through its
+# K3-grad node) and K3-grad once more (through its K3 node): (2n + 1)·w
+# K3, (4n + 1)·w K3-grad, 2n·w K3-grad², counted on the CPU with counting
+# wrappers before the first chip run. Second order runs at batch 1 and
+# RRIN there takes 1 inner step (at 0 it is first order)
+TRAIN_COMMON = ["--mode", "train", "--inner_lr", "1e-5", "--outer_lr", "1e-5",
+                "--val_batch_size", "1"]
+WARP_TRAIN = {
+    "rrin": (TRAIN_COMMON + ["--model", "rrin", "--loss", "1*L1",
+                             "--optimizer", "Adam", "--batch_size", "8",
+                             "--number_of_training_steps_per_iter", "0",
+                             "--number_of_evaluation_steps_per_iter", "0",
+                             "--fast_warp_range", str(WARP_R)], 8, 0, WARPS),
+    "superslomo": (TRAIN_COMMON + ["--model", "superslomo", "--loss",
+                                   "1*Super", "--optimizer", "Adam",
+                                   "--metasgd", "--batch_size", "4",
+                                   "--number_of_training_steps_per_iter", "1",
+                                   "--number_of_evaluation_steps_per_iter",
+                                   "1", "--fast_warp_range", str(WARP_R)],
+                   4, 1, SSM_WARPS),
+    "voxelflow": (TRAIN_COMMON + ["--model", "voxelflow", "--loss", "1*MSE",
+                                  "--optimizer", "Adam", "--metasgd",
+                                  "--batch_size", "8",
+                                  "--number_of_training_steps_per_iter", "1",
+                                  "--number_of_evaluation_steps_per_iter",
+                                  "1", "--fast_warp_range", str(WARP_R)],
+                  8, 1, VF_WARPS),
+    "dain": (TRAIN_COMMON + ["--model", "dain", "--loss", "1*L1",
+                             "--optimizer", "Adamax", "--metasgd",
+                             "--batch_size", "6",
+                             "--number_of_training_steps_per_iter", "1",
+                             "--number_of_evaluation_steps_per_iter", "1"],
+             6, 1, 0)}
+SECOND_ORDER_STEPS = 1
+WARP_TRAIN_REPS = 3
 # VoxelFlow's K3 call: one frame of its padded 256x448 input, border
 # padding, align_corners=True
 VF_WARP_CASE = (1, 3, 256, 448, -WARP_R, WARP_R - 1, "uniform", WARP_R,
@@ -216,7 +274,9 @@ WARP_SHAPES = [(37, 53, -WARP_R, WARP_R - 1),
 # ptxas names of K3 and K3-grad in csrc/warp.cu, and of the kernels of the
 # warp.cu that took coordinate planes (--earlier-warp)
 WARP_KERNELS = {"warp_sample_bounded_forward": "warp_sample_fwd_kernel",
-                "warp_sample_bounded_grad_grid": "warp_sample_grad_grid_kernel"}
+                "warp_sample_bounded_grad_grid": "warp_sample_grad_grid_kernel",
+                "warp_sample_bounded_grad_grid_backward":
+                    "warp_sample_grad_grid_backward_kernel"}
 EARLIER_WARP_KERNELS = {"warp_bounded_forward": "warp_bounded_fwd_kernel",
                         "warp_bounded_grad_frac":
                             "warp_bounded_grad_frac_kernel"}
@@ -285,6 +345,7 @@ TEST_NAMES = {"x2": ["f01_0.500000.png", "f02_0.500000.png",
                      "f03_0.250000.png", "f03_0.750000.png"]}
 KERNELS = ("sepconv_forward", "sepconv_grad_kernels",
            "warp_sample_bounded_forward", "warp_sample_bounded_grad_grid",
+           "warp_sample_bounded_grad_grid_backward",
            "flow_projection_bounded")
 # data-sheet peaks: fp32 outside the tensor cores (FLOP/s) and device
 # memory (bytes/s); first name that the card's name contains wins
@@ -330,18 +391,20 @@ def call_ms(torch, fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def time_ms(torch, fn, reps=20, warmup=3, calls=20):
+def time_ms(torch, fn, reps=20, warmup=3, calls=20, stream=None):
     """The card's time for one call of ``fn``: ``calls`` calls captured
     back to back in one CUDA graph after warm-up, then the median of
     ``reps`` CUDA-event timings of a replay, over ``calls``. Inside a
     replay the host launches nothing, so what is timed is the card's work
     and the small gaps between its kernels, not the host's launch
-    overhead, which is most of an eager call of a microsecond kernel."""
+    overhead, which is most of an eager call of a microsecond kernel.
+    ``stream``: the stream to capture on (an autograd backward runs on the
+    stream of its forward, so a backward is captured on that one)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
         for _ in range(calls):
             fn()
     return call_ms(torch, graph.replay, reps, warmup) / calls
@@ -352,6 +415,14 @@ def max_err(got, want, what):
     lim = TOL_REL * want.abs().max().item() + TOL_ABS
     check(err <= lim, f"{what}: max|diff| {err:.3e} > {lim:.3e}")
     return err
+
+
+def max_errs(got, want, what):
+    """max_err of a tensor, or the largest over the parts of a tuple."""
+    if isinstance(got, tuple):
+        return max(max_err(a, b, f"{what}, output {i}")
+                   for i, (a, b) in enumerate(zip(got, want)))
+    return max_err(got, want, what)
 
 
 def ptxas_report(log):
@@ -735,10 +806,13 @@ def earlier_warp(torch, wb, lib):
 
 def warp_checks(torch, wb, case, earlier=None):
     """Hold K3, K3-grad and GridSampleBoundedFunction against the plain
-    composition (autograd through wb.grid_sample_bounded_ref) and K3-grad
-    against the closed form, on one case (n, c, h, w, lo, hi, kind, R,
-    align_corners, padding); with ``earlier`` (earlier_warp's sampler) its
-    output and grid gradient too. Returns (K3 error, K3-grad error)."""
+    composition (autograd through wb.grid_sample_bounded_ref), K3-grad
+    against the closed form, and K3-grad² and the Function's double
+    backward (the sampler's grid gradient differentiated in g and the
+    grid) against autograd through the closed form, on one case (n, c, h,
+    w, lo, hi, kind, R, align_corners, padding); with ``earlier``
+    (earlier_warp's sampler) its output and grid gradient too. Returns
+    (K3 error, K3-grad error, K3-grad² error)."""
     n, c, h, w, lo, hi, kind, r, align, padding = case
     seed = h * 1000 + w + hi + 17 * r + 3 * align
     gen = torch.Generator().manual_seed(seed)
@@ -766,6 +840,20 @@ def warp_checks(torch, wb, case, earlier=None):
     max_err(leaves[0].grad, ref_gimg, f"GridSampleBoundedFunction gimg {what}")
     max_err(leaves[1].grad, ref_ggrid,
             f"GridSampleBoundedFunction ggrid {what}")
+    v = torch.randn(n, h, w, 2, generator=gen).cuda()
+    ref2 = wb.grid_sample_bounded_grad_grid_backward_ref(img, grid, g, v,
+                                                         *opts)
+    got2 = wb.warp_sample_bounded_grad_grid_backward(img, grid, g, v, *opts)
+    err_grad2 = max(max_err(got2[0], ref2[0], f"K3-grad² gg {what}"),
+                    max_err(got2[1], ref2[1], f"K3-grad² grid {what}"))
+    leaf, g_leaf = grid.clone().requires_grad_(), g.clone().requires_grad_()
+    first, = torch.autograd.grad(
+        wb.GridSampleBoundedFunction.apply(img, leaf, *opts), leaf, g_leaf,
+        create_graph=True)
+    for got, want, part in zip(torch.autograd.grad(first, (g_leaf, leaf), v),
+                               ref2, ("gg", "grid")):
+        max_err(got, want, f"GridSampleBoundedFunction double backward "
+                           f"{part} {what}")
     if earlier is not None:
         leaf = grid.clone().requires_grad_()
         out = earlier(img, leaf, *opts)
@@ -773,7 +861,7 @@ def warp_checks(torch, wb, case, earlier=None):
         max_err(out.detach(), ref.detach(), f"earlier warp {what}")
         max_err(leaf.grad, ref_ggrid, f"earlier warp ggrid {what}")
     torch.cuda.synchronize()
-    return err_fwd, err_grad
+    return err_fwd, err_grad, err_grad2
 
 
 def warp_cases():
@@ -792,6 +880,9 @@ def warp_cases():
                 for r in (1, WARP_R):
                     cases.append((2, 2, h, w, lo, hi, kind, r, align,
                                   padding))
+            h, w, lo, hi = WARP_SHAPES[-1]
+            cases.append((1, 3, h, w, lo, hi, "smooth", WARP_R, align,
+                          padding))
     return cases + [VF_WARP_CASE]
 
 
@@ -804,17 +895,18 @@ def warp_kernel_phase(torch, wb, card, resources=None, earlier=None):
     given. Returns the per-kernel records (launches filled in later)."""
     import torch.nn.functional as F
     flops_peak, bw_peak = peaks(card)
-    errs = {"fwd": 0.0, "grad": 0.0}
+    errs = {"fwd": 0.0, "grad": 0.0, "grad2": 0.0}
     cases = warp_cases()
     for case in cases:
-        fwd, grad = warp_checks(torch, wb, case,
-                                None if earlier is None else earlier[0])
-        errs["fwd"], errs["grad"] = (max(errs["fwd"], fwd),
-                                     max(errs["grad"], grad))
-    print(f"[kernels] K3 and K3-grad agree with the plain composition at "
-          f"{len(cases)} cases (max|diff| K3 {errs['fwd']:.3e}, K3-grad "
-          f"{errs['grad']:.3e}); the Function's gradients agree with "
-          f"autograd through it"
+        got = warp_checks(torch, wb, case,
+                          None if earlier is None else earlier[0])
+        for key, err in zip(("fwd", "grad", "grad2"), got):
+            errs[key] = max(errs[key], err)
+    print(f"[kernels] K3, K3-grad and K3-grad² agree with their plain "
+          f"versions at {len(cases)} cases (max|diff| K3 {errs['fwd']:.3e}, "
+          f"K3-grad {errs['grad']:.3e}, K3-grad² {errs['grad2']:.3e}); the "
+          f"Function's first and second derivatives agree with autograd "
+          f"through the plain versions"
           + ("; so does the earlier warp" if earlier is not None else ""))
 
     # RRIN's settings at its padded frame, within range (floors in
@@ -825,12 +917,21 @@ def warp_kernel_phase(torch, wb, card, resources=None, earlier=None):
     gen = torch.Generator().manual_seed(5)
     img = torch.rand(n, c, h, w, generator=gen).cuda()
     g = torch.randn(n, c, h, w, generator=gen).cuda()
+    v = torch.randn(n, h, w, 2, generator=gen).cuda()
     opts = (r, False, "zeros")
     grids = {kind: warp_grid(torch, kind, n, h, w, -r, r - 2, False, 6
                              ).cuda() for kind in ("library", "smooth")}
-    calls = {}
+    calls, streams = {}, {}
     for kind, grid in grids.items():
+        lib_grad2, streams[kind] = library_double_backward(
+            torch, img, grid, g, v, "zeros", False)
         calls[kind] = {
+            "grad2": lambda grid=grid: wb.warp_sample_bounded_grad_grid_backward(
+                img, grid, g, v, *opts),
+            "lib_grad2": lib_grad2,
+            "plain_grad2": lambda grid=grid: (
+                wb.grid_sample_bounded_grad_grid_backward_ref(
+                    img, grid, g, v, *opts)),
             "fwd": lambda grid=grid: wb.warp_sample_bounded_forward(
                 img, grid, *opts),
             "grad": lambda grid=grid: wb.warp_sample_bounded_grad_grid(
@@ -846,15 +947,23 @@ def warp_kernel_phase(torch, wb, card, resources=None, earlier=None):
                 img, grid, g, *opts)}
     # the library sampler may round a coordinate otherwise: held only on
     # the grid whose fractions keep away from whole pixels
-    got = {k: calls["library"][k]() for k in ("fwd", "grad", "lib_fwd",
-                                              "lib_grad")}
+    got = {k: fn() for k, fn in calls["library"].items()
+           if k in ("fwd", "grad", "lib_fwd", "lib_grad", "grad2",
+                    "lib_grad2") and fn is not None}
+    torch.cuda.synchronize()
     lib_err = (max_err(got["fwd"], got["lib_fwd"],
                        "K3 against F.grid_sample"),
                max_err(got["grad"], got["lib_grad"],
-                       "K3-grad against aten.grid_sampler_2d_backward"))
+                       "K3-grad against aten.grid_sampler_2d_backward"),
+               max_errs(got["grad2"], got["lib_grad2"], "K3-grad² against "
+                        "the double backward of F.grid_sample")
+               if "lib_grad2" in got else None)
     print(f"[kernels] {n}x{c}x{h}x{w} in range, R={r}: K3 agrees with "
           f"F.grid_sample (max|diff| {lib_err[0]:.3e}), K3-grad with "
-          f"aten.grid_sampler_2d_backward's grid gradient ({lib_err[1]:.3e})")
+          f"aten.grid_sampler_2d_backward's grid gradient ({lib_err[1]:.3e})"
+          + ("" if lib_err[2] is None else
+             f", K3-grad² with F.grid_sample's double backward "
+             f"({lib_err[2]:.3e})"))
     pixels = n * h * w
     records = []
     for name, key, lib_name, ops, nbytes, replaces in [
@@ -864,13 +973,21 @@ def warp_kernel_phase(torch, wb, card, resources=None, earlier=None):
             ("warp_sample_bounded_grad_grid", "grad",
              "aten.grid_sampler_2d_backward (grid only)",
              pixels * (50 + 16 * c), pixels * (16 + 8 * c),
-             "meta_interpolation_tpu/ops/warp.py:310")]:
+             "meta_interpolation_tpu/ops/warp.py:310"),
+            ("warp_sample_bounded_grad_grid_backward", "grad2",
+             "F.grid_sample's double backward (GridSampler2DBackwardBackward "
+             "at g and the grid)", pixels * (80 + 27 * c),
+             pixels * (24 + 12 * c), "meta_interpolation_tpu/ops/warp.py:310")]:
         fn, smooth = calls["library"][key], calls["smooth"][key]
         ms, smooth_ms = time_ms(torch, fn), time_ms(torch, smooth)
         eager_ms = call_ms(torch, fn)
         plain_ms = time_ms(torch, calls["library"][f"plain_{key}"])
-        library_ms = time_ms(torch, calls["library"][f"lib_{key}"])
-        library_smooth_ms = time_ms(torch, calls["smooth"][f"lib_{key}"])
+        lib_streams = ((streams["library"], streams["smooth"])
+                       if key == "grad2" else (None, None))
+        library_ms, library_smooth_ms = (
+            None if calls[kind][f"lib_{key}"] is None else
+            time_ms(torch, calls[kind][f"lib_{key}"], stream=stream)
+            for kind, stream in zip(("library", "smooth"), lib_streams))
         t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
         bound = max(t_ops, t_bytes)
         records.append({
@@ -893,8 +1010,10 @@ def warp_kernel_phase(torch, wb, card, resources=None, earlier=None):
               f"{eager_ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
               f"{bound:.6f} ms by {records[-1]['bound_by']}, "
               f"{bound / ms:.3f} and {bound / smooth_ms:.3f} of the bound "
-              f"reached; library {lib_name} {library_ms:.4f} and "
-              f"{library_smooth_ms:.4f} ms; {res_txt})")
+              f"reached; library {lib_name} "
+              + ("not in this PyTorch" if library_ms is None else
+                 f"{library_ms:.4f} and {library_smooth_ms:.4f} ms")
+              + f"; {res_txt})")
     for rec, timing in zip(records, border_warp_timing(torch, wb,
                                                         flops_peak,
                                                         bw_peak)):
@@ -928,20 +1047,62 @@ def warp_kernel_phase(torch, wb, card, resources=None, earlier=None):
     return records
 
 
+def library_double_backward(torch, img, grid, g, v, padding, align):
+    """The double backward of ``F.grid_sample`` (PyTorch's
+    GridSampler2DBackwardBackward) at g and the grid for the cotangent v
+    of the grid gradient: (a call that runs it once, returning the two
+    cotangents, and the stream it runs on), or (None, None) where this
+    PyTorch has no derivative of ``aten::grid_sampler_2d_backward`` (2.11
+    has none; 2.13 has one). The first-order graph is built on a stream
+    of its own, on which the backward then runs, so that time_ms can
+    capture it there."""
+    import torch.nn.functional as F
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        g_leaf, leaf = g.clone().requires_grad_(), grid.clone().requires_grad_()
+        out = F.grid_sample(img, leaf, mode="bilinear", padding_mode=padding,
+                            align_corners=align)
+        first, = torch.autograd.grad(out, leaf, g_leaf, create_graph=True)
+    torch.cuda.current_stream().wait_stream(stream)
+
+    def run():
+        return torch.autograd.grad(first, (g_leaf, leaf), v,
+                                   retain_graph=True)
+    try:
+        run()
+    except RuntimeError as err:
+        if "not implemented" not in str(err):
+            raise
+        print(f"[kernels] torch {torch.__version__} has no double backward "
+              f"of F.grid_sample ({err}): no library time for K3-grad²")
+        return None, None
+    return run, stream
+
+
 def border_warp_timing(torch, wb, flops_peak, bw_peak):
     """K3 and K3-grad at VoxelFlow's call (VF_WARP_CASE's shape, border
     padding, align_corners=True), within range, against F.grid_sample and
     aten.grid_sampler_2d_backward's grid gradient (border is padding mode
     1): errors, card ms, the plain version's and the library's ms, and the
-    bound. Returns one dict a kernel (K3, K3-grad)."""
+    bound; K3-grad² likewise against F.grid_sample's double backward.
+    Returns one dict a kernel (K3, K3-grad, K3-grad²)."""
     import torch.nn.functional as F
     n, c, h, w, _, _, _, r, align, padding = VF_WARP_CASE
     gen = torch.Generator().manual_seed(15)
     img = torch.rand(n, c, h, w, generator=gen).cuda()
     g = torch.randn(n, c, h, w, generator=gen).cuda()
+    v = torch.randn(n, h, w, 2, generator=gen).cuda()
     grid = warp_grid(torch, "library", n, h, w, -r, r - 2, align, 16).cuda()
     opts = (r, align, padding)
+    lib_grad2, stream = library_double_backward(torch, img, grid, g, v,
+                                                padding, align)
     calls = {
+        "grad2": (lambda: wb.warp_sample_bounded_grad_grid_backward(
+                      img, grid, g, v, *opts),
+                  lambda: wb.grid_sample_bounded_grad_grid_backward_ref(
+                      img, grid, g, v, *opts),
+                  lib_grad2),
         "fwd": (lambda: wb.warp_sample_bounded_forward(img, grid, *opts),
                 lambda: wb.grid_sample_bounded_ref(img, grid, *opts),
                 lambda: F.grid_sample(img, grid, mode="bilinear",
@@ -955,32 +1116,39 @@ def border_warp_timing(torch, wb, flops_peak, bw_peak):
                      g, img, grid, 0, 1, align, [False, True])[1])}
     pixels = n * h * w
     out = []
-    for key, ops, nbytes in (("fwd", pixels * (40 + 7 * c),
-                              pixels * (8 + 8 * c)),
-                             ("grad", pixels * (50 + 16 * c),
-                              pixels * (16 + 8 * c))):
+    for key, name, ops, nbytes in (
+            ("fwd", "K3", pixels * (40 + 7 * c), pixels * (8 + 8 * c)),
+            ("grad", "K3-grad", pixels * (50 + 16 * c),
+             pixels * (16 + 8 * c)),
+            ("grad2", "K3-grad²", pixels * (80 + 27 * c),
+             pixels * (24 + 12 * c))):
         kernel, plain, library = calls[key]
-        name = "K3" if key == "fwd" else "K3-grad"
         got = kernel()
-        err = max_err(got, plain(), f"{name} at VoxelFlow's call against "
-                                    f"plain")
-        lib_err = max_err(got, library(), f"{name} at VoxelFlow's call "
-                                          f"against the library")
+        err = max_errs(got, plain(), f"{name} at VoxelFlow's call against "
+                                     f"plain")
+        lib_err = (None if library is None else
+                   max_errs(got, library(), f"{name} at VoxelFlow's call "
+                                            f"against the library"))
         t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
         timing = {"shape": f"img {n}x{c}x{h}x{w}, grid {n}x{h}x{w}x2, R={r}, "
                            f"{padding}, align_corners={align}",
                   "max_abs_err": err, "library_err": lib_err,
                   "ms": time_ms(torch, kernel),
                   "plain_ms": time_ms(torch, plain),
-                  "library_ms": time_ms(torch, library),
+                  "library_ms": None if library is None else time_ms(
+                      torch, library,
+                      stream=stream if key == "grad2" else None),
                   "bound_ms": max(t_ops, t_bytes),
                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        lib_txt = ("no library call in this PyTorch" if library is None else
+                   f"against the library {lib_err:.3e}")
         print(f"[kernels] {name} at VoxelFlow's call ({timing['shape']}): "
-              f"max|diff| against "
-              f"plain {err:.3e}, against the library {lib_err:.3e}; "
+              f"max|diff| against plain {err:.3e}, {lib_txt}; "
               f"{timing['ms']:.4f} ms (plain {timing['plain_ms']:.4f}, "
-              f"library {timing['library_ms']:.4f}, bound "
-              f"{timing['bound_ms']:.6f} ms by {timing['bound_by']})")
+              f"library " + ("null" if library is None else
+                             f"{timing['library_ms']:.4f}")
+              + f", bound {timing['bound_ms']:.6f} ms by "
+                f"{timing['bound_by']})")
         out.append(timing)
     return out
 
@@ -1540,11 +1708,16 @@ def train_phase(torch, mods, sc, card):
 
 
 def train_card_vs_cpu(torch, flags=TRAIN_FLAGS, model="sepconv",
-                      orders=("first", "second"), hold_grads=True):
+                      orders=("first", "second"), hold_grads=True,
+                      state=None, hand=None):
     """Outer gradients of one 64x64 clip on the card and on the CPU, from
-    the same weights, for each order of ``orders``: the loss within
-    LOSS_RTOL and, with ``hold_grads``, each parameter group's gradient
-    within OUTER_GRAD_RTOL in norm (else the distance is shown)."""
+    the same weights (the model's seeded init, or ``state``), for each
+    order of ``orders``: the loss within LOSS_RTOL and, with
+    ``hold_grads``, each parameter group's gradient within
+    OUTER_GRAD_RTOL in norm (else the distance is shown); a group that
+    trains nothing (the fixed rates of LSLR) has zero gradients on both.
+    ``hand``: (class, method name) of a model method whose results the
+    CPU run takes from the card run, call by call."""
     from meta_interpolation_tpu_torch.config import get_args
     from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
     from meta_interpolation_tpu_torch.meta.system import (
@@ -1554,12 +1727,21 @@ def train_card_vs_cpu(torch, flags=TRAIN_FLAGS, model="sepconv",
     for order in orders:
         extra = ["--second_order"] if order == "second" else []
         cfg = get_args(flags + ["--batch_size", "1"] + extra)
-        out = {}
+        out, handed, calls = {}, [], 0
         for dev in ("cuda", "cpu"):
-            loss, _, grads = SceneAdaptiveInterpolation(
-                cfg, device=dev).outer_grads(clip, 0)
+            system = SceneAdaptiveInterpolation(cfg, device=dev)
+            if state is not None:
+                system.load_net(state)
+            run = lambda: system.outer_grads(clip, 0)
+            if hand is not None:
+                run = with_attr(hand[0], hand[1], handing(
+                    torch, getattr(hand[0], hand[1]), handed, dev), run)
+            loss, _, grads = run()
             out[dev] = float(loss), {g: {k: v.cpu() for k, v in t.items()}
                                      for g, t in grads.items()}
+            calls = calls if dev == "cpu" else len(handed)
+        check(not handed, f"the CPU run left {len(handed)} of the card's "
+                          f"{calls} handed results")
         (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
         check(abs(l_card - l_cpu) <= LOSS_RTOL * abs(l_cpu),
               f"{order}-order outer loss card {l_card} vs CPU {l_cpu}")
@@ -1569,19 +1751,38 @@ def train_card_vs_cpu(torch, flags=TRAIN_FLAGS, model="sepconv",
                                  for k, v in g_cpu[g].items()))
             ref = math.sqrt(sum(float(v.norm()) ** 2
                                 for v in g_cpu[g].values()))
-            ratios[g] = diff / ref
+            ratios[g] = diff / ref if ref else diff
             check(diff <= OUTER_GRAD_RTOL * ref or not hold_grads,
                   f"{order}-order outer gradient of {g}: card vs CPU "
                   f"{diff:.3e} > {OUTER_GRAD_RTOL} x {ref:.3e}")
-        worst = max(float((g_card[g][k] - v).norm() / max(float(v.norm()),
-                                                           1e-30))
-                    for g in g_cpu for k, v in g_cpu[g].items())
+        worst = max(float((g_card[g][k] - v).norm() / float(v.norm()))
+                    for g in g_cpu for k, v in g_cpu[g].items()
+                    if float(v.norm()) > 0)
         limit = OUTER_GRAD_RTOL if hold_grads else "none"
         print(f"[train] {model} {order}-order outer gradient, inner "
               f"{cfg.optimizer}, {SMALL_HW[0]}x{SMALL_HW[1]} clip, card vs "
-              f"CPU: loss {l_card:.6f} vs {l_cpu:.6f}, |diff|/|cpu| net "
+              f"CPU" + (f" (the CPU handed the card's {hand[1]}, "
+                        f"{calls} calls)" if hand else "")
+              + f": loss {l_card:.6f} vs {l_cpu:.6f}, |diff|/|cpu| net "
               f"{ratios['net']:.3e} lrs {ratios['lrs']:.3e} (limit {limit}); "
               f"worst single tensor {worst:.3e}")
+
+
+def handing(torch, real, record, dev):
+    """A stand-in for the model method ``real``: on the card it runs it and
+    records each call's results (on the CPU); on the CPU it returns the
+    card's results in call order instead, checking the call count."""
+    def card(self, *args, **kwargs):
+        out = real(self, *args, **kwargs)
+        record.append(tuple(t.detach().cpu() if torch.is_tensor(t) else t
+                            for t in out))
+        return out
+
+    def cpu(self, *args, **kwargs):
+        check(len(record) > 0, f"the CPU run calls {real.__name__} more "
+                               f"often than the card run")
+        return record.pop(0)
+    return card if dev == "cuda" else cpu
 
 
 def warp_call_phase(torch, mods, earlier=None, reps=10):
@@ -1646,10 +1847,11 @@ def warp_call_phase(torch, mods, earlier=None, reps=10):
 
 def plain_warp_forbidden(wb, fn):
     """``fn`` run with the bounded sampler's plain versions (the
-    composition and its closed-form grid gradient) patched to raise: on
-    the card the sampler must run K3 and K3-grad only, and no plain image
-    gradient (GridSampleBoundedFunction takes it through the plain
-    composition, and only when the image needs one)."""
+    composition and its closed-form grid gradient, which K3-grad²'s plain
+    version differentiates) patched to raise: on the card the sampler must
+    run K3, K3-grad and K3-grad² only, and no plain image gradient
+    (GridSampleBoundedFunction takes it through the plain composition, and
+    only when the image needs one)."""
     def forbidden(*_args, **_kw):
         raise AssertionError("a plain bounded-sampler version ran on the "
                              "card")
@@ -1772,6 +1974,102 @@ def warp_model_phase(torch, mods, wb, model, flags, k3, k3g, earlier=None):
     # (d) a small clip on the card against the same clip on the CPU
     card_vs_cpu(get_args(flags), model)
     return launches
+
+
+def train_launches(steps, warps, second):
+    """K3, K3-grad and K3-grad² launches of one task (see WARP_TRAIN)."""
+    k3 = (2 * steps + 1) * warps
+    if not second:
+        return {"warp_sample_bounded_forward": k3,
+                "warp_sample_bounded_grad_grid": k3}
+    return {"warp_sample_bounded_forward": k3,
+            "warp_sample_bounded_grad_grid": (4 * steps + 1) * warps,
+            "warp_sample_bounded_grad_grid_backward": 2 * steps * warps}
+
+
+def warp_train_model(torch, mods, wb, card, model, state=None):
+    """Meta-training of one model of WARP_TRAIN on the card: (a) first
+    order at its preset batch on 256x256 crops, median of WARP_TRAIN_REPS
+    train iterations after a warm-up, peak memory, launches, a profile with
+    the device's idle share; (b) one second-order iteration at batch 1
+    after a warm-up; (c) the outer gradient of a 64x64 clip on the card
+    against the CPU, first order at the preset's rule and second order at
+    the inner SGD rule (DAIN: the CPU handed the card's rectify inputs,
+    whose projection floors may flip between the devices). Every sampler
+    call runs K3 / K3-grad / K3-grad², no plain version (the plain sampler
+    and its closed forms patched to raise). Returns the launches of (a)
+    and (b), by path."""
+    import numpy as np
+
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    from meta_interpolation_tpu_torch.models.dain import model as dain_mod
+    flags, batch, steps, warps = WARP_TRAIN[model]
+    clips = SyntheticSeptuplet(model=model, mode="train",
+                               size=(CLI_CROP, CLI_CROP))
+    frames = np.stack([clips[i][0] for i in range(batch)])
+    second_flags = flags + ["--number_of_training_steps_per_iter",
+                            str(max(steps, SECOND_ORDER_STEPS))]
+    paths = {}
+    for order, cfg_flags, tasks, reps in (
+            ("first", flags, batch, WARP_TRAIN_REPS),
+            ("second", second_flags + ["--batch_size", "1",
+                                       "--second_order"], 1, 1)):
+        n = steps if order == "first" else max(steps, SECOND_ORDER_STEPS)
+        system = SceneAdaptiveInterpolation(get_args(cfg_flags))
+        if state is not None:
+            system.load_net(state)
+        out = []
+        run = plain_warp_forbidden(wb, lambda: out.append(
+            system.run_train_iter(frames[:tasks], 0)))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(mods)
+        times = timed_iters(torch, run, reps, warmup=1)
+        got = launch_counts(mods)
+        want = {k: 0 for k in got}
+        want.update({k: v * tasks * (reps + 1) for k, v in
+                     train_launches(n, warps, order == "second").items()})
+        check(got == want, f"{model} {order}-order train iterations "
+                           f"launched {got}, want {want}")
+        losses, preds = out[-1]
+        check(all(math.isfinite(v) for v in losses.values())
+              and tuple(preds.shape) == (tasks, 3, CLI_CROP, CLI_CROP)
+              and bool(torch.isfinite(preds).all()),
+              f"{model} {order}-order train iteration: {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per_iter = {k: v // (reps + 1) for k, v in got.items() if v}
+        print(f"[train] {model} {order} order, batch {tasks}, {CLI_CROP}x"
+              f"{CLI_CROP}, {n} step(s) ({card}): median "
+              f"{statistics.median(times):.4f} s a train iteration over "
+              f"{reps} after a warm-up (all {[round(t, 4) for t in times]}), "
+              f"loss {losses['loss']:.4f}, peak memory {peak:.2f} GiB, "
+              f"launches an iteration {per_iter}, no plain sampler")
+        if order == "first":
+            profile_episode(torch, run, f"{model} train iteration ({card})",
+                            "warp_sample" if warps else None)
+        suffix = "" if order == "first" else "_second_order"
+        paths[f"{model}_train{suffix}"] = {k: v for k, v in got.items()}
+        del system, out
+    hand = (dain_mod.DAIN, "rectify_input") if model == "dain" else None
+    train_card_vs_cpu(torch, flags, model, orders=("first",), state=state,
+                      hand=hand)
+    train_card_vs_cpu(torch, second_flags + ["--optimizer", "SGD"], model,
+                      orders=("second",), state=state, hand=hand)
+    return paths
+
+
+def warp_train_phase(torch, mods, wb, card):
+    """warp_train_model for RRIN, SuperSloMo, VoxelFlow and DAIN (tamed
+    weights, dain_weights). Returns every path's launches."""
+    paths = {}
+    for model in WARP_TRAIN:
+        state = (dain_weights(torch).state_dict() if model == "dain"
+                 else None)
+        paths.update(timed(f"{model}_train", warp_train_model, torch, mods,
+                           wb, card, model, state))
+    return paths
 
 
 def dain_weights(torch):
@@ -2537,6 +2835,8 @@ def main():
                                model, *preset, earlier=earlier_sampler)
                   for model, preset in WARP_MODELS.items()}
     timed("warp_call", warp_call_phase, torch, mods, earlier_sampler)
+    train_paths = timed("warp_train", warp_train_phase, torch, mods, wb,
+                        card)
     dain_launches, served_ms = timed("dain", dain_phase, torch, mods,
                                      earlier_k4)
     records[-1]["served_ms"] = served_ms
@@ -2544,13 +2844,21 @@ def main():
     timed("cain_train", cain_train_phase, torch, mods, card)
     test_launches = timed("test_mode", test_mode_phase, torch, mods)
     # each kernel's launches on the main paths that run it, each read on
-    # its own: K1 and K2 on two, K3 and K3-grad on three
+    # its own: K1 and K2 on two; K3 and K3-grad on the three evaluation
+    # CLIs and the six training paths of the warp models; K3-grad² on their
+    # three second-order paths; K4 on the served DAIN frames
+    warp_train_paths = {path: counts for path, counts in train_paths.items()
+                        if not path.startswith("dain")}
     by_path = {**{k: {"sepconv_train": sepconv_launches[k],
                       "sepconv_test": test_launches[k]}
                   for k in KERNELS[:2]},
-               **{k: {path: counts[k] for path, counts in warp_paths.items()}
+               **{k: {path: counts[k] for path, counts in
+                      {**warp_paths, **warp_train_paths}.items()}
                   for k in KERNELS[2:4]},
-               **{k: {"dain_served": dain_launches[k]} for k in KERNELS[4:]}}
+               KERNELS[4]: {path: counts[KERNELS[4]]
+                            for path, counts in warp_train_paths.items()
+                            if path.endswith("second_order")},
+               **{k: {"dain_served": dain_launches[k]} for k in KERNELS[5:]}}
     check([rec["name"] for rec in records] == list(KERNELS),
           f"kernel records {[rec['name'] for rec in records]}")
     for rec in records:

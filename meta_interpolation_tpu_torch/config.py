@@ -190,8 +190,9 @@ _BOOL_FLAGS = {
 
 _HELP = {
     "model": "backbone: cain (default), sepconv, rrin, dain, superslomo or "
-             "voxelflow; cain and sepconv also meta-train (--mode train). "
-             "dain adapts only its rectify net, trains on its own "
+             "voxelflow; each meta-trains (--mode train, first or "
+             "--second_order) and evaluates. "
+             "dain adapts and trains only its rectify net, on its own "
              "charbonnier loss whatever --loss says and projects flows "
              "exactly; random weights need a tamed depth head "
              "(models/dain/model.tame_depth_head_). superslomo takes "

@@ -1,5 +1,6 @@
 // Bounded bilinear grid sampler for Hopper (sm_90a): the flow models' fast
-// warp, grid in, output (forward) or grid gradient (backward) out.
+// warp, grid in, output (forward), grid gradient (backward) or that
+// gradient's derivative (second order) out.
 //
 // Layouts: img and out (N, C, H, W) float32; grid and ggrid (N, H, W, 2)
 // float32 with (gx, gy) last, as F.grid_sample takes them; g (N, C, H, W);
@@ -29,7 +30,9 @@
 // (meta_interpolation_tpu/ops/warp.py:218-245 and :259-271);
 // warp_sample_bounded_grad_grid is the gradient of the whole sampler with
 // respect to the grid, which the TPU path gets by autodiff of the XLA sweep
-// under its custom VJP (meta_interpolation_tpu/ops/warp.py:299-319). What
+// under its custom VJP (meta_interpolation_tpu/ops/warp.py:299-319), and
+// warp_sample_bounded_grad_grid_backward the derivative of that gradient,
+// which the TPU path gets by differentiating the XLA backward again. What
 // the TPU kernel computes, not how: the Pallas kernel sweeps all (2R+2)^2
 // shifted windows with pltpu.roll because a TPU has no cheap gather; the
 // floors lie in [-R, R-1], so on Hopper the sweep is one direct 2x2 gather
@@ -45,7 +48,9 @@
 // Bound on an H100 (N = 1, C = 3, 256x512, the RRIN main path): bytes. The
 // forward reads the grid (8 B a pixel) and the image (12 B) and writes the
 // output (12 B): 4.19 MB, 1.25 us at 3.35 TB/s; the backward also reads g
-// and writes ggrid instead of the output: 40 B a pixel, 5.24 MB, 1.56 us.
+// and writes ggrid instead of the output: 40 B a pixel, 5.24 MB, 1.56 us;
+// its derivative (second-order meta-training) reads the image, grid, g
+// and v and writes gg and ggrid: 60 B a pixel, 7.86 MB, 2.35 us.
 // Both do ~40-80 operations a pixel, far from the fp32 rate, and at this
 // size a launch's fixed cost is of the bound's order. Design: a 3-D launch
 // (column chunk, row, image) with threads along x, no 64-bit division; each
@@ -227,6 +232,118 @@ warp_sample_grad_grid_kernel(const float* __restrict__ img,
   }
 }
 
+// The derivative of the grid gradient, given the cotangent v (N, H, W, 2)
+// of its output: gg_c = sum_k v_k dout_c/dgrid_k, the cotangent of g, and
+// ggrid_k = sum_j v_j d(g_grid_j)/dgrid_k, the grid's second-order
+// cotangent. With u = (vx sx, vy sy) and the sums over channels
+// S_x = sum_c g_c dbil_c/dfx, S_y = sum_c g_c dbil_c/dfy, S_b = sum_c g_c
+// bil_c and S_xy = sum_c g_c (v11 - v10 - v01 + v00) (= d2 bil/dfx dfy):
+//
+//   border: gg_c = ux cx dbil_c/dfx + uy cy dbil_c/dfy;
+//           ggrid = (sx uy Hxy, sy ux Hxy), Hxy = cx cy S_xy: bil is linear
+//           in fx and in fy, so only the cross term is left.
+//   zeros (valid): out = bil mass with mass = Y X, each factor linear in its
+//           coordinate (dX/dix = dmx), so
+//           gg_c = ux Y (X cx dbil_c/dfx + dmx bil_c)
+//                + uy X (Y cy dbil_c/dfy + dmy bil_c)
+//           Hxx = 2 Y dmx cx S_x,  Hyy = 2 X dmy cy S_y,
+//           Hxy = dmy X cx S_x + X Y cx cy S_xy + dmx dmy S_b + Y dmx cy S_y,
+//           ggrid = (sx (ux Hxx + uy Hxy), sy (ux Hxy + uy Hyy));
+//           0 where the sample is invalid.
+//
+// The clamps pass cx, cy as in the first derivative; the floors and masks
+// pass nothing. This is what autograd gives through
+// grid_sample_bounded_grad_grid_ref (ops/warp_bounded.py), its plain
+// version. One thread a pixel and the same taps as the grad kernel; g is
+// read once a channel, gg written once.
+template <int kC>
+__global__ void __launch_bounds__(kThreads)
+warp_sample_grad_grid_backward_kernel(const float* __restrict__ img,
+                                      const float2* __restrict__ grid,
+                                      const float* __restrict__ g,
+                                      const float2* __restrict__ v,
+                                      float* __restrict__ gg,
+                                      float2* __restrict__ ggrid, int c,
+                                      int h, int w, int r, bool align,
+                                      bool border) {
+  const int y = blockIdx.y, b = blockIdx.z;
+  const int x_base = blockIdx.x * (kThreads * kPix) + threadIdx.x;
+  const int nc = kC > 0 ? kC : c;
+  const size_t hw = static_cast<size_t>(h) * w;
+  const size_t row = (static_cast<size_t>(b) * h + y) * w;
+  const size_t crow = static_cast<size_t>(b) * nc * hw
+      + static_cast<size_t>(y) * w;
+  float2 gv[kPix], vv[kPix];
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    const int x = x_base + p * kThreads;
+    gv[p] = x < w ? __ldg(grid + row + x) : make_float2(0.f, 0.f);
+    vv[p] = x < w ? __ldg(v + row + x) : make_float2(0.f, 0.f);
+  }
+  const float* plane = img + static_cast<size_t>(b) * nc * hw;
+  const float sx = 0.5f * static_cast<float>(align ? w - 1 : w);
+  const float sy = 0.5f * static_cast<float>(align ? h - 1 : h);
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    const int x = x_base + p * kThreads;
+    if (x >= w) break;
+    const Axis ax = axis(gv[p].x, x, w, r, align, border);
+    const Axis ay = axis(gv[p].y, y, h, r, align, border);
+    const bool live = border || (ax.valid && ay.valid);
+    const float ux = vv[p].x * sx, uy = vv[p].y * sy;
+    // per channel, gg_c = ax_d dbil/dfx + ay_d dbil/dfy + b_d bil
+    float ax_d, ay_d, b_d;
+    if (border) {
+      ax_d = ux * ax.c;
+      ay_d = uy * ay.c;
+      b_d = 0.f;
+    } else if (live) {
+      ax_d = ux * ay.m * ax.m * ax.c;
+      ay_d = uy * ax.m * ay.m * ay.c;
+      b_d = ux * ay.m * ax.dm + uy * ax.m * ay.dm;
+    } else {
+      ax_d = ay_d = b_d = 0.f;
+    }
+    const int o00 = ay.i0 * w + ax.i0, o01 = ay.i0 * w + ax.i1;
+    const int o10 = ay.i1 * w + ax.i0, o11 = ay.i1 * w + ax.i1;
+    float sdx = 0.f, sdy = 0.f, sb = 0.f, sxy = 0.f;
+    const float* q = plane;
+#pragma unroll
+    for (int ch = 0; ch < nc; ++ch, q += hw) {
+      const float v00 = __ldg(q + o00), v01 = __ldg(q + o01);
+      const float v10 = __ldg(q + o10), v11 = __ldg(q + o11);
+      const float gc = __ldg(g + crow + ch * hw + x);
+      const float top = fmaf(ax.w0, v00, ax.w1 * v01);
+      const float bot = fmaf(ax.w0, v10, ax.w1 * v11);
+      const float dbx = fmaf(ay.w0, v01 - v00, ay.w1 * (v11 - v10));
+      const float dby = bot - top;
+      const float bil = fmaf(ay.w0, top, ay.w1 * bot);
+      sdx = fmaf(gc, dbx, sdx);
+      sdy = fmaf(gc, dby, sdy);
+      sb = fmaf(gc, bil, sb);
+      sxy = fmaf(gc, (v11 - v10) - (v01 - v00), sxy);
+      gg[crow + ch * hw + x] = fmaf(ax_d, dbx, fmaf(ay_d, dby, b_d * bil));
+    }
+    float gx, gy;
+    if (border) {
+      const float hxy = ax.c * ay.c * sxy;
+      gx = sx * (uy * hxy);
+      gy = sy * (ux * hxy);
+    } else if (live) {
+      const float hxx = 2.f * ay.m * ax.dm * ax.c * sdx;
+      const float hyy = 2.f * ax.m * ay.dm * ay.c * sdy;
+      const float hxy = ay.dm * ax.m * ax.c * sdx
+          + ax.m * ay.m * ax.c * ay.c * sxy + ax.dm * ay.dm * sb
+          + ay.m * ax.dm * ay.c * sdy;
+      gx = sx * fmaf(ux, hxx, uy * hxy);
+      gy = sy * fmaf(ux, hxy, uy * hyy);
+    } else {
+      gx = gy = 0.f;
+    }
+    ggrid[row + x] = make_float2(gx, gy);
+  }
+}
+
 cudaError_t grid_for(int n, int c, int h, int w, int r, dim3* grid) {
   if (n < 1 || c < 1 || h < 1 || w < 1 || r < 1 || n > 65535 || h > 65535)
     return cudaErrorInvalidValue;
@@ -268,6 +385,23 @@ extern "C" int warp_sample_bounded_grad_grid(const float* img,
           : warp_sample_grad_grid_kernel<0>)
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       img, reinterpret_cast<const float2*>(grid), g,
+      reinterpret_cast<float2*>(ggrid), c, h, w, r, align_corners != 0,
+      border != 0);
+  return cudaGetLastError();
+}
+
+extern "C" int warp_sample_bounded_grad_grid_backward(
+    const float* img, const float* grid, const float* g, const float* v,
+    float* gg, float* ggrid, int n, int c, int h, int w, int r,
+    int align_corners, int border, void* stream) {
+  dim3 blocks;
+  cudaError_t err = grid_for(n, c, h, w, r, &blocks);
+  if (err != cudaSuccess) return err;
+  (c == 3 ? warp_sample_grad_grid_backward_kernel<3>
+          : warp_sample_grad_grid_backward_kernel<0>)
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      img, reinterpret_cast<const float2*>(grid), g,
+      reinterpret_cast<const float2*>(v), gg,
       reinterpret_cast<float2*>(ggrid), c, h, w, r, align_corners != 0,
       border != 0);
   return cudaGetLastError();

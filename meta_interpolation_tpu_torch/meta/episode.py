@@ -20,8 +20,12 @@ First order takes each support gradient on detached copies
 (``create_graph=False``); second order takes it on the live parameters
 with ``create_graph=True``, while the inner-frozen ones stay the outer
 leaves, so the cross term d(inner grad)/d(frozen leaf) reaches their
-outer gradient. In training the update ``θ − lr·step`` is on the tape
-either way. L2F attenuation and per-step BN raise ``NotImplementedError``.
+outer gradient. A leaf frozen in both loops (DAIN's every subnet but
+rectifyNet) takes no gradient in the system's ``outer_grads``, so it is
+off the tape in either order (JAX ``builder.outer_keep``). In training the
+update ``θ − lr·step`` is on the tape either way. Models that return aux
+(SuperSloMo) hand it to the loss in every pass, training included. L2F
+attenuation and per-step BN raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -6,8 +6,7 @@ Counterpart of ``meta_interpolation_tpu/meta/system.py`` (reference
 the loss, the outer optimizer and its plateau schedule, and drives
 meta-training (:meth:`run_train_iter`, first or second order, with MSL),
 scene-adaptive evaluation (:meth:`run_validation_iter`) and ×2 slow
-motion (:meth:`run_test_iter`). Training is ported for CAIN and SepConv;
-RRIN, DAIN, SuperSloMo and VoxelFlow evaluate only.
+motion (:meth:`run_test_iter`), for all six backbones.
 """
 from __future__ import annotations
 
@@ -59,7 +58,13 @@ def make_outer_optimizer(rule: str, params, lr: float
     :66-117) over ``params``: Adam with β = (0.9, 0.99) and eps 1e-8,
     Adamax with β = (0.9, 0.999) and eps 1e-8 (torch's, like
     ``optax.scale_by_adamax``, keeps ``max(β2·u, |g| + eps)``), or SGD.
-    VoxelFlow's Adam policy groups come with that backbone."""
+    ``params`` may be parameter groups (``ModelDef.outer_groups``), each
+    with its own options and an ``lr_scale``: its rate is ``lr_scale``
+    times ``lr``."""
+    params = list(params)
+    if params and isinstance(params[0], dict):
+        params = [{**group, "lr": lr * group["lr_scale"]}
+                  for group in params]
     if rule == "Adam":
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.99), eps=1e-8,
                                 foreach=True)
@@ -155,15 +160,24 @@ class SceneAdaptiveInterpolation:
             denormalize=self.model_def.denormalize, inner_keep=inner_keep,
             apply_kwargs=self.model_def.meta_apply_kwargs,
             returns_aux=self.model_def.returns_aux)
-        self.trainable = {"net": {k: True for k in net},
+        # outer trainability: the model's outer mask (DAIN: rectifyNet
+        # only), the rates when learnable. A leaf that trains in neither
+        # loop gets requires_grad False in outer_grads, which keeps it off
+        # the tape in second order too (JAX builder.outer_keep)
+        outer_keep = (self.model_def.outer_mask_fn(self.model)
+                      if self.model_def.outer_mask_fn is not None
+                      else {k: True for k in net})
+        self.trainable = {"net": dict(outer_keep),
                           "lrs": {k: self.inner_opt.learnable for k in net}}
         if cfg.use_multi_step_loss_optimization and cfg.num_inner_steps == 0:
             raise ValueError(
                 "--use_multi_step_loss_optimization requires "
                 "number_of_training_steps_per_iter >= 1")
+        groups = (self.model_def.outer_groups(cfg, self.meta_params)
+                  if self.model_def.outer_groups is not None else None)
         self.outer_opt = make_outer_optimizer(
-            cfg.optimizer, [v for tree in self.meta_params.values()
-                            for v in tree.values()], cfg.outer_lr)
+            cfg.optimizer, groups or [v for tree in self.meta_params.values()
+                                      for v in tree.values()], cfg.outer_lr)
         self.scheduler = PlateauScheduler(cfg.outer_lr)
         self.current_epoch = 0
 
@@ -185,8 +199,7 @@ class SceneAdaptiveInterpolation:
         if not self.model_def.trainable:
             raise NotImplementedError(
                 f"meta-training (--mode train, --second_order) of "
-                f"{self.cfg.model!r} is not ported to PyTorch yet (ROADMAP.md "
-                f"Queue 1 item 9)")
+                f"{self.cfg.model!r} is not ported to PyTorch yet")
 
     def _frames(self, frames) -> torch.Tensor:
         """(B, T, H, W, C) numpy/tensor → (B, T, C, H, W) on the device."""
@@ -283,10 +296,12 @@ class SceneAdaptiveInterpolation:
 
     def epoch_end(self, val_loss: float):
         """The plateau schedule, once an epoch on the validation loss; the
-        new rate goes into the optimizer, as JAX injects it."""
+        new rate goes into the optimizer, as JAX injects it, each group's
+        scaled by its ``lr_scale`` (VoxelFlow's conv biases keep their ×2,
+        as JAX's ``scale(2.0)`` after the injected rate does)."""
         lr = self.scheduler.step(val_loss)
         for group in self.outer_opt.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group.get("lr_scale", 1.0)
 
     def state_dict(self) -> dict:
         """Meta-parameters, outer-optimizer state, epoch and the schedule's

@@ -17,8 +17,9 @@ order:
   6. the 437-channel rectify input, the rectify residual added to the
      coarse frame, and the crop back.
 
-Only ``rectifyNet`` adapts in the inner loop (:func:`inner_mask`); every
-other subnet is frozen, so no gradient reaches the projection there.
+Only ``rectifyNet`` adapts in the inner loop and trains in the outer one
+(:func:`inner_mask`, :func:`outer_mask`); every other subnet is frozen, so
+no gradient reaches the projection.
 """
 from __future__ import annotations
 
@@ -78,6 +79,17 @@ class DAIN(nn.Module):
     def forward(self, frame0: torch.Tensor, frame1: torch.Tensor,
                 proj_range: Optional[int] = None,
                 fill_holes: bool = False) -> torch.Tensor:
+        rect_in, coarse, pads = self.rectify_input(frame0, frame1,
+                                                   proj_range, fill_holes)
+        out = self.rectifyNet(rect_in) + coarse
+        return layers.unpad(out, pads)
+
+    def rectify_input(self, frame0: torch.Tensor, frame1: torch.Tensor,
+                      proj_range: Optional[int] = None,
+                      fill_holes: bool = False):
+        """Steps 1–5 and the rectify input of step 6: (the 437-channel
+        rectify input, the coarse frame, the pads), every value from the
+        subnets that meta-training freezes."""
         layers.full_float32()
         x0, pads = layers.pad_to_multiple(frame0, PAD_MULTIPLE)
         x2, _ = layers.pad_to_multiple(frame1, PAD_MULTIPLE)
@@ -111,8 +123,7 @@ class DAIN(nn.Module):
         nchw = lambda t: t.permute(0, 3, 1, 2)
         rect_in = torch.cat([coarse, ref0, ref2, nchw(off0), nchw(off2),
                              filt0, filt2, ctx0_w, ctx2_w], 1)
-        out = self.rectifyNet(rect_in) + coarse
-        return layers.unpad(out, pads)
+        return rect_in, coarse, pads
 
 
 def tame_depth_head_(model: DAIN) -> DAIN:
@@ -133,6 +144,15 @@ def inner_mask(model: nn.Module) -> Dict[str, bool]:
     only (reference meta_learning_system.py:96-101)."""
     return {name: name.split(".")[0] in INNER_ADAPTED
             for name, _ in model.named_parameters()}
+
+
+def outer_mask(model: nn.Module) -> Dict[str, bool]:
+    """Parameter name → True where the outer optimizer trains it:
+    rectifyNet only, as the inner loop (JAX ``outer_mask``,
+    ``models/dain/model.py:74-80``: the reference sets requires_grad=False
+    on every other subnet). The frozen subnets are off the tape in both
+    loops."""
+    return inner_mask(model)
 
 
 def charbonnier_loss(pred: torch.Tensor, target: torch.Tensor,

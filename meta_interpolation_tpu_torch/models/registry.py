@@ -1,8 +1,8 @@
 """Model registry — dispatch by ``--model`` name.
 
 Counterpart of ``meta_interpolation_tpu/models/registry.py``: CAIN,
-SepConv, RRIN, DAIN, SuperSloMo and VoxelFlow; CAIN and SepConv
-meta-train.
+SepConv, RRIN, DAIN, SuperSloMo and VoxelFlow, each evaluated and
+meta-trained.
 
 ``normalize`` maps a [0, 1] clip to model input space on numpy arrays with
 the channel last (the datasets'); ``denormalize`` maps back on tensors
@@ -33,6 +33,14 @@ class ModelDef:
     tile_pixel_limit: float = 5e5
     # model → {param name: adapted in the inner loop?}
     inner_mask_fn: Optional[Callable[[nn.Module], Dict[str, bool]]] = None
+    # model → {param name: trained by the outer optimizer?}; None trains
+    # every parameter (buffers, such as frozen BN statistics, never train)
+    outer_mask_fn: Optional[Callable[[nn.Module], Dict[str, bool]]] = None
+    # (cfg, meta_params) → the outer optimizer's parameter groups, each a
+    # dict of torch.optim options plus ``lr_scale`` (its rate over the
+    # outer rate); None puts every meta-parameter in one group
+    outer_groups: Optional[Callable[[Any, Dict[str, Dict[str, Any]]],
+                                    list]] = None
     # keyword arguments of every forward inside the meta system. DAIN's
     # flow projection fills holes exactly when the flow does not require
     # grad (reference DepthFlowProjectionLayer.py:42); under the meta
@@ -101,6 +109,34 @@ def _vf_denormalize(x: torch.Tensor) -> torch.Tensor:
     return (x * 127.5 + 127.5) / x.new_full((), 255.0)
 
 
+def _vf_outer_groups(cfg, meta_params) -> Optional[list]:
+    """VoxelFlow's outer Adam (JAX ``make_outer_optimizer``,
+    ``meta/system.py:79-107``; reference ``get_optim_policies``,
+    voxel_flow.py:307-350), torch's default β = (0.9, 0.999): conv weights
+    at the rate with weight decay, conv biases at twice the rate without,
+    BN scale and bias at the rate with decay, the inner rates at the rate
+    without. torch.optim.Adam's decay adds wd·p to the gradient before the
+    moments, as optax's ``add_decayed_weights`` before ``scale_by_adam``.
+    None (one group) under another rule."""
+    if cfg.optimizer != "Adam":
+        return None
+    kinds = {"conv weights": [], "conv biases": [], "bn affine": []}
+    for name, p in meta_params["net"].items():
+        *parents, leaf = name.split(".")
+        if any(q.endswith("_bn") for q in parents):
+            kinds["bn affine"].append(p)
+        else:
+            kinds["conv biases" if leaf == "bias" else "conv weights"].append(
+                p)
+    kinds["inner rates"] = list(meta_params["lrs"].values())
+    decay = cfg.weight_decay
+    return [{"name": kind, "params": params, "betas": (0.9, 0.999),
+             "lr_scale": 2.0 if kind == "conv biases" else 1.0,
+             "weight_decay": decay if kind in ("conv weights", "bn affine")
+             else 0.0}
+            for kind, params in kinds.items()]
+
+
 def get(name: str) -> ModelDef:
     name = name.lower()
     if name == "cain":
@@ -117,17 +153,18 @@ def get(name: str) -> ModelDef:
         from . import rrin
         return ModelDef("rrin", rrin.RRIN, _identity, _identity,
                         tile_pixel_limit=3e5, inner_mask_fn=rrin.inner_mask,
-                        build_kwargs=_warp_build_kwargs)
+                        build_kwargs=_warp_build_kwargs, trainable=True)
     if name == "superslomo":
         from . import superslomo
         return ModelDef("superslomo", superslomo.SuperSloMo, _ssm_normalize,
                         _ssm_denormalize, build_kwargs=_warp_build_kwargs,
-                        returns_aux=True)
+                        returns_aux=True, trainable=True)
     if name == "voxelflow":
         from . import voxelflow
         return ModelDef("voxelflow", voxelflow.VoxelFlow, _vf_normalize,
                         _vf_denormalize, inner_mask_fn=voxelflow.inner_mask,
-                        build_kwargs=_warp_build_kwargs)
+                        build_kwargs=_warp_build_kwargs,
+                        outer_groups=_vf_outer_groups, trainable=True)
     if name == "dain":
         from .dain import model as dain
 
@@ -140,7 +177,8 @@ def get(name: str) -> ModelDef:
 
         return ModelDef("dain", dain.DAIN, _identity, _identity,
                         inner_mask_fn=dain.inner_mask,
+                        outer_mask_fn=dain.outer_mask,
                         meta_apply_kwargs={"fill_holes": True},
-                        loss_fn=charbonnier)
+                        loss_fn=charbonnier, trainable=True)
     raise NotImplementedError(
         f"Model {name!r} not implemented; available: {PORTED}")

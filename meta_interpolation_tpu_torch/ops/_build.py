@@ -78,6 +78,18 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Dict[str, object]]:
     return report
 
 
+def dense(t):
+    """``t`` contiguous and backed by memory, for a kernel to read.
+    Autograd may hand a backward an efficient zero tensor as a cotangent
+    (``sgn``'s derivative gives one, so an L1 term reaches a second-order
+    backward with it): it has no storage and a null data pointer."""
+    import torch
+    t = t.contiguous()
+    if t._is_zerotensor():
+        return torch.zeros(t.shape, dtype=t.dtype, device=t.device)
+    return t
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)

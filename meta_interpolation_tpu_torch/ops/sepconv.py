@@ -153,7 +153,7 @@ def sepconv_forward(inp: torch.Tensor, kv: torch.Tensor, kh: torch.Tensor
     if inp.device.type == "cpu":
         return sepconv_ref(inp, kv, kh)
     n, c, h, w, f = _check_cuda(inp, kv, kh)
-    inp, kv, kh = inp.contiguous(), kv.contiguous(), kh.contiguous()
+    inp, kv, kh = inp.contiguous(), _build.dense(kv), _build.dense(kh)
     out = torch.empty((n, c, h, w), device=inp.device, dtype=torch.float32)
     with torch.cuda.device(inp.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -174,8 +174,8 @@ def sepconv_grad_kernels(inp: torch.Tensor, g: torch.Tensor, kv: torch.Tensor,
     if inp.device.type == "cpu":
         return grad_kernels_ref(inp, g, kv, kh)
     n, c, h, w, f = _check_cuda(inp, kv, kh, g)
-    inp, g = inp.contiguous(), g.contiguous()
-    kv, kh = kv.contiguous(), kh.contiguous()
+    inp, g = inp.contiguous(), _build.dense(g)
+    kv, kh = _build.dense(kv), _build.dense(kh)
     if g.shape[1] != c:
         raise ValueError(f"output gradient of shape {tuple(g.shape)} does "
                          f"not match input {tuple(inp.shape)}")

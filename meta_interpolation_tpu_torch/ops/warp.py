@@ -11,6 +11,7 @@ them, with grid (x, y) in [−1, 1] and flow (u = dx, v = dy) in pixels.
     their output location, clamped beyond: the fast path of
     ``--fast_warp_range``. On the card the whole sampler is one kernel
     each way, grid in: K3 for the output, K3-grad for the grid gradient
+    and, in second order, K3-grad² for that gradient's derivative
     (``ops/warp_bounded.py``, ``csrc/warp.cu``).
   * :func:`sample` dispatches between the two; :func:`backward_warp` and
     :func:`backward_warp_rrin` (RRIN's and SuperSloMo's half-pixel quirk

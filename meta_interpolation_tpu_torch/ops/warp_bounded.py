@@ -28,21 +28,28 @@ against them on the card):
     ``grid_sample_bounded``. Differentiable by autograd.
   * :func:`grid_sample_bounded_grad_grid_ref` — its grid gradient in closed
     form, the formula the backward kernel computes.
+  * :func:`grid_sample_bounded_grad_grid_backward_ref` — that gradient's
+    derivative, by autograd through the closed form.
 
-Two hand-written CUDA kernels (``csrc/warp.cu``) carry the sampler on the
-card, each one launch, grid in:
+Three hand-written CUDA kernels (``csrc/warp.cu``) carry the sampler on
+the card, each one launch, grid in:
 
   * :func:`warp_sample_bounded_forward` — K3, replaces the TPU kernel
     ``meta_interpolation_tpu/ops/warp_pallas.py:86`` (``warp_bounded_pallas``)
     together with the coordinate math XLA fuses around it.
-  * :func:`warp_sample_bounded_grad_grid` — the grid gradient, for the
-    autodiff of the XLA sweep under the JAX package's custom VJP.
+  * :func:`warp_sample_bounded_grad_grid` — K3-grad, the grid gradient, for
+    the autodiff of the XLA sweep under the JAX package's custom VJP.
+  * :func:`warp_sample_bounded_grad_grid_backward` — K3-grad², K3-grad's
+    derivative in g and the grid, for second-order meta-training (the JAX
+    package differentiates its XLA backward a second time).
 
-:class:`GridSampleBoundedFunction` joins them; the image gradient, which
-the RRIN path never needs, stays plain (autograd through the plain
-composition). A wrapper given a CUDA tensor launches its kernel or raises;
-it never falls back to the plain version. Each wrapper counts its launches
-in ``<wrapper>.launches``.
+:class:`GridSampleBoundedFunction` (K3, backward
+:class:`GridSampleBoundedGradGridFunction`: K3-grad, backward K3-grad²)
+joins them; the image gradient, which the models never need (they warp
+input frames), stays plain (autograd through the plain composition). A
+wrapper given a CUDA tensor launches its kernel or raises; it never falls
+back to the plain version. Each wrapper counts its launches in
+``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -291,6 +298,28 @@ def grid_sample_bounded_grad_grid_ref(img: torch.Tensor, grid: torch.Tensor,
     return torch.stack([gix * sx, giy * sy], -1).to(grid.dtype)
 
 
+def grid_sample_bounded_grad_grid_backward_ref(img: torch.Tensor,
+                                               grid: torch.Tensor,
+                                               g: torch.Tensor,
+                                               v: torch.Tensor, r: int,
+                                               align_corners: bool = False,
+                                               padding_mode: str = "zeros"):
+    """The derivative of :func:`grid_sample_bounded_grad_grid_ref` for the
+    cotangent v (N, H, W, 2) of its output: (gg, ggrid), the cotangents of
+    g (N, C, H, W) and of the grid (N, H, W, 2), by autograd through the
+    closed form (``create_graph=True``: the result stays differentiable).
+    The image, on which the closed form depends linearly, gets none."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (g, grid)]
+        out = grid_sample_bounded_grad_grid_ref(img.detach(), leaves[1],
+                                                leaves[0], r, align_corners,
+                                                padding_mode)
+        gg, ggrid = torch.autograd.grad(out, leaves, v, create_graph=True,
+                                        allow_unused=True)
+    return ((torch.zeros_like(g) if gg is None else gg),
+            (torch.zeros_like(grid) if ggrid is None else ggrid))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -303,6 +332,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.warp_sample_bounded_grad_grid.argtypes = ([ptr] * 4 + [i32] * 7
                                                   + [ptr])
     lib.warp_sample_bounded_grad_grid.restype = i32
+    lib.warp_sample_bounded_grad_grid_backward.argtypes = ([ptr] * 6
+                                                           + [i32] * 7
+                                                           + [ptr])
+    lib.warp_sample_bounded_grad_grid_backward.restype = i32
     return lib
 
 
@@ -313,25 +346,30 @@ def _library() -> ctypes.CDLL:
 
 
 def _check(img: torch.Tensor, grid: torch.Tensor, r: int, padding_mode: str,
-           g=None):
+           g=None, v=None):
     """Validate what the kernels take, in one pass; returns (n, c, h, w)."""
     if img.device.type != "cuda":
         raise ValueError(f"warp kernels take CPU or CUDA tensors, got "
                          f"{img.device}")
     n, c, h, w = img.shape
+
+    def bad(t, like):
+        return t is not None and (t.shape != like.shape
+                                  or t.device != img.device
+                                  or t.dtype != torch.float32)
     if (tuple(grid.shape) != (n, h, w, 2) or grid.device != img.device
             or img.dtype != torch.float32 or grid.dtype != torch.float32
-            or (g is not None and (g.shape != img.shape
-                                   or g.device != img.device
-                                   or g.dtype != torch.float32))
+            or bad(g, img) or bad(v, grid)
             or r < 1 or padding_mode not in PADDING_MODES):
         raise ValueError(
             f"warp kernels take a float32 image (N, C, H, W), a float32 grid "
-            f"(N, H, W, 2) and output gradient of the image's shape on one "
-            f"device, R >= 1 and padding {PADDING_MODES}; got image "
+            f"(N, H, W, 2), an output gradient of the image's shape and a "
+            f"grid cotangent of the grid's, on one device, R >= 1 and "
+            f"padding {PADDING_MODES}; got image "
             f"{tuple(img.shape)} {img.dtype}, grid {tuple(grid.shape)} "
             f"{grid.dtype} on {grid.device}"
             + ("" if g is None else f", g {tuple(g.shape)} {g.dtype}")
+            + ("" if v is None else f", v {tuple(v.shape)} {v.dtype}")
             + f", R={r}, padding {padding_mode!r}")
     return n, c, h, w
 
@@ -389,7 +427,7 @@ def warp_sample_bounded_grad_grid(img: torch.Tensor, grid: torch.Tensor,
         return grid_sample_bounded_grad_grid_ref(img, grid, g, r,
                                                  align_corners, padding_mode)
     n, c, h, w = _check(img, grid, r, padding_mode, g)
-    img, grid, g = img.contiguous(), _aligned(grid), g.contiguous()
+    img, grid, g = img.contiguous(), _aligned(grid), _build.dense(g)
     ggrid = torch.empty_like(grid)
     code = _launch(_library().warp_sample_bounded_grad_grid, img.device,
                    img.data_ptr(), grid.data_ptr(), g.data_ptr(),
@@ -405,9 +443,40 @@ def warp_sample_bounded_grad_grid(img: torch.Tensor, grid: torch.Tensor,
 warp_sample_bounded_grad_grid.launches = 0
 
 
+def warp_sample_bounded_grad_grid_backward(img: torch.Tensor,
+                                           grid: torch.Tensor,
+                                           g: torch.Tensor, v: torch.Tensor,
+                                           r: int,
+                                           align_corners: bool = False,
+                                           padding_mode: str = "zeros"):
+    """K3-grad²: (gg, ggrid), K3-grad's derivative for the cotangent v
+    (N, H, W, 2) of its output, with respect to g and to the grid. The
+    plain version on CPU tensors, the kernel on CUDA."""
+    if img.device.type == "cpu":
+        return grid_sample_bounded_grad_grid_backward_ref(
+            img, grid, g, v, r, align_corners, padding_mode)
+    n, c, h, w = _check(img, grid, r, padding_mode, g, v)
+    img, grid, g, v = (img.contiguous(), _aligned(grid), _build.dense(g),
+                       _aligned(_build.dense(v)))
+    gg, ggrid = torch.empty_like(g), torch.empty_like(grid)
+    code = _launch(_library().warp_sample_bounded_grad_grid_backward,
+                   img.device, img.data_ptr(), grid.data_ptr(), g.data_ptr(),
+                   v.data_ptr(), gg.data_ptr(), ggrid.data_ptr(), n, c, h, w,
+                   r, int(align_corners), int(padding_mode == "border"))
+    if code != 0:
+        raise RuntimeError(f"warp_sample_bounded_grad_grid_backward launch "
+                           f"failed: cudaError {code}")
+    warp_sample_bounded_grad_grid_backward.launches += 1
+    return gg, ggrid
+
+
+warp_sample_bounded_grad_grid_backward.launches = 0
+
+
 def reset_launches():
     warp_sample_bounded_forward.launches = 0
     warp_sample_bounded_grad_grid.launches = 0
+    warp_sample_bounded_grad_grid_backward.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -416,10 +485,11 @@ def reset_launches():
 
 class GridSampleBoundedFunction(torch.autograd.Function):
     """Inputs (img, grid), with R, align_corners and padding_mode fixed.
-    Forward is K3; backward is K3-grad for the grid and, only when the
-    image needs one, the plain image gradient (autograd through
-    :func:`grid_sample_bounded_ref`). The backward is not itself
-    differentiable (``once_differentiable``), like the JAX custom VJP."""
+    Forward is K3; backward is :class:`GridSampleBoundedGradGridFunction`
+    (K3-grad, itself differentiable by K3-grad²) for the grid and, only
+    when the image needs one, the plain image gradient (autograd through
+    :func:`grid_sample_bounded_ref`, once differentiable). Twice
+    differentiable in the grid, as the JAX package's XLA backward is."""
 
     @staticmethod
     def forward(ctx, img, grid, r, align_corners, padding_mode):
@@ -428,16 +498,52 @@ class GridSampleBoundedFunction(torch.autograd.Function):
         return warp_sample_bounded_forward(img, grid, *ctx.opts)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         img, grid = ctx.saved_tensors
         gimg = ggrid = None
         if ctx.needs_input_grad[1]:
-            ggrid = warp_sample_bounded_grad_grid(img, grid, g, *ctx.opts)
+            ggrid = GridSampleBoundedGradGridFunction.apply(img, grid, g,
+                                                            *ctx.opts)
         if ctx.needs_input_grad[0]:
+            if torch.is_grad_enabled():
+                raise NotImplementedError(
+                    "the bounded sampler's image gradient is not itself "
+                    "differentiable: second order needs an image that "
+                    "takes no gradient (the models warp input frames)")
             with torch.enable_grad():
                 leaf = img.detach().requires_grad_()
                 out = grid_sample_bounded_ref(leaf, grid.detach(), *ctx.opts)
                 gimg, = torch.autograd.grad(out, leaf, g)
         return gimg, ggrid, None, None, None
 
+
+class GridSampleBoundedGradGridFunction(torch.autograd.Function):
+    """The grid gradient of the sampler as a function of (img, grid, g),
+    with R, align_corners and padding_mode fixed: forward K3-grad, backward
+    K3-grad² for g and the grid and, only when the image needs one, the
+    plain image term (autograd through the closed form). The backward is
+    not itself differentiable (``once_differentiable``): second-order
+    meta-training needs no third derivative."""
+
+    @staticmethod
+    def forward(ctx, img, grid, g, r, align_corners, padding_mode):
+        ctx.save_for_backward(img, grid, g)
+        ctx.opts = (r, align_corners, padding_mode)
+        return warp_sample_bounded_grad_grid(img, grid, g, *ctx.opts)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, v):
+        img, grid, g = ctx.saved_tensors
+        gimg = ggrid = gg = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            gg, ggrid = warp_sample_bounded_grad_grid_backward(
+                img, grid, g, v, *ctx.opts)
+        if ctx.needs_input_grad[0]:
+            with torch.enable_grad():
+                leaf = img.detach().requires_grad_()
+                out = grid_sample_bounded_grad_grid_ref(
+                    leaf, grid.detach(), g.detach(), *ctx.opts)
+                gimg, = torch.autograd.grad(out, leaf, v)
+        return (gimg, ggrid if ctx.needs_input_grad[1] else None,
+                gg if ctx.needs_input_grad[2] else None, None, None, None)

@@ -192,13 +192,18 @@ def test_warp_grid_makes_each_kind(kind, align_corners):
 
 def test_warp_cases_cover_every_setting():
     """Both paddings and both align_corners; R = 1, 3 and 8 on the ragged
-    shapes; every displacement kind; C = 3 and another C, N = 1 and 2; the
-    main-path shape at R = 8."""
+    shapes; every displacement kind, smooth ones (K3-grad²'s check of
+    random and smooth displacements) at the main-path shape in every
+    setting; C = 3 and another C, N = 1 and 2; the main-path shape at
+    R = 8."""
     cases = chip_smoke.warp_cases()
     assert {(c[8], c[9]) for c in cases} == {
         (a, p) for a in (False, True) for p in ("zeros", "border")}
     assert {c[7] for c in cases} == {1, 3, 8}
-    assert {c[6] for c in cases} == {"uniform", "integer", "outside"}
+    assert {c[6] for c in cases} == {"uniform", "integer", "outside",
+                                     "smooth"}
+    assert {(c[8], c[9]) for c in cases if c[6] == "smooth"
+            and c[2:4] == (256, 512)} == {(c[8], c[9]) for c in cases}
     assert {c[:2] for c in cases} == {(1, 3), (2, 2)}
     assert (1, 3, 256, 512, -8, 7, "uniform", 8, False, "zeros") in cases
     assert any(c[5] > c[7] for c in cases)   # displacements past R
@@ -509,3 +514,37 @@ def test_test_mode_names_are_what_the_writer_gives(tmp_path, monkeypatch):
 def test_timed_returns_what_it_ran_and_prints_its_time(capsys):
     assert chip_smoke.timed("phase", lambda a, b=0: a + b, 2, b=3) == 5
     assert capsys.readouterr().out.startswith("[time] phase: ")
+
+
+K3GG = "_ZN12_GLOBAL__N_137warp_sample_grad_grid_backward_kernelILi3EEEvPKfPK6float2S2_S5_PfPS3_iiiibb"
+K3G = "_ZN12_GLOBAL__N_128warp_sample_grad_grid_kernelILi3EEEvPKfPK6float2S2_PS3_iiiibb"
+
+
+def test_kernel_resources_tell_k3_grad_from_its_derivative():
+    """K3-grad's ptxas entry name is not a part of K3-grad²'s: each wrapper
+    reads its own kernel's registers."""
+    log = ""
+    for name, regs in ((K3G, 56), (K3GG, 64)):
+        log += f"""ptxas info    : Compiling entry function '{name}' for 'sm_90a'
+ptxas info    : Function properties for {name}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used {regs} registers
+"""
+    entries = {k: v for k, v in chip_smoke.WARP_KERNELS.items()
+               if "grad_grid" in k}
+    res = chip_smoke.kernel_resources(log, "warp.cu", entries)
+    assert res["warp_sample_bounded_grad_grid"]["registers"] == 56
+    assert res["warp_sample_bounded_grad_grid_backward"]["registers"] == 64
+
+
+@pytest.mark.parametrize("steps,warps,second,want", [
+    (0, 2, False, (2, 2, None)),          # RRIN as run_rrin.sh: a fine-tune
+    (1, 6, False, (18, 18, None)),        # SuperSloMo
+    (1, 6, True, (18, 30, 12)),           # SuperSloMo, second order
+    (1, 2, True, (6, 10, 4)),             # VoxelFlow, RRIN at 1 step
+])
+def test_train_launches_per_task(steps, warps, second, want):
+    got = chip_smoke.train_launches(steps, warps, second)
+    assert (got["warp_sample_bounded_forward"],
+            got["warp_sample_bounded_grad_grid"],
+            got.get("warp_sample_bounded_grad_grid_backward")) == want

@@ -122,7 +122,7 @@ def test_port_init_is_xavier_with_zero_bias():
 def test_registry_builds_superslomo_with_its_kwargs():
     md = registry.get("SuperSloMo")
     assert md.returns_aux and md.inner_mask_fn is None
-    assert not md.trainable
+    assert md.trainable     # meta-trains too
     m = md.build(None, warp_range=8)
     assert isinstance(m, SuperSloMo) and m.warp_range == 8
     jmd = jax_registry.get("superslomo")

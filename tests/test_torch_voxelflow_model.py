@@ -207,7 +207,7 @@ def test_bn_statistics_are_not_meta_parameters():
 
 def test_registry_builds_voxelflow_with_its_normalization():
     md = registry.get("VoxelFlow")
-    assert not md.returns_aux and not md.trainable
+    assert not md.returns_aux and md.trainable     # meta-trains too
     m = md.build(None, warp_range=8)
     assert isinstance(m, VoxelFlow) and m.warp_range == 8
     assert md.build(None).warp_range is None

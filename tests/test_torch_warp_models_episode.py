@@ -1,7 +1,8 @@
 """The port's VoxelFlow scene-adaptive evaluation held against the JAX
 system on the CPU: run_voxelflow.sh (Adam, Meta-SGD, 1*MSE, 1 + 1 steps)
-with --fast_warp_range 4 and as it is (the exact warp); the CLI; and the
-training CLI refusing it. SuperSloMo's cases (run_superslomo.sh: the same
+with --fast_warp_range 4 and as it is (the exact warp); the CLI, in
+evaluation and in training (first and second order), and the training
+flags the port refuses. SuperSloMo's cases (run_superslomo.sh: the same
 with 1*Super) are in tests/test_torch_superslomo_episode.py, which shares
 this file's presets and helpers: in a file of their own, another test
 process runs them beside these.
@@ -134,18 +135,87 @@ def test_cli_val_runs_on_the_cpu(model, eval_steps, tmp_path, capsys):
     run_cli_on_the_cpu(model, eval_steps, tmp_path, capsys)
 
 
+TRAIN_FLAGS = {
+    "rrin": ["--optimizer", "Adam", "--loss", "1*L1",
+             "--number_of_training_steps_per_iter", "0",
+             "--number_of_evaluation_steps_per_iter", "0"],
+    "superslomo": ["--optimizer", "Adam", "--metasgd", "--loss", "1*Super",
+                   "--number_of_training_steps_per_iter", "1",
+                   "--number_of_evaluation_steps_per_iter", "1"],
+    "voxelflow": ["--optimizer", "Adam", "--metasgd", "--loss", "1*MSE",
+                  "--number_of_training_steps_per_iter", "1",
+                  "--number_of_evaluation_steps_per_iter", "1"],
+    "dain": ["--optimizer", "Adamax", "--metasgd", "--loss", "1*L1",
+             "--number_of_training_steps_per_iter", "1",
+             "--number_of_evaluation_steps_per_iter", "1"],
+}
+
+
+def train_flags(model, tmp_path, *extra):
+    """The model's preset in training at crop 32 on the synthetic clips, one
+    epoch of 2 iterations of batch 1 (the warp models on
+    --fast_warp_range 4)."""
+    flags = ["--model", model, "--mode", "train", "--dataset", "synthetic",
+             "--crop_size", "32", "--batch_size", "1", "--inner_lr", "1e-5",
+             "--outer_lr", "1e-5", "--max_epoch", "1",
+             "--total_iter_per_epoch", "2", "--checkpoint_dir",
+             str(tmp_path), *TRAIN_FLAGS[model], *extra]
+    if model == "dain":
+        # tamed random weights: the random-init depth net overflows
+        from meta_interpolation_tpu_torch.models.dain.model import (
+            DAIN, tame_depth_head_)
+        pth = tmp_path / "dain.pth"
+        torch.save(tame_depth_head_(DAIN(torch.Generator().manual_seed(0)))
+                   .state_dict(), pth)
+        flags += ["--pretrained_model", str(pth)]
+    else:
+        flags += ["--fast_warp_range", "4"]
+    return flags
+
+
+def train_cli_on_the_cpu(model, order, tmp_path, capsys):
+    """The training CLI with --device cpu: two iterations, their validation
+    clips and a checkpoint, finite losses; the CPU path launches no kernel.
+    Without a card, --device cuda raises instead of falling back."""
+    extra = ["--second_order"] if order == "second" else []
+    wb.reset_launches()
+    stats = main(train_flags(model, tmp_path, *extra, "--device", "cpu"))
+    out = capsys.readouterr().out
+    assert "device: cpu" in out and "[epoch 0 it 0] loss" in out
+    assert out.count("[val epoch 0] loss") == 1
+    assert np.isfinite(stats["best_psnr"])
+    assert (tmp_path / "exp" / "checkpoint.pth").exists()
+    assert not any(getattr(wb, k).launches for k in (
+        "warp_sample_bounded_forward", "warp_sample_bounded_grad_grid",
+        "warp_sample_bounded_grad_grid_backward"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(train_flags(model, tmp_path, *extra, "--device", "cuda"))
+
+
+@pytest.mark.parametrize("order", ["first", "second"])
+def test_cli_trains_voxelflow_on_the_cpu(order, tmp_path, capsys):
+    train_cli_on_the_cpu("voxelflow", order, tmp_path, capsys)
+
+
 def refuse_training(model, tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match=f"meta-training .* of '{model}'"):
-        main(["--model", model, "--mode", "train", "--dataset", "synthetic",
-              "--crop_size", "32", "--checkpoint_dir", str(tmp_path),
-              "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="--per_step_bn_statistics"):
-        SceneAdaptiveInterpolation(Config(**PRESETS["voxelflow"],
-                                          per_step_bn_statistics=True,
-                                          device="cpu"))
+    """What the training CLI still refuses for the model (ROADMAP Queue
+    1): L2F's --attenuate, and --per_step_bn_statistics."""
+    for flag in ("--attenuate", "--per_step_bn_statistics"):
+        with pytest.raises(NotImplementedError, match=flag):
+            main(train_flags(model, tmp_path, flag, "--device", "cpu"))
 
 
 @pytest.mark.parametrize("model", ["voxelflow"])
 def test_training_is_refused(model, tmp_path):
+    """Meta-training runs since the port's training slice of the warp
+    models; what stays refused is refused."""
     refuse_training(model, tmp_path)
+
+
+@pytest.mark.parametrize("flag", ["attenuate", "per_step_bn_statistics"])
+def test_unported_training_flag_is_refused(flag):
+    with pytest.raises(NotImplementedError, match=f"--{flag}"):
+        SceneAdaptiveInterpolation(Config(**dict(
+            PRESETS["voxelflow"], mode="train", **{flag: True}),
+            device="cpu"))
