@@ -109,10 +109,28 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
          the JAX package writes, no frame overwritten, SepConv's K1 and K2
          launches a clip (6 and 4), and a written 64x64 frame on the card
          against the CPU within one 8-bit level;
+       - the scene-adaptation engine (``engine``), each path a preset above
+         with its flag: L2F on SepConv (run_sepconv.sh + --attenuate, the
+         attenuator's gamma_mult set to 0.5 on both devices): the 256x448
+         episode with K1 18 and K2 16 a clip (the attenuation's support
+         pass adds 4 and 4), a first-order train iteration at batch 3 (54
+         and 54), a 64x64 clip and the outer gradients, the attenuator's
+         too, on the card against the CPU; per-step BN statistics on
+         VoxelFlow (run_voxelflow.sh + --per_step_bn_statistics
+         --fast_warp_range 8): the warp-training measurements above, the
+         statistics after a train iteration card vs CPU, an evaluation
+         episode leaving them as they were; the adversarial losses on
+         SepConv (--loss 1*L1+0.005*GAN, the same with
+         --disc_per_forward, and WGAN_GP): a train iteration at batch 3
+         with the 1*L1 path's K1/K2 launches, and the discriminator after
+         the step card vs CPU; the exact warp's second order (RRIN,
+         SuperSloMo, VoxelFlow without --fast_warp_range, batch 1): an
+         iteration at 256x256 and the outer gradient card vs CPU;
   5. a JSON line of per-kernel results, each with its launches on every
      main path that runs it (``launches_by_path``: K1/K2 the training
-     CLI's and the SepConv test runs'; K3/K3-grad the RRIN, SuperSloMo and
-     VoxelFlow CLIs' and their training paths'; K3-grad² their
+     CLI's, the SepConv test runs' and the engine's L2F and adversarial
+     paths'; K3/K3-grad the RRIN, SuperSloMo and VoxelFlow CLIs' and their
+     training paths', the per-step BN ones included; K3-grad² their
      second-order training paths'; K4 the served DAIN frames') and their
      sum (``launches``), the card line again, and the last line {"ok":
      true, "device": {...}}.
@@ -343,6 +361,48 @@ TEST_NAMES = {"x2": ["f01_0.500000.png", "f02_0.500000.png",
               "x4": ["f01_0.250000.png", "f01_0.750000.png",
                      "f02_0.250000.png", "f02_0.750000.png",
                      "f03_0.250000.png", "f03_0.750000.png"]}
+# the scene-adaptation engine's paths (L2F, per-step BN statistics, the
+# adversarial losses, the exact warp's second order), each a preset above
+# with its flag. The attenuator's multiplier starts at 0, where gamma is 1
+# whatever it computes, so the checks set it to GAMMA_MULT on both devices
+GAMMA_MULT = 0.5
+L2F_EVAL_FLAGS = EVAL_FLAGS + ["--attenuate"]
+L2F_TRAIN_FLAGS = TRAIN_FLAGS + ["--attenuate"]
+# the attenuation's first-order support gradient, before the inner loop:
+# every support pair's forward and backward, K1 and K2 a sepconv call
+K1_L2F = K2_L2F = PAIRS * CALLS
+# run_voxelflow.sh with --per_step_bn_statistics (and --fast_warp_range 8)
+PSBN_TRAIN = (WARP_TRAIN["voxelflow"][0] + ["--per_step_bn_statistics"],
+              ) + WARP_TRAIN["voxelflow"][1:]
+# VoxelFlow's first-order outer gradient with per-step BN statistics, card
+# vs CPU, is held at the inner SGD rule and shown at the preset's Adam: the
+# first Adam step is ~lr·sign(g), and through the batch statistics the
+# elements whose support gradient is within the devices' rounding of zero
+# and step the other way move the query gradient by 2.1e-3 of its norm
+# (PR 11 run M; 1.5e-5 at the inner SGD rule)
+# a per-step BN statistic, card vs CPU: within this share of the largest
+# plus an absolute floor (the statistics are O(1) and summed in other
+# orders on the two devices)
+BN_RTOL, BN_ATOL = 1e-4, 1e-5
+# run_sepconv.sh with a GAN term: the default cadence, the reference's
+# (--disc_per_forward) and WGAN-GP
+GAN_PATHS = {
+    "gan": TRAIN_FLAGS + ["--loss", "1*L1+0.005*GAN"],
+    "gan_per_forward": TRAIN_FLAGS + ["--loss", "1*L1+0.005*GAN",
+                                      "--disc_per_forward"],
+    "wgan_gp": TRAIN_FLAGS + ["--loss", "1*L1+0.005*WGAN_GP"]}
+# the discriminator after a step, card vs CPU: Adam's first steps are
+# ~lr·sign(g), so an element whose gradient is within the devices'
+# rounding of zero steps the other way: each within 2.5·lr a step, and
+# after one step at most this share off by more than 0.1·lr (measured
+# 3.2e-3 after GAN's step, PR 11 run M: the card's convolutions sum in
+# other orders than the CPU's and the CPU tests' JAX; sequential
+# single-item steps amplify such flips, see tests/test_torch_adversarial.py)
+DISC_FLIP_SHARE = 1e-2
+# the card-vs-CPU checks of the engine take 1 inner step (the CPU side's
+# time)
+ENGINE_CHECK_STEPS = ["--number_of_training_steps_per_iter", "1",
+                      "--number_of_evaluation_steps_per_iter", "1"]
 KERNELS = ("sepconv_forward", "sepconv_grad_kernels",
            "warp_sample_bounded_forward", "warp_sample_bounded_grad_grid",
            "warp_sample_bounded_grad_grid_backward",
@@ -1382,14 +1442,17 @@ def profile_episode(torch, run, label, ours_key):
     return ops, launches
 
 
-def card_vs_cpu(cfg, model):
-    """The first small synthetic clip on the card and on the CPU."""
+def card_vs_cpu(cfg, model, prepare=None):
+    """The first small synthetic clip on the card and on the CPU;
+    ``prepare(system)`` runs on each system first."""
     from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
     from meta_interpolation_tpu_torch.meta.system import (
         SceneAdaptiveInterpolation)
     preds_by_dev, psnr_by_dev = {}, {}
     for dev in ("cuda", "cpu"):
         system = SceneAdaptiveInterpolation(cfg, device=dev)
+        if prepare is not None:
+            prepare(system)
         clip = SyntheticSeptuplet(model=model, mode="val",
                                   size=SMALL_HW)[0][0][None]
         losses, preds = system.run_validation_iter(clip)
@@ -1709,15 +1772,16 @@ def train_phase(torch, mods, sc, card):
 
 def train_card_vs_cpu(torch, flags=TRAIN_FLAGS, model="sepconv",
                       orders=("first", "second"), hold_grads=True,
-                      state=None, hand=None):
+                      state=None, hand=None, prepare=None):
     """Outer gradients of one 64x64 clip on the card and on the CPU, from
     the same weights (the model's seeded init, or ``state``), for each
     order of ``orders``: the loss within LOSS_RTOL and, with
     ``hold_grads``, each parameter group's gradient within
     OUTER_GRAD_RTOL in norm (else the distance is shown); a group that
-    trains nothing (the fixed rates of LSLR) has zero gradients on both.
-    ``hand``: (class, method name) of a model method whose results the
-    CPU run takes from the card run, call by call."""
+    trains nothing (the fixed rates of LSLR, the BN statistics, the
+    discriminator) has zero gradients on both. ``hand``: (class, method
+    name) of a model method whose results the CPU run takes from the card
+    run, call by call; ``prepare(system)`` runs on each system first."""
     from meta_interpolation_tpu_torch.config import get_args
     from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
     from meta_interpolation_tpu_torch.meta.system import (
@@ -1732,6 +1796,8 @@ def train_card_vs_cpu(torch, flags=TRAIN_FLAGS, model="sepconv",
             system = SceneAdaptiveInterpolation(cfg, device=dev)
             if state is not None:
                 system.load_net(state)
+            if prepare is not None:
+                prepare(system)
             run = lambda: system.outer_grads(clip, 0)
             if hand is not None:
                 run = with_attr(hand[0], hand[1], handing(
@@ -1763,9 +1829,10 @@ def train_card_vs_cpu(torch, flags=TRAIN_FLAGS, model="sepconv",
               f"{cfg.optimizer}, {SMALL_HW[0]}x{SMALL_HW[1]} clip, card vs "
               f"CPU" + (f" (the CPU handed the card's {hand[1]}, "
                         f"{calls} calls)" if hand else "")
-              + f": loss {l_card:.6f} vs {l_cpu:.6f}, |diff|/|cpu| net "
-              f"{ratios['net']:.3e} lrs {ratios['lrs']:.3e} (limit {limit}); "
-              f"worst single tensor {worst:.3e}")
+              + f": loss {l_card:.6f} vs {l_cpu:.6f}, |diff|/|cpu| "
+              + " ".join(f"{g} {r:.3e}" for g, r in ratios.items()
+                         if g in ("net", "lrs", "attenuator"))
+              + f" (limit {limit}); worst single tensor {worst:.3e}")
 
 
 def handing(torch, real, record, dev):
@@ -1987,7 +2054,8 @@ def train_launches(steps, warps, second):
             "warp_sample_bounded_grad_grid_backward": 2 * steps * warps}
 
 
-def warp_train_model(torch, mods, wb, card, model, state=None):
+def warp_train_model(torch, mods, wb, card, model, state=None, preset=None,
+                     name=None, hold_first=True):
     """Meta-training of one model of WARP_TRAIN on the card: (a) first
     order at its preset batch on 256x256 crops, median of WARP_TRAIN_REPS
     train iterations after a warm-up, peak memory, launches, a profile with
@@ -1998,7 +2066,9 @@ def warp_train_model(torch, mods, wb, card, model, state=None):
     whose projection floors may flip between the devices). Every sampler
     call runs K3 / K3-grad / K3-grad², no plain version (the plain sampler
     and its closed forms patched to raise). Returns the launches of (a)
-    and (b), by path."""
+    and (b), by path. ``preset`` (flags, batch, steps, warps) stands for
+    WARP_TRAIN[model] and ``name`` for the model in the paths' names; with
+    ``hold_first`` False (c)'s first-order gradient is shown, not held."""
     import numpy as np
 
     from meta_interpolation_tpu_torch.config import get_args
@@ -2006,7 +2076,8 @@ def warp_train_model(torch, mods, wb, card, model, state=None):
     from meta_interpolation_tpu_torch.meta.system import (
         SceneAdaptiveInterpolation)
     from meta_interpolation_tpu_torch.models.dain import model as dain_mod
-    flags, batch, steps, warps = WARP_TRAIN[model]
+    flags, batch, steps, warps = preset or WARP_TRAIN[model]
+    name = name or model
     clips = SyntheticSeptuplet(model=model, mode="train",
                                size=(CLI_CROP, CLI_CROP))
     frames = np.stack([clips[i][0] for i in range(batch)])
@@ -2040,21 +2111,21 @@ def warp_train_model(torch, mods, wb, card, model, state=None):
               f"{model} {order}-order train iteration: {losses}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         per_iter = {k: v // (reps + 1) for k, v in got.items() if v}
-        print(f"[train] {model} {order} order, batch {tasks}, {CLI_CROP}x"
+        print(f"[train] {name} {order} order, batch {tasks}, {CLI_CROP}x"
               f"{CLI_CROP}, {n} step(s) ({card}): median "
               f"{statistics.median(times):.4f} s a train iteration over "
               f"{reps} after a warm-up (all {[round(t, 4) for t in times]}), "
               f"loss {losses['loss']:.4f}, peak memory {peak:.2f} GiB, "
               f"launches an iteration {per_iter}, no plain sampler")
         if order == "first":
-            profile_episode(torch, run, f"{model} train iteration ({card})",
+            profile_episode(torch, run, f"{name} train iteration ({card})",
                             "warp_sample" if warps else None)
         suffix = "" if order == "first" else "_second_order"
-        paths[f"{model}_train{suffix}"] = {k: v for k, v in got.items()}
+        paths[f"{name}_train{suffix}"] = {k: v for k, v in got.items()}
         del system, out
     hand = (dain_mod.DAIN, "rectify_input") if model == "dain" else None
     train_card_vs_cpu(torch, flags, model, orders=("first",), state=state,
-                      hand=hand)
+                      hand=hand, hold_grads=hold_first)
     train_card_vs_cpu(torch, second_flags + ["--optimizer", "SGD"], model,
                       orders=("second",), state=state, hand=hand)
     return paths
@@ -2748,6 +2819,272 @@ def test_mode_phase(torch, mods):
     return sepconv_launches
 
 
+def set_gamma_mult(system):
+    system.meta_params["attenuator"]["gamma_mult"].fill_(GAMMA_MULT)
+
+
+def l2f_phase(torch, mods, card):
+    """L2F on SepConv (run_sepconv.sh + --attenuate): the 256x448
+    evaluation episode (seconds, launches, profile), a first-order train
+    iteration at batch 3 on 256x256 crops, a 64x64 clip and the outer
+    gradients (the attenuator's too; first order at the preset's Adamax,
+    second at the inner SGD rule) on the card against the CPU. K1 and K2
+    run K1_L2F and K2_L2F more a task than without --attenuate. Returns
+    the launches of each path."""
+    import numpy as np
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    paths = {}
+    cfg = get_args(L2F_EVAL_FLAGS)
+    system = SceneAdaptiveInterpolation(cfg)
+    set_gamma_mult(system)
+    frames = SyntheticSeptuplet(mode="val", size=FULL_HW)[0][0][None]
+    system.run_validation_iter(frames)   # warm-up
+    reps = 3
+    reset_launches(mods)
+    times = timed_iters(torch, lambda: system.run_validation_iter(frames),
+                        reps, warmup=0)
+    got = launch_counts(mods)
+    want = {"sepconv_forward": (K1_PER_CLIP + K1_L2F) * reps,
+            "sepconv_grad_kernels": (K2_PER_CLIP + K2_L2F) * reps}
+    check({k: got[k] for k in want} == want,
+          f"L2F episodes launched {got}, want {want}")
+    paths["l2f_eval"] = got
+    losses, preds = system.run_validation_iter(frames)
+    check(bool(torch.isfinite(preds).all()) and math.isfinite(
+        losses["psnr"]), f"L2F episode output: {losses}")
+    print(f"[engine] L2F sepconv {FULL_HW[0]}x{FULL_HW[1]} episode "
+          f"({card}): median {statistics.median(times):.4f} s over {reps} "
+          f"(all {[round(t, 4) for t in times]}), PSNR "
+          f"{losses['psnr']:.3f}, launches K1 {got['sepconv_forward'] // reps}"
+          f" K2 {got['sepconv_grad_kernels'] // reps} a clip (without "
+          f"--attenuate {K1_PER_CLIP} and {K2_PER_CLIP})")
+    profile_episode(torch, lambda: system.run_validation_iter(frames),
+                    f"L2F sepconv {FULL_HW[0]}x{FULL_HW[1]} episode ({card})",
+                    "sepconv")
+    del system
+    card_vs_cpu(get_args(L2F_EVAL_FLAGS + ENGINE_CHECK_STEPS), "sepconv",
+                prepare=set_gamma_mult)
+
+    system = SceneAdaptiveInterpolation(get_args(L2F_TRAIN_FLAGS))
+    set_gamma_mult(system)
+    clips = SyntheticSeptuplet(mode="train", size=(CLI_CROP, CLI_CROP))
+    frames = np.stack([clips[i][0] for i in range(TASKS)])
+    reset_launches(mods)
+    times = timed_iters(torch, lambda: system.run_train_iter(frames, 0), 2,
+                        warmup=1)
+    got = launch_counts(mods)
+    want = {"sepconv_forward": (K1_PER_TRAIN_ITER + TASKS * K1_L2F) * 3,
+            "sepconv_grad_kernels": (K2_PER_TRAIN_ITER + TASKS * K2_L2F) * 3}
+    check({k: got[k] for k in want} == want,
+          f"L2F train iterations launched {got}, want {want}")
+    gamma_mult = float(system.meta_params["attenuator"]["gamma_mult"])
+    check(math.isfinite(gamma_mult) and gamma_mult != GAMMA_MULT,
+          f"the attenuator did not train: gamma_mult {gamma_mult}")
+    paths["l2f_train"] = got
+    print(f"[engine] L2F sepconv first-order train iteration, batch "
+          f"{TASKS}, {CLI_CROP}x{CLI_CROP} ({card}): median "
+          f"{statistics.median(times):.4f} s over 2 after a warm-up (all "
+          f"{[round(t, 4) for t in times]}), launches K1 "
+          f"{got['sepconv_forward'] // 3} K2 "
+          f"{got['sepconv_grad_kernels'] // 3} an iteration (without "
+          f"--attenuate {K1_PER_TRAIN_ITER} and {K2_PER_TRAIN_ITER})")
+    del system
+    train_card_vs_cpu(torch, L2F_TRAIN_FLAGS + ENGINE_CHECK_STEPS,
+                      orders=("first",), prepare=set_gamma_mult)
+    train_card_vs_cpu(torch, L2F_TRAIN_FLAGS + ENGINE_CHECK_STEPS
+                      + ["--optimizer", "SGD"], orders=("second",),
+                      prepare=set_gamma_mult)
+    return paths
+
+
+def per_step_bn_phase(torch, mods, wb, card):
+    """Per-step BN statistics on VoxelFlow (run_voxelflow.sh +
+    --per_step_bn_statistics --fast_warp_range 8): warp_train_model's
+    first-order iterations at batch 8, a second-order one at batch 1 and
+    the outer gradients card vs CPU (first order held at the inner SGD
+    rule, shown at the preset's Adam); then the statistics after a train
+    iteration of two 64x64 clips, card vs CPU, and an evaluation episode
+    on the card leaving them as they were. Returns the launches by
+    path."""
+    import numpy as np
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    paths = warp_train_model(torch, mods, wb, card, "voxelflow",
+                             preset=PSBN_TRAIN, name="voxelflow_psbn",
+                             hold_first=False)
+    train_card_vs_cpu(torch, PSBN_TRAIN[0] + ["--optimizer", "SGD"],
+                      "voxelflow", orders=("first",))
+    clips = SyntheticSeptuplet(model="voxelflow", mode="train",
+                               size=SMALL_HW)
+    frames = np.stack([clips[i][0] for i in range(2)])
+    cfg = get_args(PSBN_TRAIN[0] + ["--batch_size", "2"])
+    states = {}
+    for dev in ("cuda", "cpu"):
+        system = SceneAdaptiveInterpolation(cfg, device=dev)
+        system.run_train_iter(frames, 0)
+        states[dev] = {k: v.detach().cpu().clone()
+                       for k, v in system.meta_params["bn_state"].items()}
+    worst = 0.0
+    for k, cpu in states["cpu"].items():
+        err = float((states["cuda"][k] - cpu).abs().max())
+        limit = BN_RTOL * float(cpu.abs().max()) + BN_ATOL
+        check(err <= limit, f"per-step BN {k} card vs CPU {err:.3e} > "
+                            f"{limit:.3e}")
+        worst = max(worst, err / limit)
+    before = {k: v.clone() for k, v in system.meta_params["bn_state"].items()}
+    val = SyntheticSeptuplet(model="voxelflow", mode="val",
+                             size=SMALL_HW)[0][0][None]
+    system = SceneAdaptiveInterpolation(cfg)
+    with torch.no_grad():
+        for k, v in before.items():
+            system.meta_params["bn_state"][k].copy_(v)
+    losses, _ = system.run_validation_iter(val)
+    check(all(torch.equal(system.meta_params["bn_state"][k], v.cuda())
+              for k, v in before.items()) and math.isfinite(losses["psnr"]),
+          "an evaluation episode moved the per-step BN statistics")
+    print(f"[engine] per-step BN statistics after a train iteration of two "
+          f"{SMALL_HW[0]}x{SMALL_HW[1]} clips, card vs CPU: worst "
+          f"{worst:.3f} of the limit ({BN_RTOL} x max + {BN_ATOL}); an "
+          f"evaluation episode on the card left them unchanged")
+    return paths
+
+
+def disc_params(system):
+    return {k: v.detach().cpu().clone()
+            for k, v in system.meta_params["loss_ctx"].items()}
+
+
+def gan_phase(torch, mods, card):
+    """The adversarial losses on SepConv (run_sepconv.sh with a GAN term):
+    for each of GAN_PATHS two train iterations at batch 3 on 256x256 crops
+    (the second timed), K1/K2 launches those of the 1*L1 path (the
+    discriminator is cuDNN convolutions), the discriminator moved; then
+    the discriminator after a train iteration of a 64x64 clip, card vs CPU
+    (WGAN-GP's interpolation weights come from a CPU generator seeded
+    alike on both). Returns the launches by path."""
+    import numpy as np
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    paths = {}
+    clips = SyntheticSeptuplet(mode="train", size=(CLI_CROP, CLI_CROP))
+    frames = np.stack([clips[i][0] for i in range(TASKS)])
+    small = SyntheticSeptuplet(mode="train", size=SMALL_HW)[0][0][None]
+    for name, flags in GAN_PATHS.items():
+        system = SceneAdaptiveInterpolation(get_args(flags))
+        before = disc_params(system)
+        reset_launches(mods)
+        out = []
+        times = timed_iters(torch, lambda: out.append(
+            system.run_train_iter(frames, 0)), 1, warmup=1)
+        got = launch_counts(mods)
+        want = {"sepconv_forward": K1_PER_TRAIN_ITER * 2,
+                "sepconv_grad_kernels": K2_PER_TRAIN_ITER * 2}
+        check({k: got[k] for k in want} == want,
+              f"{name} train iterations launched {got}, want {want} (the "
+              f"1*L1 path's)")
+        after = disc_params(system)
+        moved = max(float((after[k] - v).abs().max())
+                    for k, v in before.items())
+        losses = out[-1][0]
+        check(moved > 0 and all(math.isfinite(v) for v in losses.values())
+              and all(bool(torch.isfinite(v).all()) for v in after.values()),
+              f"{name}: discriminator moved {moved}, losses {losses}")
+        paths[f"sepconv_{name}_train"] = got
+        print(f"[engine] {name} sepconv first-order train iteration, batch "
+              f"{TASKS}, {CLI_CROP}x{CLI_CROP} ({card}): {times[0]:.4f} s "
+              f"after a warm-up, loss {losses['loss']:.5f}, discriminator "
+              f"moved by up to {moved:.3e}, launches K1 "
+              f"{got['sepconv_forward'] // 2} K2 "
+              f"{got['sepconv_grad_kernels'] // 2} an iteration")
+        del system, out
+        cfg = get_args(flags + ENGINE_CHECK_STEPS + ["--batch_size", "1"])
+        disc = {}
+        for dev in ("cuda", "cpu"):
+            system = SceneAdaptiveInterpolation(cfg, device=dev)
+            system.run_train_iter(small, 0)
+            disc[dev] = disc_params(system)
+            lr = system.adv_state.opt.param_groups[0]["lr"]
+        steps = 1 * (1 * PAIRS + 1) if cfg.disc_per_forward else 1
+        flips = total = 0
+        worst = 0.0
+        for k, cpu in disc["cpu"].items():
+            diff = (disc["cuda"][k] - cpu).abs()
+            worst = max(worst, float(diff.max()))
+            flips += int((diff > 0.1 * lr).sum())
+            total += diff.numel()
+        check(worst <= 2.5 * lr * steps
+              and (steps > 1 or flips <= DISC_FLIP_SHARE * total),
+              f"{name} discriminator card vs CPU: max {worst:.3e}, "
+              f"{flips} of {total} off by more than 0.1 lr")
+        print(f"[engine] {name} discriminator after {steps} step(s) of a "
+              f"{SMALL_HW[0]}x{SMALL_HW[1]} clip, card vs CPU: max "
+              f"{worst:.3e} (limit {2.5 * lr * steps:.1e}), {flips} of "
+              f"{total} off by more than 0.1 lr")
+    return paths
+
+
+def exact_second_order_phase(torch, mods, card):
+    """The exact warp's second order on the card: RRIN, SuperSloMo and
+    VoxelFlow without --fast_warp_range at batch 1 (one inner step), one
+    train iteration at 256x256 (timed after a warm-up; no kernel of ours:
+    F.grid_sample, aten's backward and autograd through the closed form of
+    the sampler's gradients), then the outer gradient of a 64x64 clip on
+    the card against the CPU at the inner SGD rule."""
+    import numpy as np
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    for model in ("rrin", "superslomo", "voxelflow"):
+        flags = WARP_TRAIN[model][0]
+        i = flags.index("--fast_warp_range")
+        flags = flags[:i] + flags[i + 2:] + [
+            "--number_of_training_steps_per_iter", str(SECOND_ORDER_STEPS),
+            "--second_order"]
+        frames = SyntheticSeptuplet(model=model, mode="train", size=(
+            CLI_CROP, CLI_CROP))[0][0][None]
+        system = SceneAdaptiveInterpolation(get_args(
+            flags + ["--batch_size", "1"]))
+        out = []
+        reset_launches(mods)
+        torch.cuda.reset_peak_memory_stats()
+        times = timed_iters(torch, lambda: out.append(
+            system.run_train_iter(frames, 0)), 1, warmup=1)
+        got = launch_counts(mods)
+        losses, preds = out[-1]
+        check(not any(got.values()) and bool(torch.isfinite(preds).all())
+              and all(math.isfinite(v) for v in losses.values()),
+              f"{model} exact second order: launches {got}, {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[engine] {model} second order on the exact warp, batch 1, "
+              f"{CLI_CROP}x{CLI_CROP} ({card}): {times[0]:.4f} s after a "
+              f"warm-up, loss {losses['loss']:.5f}, peak memory {peak:.2f} "
+              f"GiB, no kernel of ours")
+        del system, out
+        train_card_vs_cpu(torch, flags + ["--optimizer", "SGD"], model,
+                          orders=("second",))
+
+
+def engine_phase(torch, mods, wb, card):
+    """The scene-adaptation engine's paths: L2F, per-step BN statistics,
+    the adversarial losses and the exact warp's second order. Returns the
+    launches of each path."""
+    paths = timed("engine_l2f", l2f_phase, torch, mods, card)
+    paths.update(timed("engine_per_step_bn", per_step_bn_phase, torch, mods,
+                       wb, card))
+    paths.update(timed("engine_gan", gan_phase, torch, mods, card))
+    timed("engine_exact_second_order", exact_second_order_phase, torch, mods,
+          card)
+    return paths
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--earlier-sepconv", metavar="PATH",
@@ -2843,14 +3180,22 @@ def main():
     timed("cain", cain_phase, torch, mods, card)
     timed("cain_train", cain_train_phase, torch, mods, card)
     test_launches = timed("test_mode", test_mode_phase, torch, mods)
+    engine_paths = timed("engine", engine_phase, torch, mods, wb, card)
     # each kernel's launches on the main paths that run it, each read on
     # its own: K1 and K2 on two; K3 and K3-grad on the three evaluation
     # CLIs and the six training paths of the warp models; K3-grad² on their
     # three second-order paths; K4 on the served DAIN frames
     warp_train_paths = {path: counts for path, counts in train_paths.items()
                         if not path.startswith("dain")}
+    sepconv_engine = {path: counts for path, counts in engine_paths.items()
+                      if not path.startswith("voxelflow")}
+    warp_train_paths.update({path: counts for path, counts in
+                             engine_paths.items()
+                             if path.startswith("voxelflow")})
     by_path = {**{k: {"sepconv_train": sepconv_launches[k],
-                      "sepconv_test": test_launches[k]}
+                      "sepconv_test": test_launches[k],
+                      **{path: counts[k]
+                         for path, counts in sepconv_engine.items()}}
                   for k in KERNELS[:2]},
                **{k: {path: counts[k] for path, counts in
                       {**warp_paths, **warp_train_paths}.items()}

@@ -23,7 +23,12 @@ plus a layout rule per leaf kind:
   * ``bias`` as it is.
 
 The VGG16 weights of SuperSloMo's ``Super`` loss, which are the loss's and
-not the model's, bridge with :func:`vgg16_params_from_jax`.
+not the model's, bridge with :func:`vgg16_params_from_jax`. The other
+groups of the meta-parameters bridge with :func:`attenuator_from_jax`
+(L2F), :func:`bn_state_from_jax` (per-step BN statistics) and
+:func:`disc_params_from_jax` (the adversarial loss's discriminator);
+:func:`load_jax_meta_params` loads every group of a JAX system's
+meta-parameters into a port system.
 """
 from __future__ import annotations
 
@@ -213,3 +218,125 @@ def import_pth(path: str, target: Dict[str, torch.Tensor]
     """Reference-named weights load directly: merge ``path`` into
     ``target`` (a state dict) by name and shape."""
     return lossy_merge(target, load_torch_file(path))
+
+
+def _jax_leaf_name(path: str) -> str:
+    parent, _, leaf = path.rpartition(".")
+    leaf = "weight" if leaf == "kernel" else _BN_FROM_JAX.get(leaf, leaf)
+    return f"{parent}.{leaf}" if parent else leaf
+
+
+def jax_leaf_order(tree: Dict[str, Any]) -> list:
+    """The port names of a JAX net tree's leaves in ``jax.tree.leaves``
+    order: the key paths sorted at every level."""
+    def walk(node, prefix):
+        for key in sorted(node):
+            if isinstance(node[key], dict):
+                yield from walk(node[key], f"{prefix}{key}.")
+            else:
+                yield _jax_leaf_name(f"{prefix}{key}")
+    return list(walk(tree, ""))
+
+
+def attenuator_from_jax(tree: Dict[str, Any], net_tree: Dict[str, Any],
+                        kept: list) -> Dict[str, torch.Tensor]:
+    """The JAX attenuator (``fc1``/``fc2`` kernels (in, out), ``bias``,
+    ``gamma_mult``) → the port's (``nn.Linear`` layout (out, in)).
+
+    JAX's gamma[j] scales the j-th kept leaf in ``jax.tree.leaves`` order
+    of ``net_tree``; the port's gamma[i] scales ``kept[i]``, the kept
+    tensors in ``named_parameters()`` order (the reference's
+    ``names_weights_copy`` order). So fc1's inputs and fc2's outputs (and
+    fc2's bias) are permuted, and gamma lands on the same tensor."""
+    jax_kept = [k for k in jax_leaf_order(net_tree) if k in set(kept)]
+    if sorted(jax_kept) != sorted(kept):
+        raise ValueError(f"the JAX net tree's kept leaves differ from the "
+                         f"port's: {sorted(set(kept) ^ set(jax_kept))[:5]}")
+    # port index of each JAX index
+    order = torch.tensor([kept.index(k) for k in jax_kept])
+    k1 = torch.tensor(np.asarray(tree["fc1"]["kernel"]))    # (L_in, H)
+    k2 = torch.tensor(np.asarray(tree["fc2"]["kernel"]))    # (H, L_out)
+    b2 = torch.tensor(np.asarray(tree["fc2"]["bias"]))
+    w1 = torch.empty_like(k1.T)
+    w1[:, order] = k1.T
+    w2 = torch.empty_like(k2.T)
+    w2[order] = k2.T
+    b2p = torch.empty_like(b2)
+    b2p[order] = b2
+    return {"fc1.weight": w1, "fc1.bias": torch.tensor(
+                np.asarray(tree["fc1"]["bias"])),
+            "fc2.weight": w2, "fc2.bias": b2p,
+            "gamma_mult": torch.tensor(np.asarray(tree["gamma_mult"]))}
+
+
+def bn_state_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX per-step BN statistics ``{bn: {'running_mean', 'running_var'}}``
+    → ``{'<bn>.running_mean': (S, C), ...}``."""
+    return {path: torch.tensor(np.asarray(value))
+            for path, value in _flatten(tree)}
+
+
+def disc_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX discriminator (``core/adversarial.init_discriminator``) →
+    ``Discriminator``'s named parameters: conv kernels HWIO → OIHW, BN
+    ``scale`` → ``weight`` (the unused ``mean``/``var`` dropped), linear
+    kernels (in, out) → (out, in). JAX flattens the last features NHWC
+    and the port NCHW, as the reference, so the first linear's input
+    columns go from (H, W, C) to (C, H, W) order."""
+    out = {}
+    for i, blk in tree["features"].items():
+        out[f"features.{i}.conv.weight"] = torch.tensor(
+            np.asarray(blk["conv"]["kernel"]).transpose(3, 2, 0, 1))
+        out[f"features.{i}.bn.weight"] = torch.tensor(
+            np.asarray(blk["bn"]["scale"]))
+        out[f"features.{i}.bn.bias"] = torch.tensor(
+            np.asarray(blk["bn"]["bias"]))
+    last = tree["features"][str(len(tree["features"]) - 1)]
+    ch = np.asarray(last["conv"]["kernel"]).shape[-1]
+    k0 = np.asarray(tree["classifier"]["0"]["kernel"])
+    side = int(round((k0.shape[0] // ch) ** 0.5))
+    k0 = k0.reshape(side, side, ch, -1).transpose(3, 2, 0, 1)
+    out["classifier.0.weight"] = torch.tensor(
+        np.ascontiguousarray(k0.reshape(k0.shape[0], -1)))
+    out["classifier.2.weight"] = torch.tensor(
+        np.asarray(tree["classifier"]["2"]["kernel"]).T.copy())
+    for idx in ("0", "2"):
+        out[f"classifier.{idx}.bias"] = torch.tensor(
+            np.asarray(tree["classifier"][idx]["bias"]))
+    return out
+
+
+def load_jax_meta_params(system, tree: Dict[str, Any]) -> None:
+    """Every group of a JAX system's meta-parameters (a tree of numpy
+    leaves) into a port ``SceneAdaptiveInterpolation``'s own tensors: the
+    net (with its BN statistics), the Meta-SGD inner rates (LSLR's
+    per-step vectors are left as they are), and the attenuator, per-step BN
+    statistics and discriminator groups where the system has them. The
+    discriminator's Adam starts afresh."""
+    system.load_net(params_from_jax(tree["net"], system.model))
+    groups = {}
+    if system.cfg.metasgd:
+        groups["lrs"] = {
+            k: v for k, v in params_from_jax(tree["lrs"], system.model).items()
+            if k in system.meta_params["lrs"]}
+    if "attenuator" in system.meta_params:
+        kept = [k for k in system.meta_params["net"]
+                if system.builder.att_keep is None
+                or system.builder.att_keep[k]]
+        groups["attenuator"] = attenuator_from_jax(
+            tree["attenuator"], tree["net"], kept)
+    if "bn_state" in system.meta_params:
+        groups["bn_state"] = bn_state_from_jax(tree["bn_state"])
+    if "loss_ctx" in system.meta_params:
+        groups["loss_ctx"] = disc_params_from_jax(tree["loss_ctx"]["disc"])
+        system.adv_state.opt = system.adv_state.make_optimizer()
+    with torch.no_grad():
+        for g, values in groups.items():
+            mine = system.meta_params[g]
+            if set(values) != set(mine) or any(
+                    values[k].shape != mine[k].shape for k in mine):
+                raise ValueError(f"JAX group {g!r} does not match the "
+                                 f"port's")
+            for k, v in values.items():
+                mine[k].copy_(v)
+

@@ -1,12 +1,15 @@
 """Loss library — the ``"w1*TYPE1+w2*TYPE2"`` spec and its losses.
 
 Counterpart of ``meta_interpolation_tpu/core/losses.py:37-60, 173-197,
-252-414``: ``make_loss_fn(spec)(pred, target, aux=None) -> {type:
+252-414``: ``make_loss_fn(spec)(pred, target, aux=None, ctx=None) -> {type:
 weight·loss, …, 'total': sum}``. Ported terms: ``L1``, ``MSE``, ``Charb``,
-and SuperSloMo's composite ``Super`` (204·recn + 102·warp + 0.005·prcp +
+SuperSloMo's composite ``Super`` (204·recn + 102·warp + 0.005·prcp +
 smoothness, with VGG16 conv4_3 features) and ``SuperNoPrcp`` (the same
-without the VGG term); only the Super terms read ``aux``, the model's
-intermediates. The others of the JAX package (SSIM, VGG19, GAN) raise
+without the VGG term), and the adversarial generator terms ``GAN``,
+``WGAN`` and ``WGAN_GP`` (``core/adversarial.py``). Only the Super terms
+read ``aux``, the model's intermediates, and only the adversarial ones
+``ctx``, which carries the discriminator's parameters as
+``{'disc': params}``. The others of the JAX package (SSIM, VGG19) raise
 ``NotImplementedError`` until their slice.
 
 The VGG16 weights belong to the loss, not to the meta-parameters: a
@@ -41,6 +44,7 @@ def charbonnier_loss(pred, target, epsilon=1e-6):
 
 _PIXEL_LOSSES = {"L1": l1_loss, "MSE": mse_loss, "Charb": charbonnier_loss}
 _SUPER = ("Super", "SuperNoPrcp")
+_GAN = ("GAN", "WGAN", "WGAN_GP")
 
 # ---------------------------------------------------------------------------
 # VGG16 features to conv4_3 (torchvision vgg16().features[:22])
@@ -218,16 +222,24 @@ def parse_loss_spec(spec: str) -> List[LossSpec]:
 
 
 class LossFn:
-    """``(pred, target, aux=None) -> {type: weight·loss, …, 'total'}``.
-    ``vgg16_params`` are the Super term's VGG16 weights (None without one);
-    reassign them to swap the weights."""
+    """``(pred, target, aux=None, ctx=None) -> {type: weight·loss, …,
+    'total'}``. ``vgg16_params`` are the Super term's VGG16 weights (None
+    without one); reassign them to swap the weights. An adversarial term
+    runs the discriminator of ``patch_size`` on ``ctx['disc']`` (JAX
+    ``make_loss_fn``, ``core/losses.py:370-416``), and raises without it."""
 
     def __init__(self, terms: List[LossSpec],
-                 vgg16_params: Optional[VggParams]):
+                 vgg16_params: Optional[VggParams], patch_size: int = 96):
         self.terms = terms
         self.vgg16_params = vgg16_params
+        self.patch_size = patch_size
+        self.disc = None
+        if any(t.loss_type in _GAN for t in terms):
+            from . import adversarial
+            self.disc = adversarial.skeleton(patch_size)
 
-    def __call__(self, pred, target, aux: Optional[Dict[str, Any]] = None
+    def __call__(self, pred, target, aux: Optional[Dict[str, Any]] = None,
+                 ctx: Optional[Dict[str, Any]] = None
                  ) -> Dict[str, torch.Tensor]:
         losses: Dict[str, torch.Tensor] = {}
         total = 0.0
@@ -236,6 +248,15 @@ class LossFn:
                 val = superslomo_loss(
                     pred, target, aux or {},
                     self.vgg16_params if t.loss_type == "Super" else None)
+            elif t.loss_type in _GAN:
+                if ctx is None or "disc" not in ctx:
+                    raise ValueError(
+                        "adversarial loss needs ctx={'disc': params}, "
+                        "which SceneAdaptiveInterpolation wires when --loss "
+                        "has a GAN term")
+                from .adversarial import generator_loss
+                val = generator_loss(ctx["disc"], pred, t.loss_type,
+                                     self.patch_size, self.disc)
             else:
                 val = _PIXEL_LOSSES[t.loss_type](pred, target)
             eff = t.weight * val
@@ -247,17 +268,20 @@ class LossFn:
 
 def make_loss_fn(spec: str, vgg16_params: Optional[VggParams] = None,
                  generator: Optional[torch.Generator] = None,
-                 device: Union[str, torch.device] = "cpu"
+                 device: Union[str, torch.device] = "cpu",
+                 patch_size: int = 96
                  ) -> Callable[..., Dict[str, torch.Tensor]]:
     """The loss of ``spec``. A ``Super`` term takes ``vgg16_params``, else
     the pretrained file, else :func:`init_vgg16_params` from
-    ``generator``; they are moved to ``device``."""
+    ``generator``; they are moved to ``device``. An adversarial term's
+    discriminator sees a center crop of ``patch_size``."""
     terms = parse_loss_spec(spec)
+    ported = sorted(_PIXEL_LOSSES) + list(_SUPER) + list(_GAN)
     for t in terms:
-        if t.loss_type not in _PIXEL_LOSSES and t.loss_type not in _SUPER:
+        if t.loss_type not in ported:
             raise NotImplementedError(
                 f"loss {t.loss_type!r} is not ported to PyTorch yet; "
-                f"ported: {sorted(_PIXEL_LOSSES) + list(_SUPER)}")
+                f"ported: {ported}")
     if any(t.loss_type == "Super" for t in terms):
         if vgg16_params is None:
             vgg16_params = load_pretrained_vgg16_or_warn()
@@ -267,4 +291,4 @@ def make_loss_fn(spec: str, vgg16_params: Optional[VggParams] = None,
                         for name, p in vgg16_params.items()}
     else:
         vgg16_params = None
-    return LossFn(terms, vgg16_params)
+    return LossFn(terms, vgg16_params, patch_size)

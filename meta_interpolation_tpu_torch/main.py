@@ -44,6 +44,12 @@
         --number_of_evaluation_steps_per_iter 1 --val_batch_size 1 \
         --pretrained_model dain_tamed.pth [--device cpu]
 
+The scene-adaptation engine's flags go on any training or evaluation
+line above: ``--attenuate`` (L2F), ``--per_step_bn_statistics``
+(VoxelFlow) and a GAN term in ``--loss`` (``1*L1+0.005*GAN``, ``WGAN`` or
+``WGAN_GP``; ``--disc_per_forward`` for the reference's cadence of
+discriminator steps).
+
 DAIN's random-init depth net overflows, so a random-weight run loads a
 state dict whose depth head is tamed (``models/dain/model.
 tame_depth_head_``); the meta system projects the flows exactly, as the

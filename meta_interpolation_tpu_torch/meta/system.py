@@ -7,6 +7,13 @@ the loss, the outer optimizer and its plateau schedule, and drives
 meta-training (:meth:`run_train_iter`, first or second order, with MSL),
 scene-adaptive evaluation (:meth:`run_validation_iter`) and ×2 slow
 motion (:meth:`run_test_iter`), for all six backbones.
+
+Beside ``net`` and ``lrs`` the meta-parameters may hold three more
+groups, as the JAX system's do: ``attenuator`` (L2F, ``--attenuate``;
+outer-trained), ``bn_state`` (per-step BN statistics,
+``--per_step_bn_statistics``; written back after each train iteration,
+never by the optimizer) and ``loss_ctx`` (the adversarial loss's
+discriminator, trained by its own Adam after the outer step).
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..core import adversarial
 from ..core import losses as losses_lib
 from ..models import layers, registry
 from . import episode as episode_lib
@@ -88,8 +96,6 @@ def _resolve_device(device: Union[str, torch.device]) -> torch.device:
 def _unported(cfg: Config):
     """Flags whose behaviour the port does not have yet."""
     return [flag for flag, on in [
-        ("--attenuate", cfg.attenuate),
-        ("--per_step_bn_statistics", cfg.per_step_bn_statistics),
         ("--dtype bfloat16", cfg.dtype != "float32"),
         ("--spatial_shards", cfg.spatial_shards > 1),
     ] if on]
@@ -116,6 +122,13 @@ class SceneAdaptiveInterpolation:
         if unported:
             raise NotImplementedError(
                 f"not ported to PyTorch yet: {', '.join(unported)}")
+        if cfg.attenuate and cfg.per_step_bn_statistics:
+            # the JAX episode's attenuation forward passes no BN state
+            # (meta/episode.py:330), so JAX runs no such episode to hold
+            # the port to
+            raise NotImplementedError(
+                "--attenuate with --per_step_bn_statistics: no JAX episode "
+                "runs the two together")
         self.cfg = cfg
         self.model_def = registry.get(cfg.model)
         if cfg.mode == "train" or cfg.second_order:
@@ -150,16 +163,6 @@ class SceneAdaptiveInterpolation:
         if inner_keep is not None and \
                 cfg.enable_inner_loop_optimizable_bn_params:
             inner_keep = _adapt_bn_affine(inner_keep)
-        # the loss's own weights (the Super term's VGG16) from another
-        # stream than the model's
-        self.loss_fn = (self.model_def.loss_fn or losses_lib.make_loss_fn(
-            cfg.loss, generator=torch.Generator().manual_seed(
-                cfg.random_seed + 1), device=self.device))
-        self.builder = episode_lib.EpisodeBuilder(
-            self.model, self.loss_fn, self.inner_opt,
-            denormalize=self.model_def.denormalize, inner_keep=inner_keep,
-            apply_kwargs=self.model_def.meta_apply_kwargs,
-            returns_aux=self.model_def.returns_aux)
         # outer trainability: the model's outer mask (DAIN: rectifyNet
         # only), the rates when learnable. A leaf that trains in neither
         # loop gets requires_grad False in outer_grads, which keeps it off
@@ -169,6 +172,62 @@ class SceneAdaptiveInterpolation:
                       else {k: True for k in net})
         self.trainable = {"net": dict(outer_keep),
                           "lrs": {k: self.inner_opt.learnable for k in net}}
+        # the loss's weights, the attenuator and the discriminator each
+        # from a stream of their own
+        seeds = {name: torch.Generator().manual_seed(cfg.random_seed + i)
+                 for i, name in enumerate(("loss", "attenuator", "disc"), 1)}
+        att_keep = None
+        if cfg.attenuate:
+            # the attenuator embeds and scales the outer-trained tensors,
+            # the reference's names_weights_copy (JAX meta/system.py
+            # :186-200; DAIN: rectifyNet only)
+            if self.model_def.outer_mask_fn is not None:
+                att_keep = dict(outer_keep)
+            self.meta_params["attenuator"] = episode_lib.init_attenuator(
+                sum(att_keep.values()) if att_keep else len(net),
+                seeds["attenuator"], self.device)
+        # the adversarial loss's discriminator: its parameters ride in
+        # meta_params['loss_ctx'], its own Adam trains them (JAX :223-235)
+        patch = min(cfg.crop_size, 96)
+        gan_terms = [t for t in losses_lib.parse_loss_spec(cfg.loss)
+                     if "GAN" in t.loss_type]
+        self.adv_state = None
+        if gan_terms:
+            self.adv_state = adversarial.AdversarialState(
+                gan_terms[0].loss_type, patch, seeds["disc"], self.device)
+            self.meta_params["loss_ctx"] = self.adv_state.params
+        self._disc_iter = 0
+        self.loss_fn = (self.model_def.loss_fn or losses_lib.make_loss_fn(
+            cfg.loss, generator=seeds["loss"], device=self.device,
+            patch_size=patch))
+        self.builder = episode_lib.EpisodeBuilder(
+            self.model, self.loss_fn, self.inner_opt,
+            denormalize=self.model_def.denormalize, inner_keep=inner_keep,
+            apply_kwargs=self.model_def.meta_apply_kwargs,
+            returns_aux=self.model_def.returns_aux)
+        self.builder.uses_loss_ctx = self.adv_state is not None
+        self.builder.att_keep = att_keep
+        if cfg.per_step_bn_statistics:
+            # per-step BN running statistics (JAX :260-277), threaded
+            # through every forward of an episode
+            if self.model_def.bn_state_init_fn is None:
+                raise ValueError(
+                    f"--per_step_bn_statistics: model {cfg.model!r} has no "
+                    f"per-step BN support (ModelDef.bn_state_init_fn)")
+            if cfg.num_inner_steps < 1:
+                raise ValueError(
+                    "--per_step_bn_statistics requires "
+                    "number_of_training_steps_per_iter >= 1")
+            self.meta_params["bn_state"] = self.model_def.bn_state_init_fn(
+                cfg.num_inner_steps, self.device)
+            self.builder.passes_bn_state = True
+        # the attenuator trains; the statistics and the discriminator
+        # never take the outer optimizer (JAX _build_trainable_mask)
+        for group, on in (("attenuator", True), ("loss_ctx", False),
+                          ("bn_state", False)):
+            if group in self.meta_params:
+                self.trainable[group] = dict.fromkeys(
+                    self.meta_params[group], on)
         if cfg.use_multi_step_loss_optimization and cfg.num_inner_steps == 0:
             raise ValueError(
                 "--use_multi_step_loss_optimization requires "
@@ -176,8 +235,10 @@ class SceneAdaptiveInterpolation:
         groups = (self.model_def.outer_groups(cfg, self.meta_params)
                   if self.model_def.outer_groups is not None else None)
         self.outer_opt = make_outer_optimizer(
-            cfg.optimizer, groups or [v for tree in self.meta_params.values()
-                                      for v in tree.values()], cfg.outer_lr)
+            cfg.optimizer, groups or [
+                v for g in ("net", "lrs", "attenuator")
+                for v in self.meta_params.get(g, {}).values()],
+            cfg.outer_lr)
         self.scheduler = PlateauScheduler(cfg.outer_lr)
         self.current_epoch = 0
 
@@ -214,18 +275,31 @@ class SceneAdaptiveInterpolation:
         return (self.cfg.use_multi_step_loss_optimization
                 and epoch < self.cfg.multi_step_loss_num_epochs)
 
+    def _spec(self, mode: str, num_steps: int, second_order: bool = False,
+              use_msl: bool = False, collect: bool = False
+              ) -> episode_lib.EpisodeSpec:
+        """The episode of a mode (JAX ``_episode_spec``); ``collect`` keeps
+        the predictions of the --disc_per_forward replay, the MSL query
+        ones while MSL is on."""
+        return episode_lib.EpisodeSpec(
+            support_idxs=self.cfg.support_idxs(mode),
+            target_idxs=self.cfg.target_idxs, num_steps=num_steps,
+            second_order=second_order, use_msl=use_msl,
+            attenuate=self.cfg.attenuate, collect_support_preds=collect,
+            collect_query_preds=collect and use_msl)
+
     def outer_grads(self, frames, epoch: int, with_metrics: bool = False):
         """The outer loss and its gradient at the meta-parameters, before
         the optimizer (JAX ``train_step``'s ``value_and_grad``, :449-462).
         Returns (loss, aux, grads): aux as ``batched_episode``'s, ``grads``
-        like ``meta_params``, zero where the trainable mask is off."""
+        like ``meta_params``, zero where the trainable mask is off. Under
+        --disc_per_forward aux also holds the replay's predictions."""
         self._refuse_untrainable()
-        spec = episode_lib.EpisodeSpec(
-            support_idxs=self.cfg.support_idxs("train"),
-            target_idxs=self.cfg.target_idxs,
-            num_steps=self.cfg.num_inner_steps,
-            second_order=self._use_second_order(epoch),
-            use_msl=self._msl_active(epoch))
+        spec = self._spec(
+            "train", self.cfg.num_inner_steps, self._use_second_order(epoch),
+            self._msl_active(epoch),
+            collect=(self.adv_state is not None and self.cfg.disc_per_forward
+                     and self.cfg.num_inner_steps > 0))
         msl_w = episode_lib.per_step_loss_importance(
             self.cfg.num_inner_steps, epoch,
             self.cfg.multi_step_loss_num_epochs)
@@ -242,11 +316,12 @@ class SceneAdaptiveInterpolation:
         return loss, aux, grads
 
     def run_train_iter(self, frames, epoch: int, do_evaluation: bool = False):
-        """One outer update (JAX :487-570, without the adversarial and
-        per-step BN branches). frames: (B, T, H, W, C) in model input
-        space. A tensor the trainable mask leaves off gets no gradient, so
-        the optimizer neither updates it nor keeps moments for it. Returns
-        (losses with PSNR/SSIM when ``do_evaluation``, preds (B, C, H, W))."""
+        """One outer update (JAX :487-570). frames: (B, T, H, W, C) in model
+        input space. A tensor the trainable mask leaves off gets no
+        gradient, so the optimizer neither updates it nor keeps moments for
+        it. Then the per-step BN statistics of the iteration are written
+        back, and the discriminator takes its step(s). Returns (losses with
+        PSNR/SSIM when ``do_evaluation``, preds (B, C, H, W))."""
         self.current_epoch = int(epoch)
         loss, aux, grads = self.outer_grads(frames, epoch, do_evaluation)
         for g, tree in self.meta_params.items():
@@ -254,21 +329,46 @@ class SceneAdaptiveInterpolation:
                 v.grad = grads[g][k] if self.trainable[g][k] else None
         self.outer_opt.step()
         self.outer_opt.zero_grad(set_to_none=True)
+        if "bn_state" in aux:
+            with torch.no_grad():
+                for k, v in self.meta_params["bn_state"].items():
+                    v.copy_(aux["bn_state"][k])
+        if self.adv_state is not None:
+            self._discriminator_step(aux, self._frames(frames), epoch)
         losses = {"loss": float(loss), "total": float(aux["query_loss"])}
         if do_evaluation:
             losses["psnr"] = float(aux["psnr"])
             losses["ssim"] = float(aux["ssim"])
         return losses, aux["preds"]
 
+    def _discriminator_step(self, aux, frames: torch.Tensor, epoch: int):
+        """The discriminator's update(s) after the outer step (JAX
+        :513-565). All of the iteration's generator terms saw the
+        discriminator as it was before, as in JAX (the reference updates it
+        inside every criterion call). Default cadence: one update on the B
+        query predictions against their targets. --disc_per_forward: the
+        reference's B·(S·P + Sq + 1) single-item updates in its order
+        (``adversarial.build_replay_sequence``). WGAN-GP's interpolation
+        weights come from the iteration's own stream
+        (``adversarial.eps_generator``)."""
+        qt = self.cfg.target_idxs[1]
+        self._disc_iter += 1
+        gen = adversarial.eps_generator(epoch, self._disc_iter)
+        if "support_preds" in aux:
+            fakes, reals = adversarial.build_replay_sequence(
+                aux["support_preds"], aux.get("query_preds"), aux["preds"],
+                frames, [it for _, it, _ in self.cfg.support_idxs("train")],
+                qt)
+            self.adv_state.replay(fakes, reals, generator=gen)
+        else:
+            self.adv_state.update_discriminator(aux["preds"], frames[:, qt],
+                                                generator=gen)
+
     def run_validation_iter(self, frames):
         """Eval episode: adapt with grads, query under no-grad (reference
         :608-627). frames: (B, T, H, W, C) in model input space. Returns
         (losses, preds) with preds (B, C, H, W) on the device."""
-        spec = episode_lib.EpisodeSpec(
-            support_idxs=self.cfg.support_idxs("train"),
-            target_idxs=self.cfg.target_idxs,
-            num_steps=self.cfg.num_eval_steps, second_order=False,
-            use_msl=True)
+        spec = self._spec("train", self.cfg.num_eval_steps, use_msl=True)
         msl_w = episode_lib.per_step_loss_importance(
             self.cfg.num_eval_steps, self.current_epoch,
             self.cfg.multi_step_loss_num_epochs)
@@ -287,10 +387,7 @@ class SceneAdaptiveInterpolation:
         First order whatever --second_order says (JAX passes it on):
         nothing differentiates the adapted weights, so the order changes
         no value."""
-        spec = episode_lib.EpisodeSpec(
-            support_idxs=self.cfg.support_idxs("test"),
-            target_idxs=self.cfg.target_idxs,
-            num_steps=self.cfg.num_eval_steps)
+        spec = self._spec("test", self.cfg.num_eval_steps)
         return self.builder.test_episode(self.meta_params,
                                          self._frames(frames), spec)
 
@@ -304,8 +401,11 @@ class SceneAdaptiveInterpolation:
             group["lr"] = lr * group.get("lr_scale", 1.0)
 
     def state_dict(self) -> dict:
-        """Meta-parameters, outer-optimizer state, epoch and the schedule's
-        state (without it a resume would reset a decayed rate)."""
+        """Meta-parameters (every group: the attenuator, the BN statistics
+        and the discriminator too), outer-optimizer state, epoch and the
+        schedule's state (without it a resume would reset a decayed
+        rate). The discriminator's Adam state is not kept, as in JAX's
+        (:612-619)."""
         return {"meta_params": self.meta_params,
                 "opt_state": self.outer_opt.state_dict(),
                 "epoch": self.current_epoch,
@@ -316,12 +416,15 @@ class SceneAdaptiveInterpolation:
     def load_state_dict(self, state: dict):
         """Resume from a :meth:`state_dict`: the meta-parameters are copied
         into the system's own tensors (on its device), which the outer
-        optimizer holds; then its state, the epoch and the schedule."""
+        optimizer (and the discriminator's) holds; then its state, the
+        epoch and the schedule. The discriminator's Adam starts afresh."""
         with torch.no_grad():
             for g, tree in state["meta_params"].items():
                 for k, v in tree.items():
                     self.meta_params[g][k].copy_(v)
         self.outer_opt.load_state_dict(state["opt_state"])
+        if self.adv_state is not None:
+            self.adv_state.opt = self.adv_state.make_optimizer()
         self.current_epoch = int(state["epoch"])
         sched = state["scheduler"]
         self.scheduler.lr = float(sched["lr"])

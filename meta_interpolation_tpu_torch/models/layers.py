@@ -203,3 +203,48 @@ class Upsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return upsample_bilinear(x, self.scale, self.align_corners)
+
+
+def meta_batch_norm(x: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor, running_mean: torch.Tensor,
+                    running_var: torch.Tensor, num_step: int = 0,
+                    per_step: bool = True, momentum: float = 0.1,
+                    eps: float = 1e-5):
+    """The per-step meta batch norm (JAX ``meta_batch_norm_apply``,
+    ``models/layers.py:574-615``; reference MetaBatchNormLayer,
+    model_utils.py:482-525), NCHW. Normalises with the batch's statistics
+    (biased variance), then ``·weight + bias`` (the caller picks the
+    per-step affine row or an adapted pair). Returns ``(out,
+    (running_mean, running_var))``: the running statistics updated with
+    ``momentum`` and the unbiased variance, at row ``num_step`` when
+    ``per_step`` (rows (S, C)), else whole (C,). The statistics never carry
+    a gradient."""
+    var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+    shape = (1, -1, 1, 1)
+    out = ((x - mean.view(shape)) * torch.rsqrt(var + eps).view(shape)
+           * weight.view(shape) + bias.view(shape))
+    n = x.numel() // x.shape[1]
+    with torch.no_grad():
+        mean, var = mean.detach(), var.detach() * (n / max(n - 1, 1))
+        if per_step:
+            new_mean, new_var = running_mean.clone(), running_var.clone()
+            new_mean[num_step] = ((1 - momentum) * running_mean[num_step]
+                                  + momentum * mean)
+            new_var[num_step] = ((1 - momentum) * running_var[num_step]
+                                 + momentum * var)
+        else:
+            new_mean = (1 - momentum) * running_mean + momentum * mean
+            new_var = (1 - momentum) * running_var + momentum * var
+    return out, (new_mean, new_var)
+
+
+def meta_batch_norm_init(ch: int, num_steps: int, per_step: bool = True,
+                         device=None):
+    """The statistics of :func:`meta_batch_norm`: rows (S, C) of zero means
+    and unit variances, or the flat (C,) variant, whose variance starts at
+    zeros (a reference quirk the JAX package keeps,
+    ``meta_batch_norm_init``)."""
+    if per_step:
+        return (torch.zeros(num_steps, ch, device=device),
+                torch.ones(num_steps, ch, device=device))
+    return (torch.zeros(ch, device=device), torch.zeros(ch, device=device))

@@ -58,6 +58,11 @@ class ModelDef:
     trainable: bool = False
     # the forward returns (pred, aux) and the loss reads aux
     returns_aux: bool = False
+    # (num_steps, device) → per-step BN running statistics for
+    # --per_step_bn_statistics (JAX registry.py:48-53); a model with it
+    # takes forward(..., bn_state=..., num_step=...) and returns (pred,
+    # new_bn_state)
+    bn_state_init_fn: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
 
 
 def _identity(x):
@@ -82,6 +87,18 @@ def _warp_build_kwargs(cfg) -> Dict[str, Any]:
     warps by a grid (JAX meta/system.py:147-149)."""
     return ({"warp_range": cfg.fast_warp_range}
             if cfg.fast_warp_range > 0 else {})
+
+
+def _vf_build_kwargs(cfg) -> Dict[str, Any]:
+    """The warp flags, and per-step BN affine rows under
+    --per_step_bn_statistics without
+    --enable_inner_loop_optimizable_bn_params (JAX meta/system.py
+    :154-163): outer-trainable, never inner-adapted."""
+    kwargs = _warp_build_kwargs(cfg)
+    if (cfg.per_step_bn_statistics
+            and not cfg.enable_inner_loop_optimizable_bn_params):
+        kwargs["per_step_bn_affine"] = cfg.num_inner_steps
+    return kwargs
 
 
 # SuperSloMo's input mean (JAX models/registry.py:110-119)
@@ -129,6 +146,9 @@ def _vf_outer_groups(cfg, meta_params) -> Optional[list]:
             kinds["conv biases" if leaf == "bias" else "conv weights"].append(
                 p)
     kinds["inner rates"] = list(meta_params["lrs"].values())
+    if "attenuator" in meta_params:
+        # JAX's policy puts everything outside the net on plain Adam
+        kinds["attenuator"] = list(meta_params["attenuator"].values())
     decay = cfg.weight_decay
     return [{"name": kind, "params": params, "betas": (0.9, 0.999),
              "lr_scale": 2.0 if kind == "conv biases" else 1.0,
@@ -163,12 +183,13 @@ def get(name: str) -> ModelDef:
         from . import voxelflow
         return ModelDef("voxelflow", voxelflow.VoxelFlow, _vf_normalize,
                         _vf_denormalize, inner_mask_fn=voxelflow.inner_mask,
-                        build_kwargs=_warp_build_kwargs,
-                        outer_groups=_vf_outer_groups, trainable=True)
+                        build_kwargs=_vf_build_kwargs,
+                        outer_groups=_vf_outer_groups, trainable=True,
+                        bn_state_init_fn=voxelflow.init_bn_state)
     if name == "dain":
         from .dain import model as dain
 
-        def charbonnier(pred, target, aux=None):
+        def charbonnier(pred, target, aux=None, ctx=None):
             # DAIN trains on its own loss whatever --loss says (JAX
             # meta/system.py:237-246, reference meta_learning_system.py
             # :503-505)

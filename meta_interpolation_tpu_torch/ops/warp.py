@@ -6,7 +6,12 @@ them, with grid (x, y) in [−1, 1] and flow (u = dx, v = dy) in pixels.
 
   * :func:`grid_sample` — the exact sampler, ``F.grid_sample(mode=
     'bilinear')`` (the JAX package computes it with one XLA gather, outside
-    any TPU kernel).
+    any TPU kernel). Its first derivative is aten's
+    ``grid_sampler_2d_backward``, as ``F.grid_sample``'s own; the
+    derivative of that is autograd through the plain closed form of the
+    sampler's gradients (:func:`grid_sample_grads_ref`), which the JAX
+    package gets by differentiating its gather twice, so second-order
+    training runs on the exact sampler on any build of PyTorch.
   * :func:`grid_sample_bounded` — exact for samples within R pixels of
     their output location, clamped beyond: the fast path of
     ``--fast_warp_range``. On the card the whole sampler is one kernel
@@ -97,14 +102,121 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor,
                 align_corners: bool = False,
                 padding_mode: str = "zeros") -> torch.Tensor:
     """Exact bilinear sampling. img (N, C, H, W); grid (N, Ho, Wo, 2).
-    Inside a :class:`FlowStats` context the call records its
-    displacements."""
+    Twice differentiable (:class:`GridSampleFunction`). Inside a
+    :class:`FlowStats` context the call records its displacements."""
     if FlowStats._active is not None:
         FlowStats._active._record(*_source_coords(
             grid.detach(), img.shape[2], img.shape[3], align_corners))
-    return F.grid_sample(img, grid.to(img.dtype), mode="bilinear",
-                         padding_mode=padding_mode,
-                         align_corners=align_corners)
+    return GridSampleFunction.apply(img, grid.to(img.dtype), align_corners,
+                                    padding_mode)
+
+
+# aten's padding enum (GridSamplerPadding)
+_ATEN_PADDING = {"zeros": 0, "border": 1}
+
+
+def grid_sample_grads_ref(g: torch.Tensor, img: torch.Tensor,
+                          grid: torch.Tensor, align_corners: bool,
+                          padding_mode: str):
+    """The gradients of ``F.grid_sample``'s bilinear sampler, given the
+    output's cotangent ``g`` (N, C, Ho, Wo), in closed form on plain ops:
+    (g_img (N, C, H, W), g_grid (N, Ho, Wo, 2)). Each tap outside the image
+    counts zero; under border padding the coordinate is clipped first and
+    its gradient is zero on and past the edges, as aten's backward has it.
+    Autograd through this is the sampler's second derivative."""
+    n, c, h, w = img.shape
+    ix, iy = _source_coords(grid, h, w, align_corners)
+    sx, sy = (0.5 * (w - 1), 0.5 * (h - 1)) if align_corners else (
+        0.5 * w, 0.5 * h)
+    if padding_mode == "border":
+        inside_x = (ix > 0) & (ix < w - 1)
+        inside_y = (iy > 0) & (iy < h - 1)
+        ix = torch.where(inside_x, ix, ix.detach().clamp(0, w - 1))
+        iy = torch.where(inside_y, iy, iy.detach().clamp(0, h - 1))
+        sx, sy = sx * inside_x, sy * inside_y
+    x0, y0 = ix.detach().floor(), iy.detach().floor()
+    wx, wy = ix - x0, iy - y0
+    ct = ix.dtype
+    flat_img = img.to(ct).reshape(n, c, h * w)
+    taps = []
+    for dy, dx, weight in ((0, 0, (1 - wx) * (1 - wy)), (0, 1, wx * (1 - wy)),
+                           (1, 0, (1 - wx) * wy), (1, 1, wx * wy)):
+        xs, ys = (x0 + dx).long(), (y0 + dy).long()
+        valid = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+        idx = (ys.clamp(0, h - 1) * w + xs.clamp(0, w - 1)).reshape(n, 1, -1)
+        idx = idx.expand(n, c, idx.shape[-1])
+        vals = flat_img.gather(2, idx).reshape(g.shape) * valid[:, None]
+        taps.append((idx, valid, weight, vals))
+    g = g.to(ct)
+    (_, _, _, v00), (_, _, _, v01), (_, _, _, v10), (_, _, _, v11) = taps
+    gx = (g * ((1 - wy)[:, None] * (v01 - v00)
+               + wy[:, None] * (v11 - v10))).sum(1) * sx
+    gy = (g * ((1 - wx)[:, None] * (v10 - v00)
+               + wx[:, None] * (v11 - v01))).sum(1) * sy
+    g_img = torch.zeros_like(flat_img)
+    for idx, valid, weight, _ in taps:
+        g_img = g_img.scatter_add(
+            2, idx, (g * (weight * valid)[:, None]).reshape(n, c, -1))
+    return (g_img.reshape(n, c, h, w).to(img.dtype),
+            torch.stack([gx, gy], dim=-1).to(grid.dtype))
+
+
+class GridSampleFunction(torch.autograd.Function):
+    """``F.grid_sample`` (bilinear), its backward aten's
+    ``grid_sampler_2d_backward`` as autograd's own, through
+    :class:`GridSampleBackwardFunction` so that the backward is itself
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, img, grid, align_corners, padding_mode):
+        ctx.save_for_backward(img, grid)
+        ctx.opts = (align_corners, padding_mode)
+        return F.grid_sample(img, grid, mode="bilinear",
+                             padding_mode=padding_mode,
+                             align_corners=align_corners)
+
+    @staticmethod
+    def backward(ctx, g):
+        img, grid = ctx.saved_tensors
+        g_img, g_grid = GridSampleBackwardFunction.apply(
+            g, img, grid, *ctx.opts, *ctx.needs_input_grad[:2])
+        return g_img, g_grid, None, None
+
+
+class GridSampleBackwardFunction(torch.autograd.Function):
+    """(g, img, grid) → (g_img, g_grid) by aten's
+    ``grid_sampler_2d_backward`` (None where not wanted); its derivative is
+    autograd through :func:`grid_sample_grads_ref`, once: the exact sampler
+    is twice differentiable."""
+
+    @staticmethod
+    def forward(ctx, g, img, grid, align_corners, padding_mode, want_img,
+                want_grid):
+        g_img, g_grid = torch.ops.aten.grid_sampler_2d_backward(
+            g, img, grid, 0, _ATEN_PADDING[padding_mode], align_corners,
+            [want_img, want_grid])
+        ctx.save_for_backward(g, img, grid)
+        ctx.opts = (align_corners, padding_mode)
+        return (g_img if want_img else None,
+                g_grid if want_grid else None)
+
+    @staticmethod
+    def backward(ctx, v_img, v_grid):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "the exact sampler is twice differentiable, not three times")
+        saved = [t.detach().requires_grad_(need) for t, need in
+                 zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            g_img, g_grid = grid_sample_grads_ref(*saved, *ctx.opts)
+            pairs = [(out, v) for out, v in ((g_img, v_img), (g_grid, v_grid))
+                     if v is not None]
+            wanted = [t for t in saved if t.requires_grad]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wanted, [v for _, v in pairs],
+                allow_unused=True) if pairs and wanted else ())
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in saved) + (None,) * 4
 
 
 def grid_sample_bounded(img: torch.Tensor, grid: torch.Tensor,

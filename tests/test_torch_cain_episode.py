@@ -225,3 +225,5 @@ def test_cli_runs_cain_on_the_cpu(mode, tmp_path, capsys):
         assert (tmp_path / "exp" / "checkpoint.pth").exists()
     else:
         assert np.isfinite(stats["psnr"]) and np.isfinite(stats["ssim"])
+    for path in tmp_path.rglob("*.pth"):   # weights read: free the disk
+        path.unlink()

@@ -64,6 +64,8 @@ def test_cli_val_matches_jax_cli(tmp_path, capsys):
     assert np.isfinite(got["psnr"]) and np.isfinite(got["ssim"])
     assert abs(got["psnr"] - want["psnr"]) <= PSNR_TOL_DB, (got, want)
     assert abs(got["ssim"] - want["ssim"]) <= 1e-4, (got, want)
+    for path in tmp_path.rglob("*.pth"):   # weights read: free the disk
+        path.unlink()
 
 
 def test_flag_surface_matches_jax_plus_device():

@@ -225,3 +225,5 @@ def test_cli_val_runs_dain_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert out.count("[val epoch 0] loss") == 1
     assert np.isfinite(stats["psnr"]) and np.isfinite(stats["ssim"])
     assert fpb.flow_projection_bounded.launches == 0
+    for path in tmp_path.rglob("*.pth"):   # weights read: free the disk
+        path.unlink()

@@ -147,9 +147,13 @@ def test_run_validation_iter_matches_jax(systems):
 
 
 def test_system_refuses_what_it_does_not_run():
-    """--attenuate and --per_step_bn_statistics raise, and so does 'cuda'
-    without a card. RRIN and DAIN meta-train since the warp models'
-    training slice (tests/test_torch_{rrin,dain}_train.py)."""
+    """--dtype bfloat16 raises, and so do --attenuate with
+    --per_step_bn_statistics (no JAX episode runs both) and 'cuda' without
+    a card; per-step BN on a model without it is a ValueError, as in JAX.
+    RRIN and DAIN meta-train since the warp models' training slice
+    (tests/test_torch_{rrin,dain}_train.py); L2F and per-step BN run since
+    the engine's slice (tests/test_torch_l2f.py,
+    tests/test_torch_per_step_bn.py)."""
     for model in ("rrin", "dain"):
         for flags in ({"mode": "train"}, {"second_order": True}):
             system = SceneAdaptiveInterpolation(Config(**dict(
@@ -157,12 +161,16 @@ def test_system_refuses_what_it_does_not_run():
             trains = [k for k, t in system.trainable["net"].items() if t]
             assert trains and all(model == "rrin" or k.startswith(
                 "rectifyNet.") for k in trains)
-    with pytest.raises(NotImplementedError, match="--per_step_bn_statistics"):
+    with pytest.raises(NotImplementedError, match="--dtype bfloat16"):
+        SceneAdaptiveInterpolation(Config(**CFG, device="cpu",
+                                          dtype="bfloat16"))
+    with pytest.raises(ValueError, match="--per_step_bn_statistics"):
         SceneAdaptiveInterpolation(Config(**CFG, device="cpu",
                                           per_step_bn_statistics=True))
     with pytest.raises(NotImplementedError, match="--attenuate"):
         SceneAdaptiveInterpolation(Config(**CFG, device="cpu",
-                                          attenuate=True))
+                                          attenuate=True,
+                                          per_step_bn_statistics=True))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SceneAdaptiveInterpolation(Config(**CFG, device="cuda"))

@@ -145,3 +145,5 @@ def test_cli_val_runs_rrin_on_the_cpu(tmp_path, capsys):
     # the CPU path runs the plain versions, never a kernel
     assert wb.warp_sample_bounded_forward.launches == 0
     assert wb.warp_sample_bounded_grad_grid.launches == 0
+    for path in tmp_path.rglob("*.pth"):   # weights read: free the disk
+        path.unlink()

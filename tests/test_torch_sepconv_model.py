@@ -64,6 +64,7 @@ def test_import_pth_loads_reference_names_and_skips_mismatches(tmp_path,
     for name, value in model.state_dict().items():
         if loaded[name]:
             torch.testing.assert_close(value, state[name], rtol=0, atol=0)
+    path.unlink()
 
 
 def test_port_init_is_xavier_with_zero_bias():

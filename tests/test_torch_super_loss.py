@@ -180,6 +180,7 @@ def test_found_weights_load_as_torchvision_state(monkeypatch, tmp_path,
     for name, p in want.items():
         for leaf in ("weight", "bias"):
             assert torch.equal(fn.vgg16_params[name][leaf], p[leaf])
+    (weights / "vgg16_features.pth").unlink()
 
 
 @pytest.mark.parametrize("align_corners", [False, True])

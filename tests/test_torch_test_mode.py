@@ -82,7 +82,8 @@ def pth(tmp_path_factory):
     path = tmp_path_factory.mktemp("weights") / "cain.pth"
     torch.save(bridge.params_from_jax(params, CAIN(depth=2, n_resblocks=1)),
                path)
-    return path
+    yield path
+    path.unlink()
 
 
 def _frames(root, n=6, hw=(24, 40)):

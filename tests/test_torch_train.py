@@ -341,6 +341,7 @@ def test_resumed_run_continues_bit_equal(tmp_path):
             assert torch.equal(got_leaves[path], value), path
         else:
             assert got_leaves[path] == value, path
+    (tmp_path / "checkpoint.pth").unlink()
 
 
 def test_fix_loaded_matches_jax(systems, tmp_path):
@@ -376,6 +377,7 @@ def test_fix_loaded_matches_jax(systems, tmp_path):
     assert tsys.trainable["net"]["moduleConv3.0.weight"]
     assert not tsys.builder.inner_keep["moduleVertical1.0.bias"]
     assert tsys.trainable["lrs"] == {k: True for k in state}
+    pth.unlink()
 
 
 # -- the episode on a two-conv model: 3 inner steps, MSL, both orders --------

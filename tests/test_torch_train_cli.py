@@ -65,3 +65,5 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys, monkeypatch):
     assert "[epoch" not in out and again == got
     assert iters == [0, 0]
     assert load_checkpoint(str(exp))["epoch"] == 1
+    for path in tmp_path.rglob("*.pth"):   # weights read: free the disk
+        path.unlink()

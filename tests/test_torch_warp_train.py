@@ -265,6 +265,7 @@ def test_voxelflow_resume_continues_bit_equal(tmp_path):
     for g, tree in straight.meta_params.items():
         for k, v in tree.items():
             assert torch.equal(v, resumed.meta_params[g][k]), (g, k)
+    (tmp_path / "checkpoint.pth").unlink()
 
 
 def counting_wrappers(monkeypatch):
