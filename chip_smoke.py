@@ -126,14 +126,33 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
          the step card vs CPU; the exact warp's second order (RRIN,
          SuperSloMo, VoxelFlow without --fast_warp_range, batch 1): an
          iteration at 256x256 and the outer gradient card vs CPU;
+       - bf16 (``--dtype bfloat16``, after the kernel checks the bf16
+         instantiations: K1 and K2 bit for bit the float32 kernels on the
+         widened inputs, rounded; K3 and K3-grad within one bf16 ulp of
+         max + 1e-5 of their plain bf16 versions at every warp case, a
+         bf16 grid too; K3-grad² and K4 bit for bit their float32 kernels
+         on the widened operands; each bf16 kernel timed in turns with its
+         float32 instantiation, at its bf16 bytes' bound): every preset's
+         256x448 evaluation episode and first-order train iteration in
+         float32 and bf16 in turns, with PSNR, peak memory, a profile and
+         the same launches as float32 (the bf16 paths with the plain
+         versions and the float32 entry points of K1, K2, K3 and K3-grad
+         patched to raise), a second-order bf16 VoxelFlow iteration
+         (K3-grad² widened), bench.py's serving forwards (every weight in
+         bf16 at its batches and options) in frames a second beside
+         float32, and a 64x64 clip of five presets in bf16 on the card
+         against the CPU, within twice the CPU's own bf16 − float32
+         difference plus 1e-5 of the largest value;
   5. a JSON line of per-kernel results, each with its launches on every
      main path that runs it (``launches_by_path``: K1/K2 the training
      CLI's, the SepConv test runs' and the engine's L2F and adversarial
      paths'; K3/K3-grad the RRIN, SuperSloMo and VoxelFlow CLIs' and their
      training paths', the per-step BN ones included; K3-grad² their
-     second-order training paths'; K4 the served DAIN frames') and their
-     sum (``launches``), the card line again, and the last line {"ok":
-     true, "device": {...}}.
+     second-order training paths'; K4 the served DAIN frames'; K3-grad²
+     and K4 also their bf16 paths', and the bf16 instantiations of K1,
+     K2, K3 and K3-grad four records of their own) and their sum
+     (``launches``), the card line again, and the last line {"ok": true,
+     "device": {...}}.
 """
 import argparse
 import json
@@ -1781,9 +1800,14 @@ def train_card_vs_cpu(torch, flags=TRAIN_FLAGS, model="sepconv",
     trains nothing (the fixed rates of LSLR, the BN statistics, the
     discriminator) has zero gradients on both. ``hand``: (class, method
     name) of a model method whose results the CPU run takes from the card
-    run, call by call; ``prepare(system)`` runs on each system first."""
+    run, call by call; ``prepare(system)`` runs on each system first. In
+    first order under Adam or Adamax the CPU steps with the card's support
+    gradients (handing_inner), which are held to its own within
+    OUTER_GRAD_RTOL in norm."""
     from meta_interpolation_tpu_torch.config import get_args
     from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.inner_optimizers import (
+        InnerOptimizer)
     from meta_interpolation_tpu_torch.meta.system import (
         SceneAdaptiveInterpolation)
     clip = SyntheticSeptuplet(model=model, mode="train",
@@ -1791,7 +1815,10 @@ def train_card_vs_cpu(torch, flags=TRAIN_FLAGS, model="sepconv",
     for order in orders:
         extra = ["--second_order"] if order == "second" else []
         cfg = get_args(flags + ["--batch_size", "1"] + extra)
-        out, handed, calls = {}, [], 0
+        hand_inner = (order == "first" and cfg.optimizer != "SGD"
+                      and cfg.number_of_training_steps_per_iter > 0)
+        out, handed, calls, steps = {}, [], 0, []
+        inner = dict.fromkeys(("d2", "n2", "flips", "n"), 0)
         for dev in ("cuda", "cpu"):
             system = SceneAdaptiveInterpolation(cfg, device=dev)
             if state is not None:
@@ -1802,12 +1829,23 @@ def train_card_vs_cpu(torch, flags=TRAIN_FLAGS, model="sepconv",
             if hand is not None:
                 run = with_attr(hand[0], hand[1], handing(
                     torch, getattr(hand[0], hand[1]), handed, dev), run)
+            if hand_inner:
+                run = with_attr(InnerOptimizer, "update", handing_inner(
+                    torch, InnerOptimizer.update, steps, dev, inner), run)
             loss, _, grads = run()
             out[dev] = float(loss), {g: {k: v.cpu() for k, v in t.items()}
                                      for g, t in grads.items()}
             calls = calls if dev == "cpu" else len(handed)
         check(not handed, f"the CPU run left {len(handed)} of the card's "
                           f"{calls} handed results")
+        check(not steps, f"the CPU run left {len(steps)} of the card's "
+                         f"inner steps")
+        if hand_inner:
+            inner_diff = math.sqrt(inner["d2"])
+            inner_ref = math.sqrt(inner["n2"])
+            check(inner_diff <= OUTER_GRAD_RTOL * inner_ref or not hold_grads,
+                  f"{order}-order support gradients: card vs CPU "
+                  f"{inner_diff:.3e} > {OUTER_GRAD_RTOL} x {inner_ref:.3e}")
         (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
         check(abs(l_card - l_cpu) <= LOSS_RTOL * abs(l_cpu),
               f"{order}-order outer loss card {l_card} vs CPU {l_cpu}")
@@ -1829,6 +1867,11 @@ def train_card_vs_cpu(torch, flags=TRAIN_FLAGS, model="sepconv",
               f"{cfg.optimizer}, {SMALL_HW[0]}x{SMALL_HW[1]} clip, card vs "
               f"CPU" + (f" (the CPU handed the card's {hand[1]}, "
                         f"{calls} calls)" if hand else "")
+              + (f" (the CPU stepped with the card's support gradients: "
+                 f"|diff|/|cpu| {inner_diff / inner_ref:.3e}, "
+                 f"{inner['flips']} of "
+                 f"{inner['n']} elements of the other sign)"
+                 if hand_inner else "")
               + f": loss {l_card:.6f} vs {l_cpu:.6f}, |diff|/|cpu| "
               + " ".join(f"{g} {r:.3e}" for g, r in ratios.items()
                          if g in ("net", "lrs", "attenuator"))
@@ -1849,6 +1892,40 @@ def handing(torch, real, record, dev):
         check(len(record) > 0, f"the CPU run calls {real.__name__} more "
                                f"often than the card run")
         return record.pop(0)
+    return card if dev == "cuda" else cpu
+
+
+def handing_inner(torch, real, record, dev, dist):
+    """A stand-in for InnerOptimizer.update ``real`` in a first-order
+    episode, whose support gradients are constants. On the card it records
+    each step's gradients (on the CPU) and steps; on the CPU it steps with
+    the card's gradients in step order instead of its own, and adds to
+    ``dist`` the squared distance of its own from the card's ("d2"), its
+    own squared norm ("n2"), the elements of the other sign ("flips") and
+    all elements ("n"). Adam's and Adamax's first step is lr·g/(|g| + eps),
+    a sign wherever |g| ≫ eps = 1e-8: an element whose gradient is within
+    the devices' rounding of 0 steps one way on the card and the other on
+    the CPU, and its Meta-SGD rate's outer gradient changes sign with it.
+    Handed, both devices take the same step, and what the outer gradients
+    compare is continuous in the rounding."""
+    def card(self, params, grads, lrs, state, step_idx):
+        record.append({k: g.detach().cpu() for k, g in grads.items()})
+        return real(self, params, grads, lrs, state, step_idx)
+
+    def cpu(self, params, grads, lrs, state, step_idx):
+        check(len(record) > 0, "the CPU run takes more inner steps than the "
+                               "card run")
+        check(not any(g.requires_grad for g in grads.values()),
+              "a handed support gradient would cut the second order")
+        theirs = record.pop(0)
+        for k, g in grads.items():
+            dist["d2"] += float((g - theirs[k]).norm()) ** 2
+            dist["n2"] += float(g.norm()) ** 2
+            dist["flips"] += int((torch.sign(g) != torch.sign(theirs[k])).sum())
+            dist["n"] += g.numel()
+        return real(self, params, {k: theirs[k].to(g.device)
+                                   for k, g in grads.items()},
+                    lrs, state, step_idx)
     return card if dev == "cuda" else cpu
 
 
@@ -3085,6 +3162,547 @@ def engine_phase(torch, mods, wb, card):
     return paths
 
 
+# --dtype bfloat16: K1, K2, K3 and K3-grad in their bf16 instantiations,
+# K3-grad² and K4 widened in their wrappers; every preset above with
+# --dtype bfloat16; bench.py's serving forwards (every weight in bf16, its
+# batches and options at 256x448)
+BF16 = ["--dtype", "bfloat16"]
+BF16_KERNELS = KERNELS[:4]
+# each preset's evaluation: (flags, kernel launches a clip)
+BF16_EVAL = {
+    "sepconv": (EVAL_FLAGS, {"sepconv_forward": K1_PER_CLIP,
+                             "sepconv_grad_kernels": K2_PER_CLIP}),
+    **{model: (flags, {"warp_sample_bounded_forward": k3,
+                       "warp_sample_bounded_grad_grid": k3g})
+       for model, (flags, k3, k3g) in WARP_MODELS.items()},
+    "dain": (DAIN_FLAGS, {}),
+    "cain": (CAIN_EVAL_FLAGS, {})}
+# each preset's first-order train iteration: (flags, batch, launches an
+# iteration)
+BF16_TRAIN = {
+    "sepconv": (TRAIN_FLAGS, TASKS,
+                {"sepconv_forward": K1_PER_TRAIN_ITER,
+                 "sepconv_grad_kernels": K2_PER_TRAIN_ITER}),
+    **{model: (flags, batch, {k: v * batch for k, v in
+                              train_launches(steps, warps, False).items()}
+                             if warps else {})
+       for model, (flags, batch, steps, warps) in WARP_TRAIN.items()},
+    "cain": (CAIN_TRAIN_FLAGS, CAIN_TASKS, {})}
+# bench.py --model / the headline: (batch, model kwargs, forward kwargs,
+# launches a forward)
+BF16_SERVE = {
+    "rrin": (8, {"warp_range": WARP_R}, {},
+             {"warp_sample_bounded_forward": WARPS}),
+    "voxelflow": (8, {"warp_range": WARP_R}, {},
+                  {"warp_sample_bounded_forward": VF_WARPS}),
+    "superslomo": (16, {"warp_range": WARP_R}, {},
+                   {"warp_sample_bounded_forward": SSM_WARPS}),
+    "dain": (1, {}, {"proj_range": PROJ_R, "fill_holes": True},
+             {"flow_projection_bounded": K4_PER_FRAME}),
+    "sepconv": (4, {}, {}, {"sepconv_forward": CALLS}),
+    "cain": (16, {"pad_multiple": 8, "fuse_pad": True}, {}, {})}
+BF16_SERVE_ITERS = 5
+# the 64x64 clip, card vs CPU in bf16: max|card − CPU| within twice
+# max|CPU bf16 − CPU float32| plus BF16_FLOOR of the largest value
+BF16_FLOOR = 1e-5
+BF16_CARD_VS_CPU = ("sepconv", "rrin", "superslomo", "voxelflow", "cain")
+
+
+def bf16_ulp(t):
+    """One bf16 ulp at max|t| (8 significant bits)."""
+    top = t.float().abs().max().item()
+    return 0.0 if top == 0 else 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def bf16_err(got, want, what):
+    """max|got − want|, held within one bf16 ulp of max|want| + 1e-5."""
+    err = (got.float() - want.float()).abs().max().item()
+    lim = bf16_ulp(want) + TOL_ABS
+    check(err <= lim, f"{what}: max|diff| {err:.3e} > {lim:.3e}")
+    return err
+
+
+def bitwise(torch, got, want, what):
+    check(got.dtype == want.dtype and bool(torch.equal(got, want)),
+          f"{what}: not bit for bit ({got.dtype} against {want.dtype}, "
+          f"max|diff| {(got.float() - want.float()).abs().max().item():.3e})")
+
+
+class F32Forbidden:
+    """A loaded kernel library whose float32 entry points ``names`` raise:
+    on a bf16 path K1, K2, K3 and K3-grad must run their bf16
+    instantiations."""
+
+    def __init__(self, lib, names):
+        self._lib, self._names = lib, set(names)
+
+    def __getattr__(self, name):
+        if name in self._names:
+            raise AssertionError(f"the float32 {name} ran on a bf16 path")
+        return getattr(self._lib, name)
+
+
+def bf16_only(sc, wb, fn):
+    """``fn`` with the plain K1/K2 and bounded-sampler versions patched to
+    raise and the float32 entry points of K1, K2, K3 and K3-grad too: on
+    the card a bf16 path runs the bf16 kernels only."""
+    def forbidden(*_args, **_kw):
+        raise AssertionError("a plain sepconv version ran on the card")
+    sc_lib = F32Forbidden(sc._library(), ("sepconv_forward",
+                                          "sepconv_grad_kernels"))
+    wb_lib = F32Forbidden(wb._library(), ("warp_sample_bounded_forward",
+                                          "warp_sample_bounded_grad_grid"))
+    fn = on_library(sc, sc_lib, on_library(wb, wb_lib, fn))
+    fn = with_attr(sc, "sepconv_ref", forbidden,
+                   with_attr(sc, "grad_kernels_ref", forbidden, fn))
+    return plain_warp_forbidden(wb, fn)
+
+
+def bf16_kernel_phase(torch, mods, card):
+    """K1 and K2 in bf16 bit for bit the float32 kernel on the widened
+    inputs, rounded, at every KERNEL_SHAPES entry; K3 and K3-grad in bf16
+    within one bf16 ulp of max + 1e-5 of their plain bf16 versions at every
+    warp_cases() entry (a bf16 grid too); K3-grad² and K4 on bf16 operands
+    bit for bit their float32 kernels on the widened ones, rounded. Each
+    bf16 kernel timed in turns with its float32 instantiation (float32,
+    bf16, bf16, float32) at the main-path shape, beside its plain bf16
+    version, its bound at the bytes it moves and the library's bf16 call.
+    Returns the bf16 kernels' records."""
+    import torch.nn.functional as F
+    sc, wb, fpb = mods
+    bf = torch.bfloat16
+    flops_peak, bw_peak = peaks(card)
+    errs = dict.fromkeys(BF16_KERNELS, 0.0)
+    for n, h, w, f in KERNEL_SHAPES:
+        gen = torch.Generator().manual_seed(n * 100000 + h * 1000 + w + f + 1)
+        inp = torch.rand(n, 3, h + f - 1, w + f - 1, generator=gen).cuda()
+        kv, kh = (torch.randn(n, f, h, w, generator=gen).cuda()
+                  for _ in "vh")
+        g = torch.randn(n, 3, h, w, generator=gen).cuda()
+        b = [t.to(bf) for t in (inp, g, kv, kh)]
+        wide = [t.float() for t in b]
+        what = f"bf16 {n}x{h}x{w} F={f}"
+        out = sc.sepconv_forward(b[0], b[2], b[3])
+        bitwise(torch, out, sc.sepconv_forward(wide[0], wide[2], wide[3]).to(bf),
+                f"K1 {what} against the float32 K1 on widened inputs")
+        errs["sepconv_forward"] = max(errs["sepconv_forward"], bf16_err(
+            out, sc._widened(sc.sepconv_ref, b[0], b[2], b[3]),
+            f"K1 {what} against its plain bf16 version"))
+        got, f32 = sc.sepconv_grad_kernels(*b), sc.sepconv_grad_kernels(*wide)
+        plain = sc._widened(sc.grad_kernels_ref, *b)
+        for part, a, c, p in zip(("gkv", "gkh"), got, f32, plain):
+            bitwise(torch, a, c.to(bf), f"K2 {part} {what} against the float32 K2")
+            errs["sepconv_grad_kernels"] = max(
+                errs["sepconv_grad_kernels"],
+                bf16_err(a, p, f"K2 {part} {what} against its plain bf16 "
+                               f"version"))
+    torch.cuda.synchronize()
+    print(f"[bf16] K1 and K2 in bf16 are bit for bit the float32 kernels on "
+          f"the widened inputs, rounded, at {len(KERNEL_SHAPES)} shapes; "
+          f"max|diff| to their plain bf16 versions K1 "
+          f"{errs['sepconv_forward']:.3e}, K2 "
+          f"{errs['sepconv_grad_kernels']:.3e}")
+    sc_calls = {"sepconv_forward": (
+        lambda: sc.sepconv_forward(*wide[:1], *wide[2:]),
+        lambda: sc.sepconv_forward(b[0], b[2], b[3]),
+        lambda: sc._widened(sc.sepconv_ref, b[0], b[2], b[3]),
+        2 * n * h * w * 3 * f * (f + 1),
+        2 * (n * 3 * (h + f - 1) * (w + f - 1) + 2 * n * f * h * w
+             + n * 3 * h * w), None, "meta_interpolation_tpu/ops/sepconv.py:134"),
+                "sepconv_grad_kernels": (
+        lambda: sc.sepconv_grad_kernels(*wide),
+        lambda: sc.sepconv_grad_kernels(*b),
+        lambda: sc._widened(sc.grad_kernels_ref, *b),
+        2 * n * h * w * f * f * 5,
+        2 * (n * 3 * (h + f - 1) * (w + f - 1) + n * 3 * h * w
+             + 4 * n * f * h * w), None,
+        "meta_interpolation_tpu/ops/sepconv.py:233")}
+    sc_shape = f"in {n}x3x{h + f - 1}x{w + f - 1}, maps {n}x{f}x{h}x{w}, bf16"
+
+    # K3 / K3-grad at every warp case in bf16 (the grid float32; every
+    # fourth case a bf16 grid), K3-grad² bit for bit its widened call
+    cases = warp_cases()
+    for i, case in enumerate(cases):
+        n, c, h, w, lo, hi, kind, r, align, padding = case
+        seed = h * 1000 + w + hi + 17 * r + 3 * align + 1
+        gen = torch.Generator().manual_seed(seed)
+        img = torch.rand(n, c, h, w, generator=gen).cuda().to(bf)
+        g = torch.randn(n, c, h, w, generator=gen).cuda().to(bf)
+        v = torch.randn(n, h, w, 2, generator=gen).cuda()
+        grid = warp_grid(torch, kind, n, h, w, lo, hi, align, seed).cuda()
+        if i % 4 == 3:
+            grid = grid.to(bf)
+        opts = (r, align, padding)
+        what = (f"bf16 {n}x{c}x{h}x{w} {kind}, R={r}, align_corners={align},"
+                f" {padding}, {grid.dtype} grid")
+        out = wb.warp_sample_bounded_forward(img, grid, *opts)
+        check(out.dtype == bf, f"K3 {what}: {out.dtype} out")
+        errs["warp_sample_bounded_forward"] = max(
+            errs["warp_sample_bounded_forward"],
+            bf16_err(out, wb.grid_sample_bounded_ref(img, grid, *opts),
+                     f"K3 {what}"))
+        ggrid = wb.warp_sample_bounded_grad_grid(img, grid, g, *opts)
+        check(ggrid.dtype == grid.dtype, f"K3-grad {what}: {ggrid.dtype}")
+        errs["warp_sample_bounded_grad_grid"] = max(
+            errs["warp_sample_bounded_grad_grid"],
+            bf16_err(ggrid, wb.grid_sample_bounded_grad_grid_ref(
+                img, grid, g, *opts), f"K3-grad {what}"))
+        gg, gv = wb.warp_sample_bounded_grad_grid_backward(img, grid, g, v,
+                                                           *opts)
+        wgg, wgv = wb.warp_sample_bounded_grad_grid_backward(
+            img.float(), grid.float(), g.float(), v, *opts)
+        bitwise(torch, gg, wgg.to(bf), f"K3-grad² gg {what}")
+        bitwise(torch, gv, wgv.to(grid.dtype), f"K3-grad² grid {what}")
+    torch.cuda.synchronize()
+    print(f"[bf16] K3 and K3-grad in bf16 agree with their plain bf16 "
+          f"versions within one bf16 ulp of max + {TOL_ABS:g} at "
+          f"{len(cases)} cases (max|diff| K3 "
+          f"{errs['warp_sample_bounded_forward']:.3e}, K3-grad "
+          f"{errs['warp_sample_bounded_grad_grid']:.3e}); K3-grad² on bf16 "
+          f"operands is its float32 kernel on the widened ones, rounded")
+    n, c, (h, w), r = 1, 3, WARP_SHAPES[-1][:2], WARP_R
+    gen = torch.Generator().manual_seed(5)
+    img = torch.rand(n, c, h, w, generator=gen).cuda()
+    g = torch.randn(n, c, h, w, generator=gen).cuda()
+    grid = warp_grid(torch, "library", n, h, w, -r, r - 2, False, 6).cuda()
+    img_b, g_b, grid_b = img.to(bf), g.to(bf), grid.to(bf)
+    opts = (r, False, "zeros")
+    pixels = n * h * w
+    wb_calls = {"warp_sample_bounded_forward": (
+        lambda: wb.warp_sample_bounded_forward(img, grid, *opts),
+        lambda: wb.warp_sample_bounded_forward(img_b, grid, *opts),
+        lambda: wb.grid_sample_bounded_ref(img_b, grid, *opts),
+        pixels * (40 + 7 * c), pixels * (8 + 4 * c),
+        lambda: F.grid_sample(img_b, grid_b, mode="bilinear",
+                              padding_mode="zeros", align_corners=False),
+        "meta_interpolation_tpu/ops/warp_pallas.py:86"),
+                "warp_sample_bounded_grad_grid": (
+        lambda: wb.warp_sample_bounded_grad_grid(img, grid, g, *opts),
+        lambda: wb.warp_sample_bounded_grad_grid(img_b, grid, g_b, *opts),
+        lambda: wb.grid_sample_bounded_grad_grid_ref(img_b, grid, g_b,
+                                                     *opts),
+        pixels * (50 + 16 * c), pixels * (16 + 4 * c),
+        lambda: torch.ops.aten.grid_sampler_2d_backward(
+            g_b, img_b, grid_b, 0, 0, False, [False, True])[1],
+        "meta_interpolation_tpu/ops/warp.py:310")}
+    wb_shape = (f"img {n}x{c}x{h}x{w} bf16, grid {n}x{h}x{w}x2 float32, "
+                f"R={r}, zeros, align_corners=False (library: the grid "
+                f"rounded to bf16)")
+
+    # K4 on a bf16 flow and depth: its float32 kernel on the widened ones
+    for n, h, w, r, kind, span in PROJ_CASES[:3]:
+        flow = proj_flow(torch, kind, n, h, w, span, 21).cuda().to(bf)
+        depth = (torch.rand(n, h, w, 1, generator=torch.Generator()
+                            .manual_seed(22)) + 0.5).cuda().to(bf)
+        proj, cnt = fpb.flow_projection_bounded(flow, depth, r)
+        wproj, wcnt = fpb.flow_projection_bounded(flow.float(), depth.float(),
+                                                  r)
+        bitwise(torch, proj, wproj.to(bf), f"K4 bf16 {n}x{h}x{w} {kind} proj")
+        bitwise(torch, cnt, wcnt.to(bf), f"K4 bf16 {n}x{h}x{w} {kind} cnt")
+    print(f"[bf16] K4 on bf16 flows is its float32 kernel on the widened "
+          f"ones, rounded, at {len(PROJ_CASES[:3])} cases")
+
+    records = []
+    for name, (f32_fn, fn, plain, ops, nbytes, lib, line) in {
+            **sc_calls, **wb_calls}.items():
+        f32_ms, bf16_ms = in_turns(torch, (f32_fn, fn))
+        ms = statistics.median(bf16_ms)
+        plain_ms = time_ms(torch, plain)
+        library_ms = None if lib is None else time_ms(torch, lib)
+        t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+        bound = max(t_ops, t_bytes)
+        sepconv = name.startswith("sepconv")
+        records.append({
+            "name": f"{name}_bf16", "route": "cuda",
+            "source": f"{PACKAGE}/csrc/{'sepconv' if sepconv else 'warp'}.cu",
+            "replaces": line, "launches": None, "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, "float32_ms_in_turns": f32_ms,
+            "bf16_ms_in_turns": bf16_ms,
+            "shape": sc_shape if sepconv else wb_shape,
+            "gflop": ops / 1e9, "mbytes": nbytes / 1e6})
+        print(f"[bf16] {name} bf16: {ms:.4f} ms, in turns (float32, bf16, "
+              f"bf16, float32) float32 {f32_ms[0]:.4f}, {f32_ms[1]:.4f} ms, "
+              f"bf16 {bf16_ms[0]:.4f}, {bf16_ms[1]:.4f} ms (plain bf16 "
+              f"{plain_ms:.4f} ms, bound {bound:.6f} ms by "
+              f"{records[-1]['bound_by']} at the bf16 bytes, "
+              f"{bound / ms:.3f} of it reached; library "
+              + ("none" if library_ms is None else f"{library_ms:.4f} ms")
+              + f"; {card})")
+    return records
+
+
+def bf16_systems(flags, state=None):
+    """The system of ``flags`` in float32 and in bf16, on the card."""
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    systems = {}
+    for dtype in ("float32", "bfloat16"):
+        systems[dtype] = SceneAdaptiveInterpolation(
+            get_args(flags + ["--dtype", dtype]))
+        if state is not None:
+            systems[dtype].load_net(state)
+    return systems
+
+
+def bf16_turns(torch, mods, sc, wb, runs, want, what, reps=1):
+    """``runs`` {dtype: fn} after one warm-up each (peak memory), then in
+    turns (float32, bf16, bf16, float32) ``reps`` times; every run's
+    launches held to ``want``, the bf16 runs with bf16_only. Returns
+    ({dtype: seconds}, {dtype: peak GiB}, {dtype: last result})."""
+    runs = {"float32": runs["float32"],
+            "bfloat16": bf16_only(sc, wb, runs["bfloat16"])}
+    peak, out = {}, {}
+    for dtype, run in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak[dtype] = torch.cuda.max_memory_allocated() / 2**30
+    times = {dtype: [] for dtype in runs}
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32") * reps:
+        reset_launches(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[dtype] = runs[dtype]()
+        torch.cuda.synchronize()
+        times[dtype].append(time.perf_counter() - t0)
+        got = launch_counts(mods)
+        full = {k: want.get(k, 0) for k in got}
+        check(got == full, f"{what} {dtype}: launches {got}, want {full}")
+    return times, peak, out, runs
+
+
+def bf16_eval_phase(torch, mods, card, dain_state):
+    """Each preset's 256x448 evaluation episode in float32 and in bf16, in
+    turns: seconds, PSNR of the same clip, peak memory, launches (the same
+    in both), a profile of the bf16 one. Returns the bf16 launches by
+    path."""
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    sc, wb, _ = mods
+    paths = {}
+    for model, (flags, per_clip) in BF16_EVAL.items():
+        systems = bf16_systems(flags, dain_state if model == "dain" else None)
+        frames = SyntheticSeptuplet(model=model, mode="val",
+                                    size=FULL_HW)[0][0][None]
+        runs = {dtype: (lambda s=s: s.run_validation_iter(frames))
+                for dtype, s in systems.items()}
+        times, peak, out, runs = bf16_turns(
+            torch, mods, sc, wb, runs, per_clip,
+            f"{model} {FULL_HW} episode", reps=2)
+        for dtype, (losses, preds) in out.items():
+            check(tuple(preds.shape) == (1, 3) + FULL_HW
+                  and preds.dtype == torch.float32
+                  and bool(torch.isfinite(preds).all())
+                  and math.isfinite(losses["psnr"]),
+                  f"{model} {dtype} episode output: {losses}")
+        diff = (out["bfloat16"][1] - out["float32"][1]).abs().max().item()
+        for dtype in times:
+            print(f"[bf16] {model} {FULL_HW[0]}x{FULL_HW[1]} episode "
+                  f"{dtype} ({card}): median "
+                  f"{statistics.median(times[dtype]):.4f} s over "
+                  f"{len(times[dtype])} in turns (all "
+                  f"{[round(t, 4) for t in times[dtype]]}), PSNR "
+                  f"{out[dtype][0]['psnr']:.4f} dB, peak memory "
+                  f"{peak[dtype]:.2f} GiB, launches a clip {per_clip}")
+        # the float32 episode's profile is its own phase's
+        profile_episode(torch, runs["bfloat16"], f"{model} episode bfloat16",
+                        None)
+        print(f"[bf16] {model} episode: max|pred bf16 − float32| "
+              f"{diff:.3e}, PSNR bf16 − float32 "
+              f"{out['bfloat16'][0]['psnr'] - out['float32'][0]['psnr']:+.4f}"
+              f" dB")
+        paths[f"bf16_{model}_eval"] = dict(per_clip)
+        del systems, runs, out
+        torch.cuda.empty_cache()
+    return paths
+
+
+def bf16_train_phase(torch, mods, card, dain_state):
+    """Each preset's first-order train iteration at its batch on 256x256
+    crops, float32 and bf16 in turns (after a warm-up each): seconds, peak
+    memory, launches (the same in both; not profiled: CAIN's 2e5 device
+    ops take the profiler minutes); the meta-parameters, rates and
+    optimizer state stay float32. Then one
+    second-order bf16 VoxelFlow iteration at batch 1 (K3-grad² on widened
+    operands). Returns the bf16 launches by path."""
+    import numpy as np
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    sc, wb, _ = mods
+    paths = {}
+    for model, (flags, batch, per_iter) in BF16_TRAIN.items():
+        clips = SyntheticSeptuplet(model=model, mode="train",
+                                   size=(CLI_CROP, CLI_CROP))
+        frames = np.stack([clips[i][0] for i in range(batch)])
+        systems = bf16_systems(flags, dain_state if model == "dain" else None)
+        runs = {dtype: (lambda s=s: s.run_train_iter(frames, 0))
+                for dtype, s in systems.items()}
+        times, peak, out, runs = bf16_turns(
+            torch, mods, sc, wb, runs, per_iter,
+            f"{model} train iteration, batch {batch}")
+        for dtype, (losses, preds) in out.items():
+            check(all(math.isfinite(v) for v in losses.values())
+                  and bool(torch.isfinite(preds).all()),
+                  f"{model} {dtype} train iteration: {losses}")
+        masters = {v.dtype for tree in systems["bfloat16"].meta_params.values()
+                   for v in tree.values()}
+        moments = {v.dtype for st in systems["bfloat16"].outer_opt.state
+                   .values() for v in st.values() if torch.is_tensor(v)
+                   and v.is_floating_point()}
+        check(masters == {torch.float32} and moments <= {torch.float32},
+              f"{model} bf16 meta-parameters {masters}, optimizer {moments}")
+        for dtype in times:
+            print(f"[bf16] {model} train iteration {dtype}, batch {batch}, "
+                  f"{CLI_CROP}x{CLI_CROP} ({card}): median "
+                  f"{statistics.median(times[dtype]):.4f} s over "
+                  f"{len(times[dtype])} in turns (all "
+                  f"{[round(t, 4) for t in times[dtype]]}), loss "
+                  f"{out[dtype][0]['loss']:.4f}, peak memory "
+                  f"{peak[dtype]:.2f} GiB, launches an iteration {per_iter}")
+        paths[f"bf16_{model}_train"] = dict(per_iter)
+        del systems, runs, out
+        torch.cuda.empty_cache()
+
+    flags, _, steps, warps = WARP_TRAIN["voxelflow"]
+    system = SceneAdaptiveInterpolation(get_args(
+        flags + BF16 + ["--batch_size", "1", "--second_order"]))
+    frames = SyntheticSeptuplet(model="voxelflow", mode="train",
+                                size=(CLI_CROP, CLI_CROP))[0][0][None]
+    run = bf16_only(sc, wb, lambda: system.run_train_iter(frames, 0))
+    run()
+    reset_launches(mods)
+    times = timed_iters(torch, run, 1, warmup=0)
+    got = launch_counts(mods)
+    want = {k: train_launches(steps, warps, True).get(k, 0) for k in got}
+    check(got == want, f"voxelflow bf16 second order: {got}, want {want}")
+    print(f"[bf16] voxelflow second-order train iteration bf16, batch 1 "
+          f"({card}): {times[0]:.4f} s, launches {got}")
+    paths["bf16_voxelflow_train_second_order"] = got
+    return paths
+
+
+def bf16_card_vs_cpu_phase(torch):
+    """A 64x64 clip of each BF16_CARD_VS_CPU preset in bf16 on the card
+    against the same clip on the CPU: max|card − CPU| of the prediction
+    within twice the CPU's own max|bf16 − float32| plus BF16_FLOOR of the
+    largest value, the loss likewise."""
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    for model in BF16_CARD_VS_CPU:
+        flags = BF16_EVAL[model][0]
+        clip = SyntheticSeptuplet(model=model, mode="val",
+                                  size=SMALL_HW)[0][0][None]
+        res = {}
+        for dev, dtype in (("cuda", "bfloat16"), ("cpu", "bfloat16"),
+                           ("cpu", "float32")):
+            system = SceneAdaptiveInterpolation(
+                get_args(flags + ["--dtype", dtype]), device=dev)
+            losses, preds = system.run_validation_iter(clip)
+            res[dev, dtype] = (losses["loss"], preds.cpu())
+        card, cpu, f32 = (res[k] for k in (("cuda", "bfloat16"),
+                                           ("cpu", "bfloat16"),
+                                           ("cpu", "float32")))
+        diff = (card[1] - cpu[1]).abs().max().item()
+        gap = (cpu[1] - f32[1]).abs().max().item()
+        lim = 2 * gap + BF16_FLOOR * cpu[1].abs().max().item()
+        loss_lim = 2 * abs(cpu[0] - f32[0]) + BF16_FLOOR * abs(cpu[0])
+        check(diff <= lim and abs(card[0] - cpu[0]) <= loss_lim,
+              f"{model} bf16 card vs CPU: pred {diff:.3e} > {lim:.3e} or "
+              f"loss {abs(card[0] - cpu[0]):.3e} > {loss_lim:.3e}")
+        print(f"[bf16] {model} {SMALL_HW[0]}x{SMALL_HW[1]} clip, bf16 card "
+              f"vs CPU: max|pred diff| {diff:.3e} (limit {lim:.3e}: the "
+              f"CPU's bf16 − float32 {gap:.3e}), loss {card[0]:.6f} vs "
+              f"{cpu[0]:.6f} (float32 {f32[0]:.6f})")
+
+
+def bf16_serve_phase(torch, mods, card, dain_state):
+    """bench.py's serving forwards: each model with every weight in bf16
+    at its batch and options on 256x448 frames, frames a second over
+    BF16_SERVE_ITERS forwards in turns with the same model in float32
+    (float32, bf16, bf16, float32), launches a forward held (bf16: the
+    bf16 kernels only). Returns the bf16 launches by path."""
+    import copy
+    sc, wb, _ = mods
+    paths = {}
+    for model, (batch, kwargs, fwd_kw, per_fwd) in BF16_SERVE.items():
+        gen = torch.Generator().manual_seed(DAIN_SEED)
+        net = serve_model(model, gen, kwargs)
+        if model == "dain":
+            net.load_state_dict(dain_state)
+        nets = {"float32": net.cuda().eval(),
+                "bfloat16": copy.deepcopy(net).to(torch.bfloat16)}
+        gen = torch.Generator().manual_seed(0)
+        f0, f1 = (torch.rand(batch, 3, *FULL_HW, generator=gen).cuda()
+                  for _ in "01")
+        types = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+        def serve(dtype):
+            def run():
+                with torch.no_grad():
+                    for _ in range(BF16_SERVE_ITERS):
+                        out = nets[dtype](f0.to(types[dtype]),
+                                          f1.to(types[dtype]), **fwd_kw)
+                return out[0] if isinstance(out, tuple) else out
+            return run
+        want = {k: v * BF16_SERVE_ITERS for k, v in per_fwd.items()}
+        times, peak, out, _ = bf16_turns(
+            torch, mods, sc, wb, {d: serve(d) for d in nets}, want,
+            f"{model} served batch {batch}")
+        for dtype, pred in out.items():
+            check(tuple(pred.shape) == (batch, 3) + FULL_HW
+                  and pred.dtype == types[dtype]
+                  and bool(torch.isfinite(pred).all()),
+                  f"{model} served {dtype}: {pred.shape} {pred.dtype}")
+        diff = (out["bfloat16"].float() - out["float32"]).abs().max().item()
+        fps = {d: [batch * BF16_SERVE_ITERS / t for t in ts]
+               for d, ts in times.items()}
+        print(f"[bf16] {model} served at batch {batch}, {FULL_HW[0]}x"
+              f"{FULL_HW[1]}, {kwargs or fwd_kw or 'no options'} ({card}): "
+              f"bf16 {statistics.median(fps['bfloat16']):.2f} frames/s "
+              f"(all {[round(x, 2) for x in fps['bfloat16']]}), float32 "
+              f"{statistics.median(fps['float32']):.2f} "
+              f"(all {[round(x, 2) for x in fps['float32']]}), peak memory "
+              f"bf16 {peak['bfloat16']:.2f} GiB, float32 "
+              f"{peak['float32']:.2f} GiB, max|bf16 − float32| {diff:.3e}, "
+              f"launches a forward {per_fwd}")
+        if per_fwd:
+            paths[f"bf16_{model}_serve"] = want
+        del nets, out
+        torch.cuda.empty_cache()
+    return paths
+
+
+def serve_model(model, gen, kwargs):
+    """The port's ``model`` built as bench.py serves it."""
+    from meta_interpolation_tpu_torch.models import cain, rrin, sepconv
+    from meta_interpolation_tpu_torch.models import superslomo, voxelflow
+    from meta_interpolation_tpu_torch.models.dain.model import DAIN
+    cls = {"rrin": rrin.RRIN, "voxelflow": voxelflow.VoxelFlow,
+           "superslomo": superslomo.SuperSloMo, "dain": DAIN,
+           "sepconv": sepconv.SepConv, "cain": cain.CAIN}[model]
+    return cls(gen, **kwargs)
+
+
+def bf16_phase(torch, mods, card):
+    """--dtype bfloat16 on every preset's main paths and bench.py's
+    serving forwards. Returns the bf16 launches by path."""
+    dain_state = {k: v.detach().cpu()
+                  for k, v in dain_weights(torch).state_dict().items()}
+    paths = timed("bf16_eval", bf16_eval_phase, torch, mods, card, dain_state)
+    paths.update(timed("bf16_train", bf16_train_phase, torch, mods, card,
+                       dain_state))
+    paths.update(timed("bf16_serve", bf16_serve_phase, torch, mods, card,
+                       dain_state))
+    timed("bf16_card_vs_cpu", bf16_card_vs_cpu_phase, torch)
+    return paths
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--earlier-sepconv", metavar="PATH",
@@ -3164,6 +3782,8 @@ def main():
                + timed("projection_kernel", projection_kernel_phase, torch,
                        fpb, card, k4_resources, earlier_k4))
     mods = (sc, wb, fpb)
+    bf16_records = timed("bf16_kernels", bf16_kernel_phase, torch, mods,
+                         card)
     timed("sepconv", main_path_phase, torch, mods, libs.get("sepconv"))
     sepconv_launches = timed("sepconv_train", train_phase, torch, mods, sc,
                              card)
@@ -3181,6 +3801,7 @@ def main():
     timed("cain_train", cain_train_phase, torch, mods, card)
     test_launches = timed("test_mode", test_mode_phase, torch, mods)
     engine_paths = timed("engine", engine_phase, torch, mods, wb, card)
+    bf16_paths = timed("bf16", bf16_phase, torch, mods, card)
     # each kernel's launches on the main paths that run it, each read on
     # its own: K1 and K2 on two; K3 and K3-grad on the three evaluation
     # CLIs and the six training paths of the warp models; K3-grad² on their
@@ -3206,6 +3827,16 @@ def main():
                **{k: {"dain_served": dain_launches[k]} for k in KERNELS[5:]}}
     check([rec["name"] for rec in records] == list(KERNELS),
           f"kernel records {[rec['name'] for rec in records]}")
+    # the bf16 paths: K1, K2, K3 and K3-grad in their bf16 instantiations
+    # (records of their own), K3-grad² and K4 widened in their wrappers
+    for k in KERNELS[4:]:
+        by_path[k].update({path: counts[k] for path, counts in
+                           bf16_paths.items() if counts.get(k)})
+    for rec in bf16_records:
+        base = rec["name"][:-len("_bf16")]
+        by_path[rec["name"]] = {path: counts[base] for path, counts in
+                                bf16_paths.items() if counts.get(base)}
+    records += bf16_records
     for rec in records:
         rec["launches_by_path"] = by_path[rec["name"]]
         rec["launches"] = sum(by_path[rec["name"]].values())

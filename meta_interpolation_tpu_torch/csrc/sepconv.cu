@@ -3,7 +3,17 @@
 //   out(n, c, y, x) = sum_k sum_l in(n, c, y+k, x+l) * kv(n, k, y, x) * kh(n, l, y, x)
 //
 // Layouts are the model's natural NCHW: in (N, C, H+F-1, W+F-1), kv/kh
-// (N, F, H, W), out (N, C, H, W), all float32 and contiguous.
+// (N, F, H, W), out (N, C, H, W), all contiguous and of one storage type:
+// float32, or bfloat16 (--dtype bfloat16). Both kernels are templates on
+// that type T. A bf16 value is widened to float where it is read (the
+// halo as it is staged, the taps and g as they are loaded), every sum runs
+// in float32 in the same order as for float32, and each output is rounded
+// once to bf16 (round to nearest even) where it is stored. So the bf16
+// instantiation gives, bit for bit, the float32 kernel's result on the
+// widened inputs, rounded: what the TPU kernels do for bf16
+// (meta_interpolation_tpu/ops/sepconv.py:139-143, :237-241 upcast, run in
+// f32 and cast back). The float32 instantiation converts nothing.
+// A bf16 call moves half the bytes; the operation count is the same.
 //
 // sepconv_forward replaces the TPU forward kernel
 // meta_interpolation_tpu/ops/sepconv.py:134 (_pallas_forward / _fwd_kernel).
@@ -75,7 +85,10 @@
 //
 // Times on the card, and the designs tried: PERF.md, section 6.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -92,6 +105,17 @@ constexpr int kP2 = 2;  // gradient: pixels a strip, so 16x8 tiles
 constexpr int kRows1 = kP1 * kWarps;  // pixel rows a block
 constexpr int kRows2 = kP2 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
+
+// A value of the storage type, widened to float through the read-only path.
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+// A float sum stored in the storage type, rounded to nearest even.
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {
@@ -110,19 +134,26 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // one 64-bit load reads both, then channel 2, (th, kTW). Columns past the
 // halo (col >= kTileW + f - 1) and positions past the input edge read as
 // 0: they meet only taps of weight 0 or pixels that are never written.
-__device__ __forceinline__ void stage(float* tile, const float* in_n, int hp,
+// float32 copies with cp.async; bf16 is widened by the threads, a plain
+// load and a float store each, since cp.async copies bytes unchanged.
+template <typename T>
+__device__ __forceinline__ void stage(float* tile, const T* in_n, int hp,
                                       int wp, int th, int f, int y0, int x0) {
   const int plane = th * kTW;
   const int halo_w = kTileW + f - 1;
   for (int c = 0; c < kC; ++c) {
-    const float* in_c = in_n + static_cast<size_t>(c) * hp * wp;
+    const T* in_c = in_n + static_cast<size_t>(c) * hp * wp;
     for (int i = threadIdx.x; i < plane; i += kThreads) {
       const int r = i / kTW, col = i - r * kTW;
       const int gy = y0 + r, gx = x0 + col;
       const bool valid = col < halo_w && gy < hp && gx < wp;
-      cp_async4(c < 2 ? tile + 2 * i + c : tile + 2 * plane + i,
-                valid ? in_c + static_cast<size_t>(gy) * wp + gx : in_c,
-                valid);
+      float* dst = c < 2 ? tile + 2 * i + c : tile + 2 * plane + i;
+      if constexpr (std::is_same<T, float>::value) {
+        cp_async4(dst, valid ? in_c + static_cast<size_t>(gy) * wp + gx : in_c,
+                  valid);
+      } else {
+        *dst = valid ? ld(in_c + static_cast<size_t>(gy) * wp + gx) : 0.f;
+      }
     }
   }
 }
@@ -130,15 +161,15 @@ __device__ __forceinline__ void stage(float* tile, const float* in_n, int hp,
 // The vertical taps of row r for the strip's pixels: kv_j(r - j), or 0
 // outside pixel j's band or the map. kv_r points at plane r of pixel 0;
 // plane r - j of pixel j is dj = w - h*w further (a row down, j planes up).
-template <int kP>
-__device__ __forceinline__ void load_kv(const float* kv_r, long long dj,
+template <int kP, typename T>
+__device__ __forceinline__ void load_kv(const T* kv_r, long long dj,
                                         int r, int f,
                                         const bool (&in_map)[kP],
                                         float (&wv)[kP]) {
 #pragma unroll
   for (int j = 0; j < kP; ++j) {
     const bool band = static_cast<unsigned>(r - j) < static_cast<unsigned>(f);
-    wv[j] = in_map[j] && band ? __ldg(kv_r + j * dj) : 0.f;
+    wv[j] = in_map[j] && band ? ld(kv_r + j * dj) : 0.f;
   }
 }
 
@@ -173,9 +204,10 @@ __device__ __forceinline__ void fwd_row(const float* t, const float* t2,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
-sepconv_fwd_kernel(const float* __restrict__ inp, const float* __restrict__ kv,
-                   const float* __restrict__ kh, float* __restrict__ out,
+sepconv_fwd_kernel(const T* __restrict__ inp, const T* __restrict__ kv,
+                   const T* __restrict__ kh, T* __restrict__ out,
                    int h, int w, int f) {
   extern __shared__ float tile[];  // see stage()
   const int hp = h + f - 1, wp = w + f - 1, th = kRows1 + f - 1;
@@ -204,10 +236,10 @@ sepconv_fwd_kernel(const float* __restrict__ inp, const float* __restrict__ kv,
     for (int i = 0; i < kNT; ++i) {
       const int l = s + kS * i;
       khr[j][i] =
-          in_map[j] && l < f ? __ldg(kh + map0 + l * hw + j * w) : 0.f;
+          in_map[j] && l < f ? ld(kh + map0 + l * hw + j * w) : 0.f;
     }
   }
-  const float* kv_r = kv + map0;  // plane r of pixel 0
+  const T* kv_r = kv + map0;  // plane r of pixel 0
   float wn[kP1];
   load_kv(kv_r, dj, 0, f, in_map, wn);
   cp_async_wait_all();
@@ -236,14 +268,14 @@ sepconv_fwd_kernel(const float* __restrict__ inp, const float* __restrict__ kv,
   }
 
   // the two lanes' sums over their taps; lane s stores pixels j = s mod 2
-  float* out_p = out + static_cast<size_t>(n) * kC * hw +
+  T* out_p = out + static_cast<size_t>(n) * kC * hw +
                  static_cast<size_t>(y) * w + x;
 #pragma unroll
   for (int j = 0; j < kP1; ++j) {
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
       const float sum = acc[j][c] + __shfl_xor_sync(kFull, acc[j][c], 1);
-      if ((j & 1) == s && in_map[j]) out_p[c * hw + j * w] = sum;
+      if ((j & 1) == s && in_map[j]) st(out_p + c * hw + j * w, sum);
     }
   }
 }
@@ -278,12 +310,13 @@ __device__ __forceinline__ void grad_row(const float* t, const float* t2,
   for (int j = 0; j < kP2; ++j) gkv_row[j] = part[j];
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
-sepconv_grad_kernels_kernel(const float* __restrict__ inp,
-                            const float* __restrict__ g,
-                            const float* __restrict__ kv,
-                            const float* __restrict__ kh,
-                            float* __restrict__ gkv, float* __restrict__ gkh,
+sepconv_grad_kernels_kernel(const T* __restrict__ inp,
+                            const T* __restrict__ g,
+                            const T* __restrict__ kv,
+                            const T* __restrict__ kh,
+                            T* __restrict__ gkv, T* __restrict__ gkh,
                             int h, int w, int f) {
   extern __shared__ float tile[];  // see stage()
   const int hp = h + f - 1, wp = w + f - 1, th = kRows2 + f - 1;
@@ -308,8 +341,8 @@ sepconv_grad_kernels_kernel(const float* __restrict__ inp,
   for (int j = 0; j < kP2; ++j) {
 #pragma unroll
     for (int c = 0; c < kC; ++c)
-      gr[j][c] = in_map[j] ? __ldg(g + static_cast<size_t>(n) * kC * hw +
-                                   c * hw + pix + j * w)
+      gr[j][c] = in_map[j] ? ld(g + static_cast<size_t>(n) * kC * hw +
+                                c * hw + pix + j * w)
                            : 0.f;
   }
   float khr[kP2][kNT], gkh_acc[kP2][kNT] = {};
@@ -319,10 +352,10 @@ sepconv_grad_kernels_kernel(const float* __restrict__ inp,
     for (int i = 0; i < kNT; ++i) {
       const int l = s + kS * i;
       khr[j][i] =
-          in_map[j] && l < f ? __ldg(kh + map0 + l * hw + j * w) : 0.f;
+          in_map[j] && l < f ? ld(kh + map0 + l * hw + j * w) : 0.f;
     }
   }
-  const float* kv_r = kv + map0;  // plane r of pixel 0
+  const T* kv_r = kv + map0;  // plane r of pixel 0
   float wn[kP2];
   load_kv(kv_r, dj, 0, f, in_map, wn);
   cp_async_wait_all();
@@ -349,11 +382,11 @@ sepconv_grad_kernels_kernel(const float* __restrict__ inp,
       grad_row<true>(t, t2, gr, khr, gkh_acc, wv, band, gkv_row);
     // gkv_j(r - j), at the same offset as kv_j(r - j): the two lanes'
     // partials; lane s stores pixels j = s mod 2
-    float* gkv_r = gkv + (kv_r - kv);
+    T* gkv_r = gkv + (kv_r - kv);
 #pragma unroll
     for (int j = 0; j < kP2; ++j) {
       const float sum = gkv_row[j] + __shfl_xor_sync(kFull, gkv_row[j], 1);
-      if ((j & 1) == s && in_map[j] && band[j]) gkv_r[j * dj] = sum;
+      if ((j & 1) == s && in_map[j] && band[j]) st(gkv_r + j * dj, sum);
     }
     kv_r += hw;
   }
@@ -363,7 +396,7 @@ sepconv_grad_kernels_kernel(const float* __restrict__ inp,
 #pragma unroll
     for (int i = 0; i < kNT; ++i) {
       const int l = s + kS * i;
-      if (in_map[j] && l < f) gkh[map0 + l * hw + j * w] = gkh_acc[j][i];
+      if (in_map[j] && l < f) st(gkh + map0 + l * hw + j * w, gkh_acc[j][i]);
     }
   }
 }
@@ -386,35 +419,63 @@ cudaError_t prepare(Kernel kernel, int rows, int n, int c, int h, int w,
                               cudaSharedmemCarveoutMaxShared);
 }
 
+template <typename T>
+int forward(const T* inp, const T* kv, const T* kh, T* out, int n, int c,
+            int h, int w, int f, void* stream) {
+  dim3 grid;
+  size_t smem;
+  cudaError_t err = prepare(sepconv_fwd_kernel<T>, kRows1, n, c, h, w, f,
+                            &grid, &smem);
+  if (err != cudaSuccess) return err;
+  sepconv_fwd_kernel<T><<<grid, kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(inp, kv, kh,
+                                                               out, h, w, f);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int grad_kernels(const T* inp, const T* g, const T* kv, const T* kh, T* gkv,
+                 T* gkh, int n, int c, int h, int w, int f, void* stream) {
+  dim3 grid;
+  size_t smem;
+  cudaError_t err = prepare(sepconv_grad_kernels_kernel<T>, kRows2, n, c, h,
+                            w, f, &grid, &smem);
+  if (err != cudaSuccess) return err;
+  sepconv_grad_kernels_kernel<T><<<grid, kThreads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      inp, g, kv, kh, gkv, gkh, h, w, f);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Both entry points launch on `stream`, do not synchronise, and return the
-// launch status (cudaGetLastError) as an int: 0 is success.
+// The entry points launch on `stream`, do not synchronise, and return the
+// launch status (cudaGetLastError) as an int: 0 is success. The _bf16
+// ones take every tensor in bfloat16.
 extern "C" int sepconv_forward(const float* inp, const float* kv,
                                const float* kh, float* out, int n, int c,
                                int h, int w, int f, void* stream) {
-  dim3 grid;
-  size_t smem;
-  cudaError_t err = prepare(sepconv_fwd_kernel, kRows1, n, c, h, w, f,
-                            &grid, &smem);
-  if (err != cudaSuccess) return err;
-  sepconv_fwd_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(inp, kv, kh, out,
-                                                            h, w, f);
-  return cudaGetLastError();
+  return forward(inp, kv, kh, out, n, c, h, w, f, stream);
+}
+
+extern "C" int sepconv_forward_bf16(const __nv_bfloat16* inp,
+                                    const __nv_bfloat16* kv,
+                                    const __nv_bfloat16* kh,
+                                    __nv_bfloat16* out, int n, int c, int h,
+                                    int w, int f, void* stream) {
+  return forward(inp, kv, kh, out, n, c, h, w, f, stream);
 }
 
 extern "C" int sepconv_grad_kernels(const float* inp, const float* g,
                                     const float* kv, const float* kh,
                                     float* gkv, float* gkh, int n, int c,
                                     int h, int w, int f, void* stream) {
-  dim3 grid;
-  size_t smem;
-  cudaError_t err = prepare(sepconv_grad_kernels_kernel, kRows2, n, c, h, w,
-                            f, &grid, &smem);
-  if (err != cudaSuccess) return err;
-  sepconv_grad_kernels_kernel<<<grid, kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      inp, g, kv, kh, gkv, gkh, h, w, f);
-  return cudaGetLastError();
+  return grad_kernels(inp, g, kv, kh, gkv, gkh, n, c, h, w, f, stream);
+}
+
+extern "C" int sepconv_grad_kernels_bf16(
+    const __nv_bfloat16* inp, const __nv_bfloat16* g,
+    const __nv_bfloat16* kv, const __nv_bfloat16* kh, __nv_bfloat16* gkv,
+    __nv_bfloat16* gkh, int n, int c, int h, int w, int f, void* stream) {
+  return grad_kernels(inp, g, kv, kh, gkv, gkh, n, c, h, w, f, stream);
 }

@@ -4,7 +4,17 @@
 //
 // Layouts: img and out (N, C, H, W) float32; grid and ggrid (N, H, W, 2)
 // float32 with (gx, gy) last, as F.grid_sample takes them; g (N, C, H, W);
-// all contiguous. Per output pixel (n, y, x) and axis (x shown):
+// all contiguous. The forward and the grid gradient also take img, out and
+// g in bfloat16 (the _bf16 entry points, --dtype bfloat16); the grid and
+// its gradient stay float32, as the TPU path keeps its coordinate math in
+// f32 (meta_interpolation_tpu/ops/warp.py:33-37). In bf16 the kernels
+// widen every image and g value to float, sum in float32, and round where
+// the TPU path rounds: the fractions fx, fy to bf16 before the taps
+// (ops/warp.py:242-243), the tap sum once (warp_pallas.py:99-103: the
+// kernel runs in f32 and is cast back), and with zeros padding the mass to
+// bf16 and the product to bf16 (ops/warp.py:270). The gradient uses the
+// same rounded fractions and sums in float32. The float32 instantiations
+// round nothing. Per output pixel (n, y, x) and axis (x shown):
 //
 //   ix = ((gx + 1) W - 1) / 2        ((gx + 1) / 2 (W - 1) with align_corners)
 //   border: ix = clamp(ix, 0, W-1);  zeros: valid iff -1 < ix < W (both axes)
@@ -65,7 +75,10 @@
 // The backward recomputes the four taps and keeps its three channel sums
 // in registers: no atomics, deterministic.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -87,6 +100,17 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// An image value of the storage type, widened to float (read-only path).
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// kBf16: the fraction is rounded to bf16 before it weights the taps.
+template <bool kBf16>
 __device__ __forceinline__ Axis axis(float g, int pos, int size, int r,
                                      bool align, bool border) {
   const float fsize = static_cast<float>(size);
@@ -119,7 +143,8 @@ __device__ __forceinline__ Axis axis(float g, int pos, int size, int r,
   const float dc = fminf(fmaxf(d, static_cast<float>(-r)),
                          static_cast<float>(r - 1));
   const float d0 = floorf(dc);
-  const float f = __fsub_rn(dc, d0);
+  float f = __fsub_rn(dc, d0);
+  if constexpr (kBf16) f = round_bf16(f);
   const int k = pos + static_cast<int>(d0);
   a.i0 = clampi(k, 0, size - 1);
   a.i1 = clampi(k + 1, 0, size - 1);
@@ -131,12 +156,14 @@ __device__ __forceinline__ Axis axis(float g, int pos, int size, int r,
 // kC: the channel count when it is known at compile time (3, every flow
 // model's frames: the channel loop unrolls and all of a pixel's taps are
 // issued together), or 0 to take it at run time.
-template <int kC>
+// T: the image's storage type, float or __nv_bfloat16.
+template <int kC, typename T>
 __global__ void __launch_bounds__(kThreads)
-warp_sample_fwd_kernel(const float* __restrict__ img,
+warp_sample_fwd_kernel(const T* __restrict__ img,
                        const float2* __restrict__ grid,
-                       float* __restrict__ out, int c, int h, int w, int r,
+                       T* __restrict__ out, int c, int h, int w, int r,
                        bool align, bool border) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   const int y = blockIdx.y, b = blockIdx.z;
   const int x_base = blockIdx.x * (kThreads * kPix) + threadIdx.x;
   const int nc = kC > 0 ? kC : c;
@@ -148,42 +175,50 @@ warp_sample_fwd_kernel(const float* __restrict__ img,
     const int x = x_base + p * kThreads;
     gv[p] = x < w ? __ldg(grow + x) : make_float2(0.f, 0.f);
   }
-  const float* plane = img + static_cast<size_t>(b) * nc * hw;
-  float* orow = out + static_cast<size_t>(b) * nc * hw
+  const T* plane = img + static_cast<size_t>(b) * nc * hw;
+  T* orow = out + static_cast<size_t>(b) * nc * hw
       + static_cast<size_t>(y) * w;
 #pragma unroll
   for (int p = 0; p < kPix; ++p) {
     const int x = x_base + p * kThreads;
     if (x >= w) break;
-    const Axis ax = axis(gv[p].x, x, w, r, align, border);
-    const Axis ay = axis(gv[p].y, y, h, r, align, border);
+    const Axis ax = axis<kBf16>(gv[p].x, x, w, r, align, border);
+    const Axis ay = axis<kBf16>(gv[p].y, y, h, r, align, border);
     const float scale = border ? 1.f
         : ((ax.valid && ay.valid) ? __fmul_rn(ay.m, ax.m) : 0.f);
     const int o00 = ay.i0 * w + ax.i0, o01 = ay.i0 * w + ax.i1;
     const int o10 = ay.i1 * w + ax.i0, o11 = ay.i1 * w + ax.i1;
-    const float* q = plane;
+    const T* q = plane;
 #pragma unroll
     for (int ch = 0; ch < nc; ++ch, q += hw) {
-      const float top = fmaf(ax.w0, __ldg(q + o00), ax.w1 * __ldg(q + o01));
-      const float bot = fmaf(ax.w0, __ldg(q + o10), ax.w1 * __ldg(q + o11));
-      orow[ch * hw + x] = fmaf(ay.w0, top, ay.w1 * bot) * scale;
+      const float top = fmaf(ax.w0, ld(q + o00), ax.w1 * ld(q + o01));
+      const float bot = fmaf(ax.w0, ld(q + o10), ax.w1 * ld(q + o11));
+      const float bil = fmaf(ay.w0, top, ay.w1 * bot);
+      if constexpr (kBf16) {
+        // the sum rounded, then times the mass rounded, rounded
+        orow[ch * hw + x] = __float2bfloat16_rn(
+            border ? bil : round_bf16(bil) * round_bf16(scale));
+      } else {
+        orow[ch * hw + x] = bil * scale;
+      }
     }
   }
 }
 
-template <int kC>
+template <int kC, typename T>
 __global__ void __launch_bounds__(kThreads)
-warp_sample_grad_grid_kernel(const float* __restrict__ img,
+warp_sample_grad_grid_kernel(const T* __restrict__ img,
                              const float2* __restrict__ grid,
-                             const float* __restrict__ g,
+                             const T* __restrict__ g,
                              float2* __restrict__ ggrid, int c, int h, int w,
                              int r, bool align, bool border) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   const int y = blockIdx.y, b = blockIdx.z;
   const int x_base = blockIdx.x * (kThreads * kPix) + threadIdx.x;
   const int nc = kC > 0 ? kC : c;
   const size_t hw = static_cast<size_t>(h) * w;
   const size_t row = (static_cast<size_t>(b) * h + y) * w;
-  const float* grow = g + static_cast<size_t>(b) * nc * hw
+  const T* grow = g + static_cast<size_t>(b) * nc * hw
       + static_cast<size_t>(y) * w;
   float2 gv[kPix];
 #pragma unroll
@@ -191,7 +226,7 @@ warp_sample_grad_grid_kernel(const float* __restrict__ img,
     const int x = x_base + p * kThreads;
     gv[p] = x < w ? __ldg(grid + row + x) : make_float2(0.f, 0.f);
   }
-  const float* plane = img + static_cast<size_t>(b) * nc * hw;
+  const T* plane = img + static_cast<size_t>(b) * nc * hw;
   // g_coordinate = g_grid * s: W / 2, or (W - 1) / 2 with align_corners
   const float sx = 0.5f * static_cast<float>(align ? w - 1 : w);
   const float sy = 0.5f * static_cast<float>(align ? h - 1 : h);
@@ -199,18 +234,18 @@ warp_sample_grad_grid_kernel(const float* __restrict__ img,
   for (int p = 0; p < kPix; ++p) {
     const int x = x_base + p * kThreads;
     if (x >= w) break;
-    const Axis ax = axis(gv[p].x, x, w, r, align, border);
-    const Axis ay = axis(gv[p].y, y, h, r, align, border);
+    const Axis ax = axis<kBf16>(gv[p].x, x, w, r, align, border);
+    const Axis ay = axis<kBf16>(gv[p].y, y, h, r, align, border);
     const int o00 = ay.i0 * w + ax.i0, o01 = ay.i0 * w + ax.i1;
     const int o10 = ay.i1 * w + ax.i0, o11 = ay.i1 * w + ax.i1;
     // sums over channels of g times dbil/dfx, dbil/dfy and bil
     float sdx = 0.f, sdy = 0.f, sb = 0.f;
-    const float* q = plane;
+    const T* q = plane;
 #pragma unroll
     for (int ch = 0; ch < nc; ++ch, q += hw) {
-      const float v00 = __ldg(q + o00), v01 = __ldg(q + o01);
-      const float v10 = __ldg(q + o10), v11 = __ldg(q + o11);
-      const float gc = __ldg(grow + ch * hw + x);
+      const float v00 = ld(q + o00), v01 = ld(q + o01);
+      const float v10 = ld(q + o10), v11 = ld(q + o11);
+      const float gc = ld(grow + ch * hw + x);
       const float top = fmaf(ax.w0, v00, ax.w1 * v01);
       const float bot = fmaf(ax.w0, v10, ax.w1 * v11);
       sdx = fmaf(gc, fmaf(ay.w0, v01 - v00, ay.w1 * (v11 - v10)), sdx);
@@ -287,8 +322,8 @@ warp_sample_grad_grid_backward_kernel(const float* __restrict__ img,
   for (int p = 0; p < kPix; ++p) {
     const int x = x_base + p * kThreads;
     if (x >= w) break;
-    const Axis ax = axis(gv[p].x, x, w, r, align, border);
-    const Axis ay = axis(gv[p].y, y, h, r, align, border);
+    const Axis ax = axis<false>(gv[p].x, x, w, r, align, border);
+    const Axis ay = axis<false>(gv[p].y, y, h, r, align, border);
     const bool live = border || (ax.valid && ay.valid);
     const float ux = vv[p].x * sx, uy = vv[p].y * sy;
     // per channel, gg_c = ax_d dbil/dfx + ay_d dbil/dfy + b_d bil
@@ -353,23 +388,55 @@ cudaError_t grid_for(int n, int c, int h, int w, int r, dim3* grid) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// Both entry points launch on `stream`, do not synchronise, and return the
-// launch status (cudaGetLastError) as an int: 0 is success. border: 1 for
-// padding_mode 'border', 0 for 'zeros'.
-extern "C" int warp_sample_bounded_forward(const float* img, const float* grid,
-                                           float* out, int n, int c, int h,
-                                           int w, int r, int align_corners,
-                                           int border, void* stream) {
+template <typename T>
+int forward(const T* img, const float* grid, T* out, int n, int c, int h,
+            int w, int r, int align_corners, int border, void* stream) {
   dim3 blocks;
   cudaError_t err = grid_for(n, c, h, w, r, &blocks);
   if (err != cudaSuccess) return err;
-  (c == 3 ? warp_sample_fwd_kernel<3> : warp_sample_fwd_kernel<0>)
+  (c == 3 ? warp_sample_fwd_kernel<3, T> : warp_sample_fwd_kernel<0, T>)
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       img, reinterpret_cast<const float2*>(grid), out, c, h, w, r,
       align_corners != 0, border != 0);
   return cudaGetLastError();
+}
+
+template <typename T>
+int grad_grid(const T* img, const float* grid, const T* g, float* ggrid,
+              int n, int c, int h, int w, int r, int align_corners,
+              int border, void* stream) {
+  dim3 blocks;
+  cudaError_t err = grid_for(n, c, h, w, r, &blocks);
+  if (err != cudaSuccess) return err;
+  (c == 3 ? warp_sample_grad_grid_kernel<3, T>
+          : warp_sample_grad_grid_kernel<0, T>)
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      img, reinterpret_cast<const float2*>(grid), g,
+      reinterpret_cast<float2*>(ggrid), c, h, w, r, align_corners != 0,
+      border != 0);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The entry points launch on `stream`, do not synchronise, and return the
+// launch status (cudaGetLastError) as an int: 0 is success. border: 1 for
+// padding_mode 'border', 0 for 'zeros'. The _bf16 ones take img, out and g
+// in bfloat16, the grid and ggrid in float32.
+extern "C" int warp_sample_bounded_forward(const float* img, const float* grid,
+                                           float* out, int n, int c, int h,
+                                           int w, int r, int align_corners,
+                                           int border, void* stream) {
+  return forward(img, grid, out, n, c, h, w, r, align_corners, border,
+                 stream);
+}
+
+extern "C" int warp_sample_bounded_forward_bf16(
+    const __nv_bfloat16* img, const float* grid, __nv_bfloat16* out, int n,
+    int c, int h, int w, int r, int align_corners, int border,
+    void* stream) {
+  return forward(img, grid, out, n, c, h, w, r, align_corners, border,
+                 stream);
 }
 
 extern "C" int warp_sample_bounded_grad_grid(const float* img,
@@ -378,16 +445,16 @@ extern "C" int warp_sample_bounded_grad_grid(const float* img,
                                              int n, int c, int h, int w,
                                              int r, int align_corners,
                                              int border, void* stream) {
-  dim3 blocks;
-  cudaError_t err = grid_for(n, c, h, w, r, &blocks);
-  if (err != cudaSuccess) return err;
-  (c == 3 ? warp_sample_grad_grid_kernel<3>
-          : warp_sample_grad_grid_kernel<0>)
-      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, reinterpret_cast<const float2*>(grid), g,
-      reinterpret_cast<float2*>(ggrid), c, h, w, r, align_corners != 0,
-      border != 0);
-  return cudaGetLastError();
+  return grad_grid(img, grid, g, ggrid, n, c, h, w, r, align_corners, border,
+                   stream);
+}
+
+extern "C" int warp_sample_bounded_grad_grid_bf16(
+    const __nv_bfloat16* img, const float* grid, const __nv_bfloat16* g,
+    float* ggrid, int n, int c, int h, int w, int r, int align_corners,
+    int border, void* stream) {
+  return grad_grid(img, grid, g, ggrid, n, c, h, w, r, align_corners, border,
+                   stream);
 }
 
 extern "C" int warp_sample_bounded_grad_grid_backward(

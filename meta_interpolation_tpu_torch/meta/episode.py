@@ -26,6 +26,13 @@ off the tape in either order (JAX ``builder.outer_keep``). In training the
 update ``θ − lr·step`` is on the tape either way. Models that return aux
 (SuperSloMo) hand it to the loss in every pass, training included.
 
+Under ``--dtype bfloat16`` (``EpisodeBuilder.dtype``) every forward runs as
+the JAX system's ``bf16_apply`` (``meta/system.py:311-323``): the frames
+and the weights go in as bf16, the weights cast on the tape from their
+float32 masters, and the prediction, its aux and the per-step BN state
+come out as float32, so the loss, the inner rule and the outer update
+stay float32.
+
 The per-task state the JAX episode carries beside ``net`` and ``lrs``
 rides in :class:`TaskState`: the L2F attenuator scales the initialisation
 before the inner loop (``meta_params['attenuator']``), the per-step BN
@@ -80,6 +87,18 @@ class EpisodeSpec:
     # replay's fakes (JAX EpisodeSpec, meta/episode.py:84-104)
     collect_support_preds: bool = False
     collect_query_preds: bool = False
+
+
+def to_float32(tree):
+    """Every floating tensor of a tensor, tuple, list or dict as float32
+    (``bf16_apply``'s cast of the prediction and of every aux leaf)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.float() if tree.is_floating_point() else tree
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_float32(t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: to_float32(v) for k, v in tree.items()}
+    return tree
 
 
 def init_attenuator(num_layers: int,
@@ -141,7 +160,9 @@ class EpisodeBuilder:
     meta_params['loss_ctx']}``; ``passes_bn_state`` calls the model with
     ``bn_state`` and ``num_step`` (the inner step; the final query the
     last) and takes ``(pred, new_bn_state)`` back; ``att_keep``, {param
-    name: in the L2F embedding and scaled?}, None for every tensor.
+    name: in the L2F embedding and scaled?}, None for every tensor;
+    ``dtype``, the type the model computes in (float32, or bfloat16 for
+    ``--dtype bfloat16``).
     """
 
     def __init__(self, model: nn.Module, loss_fn: Callable,
@@ -160,6 +181,7 @@ class EpisodeBuilder:
         self.uses_loss_ctx = False
         self.passes_bn_state = False
         self.att_keep: Optional[Dict[str, bool]] = None
+        self.dtype = torch.float32
 
     def task_state(self, meta_params: Dict[str, Params]) -> TaskState:
         """A task's state at the start of its episode, from the
@@ -171,13 +193,23 @@ class EpisodeBuilder:
     def _forward(self, params: Params, f0, f1, num_step: int,
                  task: TaskState):
         """The model on one pair of CHW frames; with ``passes_bn_state``
-        it reads and replaces ``task.bn_state``."""
+        it reads and replaces ``task.bn_state``. In bf16 the frames and
+        the floating weights are cast to bf16 (the weights differentiably,
+        so gradients reach their float32 masters, as through JAX's
+        ``astype``) and everything that comes out is cast to float32."""
         kwargs = self.apply_kwargs
         if self.passes_bn_state:
             kwargs = {**kwargs, "bn_state": task.bn_state,
                       "num_step": num_step}
+        low = self.dtype != torch.float32
+        if low:
+            params = {k: v.to(self.dtype) if v.is_floating_point() else v
+                      for k, v in params.items()}
+            f0, f1 = f0.to(self.dtype), f1.to(self.dtype)
         out = functional_call(self.model, params, (f0[None], f1[None]),
                               kwargs)
+        if low:
+            out = to_float32(out)
         if self.passes_bn_state:
             out, task.bn_state = out
         return out

@@ -96,9 +96,11 @@ def _resolve_device(device: Union[str, torch.device]) -> torch.device:
 def _unported(cfg: Config):
     """Flags whose behaviour the port does not have yet."""
     return [flag for flag, on in [
-        ("--dtype bfloat16", cfg.dtype != "float32"),
         ("--spatial_shards", cfg.spatial_shards > 1),
     ] if on]
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _adapt_bn_affine(inner_keep: Dict[str, bool]) -> Dict[str, bool]:
@@ -129,6 +131,9 @@ class SceneAdaptiveInterpolation:
             raise NotImplementedError(
                 "--attenuate with --per_step_bn_statistics: no JAX episode "
                 "runs the two together")
+        if cfg.dtype not in DTYPES:
+            raise ValueError(f"--dtype takes {tuple(DTYPES)}, got "
+                             f"{cfg.dtype!r}")
         self.cfg = cfg
         self.model_def = registry.get(cfg.model)
         if cfg.mode == "train" or cfg.second_order:
@@ -206,6 +211,9 @@ class SceneAdaptiveInterpolation:
             apply_kwargs=self.model_def.meta_apply_kwargs,
             returns_aux=self.model_def.returns_aux)
         self.builder.uses_loss_ctx = self.adv_state is not None
+        # --dtype bfloat16: the model's forwards in bf16, everything else
+        # (meta-parameters, rates, optimizer state, loss) float32
+        self.builder.dtype = DTYPES[cfg.dtype]
         self.builder.att_keep = att_keep
         if cfg.per_step_bn_statistics:
             # per-step BN running statistics (JAX :260-277), threaded

@@ -78,7 +78,9 @@ def warp_masked(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
                                padding_mode="zeros")
     mask = warp_ops.grid_sample(torch.ones_like(x[:, :1]), grid,
                                 align_corners=False, padding_mode="zeros")
-    return out * torch.where(mask < 0.9999, 0.0, 1.0)
+    # in the activation's type: JAX's where of two Python floats is weakly
+    # typed and keeps a bf16 product bf16 (JAX pwcnet.py:103-104)
+    return out * torch.where(mask < 0.9999, 0.0, 1.0).to(out.dtype)
 
 
 class PWCNet(nn.Module):

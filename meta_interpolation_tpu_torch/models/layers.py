@@ -21,9 +21,13 @@ from torch import nn
 def full_float32() -> None:
     """Turn TF32 off for cuDNN convolutions and cuBLAS matmuls: on the card
     they default to it, which keeps ~3 decimal digits. The port computes in
-    full float32; every model's forward calls this."""
+    full float32; every model's forward calls this. bf16 matmuls reduce in
+    float32 too, as the JAX package asks with ``preferred_element_type``
+    (``models/layers.py:121``): cuBLAS may otherwise reduce them in
+    reduced precision."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def xavier_conv(in_ch: int, out_ch: int, k: int,
@@ -42,6 +46,16 @@ def conv3x3(in_ch: int, out_ch: int,
             generator: Optional[torch.Generator] = None) -> nn.Conv2d:
     """3×3 :func:`xavier_conv`."""
     return xavier_conv(in_ch, out_ch, 3, generator)
+
+
+def conv_as_input(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` with its weight and bias cast to ``x``'s type, as every
+    JAX conv casts its kernel (``models/layers.py:226``, ``:250``): where
+    a layer before it promoted a bf16 activation to float32, it runs in
+    float32."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
+                    conv.padding, conv.dilation, conv.groups)
 
 
 def torch_default_init_(conv: nn.Module,
@@ -87,9 +101,12 @@ class EvalBatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch)) if affine else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False,
-                            eps=self.eps)
+        # the statistics and the affine pair in the activation's type, as
+        # JAX casts them (models/layers.py:541-543): a float32 buffer would
+        # promote a bf16 activation
+        cast = [None if t is None else t.to(x.dtype) for t in (
+            self.running_mean, self.running_var, self.weight, self.bias)]
+        return F.batch_norm(x, *cast, training=False, eps=self.eps)
 
 
 def replicate_pad(x: torch.Tensor, pad: Union[int, Sequence[int]]
@@ -221,6 +238,11 @@ def meta_batch_norm(x: torch.Tensor, weight: torch.Tensor,
     a gradient."""
     var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
     shape = (1, -1, 1, 1)
+    # the affine pair at float32 or wider: JAX multiplies by its float32
+    # masters uncast (models/layers.py:599), so a bf16 activation leaves
+    # the layer in float32
+    weight, bias = (t.to(torch.promote_types(t.dtype, torch.float32))
+                    for t in (weight, bias))
     out = ((x - mean.view(shape)) * torch.rsqrt(var + eps).view(shape)
            * weight.view(shape) + bias.view(shape))
     n = x.numel() // x.shape[1]

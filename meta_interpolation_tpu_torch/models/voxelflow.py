@@ -82,7 +82,7 @@ class VoxelFlow(nn.Module):
         per-step meta BN, its updated rows put in ``new_state`` (JAX
         ``_cbr``, ``models/voxelflow.py:121-146``)."""
         bn = getattr(self, f"{name}_bn")
-        x = getattr(self, name)(x)
+        x = layers.conv_as_input(getattr(self, name), x)
         if bn_state is None:
             return torch.relu(bn(x))
         w, b = bn.weight, bn.bias
@@ -120,7 +120,7 @@ class VoxelFlow(nn.Module):
                            ("deconv3", conv1)):
             x = layers.upsample_bilinear(x, 2, align_corners=False)
             x = cbr(name, torch.cat([x, skip], 1))
-        x = torch.tanh(self.conv4(x))
+        x = torch.tanh(layers.conv_as_input(self.conv4, x))
 
         flow = 0.5 * x[:, 0:2].permute(0, 2, 3, 1)
         mask = x[:, 2:3]

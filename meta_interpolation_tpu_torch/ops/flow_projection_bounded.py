@@ -124,8 +124,15 @@ def flow_projection_bounded(flow: torch.Tensor,
                             max_displacement: int = 8):
     """K4 → (proj (N, H, W, 2), cnt (N, H, W)). Plain version on CPU
     tensors, the kernel on CUDA ones. Not differentiable by itself: the
-    autograd Function of ``ops/flow_projection.py`` wraps it."""
+    autograd Function of ``ops/flow_projection.py`` wraps it. A float32
+    kernel: bfloat16 operands are widened and both results rounded back,
+    on either device, as the TPU kernel's wrapper does
+    (``meta_interpolation_tpu/ops/flow_projection_pallas.py:108-113``)."""
     r = int(max_displacement)
+    if flow.dtype == torch.bfloat16:
+        proj, cnt = flow_projection_bounded(
+            flow.float(), None if depth_inv is None else depth_inv.float(), r)
+        return proj.to(flow.dtype), cnt.to(flow.dtype)
     if flow.device.type == "cpu":
         return project_ref(flow, depth_inv, r)
     n, h, w = _check_cuda(flow, depth_inv, r)

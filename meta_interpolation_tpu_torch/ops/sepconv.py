@@ -22,6 +22,14 @@ it stays plain jnp in the JAX package. A wrapper given a CUDA tensor
 launches its kernel or raises; it never falls back to the plain version.
 Each wrapper counts its launches in ``<wrapper>.launches``.
 
+Both kernels take float32 or bfloat16 (all operands of one type; a
+template instantiation each). In bf16 they widen every value to float32,
+sum in float32 and round each output once, as the TPU kernels do
+(``meta_interpolation_tpu/ops/sepconv.py:139-143``, ``:237-241``); on CPU
+tensors the wrappers do the same around the plain versions
+(:func:`_widened`). The JAX package's own CPU fallback, ``sepconv_ref``,
+sums its taps in bf16 instead.
+
 :func:`sepconv` is twice differentiable from the two kernels (second-order
 meta-training differentiates through its backward): the backward is K2
 wrapped in :class:`SepConvGradKernelsFunction`, whose own backward is two
@@ -95,9 +103,25 @@ def grad_input_ref(g: torch.Tensor, kv: torch.Tensor, kh: torch.Tensor,
     return gin
 
 
+def _widened(fn, *args):
+    """``fn`` on ``args`` widened to float32 when they are bfloat16, each
+    result rounded back once: the kernels' function in bf16. Other types
+    pass through unchanged."""
+    dtype = args[0].dtype
+    if dtype != torch.bfloat16:
+        return fn(*args)
+    out = fn(*(a.float() for a in args))
+    if isinstance(out, tuple):
+        return tuple(o.to(dtype) for o in out)
+    return out.to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures of csrc/sepconv.cu's entry points on ``lib``."""
@@ -106,6 +130,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sepconv_forward.restype = i32
     lib.sepconv_grad_kernels.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.sepconv_grad_kernels.restype = i32
+    # the bf16 instantiations (a source from before them has none)
+    if hasattr(lib, "sepconv_forward_bf16"):
+        lib.sepconv_forward_bf16.argtypes = lib.sepconv_forward.argtypes
+        lib.sepconv_forward_bf16.restype = i32
+        lib.sepconv_grad_kernels_bf16.argtypes = (
+            lib.sepconv_grad_kernels.argtypes)
+        lib.sepconv_grad_kernels_bf16.restype = i32
     return lib
 
 
@@ -120,9 +151,12 @@ def _kernel_shapes(inp: torch.Tensor, *maps: torch.Tensor):
     returns (n, c, h, w, f)."""
     n, c, h, w, f = _shapes(inp, maps[0])
     for t in (inp,) + maps:
-        if t.device != inp.device or t.dtype != torch.float32:
-            raise ValueError("sepconv kernels take float32 tensors on one "
-                             f"device, got {t.dtype} on {t.device}")
+        if (t.device != inp.device or t.dtype != inp.dtype
+                or t.dtype not in KERNEL_DTYPES):
+            raise ValueError("sepconv kernels take float32 or bfloat16 "
+                             "tensors, all of one type, on one device; got "
+                             f"{t.dtype} on {t.device} beside {inp.dtype} on "
+                             f"{inp.device}")
     if c != KERNEL_CHANNELS or not 1 <= f <= KERNEL_MAX_TAPS:
         raise ValueError(f"sepconv kernels take C={KERNEL_CHANNELS} and "
                          f"F<={KERNEL_MAX_TAPS}, got C={c}, F={f}")
@@ -149,15 +183,19 @@ def _raise_on_error(code: int, name: str):
 
 def sepconv_forward(inp: torch.Tensor, kv: torch.Tensor, kh: torch.Tensor
                     ) -> torch.Tensor:
-    """K1: the forward. Plain version on CPU tensors, kernel on CUDA."""
+    """K1: the forward. Plain version on CPU tensors, kernel on CUDA;
+    float32 or bfloat16 (widened, summed in float32, rounded once)."""
     if inp.device.type == "cpu":
-        return sepconv_ref(inp, kv, kh)
+        return _widened(sepconv_ref, inp, kv, kh)
     n, c, h, w, f = _check_cuda(inp, kv, kh)
     inp, kv, kh = inp.contiguous(), _build.dense(kv), _build.dense(kh)
-    out = torch.empty((n, c, h, w), device=inp.device, dtype=torch.float32)
+    out = torch.empty((n, c, h, w), device=inp.device, dtype=inp.dtype)
+    lib = _library()
+    fn = (lib.sepconv_forward_bf16 if inp.dtype == torch.bfloat16
+          else lib.sepconv_forward)
     with torch.cuda.device(inp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _library().sepconv_forward(
+        code = fn(
             inp.data_ptr(), kv.data_ptr(), kh.data_ptr(), out.data_ptr(),
             n, c, h, w, f, stream)
     _raise_on_error(code, "sepconv_forward")
@@ -170,9 +208,10 @@ sepconv_forward.launches = 0
 
 def sepconv_grad_kernels(inp: torch.Tensor, g: torch.Tensor, kv: torch.Tensor,
                          kh: torch.Tensor):
-    """K2: (gkv, gkh). Plain version on CPU tensors, kernel on CUDA."""
+    """K2: (gkv, gkh). Plain version on CPU tensors, kernel on CUDA;
+    float32 or bfloat16, as K1."""
     if inp.device.type == "cpu":
-        return grad_kernels_ref(inp, g, kv, kh)
+        return _widened(grad_kernels_ref, inp, g, kv, kh)
     n, c, h, w, f = _check_cuda(inp, kv, kh, g)
     inp, g = inp.contiguous(), _build.dense(g)
     kv, kh = _build.dense(kv), _build.dense(kh)
@@ -181,9 +220,12 @@ def sepconv_grad_kernels(inp: torch.Tensor, g: torch.Tensor, kv: torch.Tensor,
                          f"not match input {tuple(inp.shape)}")
     gkv = torch.empty_like(kv)
     gkh = torch.empty_like(kh)
+    lib = _library()
+    fn = (lib.sepconv_grad_kernels_bf16 if inp.dtype == torch.bfloat16
+          else lib.sepconv_grad_kernels)
     with torch.cuda.device(inp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _library().sepconv_grad_kernels(
+        code = fn(
             inp.data_ptr(), g.data_ptr(), kv.data_ptr(), kh.data_ptr(),
             gkv.data_ptr(), gkh.data_ptr(), n, c, h, w, f, stream)
     _raise_on_error(code, "sepconv_grad_kernels")

@@ -107,6 +107,12 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor,
     if FlowStats._active is not None:
         FlowStats._active._record(*_source_coords(
             grid.detach(), img.shape[2], img.shape[3], align_corners))
+    if img.dtype == torch.bfloat16:
+        # the coordinates stay float32 (JAX ops/warp.py:169-171): a bf16
+        # image is sampled widened and the result rounded once
+        return GridSampleFunction.apply(img.float(), grid.float(),
+                                        align_corners, padding_mode
+                                        ).to(img.dtype)
     return GridSampleFunction.apply(img, grid.to(img.dtype), align_corners,
                                     padding_mode)
 

@@ -50,6 +50,17 @@ input frames), stays plain (autograd through the plain composition). A
 wrapper given a CUDA tensor launches its kernel or raises; it never falls
 back to the plain version. Each wrapper counts its launches in
 ``<wrapper>.launches``.
+
+bfloat16 (``--dtype bfloat16``): K3 and K3-grad take a bf16 image (and
+output gradient) with a grid of either type; the coordinates are float32
+(a bf16 grid is widened), the fractions are rounded to bf16, the taps are
+summed in float32 and rounded once, and with 'zeros' the mass and its
+product are rounded to bf16: where the JAX package's TPU path rounds
+(``meta_interpolation_tpu/ops/warp.py:242-243``, ``:270``,
+``warp_pallas.py:99-103``). Its CPU fallback, ``_warp_bounded_xla``,
+sums the sweep in bf16 instead. K3-grad returns the grid gradient in the
+grid's type. K3-grad² stays a float32 kernel: its wrapper widens bf16
+operands and rounds its results back, as every Pallas wrapper does.
 """
 from __future__ import annotations
 
@@ -68,6 +79,12 @@ PADDING_MODES = ("zeros", "border")
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
     """Index and weight math runs at float32 or wider."""
     return torch.promote_types(dtype, torch.float32)
+
+
+def _widen(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor as float32 (the sums of the sampler); others as they
+    are."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def _unnormalize(grid: torch.Tensor, h: int, w: int, align_corners: bool):
@@ -216,7 +233,9 @@ def grid_sample_bounded_ref(img: torch.Tensor, grid: torch.Tensor, r: int,
     dy0f, dx0f = torch.floor(dy), torch.floor(dx)
     fy = (dy - dy0f).to(img.dtype)
     fx = (dx - dx0f).to(img.dtype)
-    out = warp(img, dy0f.to(torch.int32), dx0f.to(torch.int32), fy, fx, r)
+    # a bf16 sweep runs on the widened image and fractions, rounded once
+    out = warp(_widen(img), dy0f.to(torch.int32), dx0f.to(torch.int32),
+               _widen(fy), _widen(fx), r).to(img.dtype)
 
     if padding_mode != "border":
         # zero padding: re-weight by the in-bounds bilinear mass
@@ -280,8 +299,11 @@ def grid_sample_bounded_grad_grid_ref(img: torch.Tensor, grid: torch.Tensor,
     ys = torch.arange(h, dtype=ix.dtype, device=img.device)[None, :, None]
     dx0, fx, mx, dmx, cx, vx = _axis(ix, xs, w, r, border)
     dy0, fy, my, dmy, cy, vy = _axis(iy, ys, h, r, border)
-    (v00, v01, v10, v11), _, _ = _taps(img, dy0, dx0, r)
-    fx, fy = fx.to(img.dtype)[:, None], fy.to(img.dtype)[:, None]
+    (v00, v01, v10, v11), _, _ = _taps(_widen(img), dy0, dx0, r)
+    # the fractions as the forward rounds them; the sums in float32 or wider
+    fx = _widen(fx.to(img.dtype))[:, None]
+    fy = _widen(fy.to(img.dtype))[:, None]
+    g = _widen(g)
     top = (1 - fx) * v00 + fx * v01
     bot = (1 - fx) * v10 + fx * v11
     sdx = (g * ((1 - fy) * (v01 - v00) + fy * (v11 - v10))).sum(1)
@@ -336,6 +358,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                                            + [i32] * 7
                                                            + [ptr])
     lib.warp_sample_bounded_grad_grid_backward.restype = i32
+    # the bf16 instantiations of K3 and K3-grad (absent from a source from
+    # before them)
+    for name in ("warp_sample_bounded_forward",
+                 "warp_sample_bounded_grad_grid"):
+        if hasattr(lib, name + "_bf16"):
+            fn = getattr(lib, name + "_bf16")
+            fn.argtypes = getattr(lib, name).argtypes
+            fn.restype = i32
     return lib
 
 
@@ -345,27 +375,33 @@ def _library() -> ctypes.CDLL:
     return _bind(_build.load("warp"))
 
 
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check(img: torch.Tensor, grid: torch.Tensor, r: int, padding_mode: str,
            g=None, v=None):
-    """Validate what the kernels take, in one pass; returns (n, c, h, w)."""
+    """Validate what the kernels take, in one pass; returns (n, c, h, w).
+    The image is float32 or bfloat16 and g of its type; the grid and v are
+    float32 or bfloat16 (the wrappers widen a bf16 grid)."""
     if img.device.type != "cuda":
         raise ValueError(f"warp kernels take CPU or CUDA tensors, got "
                          f"{img.device}")
     n, c, h, w = img.shape
 
-    def bad(t, like):
+    def bad(t, like, dtypes):
         return t is not None and (t.shape != like.shape
                                   or t.device != img.device
-                                  or t.dtype != torch.float32)
+                                  or t.dtype not in dtypes)
     if (tuple(grid.shape) != (n, h, w, 2) or grid.device != img.device
-            or img.dtype != torch.float32 or grid.dtype != torch.float32
-            or bad(g, img) or bad(v, grid)
+            or img.dtype not in KERNEL_DTYPES
+            or grid.dtype not in KERNEL_DTYPES
+            or bad(g, img, (img.dtype,)) or bad(v, grid, KERNEL_DTYPES)
             or r < 1 or padding_mode not in PADDING_MODES):
         raise ValueError(
-            f"warp kernels take a float32 image (N, C, H, W), a float32 grid "
-            f"(N, H, W, 2), an output gradient of the image's shape and a "
-            f"grid cotangent of the grid's, on one device, R >= 1 and "
-            f"padding {PADDING_MODES}; got image "
+            f"warp kernels take a float32 or bfloat16 image (N, C, H, W), a "
+            f"grid (N, H, W, 2), an output gradient of the image's shape "
+            f"and type and a grid cotangent of the grid's shape, on one "
+            f"device, R >= 1 and padding {PADDING_MODES}; got image "
             f"{tuple(img.shape)} {img.dtype}, grid {tuple(grid.shape)} "
             f"{grid.dtype} on {grid.device}"
             + ("" if g is None else f", g {tuple(g.shape)} {g.dtype}")
@@ -384,9 +420,10 @@ def _launch(fn, device: torch.device, *args) -> int:
 
 
 def _aligned(grid: torch.Tensor) -> torch.Tensor:
-    """The grid, contiguous; the kernels read a pixel's (gx, gy) as one
-    8-byte load, so a grid that is not 8-byte aligned is copied."""
-    grid = grid.contiguous()
+    """The grid, float32 and contiguous; the kernels read a pixel's (gx,
+    gy) as one 8-byte load, so a grid that is not 8-byte aligned is
+    copied."""
+    grid = grid.float().contiguous()
     if grid.data_ptr() % 8:
         grid = grid.clone()
     return grid
@@ -395,15 +432,18 @@ def _aligned(grid: torch.Tensor) -> torch.Tensor:
 def warp_sample_bounded_forward(img: torch.Tensor, grid: torch.Tensor,
                                 r: int, align_corners: bool = False,
                                 padding_mode: str = "zeros") -> torch.Tensor:
-    """K3: the sampler's output (N, C, H, W). Plain version on CPU tensors,
-    the kernel on CUDA."""
+    """K3: the sampler's output (N, C, H, W), of the image's type. Plain
+    version on CPU tensors, the kernel on CUDA."""
     if img.device.type == "cpu":
         return grid_sample_bounded_ref(img, grid, r, align_corners,
                                        padding_mode)
     n, c, h, w = _check(img, grid, r, padding_mode)
     img, grid = img.contiguous(), _aligned(grid)
     out = torch.empty_like(img)
-    code = _launch(_library().warp_sample_bounded_forward, img.device,
+    lib = _library()
+    fn = (lib.warp_sample_bounded_forward_bf16
+          if img.dtype == torch.bfloat16 else lib.warp_sample_bounded_forward)
+    code = _launch(fn, img.device,
                    img.data_ptr(), grid.data_ptr(), out.data_ptr(), n, c, h,
                    w, r, int(align_corners), int(padding_mode == "border"))
     if code != 0:
@@ -421,15 +461,20 @@ def warp_sample_bounded_grad_grid(img: torch.Tensor, grid: torch.Tensor,
                                   align_corners: bool = False,
                                   padding_mode: str = "zeros"
                                   ) -> torch.Tensor:
-    """K3-grad: the grid gradient (N, H, W, 2) for the output gradient g.
-    The closed form on CPU tensors, the kernel on CUDA."""
+    """K3-grad: the grid gradient (N, H, W, 2), of the grid's type, for the
+    output gradient g. The closed form on CPU tensors, the kernel on
+    CUDA."""
     if img.device.type == "cpu":
         return grid_sample_bounded_grad_grid_ref(img, grid, g, r,
                                                  align_corners, padding_mode)
     n, c, h, w = _check(img, grid, r, padding_mode, g)
+    dtype = grid.dtype
     img, grid, g = img.contiguous(), _aligned(grid), _build.dense(g)
     ggrid = torch.empty_like(grid)
-    code = _launch(_library().warp_sample_bounded_grad_grid, img.device,
+    lib = _library()
+    fn = (lib.warp_sample_bounded_grad_grid_bf16
+          if img.dtype == torch.bfloat16 else lib.warp_sample_bounded_grad_grid)
+    code = _launch(fn, img.device,
                    img.data_ptr(), grid.data_ptr(), g.data_ptr(),
                    ggrid.data_ptr(), n, c, h, w, r, int(align_corners),
                    int(padding_mode == "border"))
@@ -437,7 +482,7 @@ def warp_sample_bounded_grad_grid(img: torch.Tensor, grid: torch.Tensor,
         raise RuntimeError(f"warp_sample_bounded_grad_grid launch failed: "
                            f"cudaError {code}")
     warp_sample_bounded_grad_grid.launches += 1
-    return ggrid
+    return ggrid.to(dtype)
 
 
 warp_sample_bounded_grad_grid.launches = 0
@@ -450,8 +495,15 @@ def warp_sample_bounded_grad_grid_backward(img: torch.Tensor,
                                            align_corners: bool = False,
                                            padding_mode: str = "zeros"):
     """K3-grad²: (gg, ggrid), K3-grad's derivative for the cotangent v
-    (N, H, W, 2) of its output, with respect to g and to the grid. The
-    plain version on CPU tensors, the kernel on CUDA."""
+    (N, H, W, 2) of its output, with respect to g and to the grid, each of
+    its input's type. The plain version on CPU tensors, the kernel on CUDA:
+    a float32 kernel: bf16 operands are widened, on either device, and the
+    results rounded back."""
+    if torch.bfloat16 in (img.dtype, grid.dtype, g.dtype, v.dtype):
+        gg, ggrid = warp_sample_bounded_grad_grid_backward(
+            _widen(img), _widen(grid), _widen(g), _widen(v), r,
+            align_corners, padding_mode)
+        return gg.to(g.dtype), ggrid.to(grid.dtype)
     if img.device.type == "cpu":
         return grid_sample_bounded_grad_grid_backward_ref(
             img, grid, g, v, r, align_corners, padding_mode)

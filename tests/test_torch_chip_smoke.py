@@ -548,3 +548,86 @@ def test_train_launches_per_task(steps, warps, second, want):
     assert (got["warp_sample_bounded_forward"],
             got["warp_sample_bounded_grad_grid"],
             got.get("warp_sample_bounded_grad_grid_backward")) == want
+
+
+def _inner_dist():
+    return dict.fromkeys(("d2", "n2", "flips", "n"), 0)
+
+
+def test_handing_inner_steps_the_cpu_with_the_cards_support_gradients():
+    """Adamax's first step lr·g/(|g| + 1e-8) is a sign away from 0: two
+    gradients a rounding apart around 0 step the other way. Handed, the CPU
+    takes the card's step; its own gradients are measured, not used."""
+    import torch
+
+    from meta_interpolation_tpu_torch.meta.inner_optimizers import (
+        InnerOptimizer)
+    opt = InnerOptimizer(rule="Adamax", lr_mode="metasgd")
+    gen = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn(64, generator=gen)}
+    lrs = opt.init_lrs(params, 1e-3)
+    card_g = {"w": torch.randn(64, generator=gen) * 1e-6}
+    cpu_g = {"w": card_g["w"] + torch.randn(64, generator=gen) * 1e-6}
+    step = lambda fn, g: fn(opt, params, g, lrs, opt.init_state(params), 0)
+    record, dist = [], _inner_dist()
+    want = step(InnerOptimizer.update, card_g)[0]["w"]
+    card = chip_smoke.handing_inner(torch, InnerOptimizer.update, record,
+                                    "cuda", dist)
+    cpu = chip_smoke.handing_inner(torch, InnerOptimizer.update, record,
+                                   "cpu", dist)
+    assert torch.equal(step(card, card_g)[0]["w"], want) and len(record) == 1
+    assert torch.equal(step(cpu, cpu_g)[0]["w"], want) and not record
+    own = step(InnerOptimizer.update, cpu_g)[0]["w"]
+    flips = int((torch.sign(cpu_g["w"]) != torch.sign(card_g["w"])).sum())
+    assert flips > 0 and not torch.equal(own, want)
+    assert dist == {"d2": pytest.approx(float((cpu_g["w"] - card_g["w"])
+                                              .norm()) ** 2),
+                    "n2": pytest.approx(float(cpu_g["w"].norm()) ** 2),
+                    "flips": flips, "n": 64}
+    with pytest.raises(AssertionError, match="more inner steps"):
+        step(cpu, cpu_g)
+    record.append(card_g)
+    with pytest.raises(AssertionError, match="cut the second order"):
+        step(cpu, {"w": cpu_g["w"].requires_grad_()})
+
+
+def test_handing_inner_in_a_first_order_episode_changes_nothing_alike():
+    """A tiny CAIN's first-order outer gradient under inner Adamax: the
+    stand-ins take every inner step of the episode, and handed the very
+    gradients the CPU computes itself, its outer gradients are bit for bit
+    the episode's without them."""
+    import torch
+
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.inner_optimizers import (
+        InnerOptimizer)
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    torch.manual_seed(0)
+    cfg = get_args(["--model", "cain", "--depth", "2", "--n_resblocks", "1",
+                    "--mode", "train", "--optimizer", "Adamax", "--metasgd",
+                    "--inner_lr", "1e-3", "--loss", "1*L1", "--batch_size",
+                    "1", "--number_of_training_steps_per_iter", "2"])
+    clip = SyntheticSeptuplet(model="cain", mode="train",
+                              size=(32, 32))[0][0][None]
+    system = SceneAdaptiveInterpolation(cfg, device="cpu")
+    real = InnerOptimizer.update
+    record, dist, out = [], _inner_dist(), []
+    for dev in ("plain", "cuda", "cpu"):
+        run = lambda: system.outer_grads(clip, 0)
+        if dev != "plain":
+            run = chip_smoke.with_attr(
+                InnerOptimizer, "update",
+                chip_smoke.handing_inner(torch, real, record, dev, dist), run)
+        loss, _, grads = run()
+        out.append((float(loss), grads))
+        if dev == "cuda":
+            assert len(record) == 2
+    assert InnerOptimizer.update is real and not record
+    assert dist["d2"] == 0 and dist["flips"] == 0 and dist["n2"] > 0
+    for loss, grads in out[1:]:
+        assert loss == out[0][0]
+        for g in ("net", "lrs"):
+            assert all(torch.equal(v, out[0][1][g][k])
+                       for k, v in grads[g].items())

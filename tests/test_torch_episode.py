@@ -147,9 +147,11 @@ def test_run_validation_iter_matches_jax(systems):
 
 
 def test_system_refuses_what_it_does_not_run():
-    """--dtype bfloat16 raises, and so do --attenuate with
-    --per_step_bn_statistics (no JAX episode runs both) and 'cuda' without
-    a card; per-step BN on a model without it is a ValueError, as in JAX.
+    """--attenuate with --per_step_bn_statistics raises (no JAX episode
+    runs both), and so does 'cuda' without a card; per-step BN on a model
+    without it is a ValueError, as in JAX, and so is a --dtype other than
+    float32 and bfloat16. The bf16 system builds and runs
+    (tests/test_torch_bf16_*.py hold it to JAX).
     RRIN and DAIN meta-train since the warp models' training slice
     (tests/test_torch_{rrin,dain}_train.py); L2F and per-step BN run since
     the engine's slice (tests/test_torch_l2f.py,
@@ -161,9 +163,16 @@ def test_system_refuses_what_it_does_not_run():
             trains = [k for k, t in system.trainable["net"].items() if t]
             assert trains and all(model == "rrin" or k.startswith(
                 "rectifyNet.") for k in trains)
-    with pytest.raises(NotImplementedError, match="--dtype bfloat16"):
+    bf16 = SceneAdaptiveInterpolation(Config(**CFG, device="cpu",
+                                             dtype="bfloat16"))
+    assert bf16.builder.dtype == torch.bfloat16
+    frames, _ = SyntheticSeptuplet(model="sepconv", mode="val",
+                                   size=(32, 32))[0]
+    losses, preds = bf16.run_validation_iter(np.asarray(frames)[None])
+    assert preds.dtype == torch.float32 and np.isfinite(losses["psnr"])
+    with pytest.raises(ValueError, match="--dtype"):
         SceneAdaptiveInterpolation(Config(**CFG, device="cpu",
-                                          dtype="bfloat16"))
+                                          dtype="float16"))
     with pytest.raises(ValueError, match="--per_step_bn_statistics"):
         SceneAdaptiveInterpolation(Config(**CFG, device="cpu",
                                           per_step_bn_statistics=True))

@@ -208,14 +208,37 @@ def test_cli_trains_voxelflow_on_the_cpu(order, tmp_path, capsys):
 
 
 def refuse_training(model, tmp_path):
-    """What the training CLI still refuses for the model (ROADMAP Queue
-    1): --dtype bfloat16, and L2F's --attenuate with
-    --per_step_bn_statistics, which no JAX episode runs together."""
-    for flags in (("--dtype", "bfloat16"),
-                  ("--attenuate", "--per_step_bn_statistics")):
-        with pytest.raises(NotImplementedError, match=" ".join(flags[:2])
-                           if flags[0] == "--dtype" else flags[0]):
-            main(train_flags(model, tmp_path, *flags, "--device", "cpu"))
+    """What the training CLI still refuses for the model: L2F's
+    --attenuate with --per_step_bn_statistics, which no JAX episode runs
+    together (--dtype bfloat16 trains: train_bf16_on_the_cpu)."""
+    flags = ("--attenuate", "--per_step_bn_statistics")
+    with pytest.raises(NotImplementedError, match=flags[0]):
+        main(train_flags(model, tmp_path, *flags, "--device", "cpu"))
+
+
+def train_bf16_on_the_cpu(model, tmp_path, capsys):
+    """The training CLI with --dtype bfloat16 on the CPU: two iterations,
+    a validation and a checkpoint whose meta-parameters and optimizer
+    state are float32; then --resume from it, which restores the float32
+    masters and trains a second epoch in bf16."""
+    stats = main(train_flags(model, tmp_path, "--dtype", "bfloat16",
+                             "--device", "cpu"))
+    out = capsys.readouterr().out
+    assert "[epoch 0 it 0] loss" in out and np.isfinite(stats["best_psnr"])
+    state = bridge.load_checkpoint(str(tmp_path / "exp"))["system"]
+    for group, tree in state["meta_params"].items():
+        for k, v in tree.items():
+            assert v.dtype == torch.float32, (group, k)
+    for moments in state["opt_state"]["state"].values():
+        assert all(v.dtype == torch.float32 for v in moments.values()
+                   if torch.is_tensor(v))
+    stats = main(train_flags(model, tmp_path, "--dtype", "bfloat16",
+                             "--device", "cpu", "--resume", "--max_epoch",
+                             "2"))
+    out = capsys.readouterr().out
+    assert "[resume] epoch 1" in out and "[epoch 1 it 0] loss" in out
+    assert np.isfinite(stats["best_psnr"])
+    remove_pth(tmp_path)
 
 
 @pytest.mark.parametrize("model", ["voxelflow"])
@@ -223,6 +246,11 @@ def test_training_is_refused(model, tmp_path):
     """Meta-training runs since the port's training slice of the warp
     models; what stays refused is refused."""
     refuse_training(model, tmp_path)
+
+
+@pytest.mark.parametrize("model", ["voxelflow"])
+def test_cli_trains_in_bf16(model, tmp_path, capsys):
+    train_bf16_on_the_cpu(model, tmp_path, capsys)
 
 
 @pytest.mark.parametrize("flag", ["attenuate", "per_step_bn_statistics"])
