@@ -143,12 +143,33 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
          float32, and a 64x64 clip of five presets in bf16 on the card
          against the CPU, within twice the CPU's own bf16 − float32
          difference plus 1e-5 of the largest value;
+       - the rest of the package (``rest``): SepConv first-order train
+         iterations at run_sepconv.sh's preset under --loss
+         1*L1+0.1*VGG22+1*SSIM and 1*VGGP in turns with 1*L1 (the same K1
+         and K2 launches; seconds, peak memory) and each one's outer
+         gradient of a 64x64 clip card vs CPU; the evaluation CLI with
+         --lpips (the val line carries LPIPS) and LPIPS of a 256x448
+         prediction card vs CPU; --profile_dir on the evaluation CLI at
+         64x64 (the trace names K1's kernel once a K1 launch); --remat on
+         SepConv and on VoxelFlow with --fast_warp_range 8, first and
+         second order, with and without it in turns (seconds, peak
+         memory; K1 or K3 launches up by the recomputed forwards, derived
+         in remat_extra; outer gradients unchanged); the legacy trainers
+         on SepConv (a MAML step, a Reptile step and an evaluation
+         episode at batch 4 on 256x256 crops, launches held to
+         LEGACY_LAUNCHES, each card vs CPU on a 64x64 clip) and one epoch
+         of each of the four legacy command lines; the native loader
+         (prep.cpp built with g++, no fallback; a batch bit for bit the
+         numpy transcription of the C arithmetic, within one ulp of the
+         numpy path); DAIN's off-path ops at 256x448 card vs CPU;
   5. a JSON line of per-kernel results, each with its launches on every
      main path that runs it (``launches_by_path``: K1/K2 the training
      CLI's, the SepConv test runs' and the engine's L2F and adversarial
      paths'; K3/K3-grad the RRIN, SuperSloMo and VoxelFlow CLIs' and their
      training paths', the per-step BN ones included; K3-grad² their
-     second-order training paths'; K4 the served DAIN frames'; K3-grad²
+     second-order training paths'; K1/K2 also the ``rest`` phase's SepConv
+     paths and K3/K3-grad (K3-grad² in second order) its VoxelFlow
+     --remat paths; K4 the served DAIN frames'; K3-grad²
      and K4 also their bf16 paths', and the bf16 instantiations of K1,
      K2, K3 and K3-grad four records of their own) and their sum
      (``launches``), the card line again, and the last line {"ok": true,
@@ -185,7 +206,7 @@ TRAIN_FLAGS = ["--model", "sepconv", "--mode", "train", "--dataset",
                "--number_of_training_steps_per_iter", "3",
                "--number_of_evaluation_steps_per_iter", "3", "--metasgd"]
 TASKS = 3                      # the preset's batch
-TRAIN_ITERS, TRAIN_REPS = 4, 5  # CLI iterations; timed iterations
+TRAIN_ITERS, TRAIN_REPS = 4, 3  # CLI iterations; timed iterations
 # first order, a task: the evaluation episode's launches with the query on
 # the tape, plus its backward (a K2 a query sepconv)
 K1_PER_TRAIN_ITER = TASKS * K1_PER_CLIP
@@ -297,7 +318,7 @@ WARP_TRAIN = {
                              "--number_of_evaluation_steps_per_iter", "1"],
              6, 1, 0)}
 SECOND_ORDER_STEPS = 1
-WARP_TRAIN_REPS = 3
+WARP_TRAIN_REPS = 2
 # VoxelFlow's K3 call: one frame of its padded 256x448 input, border
 # padding, align_corners=True
 VF_WARP_CASE = (1, 3, 256, 448, -WARP_R, WARP_R - 1, "uniform", WARP_R,
@@ -358,7 +379,7 @@ CAIN_FLAGS = ["--model", "cain", "--loss", "1*L1", "--optimizer", "Adam",
 CAIN_EVAL_FLAGS = CAIN_FLAGS + ["--mode", "val"]
 CAIN_TRAIN_FLAGS = CAIN_FLAGS + ["--mode", "train", "--batch_size", "8"]
 CAIN_TASKS, CAIN_PARAMS = 8, 42_780_432
-CAIN_EPISODE_REPS = 6
+CAIN_EPISODE_REPS = 3
 # --mode test: run_test.sh (CAIN, Adam, one evaluation step), and the same
 # flags with SepConv's Adamax and Meta-SGD, on a directory of TEST_FRAMES
 # frames f00.png ... f05.png, then again on its own output
@@ -3703,6 +3724,627 @@ def bf16_phase(torch, mods, card):
     return paths
 
 
+# the rest of the JAX package: the SSIM and VGG19 losses, --lpips,
+# --profile_dir, --remat, the legacy trainers, the native loader and DAIN's
+# off-path ops. SepConv at run_sepconv.sh's preset (batch 3, 3 steps,
+# Adamax, Meta-SGD) on 256x256 crops; the evaluations at 256x448
+VGG_LOSSES = {"vgg22_ssim": "1*L1+0.1*VGG22+1*SSIM", "vggp": "1*VGGP"}
+LOSS_TURNS = 3
+# LPIPS on the card against the CPU, on the same images
+LPIPS_ATOL = 1e-4
+REMAT = ["--remat"]
+REMAT_REPS = 2
+# the legacy scripts' defaults: --batch_size 4, --num_inner_update 1,
+# --crop_size 128 (the CLI runs); the steps timed on 256x256 crops
+LEGACY_BATCH, LEGACY_STEPS, LEGACY_CROP, LEGACY_REPS = 4, 1, 128, 2
+# a legacy step over the batch: n inner steps of the two support pairs,
+# one model call (CALLS sepconvs) each, then the query. MAML's query runs
+# with grad and takes its backward; Reptile's and the evaluation's run
+# under no-grad
+LEGACY_LAUNCHES = {
+    "maml": {"sepconv_forward": (2 * LEGACY_STEPS + 1) * CALLS,
+             "sepconv_grad_kernels": (2 * LEGACY_STEPS + 1) * CALLS},
+    "reptile": {"sepconv_forward": (2 * LEGACY_STEPS + 1) * CALLS,
+                "sepconv_grad_kernels": 2 * LEGACY_STEPS * CALLS},
+    "eval": {"sepconv_forward": (2 * LEGACY_STEPS + 1) * CALLS,
+             "sepconv_grad_kernels": 2 * LEGACY_STEPS * CALLS}}
+LEGACY_PRESETS = ("sepconv", "voxelflow", "superslomo", "dain")
+NATIVE_CLIPS = 6
+# DAIN's off-path ops, card vs CPU (plain PyTorch both sides, scatters
+# summed in other orders): within this share of the largest value
+DAIN_OPS_RTOL = 1e-4
+
+
+def remat_extra(steps, per_forward, second, training=True):
+    """The forward-kernel launches --remat adds to one task: those of each
+    recomputed forward. Training recomputes every support pass in its
+    backward (second order twice: in the inner gradient and again in the
+    outer backward through it) and the query once; evaluation the support
+    passes (its query runs under no-grad). Counted on the CPU with
+    counting wrappers before the first chip run."""
+    support = PAIRS * steps * per_forward
+    return ((2 * support if second else support)
+            + (per_forward if training else 0))
+
+
+def group_distance(got, want):
+    """{group: ‖got − want‖ / ‖want‖} over the tensors of each group."""
+    out = {}
+    for g, tree in want.items():
+        diff = math.sqrt(sum(float((got[g][k].cpu() - v.cpu()).norm()) ** 2
+                             for k, v in tree.items()))
+        ref = math.sqrt(sum(float(v.norm()) ** 2 for v in tree.values()))
+        out[g] = diff / ref if ref else diff
+    return out
+
+
+def loss_terms_phase(torch, mods, card):
+    """SepConv first-order train iterations at the preset under the SSIM
+    and VGG19 terms (VGG_LOSSES) in turns with 1*L1: the same K1/K2
+    launches as 1*L1 (the VGG features and the SSIM windows are cuDNN
+    convolutions), seconds an iteration, peak memory; then each loss's
+    outer gradient of a 64x64 clip on the card against the CPU (the loss,
+    each group's gradient within OUTER_GRAD_RTOL, the inner steps handed
+    over). Returns the launches by path."""
+    import numpy as np
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    clips = SyntheticSeptuplet(mode="train", size=(CLI_CROP, CLI_CROP))
+    frames = np.stack([clips[i][0] for i in range(TASKS)])
+    specs = {"l1": "1*L1", **VGG_LOSSES}
+    systems = {name: SceneAdaptiveInterpolation(get_args(
+        TRAIN_FLAGS + ["--loss", spec])) for name, spec in specs.items()}
+    paths, times, peaks, losses = {}, {n: [] for n in specs}, {}, {}
+    want = {"sepconv_forward": K1_PER_TRAIN_ITER,
+            "sepconv_grad_kernels": K2_PER_TRAIN_ITER}
+    for name, system in systems.items():   # warm-up, launches, peak
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(mods)
+        out, _ = system.run_train_iter(frames, 0)
+        torch.cuda.synchronize()
+        got = launch_counts(mods)
+        check({k: got[k] for k in want} == want,
+              f"{name} train iteration launched {got}, want {want} (the "
+              f"1*L1 path's)")
+        check(all(math.isfinite(v) for v in out.values()),
+              f"{name} train iteration: {out}")
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        losses[name] = out["loss"]
+        if name != "l1":
+            paths[f"sepconv_{name}_train"] = got
+    for _ in range(LOSS_TURNS):
+        for name, system in systems.items():
+            times[name] += timed_iters(
+                torch, lambda: system.run_train_iter(frames, 0), 1, warmup=0)
+    base = statistics.median(times["l1"])
+    for name, spec in specs.items():
+        med = statistics.median(times[name])
+        print(f"[rest] sepconv first-order train iteration, --loss {spec}, "
+              f"batch {TASKS}, {CLI_CROP}x{CLI_CROP} ({card}): median "
+              f"{med:.4f} s over {LOSS_TURNS} in turns with the others (all "
+              f"{[round(t, 4) for t in times[name]]}; {med / base:.3f} x "
+              f"1*L1's), peak memory {peaks[name]:.2f} GiB, loss "
+              f"{losses[name]:.5f}, launches K1 {want['sepconv_forward']} K2 "
+              f"{want['sepconv_grad_kernels']} an iteration")
+    del systems
+    for spec in VGG_LOSSES.values():
+        train_card_vs_cpu(torch, TRAIN_FLAGS + ["--loss", spec]
+                          + ENGINE_CHECK_STEPS, orders=("first",))
+    return paths
+
+
+def captured(fn):
+    """``fn()`` with its standard output captured, then printed → (result,
+    text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    print(buf.getvalue(), end="")
+    return out, buf.getvalue()
+
+
+def lpips_phase(torch, mods, card):
+    """--mode val --lpips on SepConv (the CLI's clips at CLI_CROP): the
+    ``[val epoch]`` line carries LPIPS, K1/K2 as without it; then LPIPS of
+    a 256x448 episode's prediction on the card against the CPU's on the
+    same images, within LPIPS_ATOL, and its time on the card. Returns the
+    launches."""
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.main import main as port_main
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    from meta_interpolation_tpu_torch.utils.profiling import eval_lpips
+    n_clips = len(SyntheticSeptuplet(mode="val"))
+    reset_launches(mods)
+    stats, text = captured(lambda: port_main(
+        EVAL_FLAGS + ["--lpips", "--dataset", "synthetic", "--crop_size",
+                      str(CLI_CROP)]))
+    torch.cuda.synchronize()
+    launches = launch_counts(mods)
+    want = {k: 0 for k in launches}
+    want.update(sepconv_forward=K1_PER_CLIP * n_clips,
+                sepconv_grad_kernels=K2_PER_CLIP * n_clips)
+    check(launches == want, f"--lpips CLI launched {launches}, want {want}")
+    line = [ln for ln in text.splitlines() if ln.startswith("[val epoch")]
+    check(len(line) == 1 and " LPIPS " in line[0]
+          and math.isfinite(stats.get("lpips", math.nan)),
+          f"--lpips val line {line}, stats {stats}")
+    system = SceneAdaptiveInterpolation(get_args(EVAL_FLAGS))
+    clip = SyntheticSeptuplet(mode="val", size=FULL_HW)[0][0][None]
+    _, preds = system.run_validation_iter(clip)
+    pred = preds.clamp(0, 1)
+    tgt = torch.as_tensor(clip[:, QUERY[1]].transpose(0, 3, 1, 2).copy(),
+                          device=pred.device).clamp(0, 1)
+    on_card = eval_lpips(pred, tgt)
+    on_cpu = eval_lpips(pred.cpu(), tgt.cpu())
+    check(abs(on_card - on_cpu) <= LPIPS_ATOL,
+          f"LPIPS card {on_card} vs CPU {on_cpu}")
+    ms = call_ms(torch, lambda: eval_lpips(pred, tgt), reps=5, warmup=1)
+    print(f"[rest] sepconv --lpips CLI val: {n_clips} clips, LPIPS "
+          f"{stats['lpips']:.4f}, launches {launches}; LPIPS of a "
+          f"{FULL_HW[0]}x{FULL_HW[1]} prediction ({card}): card {on_card:.6f}"
+          f" vs CPU {on_cpu:.6f} (diff {abs(on_card - on_cpu):.2e}, limit "
+          f"{LPIPS_ATOL}), {ms:.3f} ms on the card")
+    return {"sepconv_lpips_val": launches}
+
+
+def profile_dir_phase(torch, mods):
+    """--profile_dir on the SepConv CLI val at 64x64: the trace file is
+    written and names K1's kernel once for each K1 launch of the run (the
+    card's activity was captured). Returns the launches."""
+    import shutil
+    import tempfile
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.main import main as port_main
+    from meta_interpolation_tpu_torch.utils.profiling import TRACE_FILE
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    log_dir = tempfile.mkdtemp(prefix="smoke_profile_", dir=build)
+    n_clips = len(SyntheticSeptuplet(mode="val"))
+    try:
+        reset_launches(mods)
+        port_main(EVAL_FLAGS + ["--dataset", "synthetic", "--crop_size",
+                                str(SMALL_HW[0]), "--profile_dir", log_dir])
+        torch.cuda.synchronize()
+        launches = launch_counts(mods)
+        path = os.path.join(log_dir, TRACE_FILE)
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(log_dir)
+    kernel = SEPCONV_KERNELS["sepconv_forward"]
+    k1_events = [e for e in events if e.get("cat") == "kernel"
+                 and kernel in e.get("name", "")]
+    device = [e for e in events if e.get("cat") == "kernel"]
+    check(launches["sepconv_forward"] == K1_PER_CLIP * n_clips
+          and len(k1_events) == launches["sepconv_forward"],
+          f"--profile_dir trace: {len(k1_events)} {kernel} events, "
+          f"launches {launches}")
+    print(f"[rest] --profile_dir sepconv CLI val at {SMALL_HW[0]}x"
+          f"{SMALL_HW[1]}: trace {size / 2**20:.1f} MiB, {len(events)} "
+          f"events, {len(device)} device kernels, {len(k1_events)} named "
+          f"{kernel} (K1 launches {launches['sepconv_forward']})")
+    return {"sepconv_profiled_val": launches}
+
+
+def remat_paths(torch, mods, wb, card, name, flags, batch, steps, warps,
+                base, frames, clip, run_wrap):
+    """One model's --remat measurements: a first-order train iteration at
+    ``batch`` and a second-order one at batch 1, each with and without
+    --remat in turns (seconds, peak memory, launches: ``base(order)``
+    without, plus the recomputed forwards' with), then outer gradients of
+    ``clip`` with and without --remat on the card (first order at the
+    preset's rule, second at the inner SGD rule): the loss within
+    LOSS_RTOL, each group within OUTER_GRAD_RTOL. Returns the --remat
+    paths' launches."""
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    kernel = "sepconv_forward" if warps is None else \
+        "warp_sample_bounded_forward"
+    per_forward = CALLS if warps is None else warps
+    paths = {}
+    for order, extra, tasks in (("first", [], batch),
+                                ("second", ["--second_order"], 1)):
+        systems = {remat: SceneAdaptiveInterpolation(get_args(
+            flags + extra + (REMAT if remat else [])
+            + (["--batch_size", "1"] if order == "second" else [])))
+            for remat in (False, True)}
+        want = dict(base(order))
+        times = {False: [], True: []}
+        peaks, got = {}, {}
+        for rep in range(REMAT_REPS + 1):
+            for remat, system in systems.items():
+                run = run_wrap(lambda: system.run_train_iter(
+                    frames[:tasks], 0))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches(mods)
+                t = timed_iters(torch, run, 1, warmup=0)[0]
+                got[remat] = launch_counts(mods)
+                peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
+                if rep:
+                    times[remat].append(t)
+        add = tasks * remat_extra(steps, per_forward, order == "second")
+        want_remat = {**want, kernel: want[kernel] + add}
+        check({k: got[False][k] for k in want} == want
+              and {k: got[True][k] for k in want} == want_remat,
+              f"{name} {order}-order launches {got}, want {want} and with "
+              f"--remat {want_remat}")
+        paths[f"{name}_remat_train" + ("" if order == "first"
+                                       else "_second_order")] = got[True]
+        med = {r: statistics.median(times[r]) for r in times}
+        print(f"[rest] {name} {order}-order train iteration, batch {tasks}, "
+              f"{CLI_CROP}x{CLI_CROP} ({card}): without --remat "
+              f"{med[False]:.4f} s, peak {peaks[False]:.2f} GiB; with "
+              f"{med[True]:.4f} s ({med[True] / med[False]:.3f} x), peak "
+              f"{peaks[True]:.2f} GiB ({peaks[True] / peaks[False]:.3f} x); "
+              f"medians of {REMAT_REPS} in turns after a warm-up; {kernel} "
+              f"{want[kernel]} -> {want_remat[kernel]} an iteration")
+        del systems
+        rule = [] if order == "first" else ["--optimizer", "SGD"]
+        out = {}
+        for remat in (False, True):
+            system = SceneAdaptiveInterpolation(get_args(
+                flags + extra + rule + ["--batch_size", "1"]
+                + (REMAT if remat else [])))
+            loss, _, grads = run_wrap(lambda: system.outer_grads(clip, 0))()
+            out[remat] = (float(loss), grads)
+            del system
+        (l0, g0), (l1, g1) = out[False], out[True]
+        ratios = group_distance(g1, g0)
+        check(abs(l1 - l0) <= LOSS_RTOL * abs(l0)
+              and all(r <= OUTER_GRAD_RTOL for r in ratios.values()),
+              f"{name} {order}-order --remat: loss {l1} vs {l0}, gradients "
+              f"{ratios}")
+        print(f"[rest] {name} {order}-order outer gradient of a "
+              f"{SMALL_HW[0]}x{SMALL_HW[1]} clip on the card, --remat vs "
+              f"without: loss {l1:.6f} vs {l0:.6f}, |diff|/|ref| "
+              + " ".join(f"{g} {r:.3e}" for g, r in ratios.items()
+                         if g in ("net", "lrs"))
+              + f" (limit {OUTER_GRAD_RTOL})")
+    return paths
+
+
+def remat_phase(torch, mods, sc, wb, card):
+    """--remat on SepConv (run_sepconv.sh) and on VoxelFlow with
+    --fast_warp_range 8 (run_voxelflow.sh): remat_paths each, with no
+    plain sepconv or sampler allowed. Returns the launches by path."""
+    import numpy as np
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+
+    def plain_called(*_args):
+        raise AssertionError("a plain sepconv ran on the card")
+
+    def no_plain_sepconv(fn):
+        return with_attr(sc, "sepconv_ref", plain_called, with_attr(
+            sc, "grad_kernels_ref", plain_called, fn))
+
+    paths = {}
+    clips = SyntheticSeptuplet(mode="train", size=(CLI_CROP, CLI_CROP))
+    frames = np.stack([clips[i][0] for i in range(TASKS)])
+    clip = SyntheticSeptuplet(mode="train", size=SMALL_HW)[0][0][None]
+    paths.update(remat_paths(
+        torch, mods, wb, card, "sepconv", TRAIN_FLAGS, TASKS, STEPS, None,
+        lambda order: ({"sepconv_forward": K1_PER_TRAIN_ITER,
+                        "sepconv_grad_kernels": K2_PER_TRAIN_ITER}
+                       if order == "first" else
+                       {"sepconv_forward": K1_PER_TASK_SECOND_ORDER,
+                        "sepconv_grad_kernels": K2_PER_TASK_SECOND_ORDER}),
+        frames, clip, no_plain_sepconv))
+    flags, batch, steps, warps = WARP_TRAIN["voxelflow"]
+    clips = SyntheticSeptuplet(model="voxelflow", mode="train",
+                               size=(CLI_CROP, CLI_CROP))
+    frames = np.stack([clips[i][0] for i in range(batch)])
+    clip = SyntheticSeptuplet(model="voxelflow", mode="train",
+                              size=SMALL_HW)[0][0][None]
+    paths.update(remat_paths(
+        torch, mods, wb, card, "voxelflow", flags, batch, steps, warps,
+        lambda order: {k: v * (batch if order == "first" else 1)
+                       for k, v in train_launches(
+                           steps, warps, order == "second").items()},
+        frames, clip, lambda fn: plain_warp_forbidden(wb, fn)))
+    return paths
+
+
+def legacy_phase(torch, mods, card):
+    """The legacy trainers on SepConv (train_sepconv's preset): a MAML
+    step, a Reptile step and an evaluation episode at LEGACY_BATCH on
+    256x256 crops (seconds, K1/K2 launches held to LEGACY_LAUNCHES); each
+    on a 64x64 clip on the card against the CPU (the inner Adamax steps
+    handed over: the loss within LOSS_RTOL, MAML's outer gradient and
+    Reptile's move within OUTER_GRAD_RTOL in norm, the evaluation's
+    prediction within PRED_ATOL); then one epoch of each preset's CLI
+    (LEGACY_PRESETS) on the synthetic set at crop LEGACY_CROP. Returns
+    the launches by path."""
+    import shutil
+    import numpy as np
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.legacy import driver, trainers
+    from meta_interpolation_tpu_torch.meta.inner_optimizers import (
+        InnerOptimizer)
+    import importlib
+    preset = importlib.import_module(
+        "meta_interpolation_tpu_torch.legacy.train_sepconv").PRESET
+    paths = {}
+    cfg = driver.parse_args(preset, ["--batch_size", str(LEGACY_BATCH)])
+    md, model, params, loss_fn, mask, dev = driver.build(preset, cfg)
+    opt = driver.make_outer_optimizer(preset.outer_opt, params.values(),
+                                      cfg.outer_lr)
+    clips = SyntheticSeptuplet(mode="train", size=(CLI_CROP, CLI_CROP))
+    frames = driver.to_device_frames(
+        np.stack([clips[i][0] for i in range(LEGACY_BATCH)]), dev)
+    kw = dict(num_steps=LEGACY_STEPS, inner_rule=preset.inner_rule,
+              mask=mask)
+    steps = {
+        "maml": lambda: trainers.fomaml_step(model, loss_fn, params, opt,
+                                             frames, cfg.inner_lr, **kw),
+        "reptile": lambda: trainers.reptile_step(
+            model, loss_fn, params, frames, cfg.inner_lr, cfg.outer_lr,
+            **kw),
+        "eval": lambda: trainers.eval_episode(model, loss_fn, params, frames,
+                                              cfg.inner_lr, **kw)}
+    for algo, step in steps.items():
+        step()   # warm-up
+        reset_launches(mods)
+        times = timed_iters(torch, step, LEGACY_REPS, warmup=0)
+        got = launch_counts(mods)
+        want = {k: v * LEGACY_REPS for k, v in LEGACY_LAUNCHES[algo].items()}
+        check({k: got[k] for k in want} == want,
+              f"legacy {algo} launched {got}, want {want}")
+        paths[f"legacy_sepconv_{algo}"] = got
+        print(f"[rest] legacy sepconv {algo} step, batch {LEGACY_BATCH}, "
+              f"{CLI_CROP}x{CLI_CROP}, {LEGACY_STEPS} inner step ({card}): "
+              f"median {statistics.median(times):.4f} s over {LEGACY_REPS} "
+              f"after a warm-up (all {[round(t, 4) for t in times]}), "
+              f"launches K1 {LEGACY_LAUNCHES[algo]['sepconv_forward']} K2 "
+              f"{LEGACY_LAUNCHES[algo]['sepconv_grad_kernels']} a step")
+    del model, params, opt, frames
+    small = SyntheticSeptuplet(mode="train", size=SMALL_HW)[0][0][None]
+    for algo in steps:
+        out, record = {}, []
+        inner = dict.fromkeys(("d2", "n2", "flips", "n"), 0)
+        for dev_name in ("cuda", "cpu"):
+            c = driver.parse_args(preset, ["--device", dev_name])
+            _, model, params, loss_fn, mask, dev = driver.build(preset, c)
+            before = {k: v.clone() for k, v in params.items()}
+            x = driver.to_device_frames(small, dev)
+            kw = dict(num_steps=LEGACY_STEPS, inner_rule=preset.inner_rule,
+                      mask=mask)
+            taken = {}
+            if algo == "maml":
+                opt = driver.make_outer_optimizer(preset.outer_opt,
+                                                  params.values(), c.outer_lr)
+                real_step = opt.step
+
+                def recording_step(real_step=real_step, params=params):
+                    taken.update({k: p.grad.detach().cpu()
+                                  for k, p in params.items()})
+                    return real_step()
+                opt.step = recording_step
+                fn = lambda: trainers.fomaml_step(model, loss_fn, params, opt,
+                                                  x, c.inner_lr, **kw)
+            elif algo == "reptile":
+                fn = lambda: trainers.reptile_step(
+                    model, loss_fn, params, x, c.inner_lr, c.outer_lr, **kw)
+            else:
+                fn = lambda: trainers.eval_episode(model, loss_fn, params, x,
+                                                   c.inner_lr, **kw)
+            res = with_attr(InnerOptimizer, "update", handing_inner(
+                torch, InnerOptimizer.update, record, dev_name, inner), fn)()
+            if algo == "maml":
+                moved = taken
+            elif algo == "reptile":
+                moved = {k: (v - before[k]).cpu() for k, v in res[0].items()}
+            else:
+                moved = {"pred": res[1].cpu()}
+            out[dev_name] = (float(res[1] if algo != "eval" else res[0]),
+                             moved)
+        check(not record, f"legacy {algo}: the CPU left {len(record)} of the "
+                          f"card's inner steps")
+        (l_card, m_card), (l_cpu, m_cpu) = out["cuda"], out["cpu"]
+        check(abs(l_card - l_cpu) <= LOSS_RTOL * abs(l_cpu),
+              f"legacy {algo} loss card {l_card} vs CPU {l_cpu}")
+        if algo == "eval":
+            diff = float((m_card["pred"] - m_cpu["pred"]).abs().max())
+            check(diff <= PRED_ATOL, f"legacy eval prediction card vs CPU "
+                                     f"{diff}")
+            shown = f"max|pred diff| {diff:.3e} (limit {PRED_ATOL})"
+        else:
+            ratio = group_distance({"net": m_card}, {"net": m_cpu})["net"]
+            check(ratio <= OUTER_GRAD_RTOL, f"legacy {algo} card vs CPU "
+                                            f"{ratio}")
+            what = "outer gradient" if algo == "maml" else "move θ' − θ"
+            shown = f"{what} |diff|/|cpu| {ratio:.3e} (limit " \
+                    f"{OUTER_GRAD_RTOL})"
+        print(f"[rest] legacy sepconv {algo}, {SMALL_HW[0]}x{SMALL_HW[1]} "
+              f"clip, card vs CPU (the CPU stepped with the card's support "
+              f"gradients, {inner['flips']} of {inner['n']} elements of the "
+              f"other sign): loss {l_card:.6f} vs {l_cpu:.6f}, {shown}")
+    ckpt = os.path.join(ROOT, "build", "smoke_legacy_ckpt")
+    try:
+        for name in LEGACY_PRESETS:
+            mod = importlib.import_module(
+                f"meta_interpolation_tpu_torch.legacy.train_{name}")
+            reset_launches(mods)
+            t0 = time.perf_counter()
+            _, text = captured(lambda: mod.main([
+                "--dataset", "synthetic", "--crop_size", str(LEGACY_CROP),
+                "--batch_size", "1", "--val_batch_size", "1",
+                "--max_epoch", "1", "--train_iter", "1", "--val_iter", "1",
+                "--logfreq", "1", "--exp_name", name,
+                "--checkpoint_dir", ckpt]))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = launch_counts(mods)
+            psnr = [float(ln.split()[-1]) for ln in text.splitlines()
+                    if ln.startswith("val_PSNR:")]
+            check(len(psnr) == 1 and math.isfinite(psnr[0]) and
+                  os.path.exists(os.path.join(ckpt, name, "checkpoint.pth")),
+                  f"legacy {name} CLI: PSNR {psnr}")
+            if name == "sepconv":
+                want = {k: LEGACY_LAUNCHES["maml"][k]
+                        + LEGACY_LAUNCHES["eval"][k]
+                        for k in LEGACY_LAUNCHES["maml"]}
+                check({k: got[k] for k in want} == want,
+                      f"legacy sepconv CLI launched {got}, want {want}")
+                paths["legacy_sepconv_cli"] = got
+            else:
+                # the legacy scripts build the models without a warp
+                # bound: the exact sampler and projection, no kernel of ours
+                check(not any(got.values()),
+                      f"legacy {name} CLI launched {got}")
+            print(f"[rest] legacy {name} CLI, one epoch of 1 train and 1 val "
+                  f"batch at {LEGACY_CROP}x{LEGACY_CROP}: {dt:.2f} s, val "
+                  f"PSNR {psnr[0]:.3f}, launches {got}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return paths
+
+
+def native_loader_phase(card):
+    """The native loader on the card's host: prep.cpp builds with g++ (no
+    fallback), and a train batch of NATIVE_CLIPS synthetic 256x448
+    septuplets in the Vimeo90K layout through TaskLoader's native path is
+    bit for bit the numpy transcription of the C arithmetic on the same raw
+    frames and augmentation draws, and within one float32 ulp of the
+    numpy path's (x/255 there, x·(1/255) here); both paths timed."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from PIL import Image
+    from meta_interpolation_tpu_torch.data import loader as loader_lib
+    from meta_interpolation_tpu_torch.data import native
+    from meta_interpolation_tpu_torch.data.datasets import (
+        SyntheticSeptuplet, VimeoSeptuplet)
+    t0 = time.perf_counter()
+    lib = native.load()
+    build_s = time.perf_counter() - t0
+    check(lib is not None and native.FALLBACK is None,
+          f"the native library did not build: {native.FALLBACK}")
+    root = tempfile.mkdtemp(prefix="smoke_vimeo_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        seqs = [f"{i:05d}/0001" for i in range(NATIVE_CLIPS)]
+        synth = SyntheticSeptuplet(mode="val", size=FULL_HW)
+        for i, seq in enumerate(seqs):
+            d = os.path.join(root, "sequences", seq)
+            os.makedirs(d)
+            for t, frame in enumerate(synth[i][0], 1):
+                Image.fromarray(np.round(frame * 255).astype(np.uint8)).save(
+                    os.path.join(d, f"im{t}.png"))
+        for name in ("sep_trainlist.txt", "sep_testlist.txt"):
+            with open(os.path.join(root, name), "w") as f:
+                f.write("\n".join(seqs))
+        calls = []
+        real = native.prep_batch
+
+        def counted(*args, **kwargs):
+            calls.append(1)
+            return real(*args, **kwargs)
+
+        def batch(native_path):
+            ds = VimeoSeptuplet(root, model="sepconv", crop_size=CLI_CROP)
+            tl = loader_lib.TaskLoader(ds, NATIVE_CLIPS, shuffle=True,
+                                       num_workers=4)
+            load = native.load if native_path else (lambda: None)
+            t0 = time.perf_counter()
+            out = with_attr(native, "load", load, with_attr(
+                native, "prep_batch", counted, lambda: next(iter(tl))))()
+            return out, time.perf_counter() - t0
+
+        (got, got_meta), native_s = batch(True)
+        check(len(calls) == 1, f"the loader took the native path "
+                               f"{len(calls)} times for one batch")
+        (ref, ref_meta), numpy_s = batch(False)
+        check(len(calls) == 1 and got_meta == ref_meta,
+              "the numpy path called prep_batch, or the metadata differ")
+        # the same raw frames and draws, transcribed: (u8·(1/255) − 0)/1
+        ds = VimeoSeptuplet(root, model="sepconv", crop_size=CLI_CROP)
+        order = list(range(NATIVE_CLIPS))
+        np.random.RandomState(0).shuffle(order)
+        want = []
+        for i in order:
+            raw, _ = ds.get_raw(i)
+            oy, ox, flip, ch, cw = ds.aug_params(*raw.shape[1:3])
+            raw = raw[::-1] if flip else raw
+            crop = raw[:, oy:oy + ch, ox:ox + cw].astype(np.float32)
+            want.append(crop * np.float32(1.0 / 255.0))
+        bitwise = np.array_equal(got, np.stack(want))
+        ulp = np.abs(got - ref) <= np.spacing(np.maximum(np.abs(got),
+                                                         np.abs(ref)))
+        check(bitwise and bool(ulp.all()),
+              f"native batch: bitwise the transcription {bitwise}, within "
+              f"one ulp of the numpy path {float(ulp.mean())}")
+    finally:
+        shutil.rmtree(root)
+    print(f"[rest] native loader ({card}): g++ build {build_s:.2f} s, a "
+          f"batch of {NATIVE_CLIPS} clips of {FULL_HW[0]}x{FULL_HW[1]} PNGs "
+          f"cropped {CLI_CROP}x{CLI_CROP}: native {native_s:.3f} s, numpy "
+          f"{numpy_s:.3f} s, bit for bit the transcription of prep.cpp, "
+          f"{int((got != ref).sum())} of {got.size} values one ulp off the "
+          f"numpy path's")
+
+
+def dain_ops_phase(torch, card):
+    """DAIN's off-path ops on CUDA tensors against the CPU, plain PyTorch
+    on both (scatters summed in other orders): the adaptive-weight
+    interpolation of two 256x448 frames, the flow of 51-tap separable
+    kernels and the min-depth projection with hole filling, each within
+    DAIN_OPS_RTOL of its largest value, and timed on the card."""
+    from meta_interpolation_tpu_torch.ops import adaptive_weight as aw
+    from meta_interpolation_tpu_torch.ops import flow_projection as fp
+    from meta_interpolation_tpu_torch.ops import sepconv as sc
+    gen = torch.Generator().manual_seed(0)
+    h, w = FULL_HW
+    inputs = {
+        "img1": torch.rand(1, 3, h, w, generator=gen),
+        "img2": torch.rand(1, 3, h, w, generator=gen),
+        "flow1": smooth_flow(torch, 1, h, w, 3.0, 1) + 0.013,
+        "flow2": smooth_flow(torch, 1, h, w, 3.0, 2) + 0.017,
+        "kv": torch.rand(1, sc.F_TAPS, h, w, generator=gen),
+        "kh": torch.rand(1, sc.F_TAPS, h, w, generator=gen),
+        "depth": torch.rand(1, h, w, 1, generator=gen) + 0.1}
+    on = {"cpu": inputs,
+          "cuda": {k: v.cuda() for k, v in inputs.items()}}
+    cases = {
+        "adaptive_weight_interpolation": lambda x: aw.
+        adaptive_weight_interpolation(x["img1"], x["img2"], x["flow1"],
+                                      x["flow2"]),
+        "separable_conv_flow": lambda x: sc.separable_conv_flow(x["kv"],
+                                                                x["kh"]),
+        "min_depth_flow_projection": lambda x: fp.min_depth_flow_projection(
+            x["flow1"], x["depth"], True)}
+    for name, fn in cases.items():
+        got, want = fn(on["cuda"]).cpu(), fn(on["cpu"])
+        err = float((got - want).abs().max())
+        lim = DAIN_OPS_RTOL * float(want.abs().max())
+        check(err <= lim, f"{name} card vs CPU: {err:.3e} > {lim:.3e}")
+        ms = call_ms(torch, lambda: fn(on["cuda"]), reps=5, warmup=1)
+        print(f"[rest] {name} at {h}x{w}, card vs CPU ({card}): max|diff| "
+              f"{err:.3e} (limit {lim:.3e}), {ms:.3f} ms on the card")
+
+
+def rest_phase(torch, mods, sc, wb, card):
+    """The phases of the rest of the JAX package. Returns the launches of
+    each main path."""
+    paths = timed("rest_loss_terms", loss_terms_phase, torch, mods, card)
+    paths.update(timed("rest_lpips", lpips_phase, torch, mods, card))
+    paths.update(timed("rest_profile_dir", profile_dir_phase, torch, mods))
+    paths.update(timed("rest_remat", remat_phase, torch, mods, sc, wb, card))
+    paths.update(timed("rest_legacy", legacy_phase, torch, mods, card))
+    timed("rest_native_loader", native_loader_phase, card)
+    timed("rest_dain_ops", dain_ops_phase, torch, card)
+    return paths
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--earlier-sepconv", metavar="PATH",
@@ -3802,6 +4444,7 @@ def main():
     test_launches = timed("test_mode", test_mode_phase, torch, mods)
     engine_paths = timed("engine", engine_phase, torch, mods, wb, card)
     bf16_paths = timed("bf16", bf16_phase, torch, mods, card)
+    rest_paths = timed("rest", rest_phase, torch, mods, sc, wb, card)
     # each kernel's launches on the main paths that run it, each read on
     # its own: K1 and K2 on two; K3 and K3-grad on the three evaluation
     # CLIs and the six training paths of the warp models; K3-grad² on their
@@ -3837,6 +4480,14 @@ def main():
         by_path[rec["name"]] = {path: counts[base] for path, counts in
                                 bf16_paths.items() if counts.get(base)}
     records += bf16_records
+    # the rest of the package: K1/K2 on the SepConv paths (the VGG/SSIM
+    # losses, --lpips, --profile_dir, --remat, the legacy trainers); K3 and
+    # K3-grad on VoxelFlow's --remat paths, K3-grad² on its second order
+    for path, counts in rest_paths.items():
+        for k in (KERNELS[:2] if not path.startswith("voxelflow")
+                  else KERNELS[2:4] + ((KERNELS[4],) if path.endswith(
+                      "second_order") else ())):
+            by_path[k][path] = counts[k]
     for rec in records:
         rec["launches_by_path"] = by_path[rec["name"]]
         rec["launches"] = sum(by_path[rec["name"]].values())

@@ -4,8 +4,9 @@ The port's own copy of ``meta_interpolation_tpu/config.py``: the same
 dataclass and the same flags, so command lines carry over unchanged, plus
 ``--device {cuda,cpu}``. Flags of the JAX package's TPU group that steer
 its compilation or sharding (``--mesh_shape``, ``--episode_parallel``,
-``--jit_episode``, ``--remat``) are accepted and have no effect here;
-flags whose behaviour is not ported yet raise where they are read.
+``--jit_episode``) are accepted and have no effect here; ``--remat``
+recomputes each model forward in its backward
+(``torch.utils.checkpoint``); ``--spatial_shards`` above 1 raises.
 """
 from __future__ import annotations
 
@@ -95,12 +96,13 @@ class Config:
     checkpoint_dir: str = "checkpoint"
     crop_size: int = 256
     jit_episode: bool = True
-    profile_dir: Optional[str] = None  # jax.profiler trace output
+    # torch.profiler trace of the whole run (utils/profiling.trace)
+    profile_dir: Optional[str] = None
     # bounded fast warp for flow models (0 = exact gather; >0 = pixel bound,
     # inference-quality path — see ops/warp.grid_sample_bounded)
     fast_warp_range: int = 0
-    # rematerialize model activations in the inner loop (trade FLOPs for
-    # HBM — lets bigger task batches / more inner steps fit)
+    # recompute each model forward's activations in its backward
+    # (torch.utils.checkpoint): trades FLOPs for device memory
     remat: bool = False
     # CAIN input padding granularity. 128 = reference-exact
     # (model_utils.py:17-28); the architecture only needs 2**depth, so 8

@@ -22,8 +22,10 @@ plus a layout rule per leaf kind:
     buffers, ``scale`` ↔ ``weight`` (affine only);
   * ``bias`` as it is.
 
-The VGG16 weights of SuperSloMo's ``Super`` loss, which are the loss's and
-not the model's, bridge with :func:`vgg16_params_from_jax`. The other
+The VGG16 weights of SuperSloMo's ``Super`` loss and the VGG19 weights of
+the perceptual terms, which are the loss's and not the model's, bridge
+with :func:`vgg16_params_from_jax` and :func:`vgg19_params_from_jax`, and
+LPIPS's AlexNet and lins with :func:`lpips_params_from_jax`. The other
 groups of the meta-parameters bridge with :func:`attenuator_from_jax`
 (L2F), :func:`bn_state_from_jax` (per-step BN statistics) and
 :func:`disc_params_from_jax` (the adversarial loss's discriminator);
@@ -152,35 +154,85 @@ def params_to_jax(state: Dict[str, torch.Tensor], model: nn.Module
     return tree
 
 
-def vgg16_params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """The JAX package's VGG16 loss params (``{'conv_i': {'kernel' HWIO,
-    'bias'}}``, ``core/losses.init_vgg16_params``) → the port's loss params
-    (``{'conv_i': {'weight' OIHW, 'bias'}}``), every name and shape checked
-    against ``core/losses.vgg16_shapes``."""
-    from .losses import vgg16_shapes
-    shapes = vgg16_shapes()
-    if set(tree) != set(shapes):
-        raise ValueError(f"VGG16 tree names {sorted(tree)} are not "
-                         f"{sorted(shapes)}")
+def _vgg_params_from_jax(tree: Dict[str, Any], shapes, what: str,
+                         prefix_ok: bool) -> Dict[str, Any]:
+    """A JAX VGG tree (``{'conv_i': {'kernel' HWIO, 'bias'}}``) → the
+    port's (``{'conv_i': {'weight' OIHW, 'bias'}}``), every name and shape
+    checked against ``shapes``; with ``prefix_ok`` the first k convs of it
+    (a stack cut short, as ``init_vgg19_params(max_cut)`` makes)."""
+    want = list(shapes)[:len(tree)] if prefix_ok else list(shapes)
+    if set(tree) != set(want):
+        raise ValueError(f"{what} tree names {sorted(tree)} are not "
+                         f"{sorted(want)}")
     params = {}
-    for name, (w_shape, b_shape) in shapes.items():
+    for name in want:
+        w_shape, b_shape = shapes[name]
         w = torch.tensor(np.asarray(tree[name]["kernel"]).transpose(3, 2, 0,
                                                                     1))
         b = torch.tensor(np.asarray(tree[name]["bias"]))
         if tuple(w.shape) != w_shape or tuple(b.shape) != b_shape:
-            raise ValueError(f"VGG16 {name}: {tuple(w.shape)}, "
+            raise ValueError(f"{what} {name}: {tuple(w.shape)}, "
                              f"{tuple(b.shape)}; want {w_shape}, {b_shape}")
         params[name] = {"weight": w, "bias": b}
     return params
 
 
+def vgg16_params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX package's VGG16 loss params (``core/losses.
+    init_vgg16_params``) → the port's loss params, every name and shape
+    checked against ``core/losses.vgg16_shapes``."""
+    from .losses import VGG16_LAYERS, vgg_shapes
+    return _vgg_params_from_jax(tree, vgg_shapes(VGG16_LAYERS), "VGG16",
+                                prefix_ok=False)
+
+
+def vgg19_params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX package's VGG19 loss params (``core/losses.
+    init_vgg19_params(max_cut)``: the convs to that cut) → the port's."""
+    from .losses import VGG19_LAYERS, vgg_shapes
+    return _vgg_params_from_jax(tree, vgg_shapes(VGG19_LAYERS), "VGG19",
+                                prefix_ok=True)
+
+
 def vgg16_params_to_jax(params: Dict[str, Any]) -> Dict[str, Any]:
-    """The inverse of :func:`vgg16_params_from_jax`."""
+    """The inverse of :func:`vgg16_params_from_jax` (and of
+    :func:`vgg19_params_from_jax`)."""
     return {name: {"kernel": np.ascontiguousarray(
                        p["weight"].detach().cpu().numpy().transpose(2, 3, 1,
                                                                     0)),
                    "bias": p["bias"].detach().cpu().numpy()}
             for name, p in params.items()}
+
+
+vgg19_params_to_jax = vgg16_params_to_jax
+
+
+def lpips_params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX package's LPIPS params (``utils/lpips``: ``{'convs': {'i':
+    {'kernel' HWIO, 'bias'}}, 'lins': {'i': (C,)}}``) → the port's
+    (``{'convs': {'i': {'weight' OIHW, 'bias'}}, 'lins': {'i': (C,)}}``),
+    every shape checked against ``utils/lpips.alexnet_shapes``."""
+    from ..utils.lpips import LIN_CHANNELS, alexnet_shapes
+    shapes = alexnet_shapes()
+    if set(tree.get("convs", {})) != set(shapes) or set(
+            tree.get("lins", {})) != {str(i) for i in range(5)}:
+        raise ValueError(f"LPIPS tree: convs {sorted(tree.get('convs', {}))}"
+                         f", lins {sorted(tree.get('lins', {}))}")
+    convs = {}
+    for name, (w_shape, b_shape) in shapes.items():
+        p = tree["convs"][name]
+        w = torch.tensor(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+        b = torch.tensor(np.asarray(p["bias"]))
+        if tuple(w.shape) != w_shape or tuple(b.shape) != b_shape:
+            raise ValueError(f"LPIPS conv {name}: {tuple(w.shape)}; want "
+                             f"{w_shape}")
+        convs[name] = {"weight": w, "bias": b}
+    lins = {str(i): torch.tensor(np.asarray(tree["lins"][str(i)]))
+            for i in range(5)}
+    for i, ch in enumerate(LIN_CHANNELS):
+        if tuple(lins[str(i)].shape) != (ch,):
+            raise ValueError(f"LPIPS lin {i}: {tuple(lins[str(i)].shape)}")
+    return {"convs": convs, "lins": lins}
 
 
 def load_torch_file(path: str) -> Dict[str, torch.Tensor]:

@@ -5,7 +5,10 @@ Counterpart of ``meta_interpolation_tpu/core/experiment.py`` (reference
 schedule, best-PSNR checkpoint; resume from the checkpoint), and the
 validation loop with recursive spatial tiling of oversized frames and
 PSNR/SSIM on the stitched full-frame prediction (and, with ``--viz``, its
-images), and the ×2 slow-motion writer of ``--mode test``.
+images, and with ``--lpips`` LPIPS on the card), and the ×2 slow-motion
+writer of ``--mode test``. ``--use_tensorboard`` logs the losses, PSNR and
+SSIM to ``log_dir/exp_name`` (when the ``tensorboard`` package is there);
+``--profile_dir`` traces the whole run (``utils/profiling.trace``).
 """
 from __future__ import annotations
 
@@ -23,18 +26,20 @@ from . import metrics as metrics_lib
 
 class ExperimentBuilder:
     def __init__(self, cfg: Config, data, system):
-        unported = [flag for flag, on in [
-            ("--lpips", cfg.lpips), ("--use_tensorboard", cfg.use_tensorboard),
-            ("--profile_dir", cfg.profile_dir)] if on]
-        if unported:
-            raise NotImplementedError(
-                f"not ported to PyTorch yet: {', '.join(unported)}")
         self.cfg = cfg
         self.data = data
         self.system = system
         self.best_psnr = 0.0
         self.start_epoch = cfg.start_epoch
         self.exp_dir = os.path.join(cfg.checkpoint_dir, cfg.exp_name)
+        self.writer = None
+        if cfg.use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self.writer = SummaryWriter(
+                    os.path.join(cfg.log_dir, cfg.exp_name))
+            except ImportError:
+                print("[tb] tensorboard unavailable — logging disabled")
         if cfg.resume:
             self._resume()
 
@@ -57,6 +62,13 @@ class ExperimentBuilder:
              "system": self.system.state_dict(),
              "best_PSNR": self.best_psnr},
             self.exp_dir, is_best=is_best)
+
+    def _log_tb(self, tag_values: dict, step: int):
+        if self.writer is None:
+            return
+        for tag, value in tag_values.items():
+            self.writer.add_scalar(tag, value, step)
+        self.writer.flush()
 
     def _tiled_val_iter(self, frames: np.ndarray, limit: float):
         """Recursively split H or W in half while H·W exceeds the limit;
@@ -90,12 +102,15 @@ class ExperimentBuilder:
                 if psnr_meter.count:
                     msg += f" psnr {psnr_meter.avg:.2f}"
                 print(msg + f" ({time.time() - t0:.1f}s)")
+                self._log_tb({"Loss/train": loss_meter.avg},
+                             epoch * self.cfg.total_iter_per_epoch + it)
         return loss_meter.avg
 
     def validate(self, epoch: int = 0, total_batches: int = -1,
                  save_images: bool = False):
         loss_meter, psnr_meter, ssim_meter = (AverageMeter(), AverageMeter(),
                                               AverageMeter())
+        lpips_meter = AverageMeter()
         limit = self.system.model_def.tile_pixel_limit
         dn = self.system.model_def.denormalize
         qt = self.cfg.target_idxs[1]
@@ -111,14 +126,31 @@ class ExperimentBuilder:
             psnr_v, ssim_v = metrics_lib.calc_metrics(dn(preds[0]), dn(tgt0))
             psnr_meter.update(float(psnr_v))
             ssim_meter.update(float(ssim_v))
+            if self.cfg.lpips:
+                # reference utils.py:195-211: LPIPS beside PSNR/SSIM, on
+                # the whole clipped batch in [0, 1]
+                from ..utils.profiling import eval_lpips
+                tgt = torch.as_tensor(np.ascontiguousarray(
+                    frames_np[:, qt].transpose(0, 3, 1, 2)),
+                    device=preds.device)
+                lpips_meter.update(eval_lpips(dn(preds).clamp(0, 1),
+                                              dn(tgt).clamp(0, 1)))
             if save_images and self.cfg.viz:
                 from ..utils.viz import save_batch_images
                 save_batch_images(preds, meta, os.path.join(
                     self.exp_dir, self.cfg.dataset))
-        print(f"[val epoch {epoch}] loss {loss_meter.avg:.4f} "
-              f"PSNR {psnr_meter.avg:.3f} SSIM {ssim_meter.avg:.4f}")
-        return {"loss": loss_meter.avg, "psnr": psnr_meter.avg,
-                "ssim": ssim_meter.avg}
+        msg = (f"[val epoch {epoch}] loss {loss_meter.avg:.4f} "
+               f"PSNR {psnr_meter.avg:.3f} SSIM {ssim_meter.avg:.4f}")
+        if self.cfg.lpips:
+            msg += f" LPIPS {lpips_meter.avg:.4f}"
+        print(msg)
+        self._log_tb({"Loss/val": loss_meter.avg, "PSNR": psnr_meter.avg,
+                      "SSIM": ssim_meter.avg}, epoch)
+        out = {"loss": loss_meter.avg, "psnr": psnr_meter.avg,
+               "ssim": ssim_meter.avg}
+        if self.cfg.lpips:
+            out["lpips"] = lpips_meter.avg
+        return out
 
     def test(self) -> int:
         """×2 slow motion: write each clip's synthesized midpoint beside its
@@ -156,19 +188,22 @@ class ExperimentBuilder:
         return count
 
     def run_experiment(self):
-        if self.cfg.mode == "val":
-            return self.validate(save_images=True)
-        if self.cfg.mode == "test":
-            return self.test()
-        for epoch in range(self.start_epoch, self.cfg.max_epoch):
-            self.train_epoch(epoch)
-            val_stats = self.validate(
-                epoch, total_batches=self.cfg.total_iter_per_epoch)
-            self.system.epoch_end(val_stats["loss"])
-            is_best = val_stats["psnr"] > self.best_psnr
-            self.best_psnr = max(self.best_psnr, val_stats["psnr"])
-            self._save(epoch, is_best)
-        return {"best_psnr": self.best_psnr}
+        from ..utils.profiling import trace
+        with trace(self.cfg.profile_dir,
+                   cuda=self.system.device.type == "cuda"):
+            if self.cfg.mode == "val":
+                return self.validate(save_images=True)
+            if self.cfg.mode == "test":
+                return self.test()
+            for epoch in range(self.start_epoch, self.cfg.max_epoch):
+                self.train_epoch(epoch)
+                val_stats = self.validate(
+                    epoch, total_batches=self.cfg.total_iter_per_epoch)
+                self.system.epoch_end(val_stats["loss"])
+                is_best = val_stats["psnr"] > self.best_psnr
+                self.best_psnr = max(self.best_psnr, val_stats["psnr"])
+                self._save(epoch, is_best)
+            return {"best_psnr": self.best_psnr}
 
 
 def _float_index(path: str) -> float:

@@ -7,8 +7,8 @@ of ``--mode test`` (:class:`VideoDataset`), the procedural
 :class:`SyntheticSeptuplet`, and the :func:`get_dataset` dispatch with its
 fallback to synthetic data when Vimeo90K is missing. Each dataset exposes
 ``switch_set(name)``, ``__len__`` and ``__getitem__(i) -> (frames,
-{'imgpaths': [...]})``. The JAX package's native C++ decode path is not
-ported (ROADMAP Queue 1).
+{'imgpaths': [...]})``; Vimeo90K also serves uint8 frames and its
+augmentation draws to the loader's C++ path (``data/native``).
 """
 from __future__ import annotations
 
@@ -79,20 +79,63 @@ class VimeoSeptuplet(_Base):
         return [os.path.join(self.image_root, seq, f"im{i}.png")
                 for i in range(1, 8)]
 
-    def __getitem__(self, index):
+    def frame_hw(self):
+        """(H, W) of the dataset's frames, from the first one's header."""
+        if getattr(self, "_hw", None) is None:
+            with Image.open(self._paths(0)[0]) as im:
+                self._hw = (im.height, im.width)
+        return self._hw
+
+    def getitem_with_aug(self, index, aug):
+        """One clip with augmentation drawn outside (:meth:`aug_params`), so
+        the loader draws the seeded stream serially while the decodes run
+        in its pool."""
+        oy, ox, flip, ch, cw = aug
         paths = self._paths(index)
         images = [load_image(p) for p in paths]
         if self.current_set_name == "train":
-            h, w = images[0].shape[:2]
-            ch, cw = min(self.crop_size, h), min(self.crop_size, w)
-            oy = self.rng.randint(0, max(0, h - ch))
-            ox = self.rng.randint(0, max(0, w - cw))
             images = [im[oy:oy + ch, ox:ox + cw] for im in images]
-            if self.rng.random() >= 0.5:
+            if flip:
                 images, paths = images[::-1], paths[::-1]
         frames = np.stack([normalize_for_model(im, self.model)
                            for im in images])
         return frames, {"imgpaths": paths}
+
+    def __getitem__(self, index):
+        return self.getitem_with_aug(index, self.aug_params(*self.frame_hw()))
+
+    # the native path (data/native): decode to uint8, then C++ transforms
+    def get_raw(self, index):
+        """(T, H, W, 3) uint8 frames and the metadata, untransformed."""
+        paths = self._paths(index)
+        frames = []
+        for p in paths:
+            with Image.open(p) as im:
+                frames.append(np.asarray(im.convert("RGB"), np.uint8))
+        return np.stack(frames), {"imgpaths": paths}
+
+    def aug_params(self, h: int, w: int):
+        """A clip's (crop y, crop x, temporal flip, crop h, crop w) from the
+        one seeded stream both paths draw; the crop is clamped to the
+        frame."""
+        if self.current_set_name != "train":
+            return 0, 0, 0, h, w
+        ch, cw = min(self.crop_size, h), min(self.crop_size, w)
+        rh = self.rng.randint(0, max(0, h - ch))
+        rw = self.rng.randint(0, max(0, w - cw))
+        flip = int(self.rng.random() >= 0.5)
+        return rh, rw, flip, ch, cw
+
+    def norm_constants(self):
+        """(mean, std, inv255) of the C++ normalisation (u8·inv255 −
+        mean)/std for this dataset's model."""
+        from ..models.registry import SSM_MEAN
+        if self.model == "superslomo":
+            return SSM_MEAN, np.ones(3, np.float32), 1.0 / 255.0
+        if self.model == "voxelflow":
+            return (np.full(3, 127.5, np.float32),
+                    np.full(3, 127.5, np.float32), 1.0)
+        return (np.zeros(3, np.float32), np.ones(3, np.float32), 1.0 / 255.0)
 
 
 def _load_clip(paths, model: str) -> np.ndarray:

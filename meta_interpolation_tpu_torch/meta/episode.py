@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..core import metrics as metrics_lib
 from ..models.layers import torch_default_init_
@@ -162,7 +163,10 @@ class EpisodeBuilder:
     last) and takes ``(pred, new_bn_state)`` back; ``att_keep``, {param
     name: in the L2F embedding and scaled?}, None for every tensor;
     ``dtype``, the type the model computes in (float32, or bfloat16 for
-    ``--dtype bfloat16``).
+    ``--dtype bfloat16``); ``remat`` (``--remat``), each forward under
+    ``torch.utils.checkpoint``, so its activations are recomputed in its
+    backward (JAX ``jax.checkpoint`` of the apply, ``meta/system.py
+    :306-309``).
     """
 
     def __init__(self, model: nn.Module, loss_fn: Callable,
@@ -182,6 +186,7 @@ class EpisodeBuilder:
         self.passes_bn_state = False
         self.att_keep: Optional[Dict[str, bool]] = None
         self.dtype = torch.float32
+        self.remat = False
 
     def task_state(self, meta_params: Dict[str, Params]) -> TaskState:
         """A task's state at the start of its episode, from the
@@ -196,7 +201,10 @@ class EpisodeBuilder:
         it reads and replaces ``task.bn_state``. In bf16 the frames and
         the floating weights are cast to bf16 (the weights differentiably,
         so gradients reach their float32 masters, as through JAX's
-        ``astype``) and everything that comes out is cast to float32."""
+        ``astype``) and everything that comes out is cast to float32. Under
+        ``remat`` the model runs inside a non-reentrant checkpoint: only
+        its inputs are kept, and a backward through it runs the forward
+        again first (each of its kernels launches once more)."""
         kwargs = self.apply_kwargs
         if self.passes_bn_state:
             kwargs = {**kwargs, "bn_state": task.bn_state,
@@ -206,8 +214,14 @@ class EpisodeBuilder:
             params = {k: v.to(self.dtype) if v.is_floating_point() else v
                       for k, v in params.items()}
             f0, f1 = f0.to(self.dtype), f1.to(self.dtype)
-        out = functional_call(self.model, params, (f0[None], f1[None]),
-                              kwargs)
+        if self.remat:
+            out = checkpoint(
+                lambda p, a, b: functional_call(self.model, p, (a, b),
+                                                kwargs),
+                params, f0[None], f1[None], use_reentrant=False)
+        else:
+            out = functional_call(self.model, params, (f0[None], f1[None]),
+                                  kwargs)
         if low:
             out = to_float32(out)
         if self.passes_bn_state:

@@ -214,6 +214,8 @@ class SceneAdaptiveInterpolation:
         # --dtype bfloat16: the model's forwards in bf16, everything else
         # (meta-parameters, rates, optimizer state, loss) float32
         self.builder.dtype = DTYPES[cfg.dtype]
+        # --remat: every forward recomputed in its backward
+        self.builder.remat = cfg.remat
         self.builder.att_keep = att_keep
         if cfg.per_step_bn_statistics:
             # per-step BN running statistics (JAX :260-277), threaded

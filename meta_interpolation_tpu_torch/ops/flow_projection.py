@@ -72,6 +72,46 @@ def flow_projection(flow: torch.Tensor,
     return out
 
 
+def min_depth_flow_projection(flow: torch.Tensor, depth_inv: torch.Tensor,
+                              fill_hole: bool = False) -> torch.Tensor:
+    """The z-buffer variant (reference ``mindepthflowprojection_cuda_
+    kernel.cu:29-115``; JAX ``ops/flow_projection.min_depth_flow_projection``):
+    each target cell keeps the −flow of the source with the largest
+    inverse-depth weight (the nearest surface), written to its top-left
+    neighbour only (the reference's other three are commented out, :93-108).
+    Where the CUDA version's read-modify-write races on a tie, the tied
+    winners' flows are averaged, as in JAX. Plain PyTorch (a max scatter,
+    then the winners' ``index_add``); the gradient reaches the flow
+    through the winners' values, none reaches the depth. flow (N, H, W, 2),
+    depth_inv (N, H, W, 1) → (N, H, W, 2)."""
+    n, h, w, _ = flow.shape
+    fx, fy = flow[..., 0], flow[..., 1]
+    xs = torch.arange(w, dtype=flow.dtype, device=flow.device)[None, None, :]
+    ys = torch.arange(h, dtype=flow.dtype, device=flow.device)[None, :, None]
+    x2, y2 = xs + fx, ys + fy
+    valid = (x2 >= 0) & (y2 >= 0) & (x2 <= w - 1) & (y2 <= h - 1)
+    ix = torch.floor(x2).long().clamp(0, w - 1)
+    iy = torch.floor(y2).long().clamp(0, h - 1)
+    wv = torch.where(valid, depth_inv[..., 0], depth_inv.new_zeros(()))
+    idx = ((torch.arange(n, device=flow.device) * (h * w))[:, None, None]
+           + iy * w + ix).reshape(-1)
+    cell_max = flow.new_zeros(n * h * w).scatter_reduce(
+        0, idx, wv.detach().reshape(-1), "amax")
+    winner = valid & (wv >= cell_max[idx].reshape(n, h, w)) & (wv > 0)
+    contrib = torch.stack([-fx, -fy], dim=-1) * winner[..., None]
+    acc = flow.new_zeros((n * h * w, 2)).index_add(0, idx,
+                                                   contrib.reshape(-1, 2))
+    n_win = flow.new_zeros(n * h * w).index_add(
+        0, idx, winner.to(flow.dtype).reshape(-1))
+    acc, n_win = acc.reshape(n, h, w, 2), n_win.reshape(n, h, w)
+    out = torch.where(n_win[..., None] > 0,
+                      acc / n_win[..., None].clamp_min(1.0),
+                      acc.new_zeros(()))
+    if fill_hole:
+        out = fill_holes_no_grad(out, n_win)
+    return out
+
+
 def fill_holes_no_grad(out: torch.Tensor, cnt: torch.Tensor
                        ) -> torch.Tensor:
     """Forward: hole-filled; backward: as if unfilled (the JAX package's

@@ -305,3 +305,24 @@ def sepconv(inp: torch.Tensor, kv: torch.Tensor, kh: torch.Tensor
             ) -> torch.Tensor:
     """inp: (N, C, H+F−1, W+F−1); kv/kh: (N, F, H, W) → (N, C, H, W)."""
     return SepConvFunction.apply(inp, kv, kh)
+
+
+def separable_conv_flow(kv: torch.Tensor, kh: torch.Tensor) -> torch.Tensor:
+    """The flow a pair of 1-D adaptive kernels implies: each kernel's
+    weighted centroid minus its center (reference
+    ``separableconvflow_cuda_kernel.cu:60-90``, DAIN's
+    SeparableConvFlowLayer; JAX ``ops/sepconv.separable_conv_flow``):
+    fy = Σ_k k·kv_k / Σ_k kv_k − (F−1)/2, fx the same from kh, and −2000
+    where a kernel sums to zero. Plain PyTorch, as in the JAX package (no
+    TPU kernel). kv, kh (N, F, H, W) → (N, H, W, 2) in (fx, fy) order."""
+    f = kv.shape[1]
+    taps = torch.arange(f, dtype=kv.dtype, device=kv.device)[:, None, None]
+    center = (f - 1) / 2.0
+
+    def centroid(k):
+        s = k.sum(1)
+        c = (k * taps).sum(1) / torch.where(s == 0, torch.ones_like(s),
+                                            s) - center
+        return torch.where(s.abs() > 0, c, c.new_full((), -2000.0))
+
+    return torch.stack([centroid(kh), centroid(kv)], dim=-1)

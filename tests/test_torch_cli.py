@@ -176,13 +176,26 @@ def test_train_batches_match_jax(dataset, tmp_path):
     if dataset == "vimeo90k":
         # the stream's draws show: flipped and unflipped clips, and more
         # than one crop offset
+        from PIL import Image
+
+        from meta_interpolation_tpu_torch.data import native
         from meta_interpolation_tpu_torch.data.datasets import load_image
+
+        def full_frame(path):
+            # the frame as the loader's path computes it: the C++ prep
+            # scales the 8-bit values by 1/255 where numpy divides by 255
+            if native.load() is None:
+                return load_image(path)
+            with Image.open(path) as im:
+                u8 = np.asarray(im.convert("RGB"), np.uint8)
+            return u8.astype(np.float32) * np.float32(1.0 / 255.0)
+
         offsets, flips = set(), set()
         for e in (0, 1):
             for frames, meta in got_loader.get_train_batches(-1, epoch=e):
                 paths = meta[0]["imgpaths"]
                 flips.add(paths[0].endswith("im7.png"))
-                full = load_image(paths[0])
+                full = full_frame(paths[0])
                 offsets |= {(y, x) for y in range(9) for x in range(17)
                             if np.array_equal(full[y:y + 32, x:x + 32],
                                               frames[0, 0])}

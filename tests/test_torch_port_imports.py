@@ -30,3 +30,27 @@ def test_no_jax_imports(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# the modules of the slice that ported the rest of the JAX package: each
+# is a file of the port, checked above, and imports on its own
+REST = ["legacy/__init__.py", "legacy/trainers.py", "legacy/driver.py",
+        "legacy/train_sepconv.py", "legacy/train_voxelflow.py",
+        "legacy/train_superslomo.py", "legacy/train_dain.py",
+        "data/native/__init__.py", "utils/lpips.py", "utils/profiling.py",
+        "utils/pyconfig.py", "ops/adaptive_weight.py"]
+
+
+@pytest.mark.parametrize("rel", REST)
+def test_rest_of_the_package_is_covered(rel):
+    import importlib
+    path = ROOT / "meta_interpolation_tpu_torch" / rel
+    assert path in PORT_FILES
+    module = "meta_interpolation_tpu_torch." + rel[:-3].replace(
+        "/", ".").removesuffix(".__init__")
+    assert importlib.import_module(module).__file__ == str(path)
+
+
+def test_native_source_is_the_ports_own():
+    src = ROOT / "meta_interpolation_tpu_torch" / "data" / "native" / "prep.cpp"
+    assert "extern \"C\"" in src.read_text()

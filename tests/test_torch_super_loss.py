@@ -133,8 +133,10 @@ def test_pixel_terms_ignore_aux():
     a = fn(_nchw(pred), _nchw(target))
     b = fn(_nchw(pred), _nchw(target), _port_aux(aux))
     assert float(a["total"]) == float(b["total"])
-    with pytest.raises(NotImplementedError, match="VGG22"):
-        losses.make_loss_fn("1*VGG22")
+    # VGG22 is ported now (tests/test_torch_vgg_ssim_loss.py); an unknown
+    # term raises
+    with pytest.raises(ValueError, match="Bogus"):
+        losses.make_loss_fn("1*Bogus")
 
 
 def _isolate_search_path(monkeypatch, tmp_path):
