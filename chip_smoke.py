@@ -127,12 +127,17 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
          SuperSloMo, VoxelFlow without --fast_warp_range, batch 1): an
          iteration at 256x256 and the outer gradient card vs CPU;
        - bf16 (``--dtype bfloat16``, after the kernel checks the bf16
-         instantiations: K1 and K2 bit for bit the float32 kernels on the
-         widened inputs, rounded; K3 and K3-grad within one bf16 ulp of
-         max + 1e-5 of their plain bf16 versions at every warp case, a
-         bf16 grid too; K3-grad² and K4 bit for bit their float32 kernels
-         on the widened operands; each bf16 kernel timed in turns with its
-         float32 instantiation, at its bf16 bytes' bound): every preset's
+         kernels: K1 and K2, banded products on the tensor cores, within
+         one bf16 ulp of max + 1e-5 of the float32 kernels on the widened
+         inputs, rounded, and of their plain bf16 versions, with at most
+         1 % of the outputs differing at all from the former (the share
+         printed per shape); K3 and K3-grad within one bf16 ulp of max +
+         1e-5 of their plain bf16 versions at every warp case, a bf16 grid
+         too; K3-grad² and K4 bit for bit their float32 kernels on the
+         widened operands; each bf16 kernel timed in turns with its
+         float32 kernel, at its bf16 bytes' bound and, for K1 and K2, the
+         bf16 tensor-core rate; with --earlier-sepconv the earlier bf16 K1
+         and K2 in turns too): every preset's
          256x448 evaluation episode and first-order train iteration in
          float32 and bf16 in turns, with PSNR, peak memory, a profile and
          the same launches as float32 (the bf16 paths with the plain
@@ -142,7 +147,11 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
          bf16 at its batches and options) in frames a second beside
          float32, and a 64x64 clip of five presets in bf16 on the card
          against the CPU, within twice the CPU's own bf16 − float32
-         difference plus 1e-5 of the largest value;
+         difference plus 1e-5 of the largest value (the card's side three
+         times as it runs, their spread printed, then twice under
+         cudnn.deterministic, and for CAIN torch.use_deterministic_algorithms
+         too, where the two must agree bit for bit; the first of those two
+         is held to the limit);
        - the rest of the package (``rest``): SepConv first-order train
          iterations at run_sepconv.sh's preset under --loss
          1*L1+0.1*VGG22+1*SSIM and 1*VGGP in turns with 1*L1 (the same K1
@@ -170,12 +179,13 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
      second-order training paths'; K1/K2 also the ``rest`` phase's SepConv
      paths and K3/K3-grad (K3-grad² in second order) its VoxelFlow
      --remat paths; K4 the served DAIN frames'; K3-grad²
-     and K4 also their bf16 paths', and the bf16 instantiations of K1,
-     K2, K3 and K3-grad four records of their own) and their sum
+     and K4 also their bf16 paths', and the bf16 kernels of K1, K2, K3
+     and K3-grad four records of their own) and their sum
      (``launches``), the card line again, and the last line {"ok": true,
      "device": {...}}.
 """
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -447,10 +457,13 @@ KERNELS = ("sepconv_forward", "sepconv_grad_kernels",
            "warp_sample_bounded_forward", "warp_sample_bounded_grad_grid",
            "warp_sample_bounded_grad_grid_backward",
            "flow_projection_bounded")
-# data-sheet peaks: fp32 outside the tensor cores (FLOP/s) and device
-# memory (bytes/s); first name that the card's name contains wins
-PEAKS = [("H100 PCIe", 51.2e12, 2.0e12), ("H100 NVL", 60.0e12, 3.9e12),
-         ("H100", 67.0e12, 3.35e12), ("H200", 67.0e12, 4.8e12)]
+# data-sheet peaks: fp32 outside the tensor cores (FLOP/s), device memory
+# (bytes/s) and dense bf16 on the tensor cores (FLOP/s); first name that
+# the card's name contains wins
+PEAKS = [("H100 PCIe", 51.2e12, 2.0e12, 756e12),
+         ("H100 NVL", 60.0e12, 3.9e12, 835e12),
+         ("H100", 67.0e12, 3.35e12, 989e12),
+         ("H200", 67.0e12, 4.8e12, 989e12)]
 
 
 def check(cond, msg):
@@ -466,11 +479,21 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def peaks(name):
-    for key, flops, bw in PEAKS:
-        if key in name:
-            return flops, bw
+def _peak_row(name):
+    for row in PEAKS:
+        if row[0] in name:
+            return row
     raise RuntimeError(f"no data-sheet peaks for {name!r}")
+
+
+def peaks(name):
+    """(fp32 FLOP/s outside the tensor cores, device memory bytes/s)."""
+    return _peak_row(name)[1:3]
+
+
+def bf16_tensor_peak(name):
+    """Dense bf16 FLOP/s on the tensor cores."""
+    return _peak_row(name)[3]
 
 
 def call_ms(torch, fn, reps=20, warmup=3):
@@ -3183,12 +3206,22 @@ def engine_phase(torch, mods, wb, card):
     return paths
 
 
-# --dtype bfloat16: K1, K2, K3 and K3-grad in their bf16 instantiations,
-# K3-grad² and K4 widened in their wrappers; every preset above with
+# --dtype bfloat16: K1 and K2 in their bf16 kernels (banded products on the
+# tensor cores), K3 and K3-grad in their bf16 instantiations, K3-grad² and
+# K4 widened in their wrappers; every preset above with
 # --dtype bfloat16; bench.py's serving forwards (every weight in bf16, its
 # batches and options at 256x448)
 BF16 = ["--dtype", "bfloat16"]
 BF16_KERNELS = KERNELS[:4]
+# ptxas names of the bf16 K1/K2 kernels in csrc/sepconv.cu
+BF16_SEPCONV_KERNELS = {"sepconv_forward_bf16": "sepconv_fwd_bf16_kernel",
+                        "sepconv_grad_kernels_bf16":
+                            "sepconv_grad_kernels_bf16_kernel"}
+# bf16 K1/K2 against the float32 kernel on the widened inputs, rounded: the
+# tensor cores sum the same exact products in another float32 order, which
+# moves a value across a bf16 rounding boundary in well under a thousandth
+# of the outputs on random maps; a sum kept in bf16 would move most of them
+BF16_FLIP_SHARE = 1e-2
 # each preset's evaluation: (flags, kernel launches a clip)
 BF16_EVAL = {
     "sepconv": (EVAL_FLAGS, {"sepconv_forward": K1_PER_CLIP,
@@ -3227,6 +3260,13 @@ BF16_SERVE_ITERS = 5
 # max|CPU bf16 − CPU float32| plus BF16_FLOOR of the largest value
 BF16_FLOOR = 1e-5
 BF16_CARD_VS_CPU = ("sepconv", "rrin", "superslomo", "voxelflow", "cain")
+BF16_SPREAD_RUNS = 3  # the card's side as it runs, for its spread
+# presets whose card side is bit for bit the same from run to run under
+# torch.use_deterministic_algorithms (CAIN: its reflection pads then take
+# models/layers.ReflectPadFunction's backward); the others upsample with
+# F.interpolate (models/layers.upsample_bilinear), whose backward on the
+# card adds with atomics and has no deterministic version
+BF16_BITWISE = ("cain",)
 
 
 def bf16_ulp(t):
@@ -3251,8 +3291,7 @@ def bitwise(torch, got, want, what):
 
 class F32Forbidden:
     """A loaded kernel library whose float32 entry points ``names`` raise:
-    on a bf16 path K1, K2, K3 and K3-grad must run their bf16
-    instantiations."""
+    on a bf16 path K1, K2, K3 and K3-grad must run their bf16 kernels."""
 
     def __init__(self, lib, names):
         self._lib, self._names = lib, set(names)
@@ -3279,20 +3318,27 @@ def bf16_only(sc, wb, fn):
     return plain_warp_forbidden(wb, fn)
 
 
-def bf16_kernel_phase(torch, mods, card):
-    """K1 and K2 in bf16 bit for bit the float32 kernel on the widened
-    inputs, rounded, at every KERNEL_SHAPES entry; K3 and K3-grad in bf16
-    within one bf16 ulp of max + 1e-5 of their plain bf16 versions at every
-    warp_cases() entry (a bf16 grid too); K3-grad² and K4 on bf16 operands
-    bit for bit their float32 kernels on the widened ones, rounded. Each
-    bf16 kernel timed in turns with its float32 instantiation (float32,
-    bf16, bf16, float32) at the main-path shape, beside its plain bf16
-    version, its bound at the bytes it moves and the library's bf16 call.
+def bf16_kernel_phase(torch, mods, card, earlier_lib=None, resources=None):
+    """K1 and K2 in bf16 at every KERNEL_SHAPES entry within one bf16 ulp of
+    max + 1e-5 of the float32 kernel on the widened inputs, rounded, and of
+    their plain bf16 versions, with at most BF16_FLIP_SHARE of the outputs
+    differing at all from the former (the share printed per shape); K3 and
+    K3-grad in bf16 within one bf16 ulp of max + 1e-5 of their plain bf16
+    versions at every warp_cases() entry (a bf16 grid too); K3-grad² and K4
+    on bf16 operands bit for bit their float32 kernels on the widened ones,
+    rounded. Each bf16 kernel timed in turns with its float32 kernel
+    (float32, bf16, bf16, float32) at the main-path shape, beside its plain
+    bf16 version, its bound (K1/K2: their operations at the bf16
+    tensor-core rate, the others at the fp32 rate; bytes at their bf16
+    size) and the library's bf16 call; K1 and K2 in bf16 also in turns
+    with those of ``earlier_lib`` (an earlier csrc/sepconv.cu) where given.
+    ``resources``: the bf16 K1/K2 kernels' registers and spills (ptxas).
     Returns the bf16 kernels' records."""
     import torch.nn.functional as F
     sc, wb, fpb = mods
     bf = torch.bfloat16
     flops_peak, bw_peak = peaks(card)
+    tensor_peak = bf16_tensor_peak(card)
     errs = dict.fromkeys(BF16_KERNELS, 0.0)
     for n, h, w, f in KERNEL_SHAPES:
         gen = torch.Generator().manual_seed(n * 100000 + h * 1000 + w + f + 1)
@@ -3303,26 +3349,58 @@ def bf16_kernel_phase(torch, mods, card):
         b = [t.to(bf) for t in (inp, g, kv, kh)]
         wide = [t.float() for t in b]
         what = f"bf16 {n}x{h}x{w} F={f}"
-        out = sc.sepconv_forward(b[0], b[2], b[3])
-        bitwise(torch, out, sc.sepconv_forward(wide[0], wide[2], wide[3]).to(bf),
-                f"K1 {what} against the float32 K1 on widened inputs")
-        errs["sepconv_forward"] = max(errs["sepconv_forward"], bf16_err(
-            out, sc._widened(sc.sepconv_ref, b[0], b[2], b[3]),
-            f"K1 {what} against its plain bf16 version"))
-        got, f32 = sc.sepconv_grad_kernels(*b), sc.sepconv_grad_kernels(*wide)
-        plain = sc._widened(sc.grad_kernels_ref, *b)
-        for part, a, c, p in zip(("gkv", "gkh"), got, f32, plain):
-            bitwise(torch, a, c.to(bf), f"K2 {part} {what} against the float32 K2")
-            errs["sepconv_grad_kernels"] = max(
-                errs["sepconv_grad_kernels"],
-                bf16_err(a, p, f"K2 {part} {what} against its plain bf16 "
-                               f"version"))
-    torch.cuda.synchronize()
-    print(f"[bf16] K1 and K2 in bf16 are bit for bit the float32 kernels on "
-          f"the widened inputs, rounded, at {len(KERNEL_SHAPES)} shapes; "
+        got = {"sepconv_forward": (sc.sepconv_forward(b[0], b[2], b[3]),),
+               "sepconv_grad_kernels": sc.sepconv_grad_kernels(*b)}
+        f32 = {"sepconv_forward": (sc.sepconv_forward(
+                   wide[0], wide[2], wide[3]).to(bf),),
+               "sepconv_grad_kernels": tuple(
+                   t.to(bf) for t in sc.sepconv_grad_kernels(*wide))}
+        plain = {"sepconv_forward": (sc._widened(sc.sepconv_ref, b[0], b[2],
+                                                 b[3]),),
+                 "sepconv_grad_kernels": sc._widened(sc.grad_kernels_ref,
+                                                     *b)}
+        shares = []
+        for name, parts in (("sepconv_forward", ("out",)),
+                            ("sepconv_grad_kernels", ("gkv", "gkh"))):
+            for part, a, c, p in zip(parts, got[name], f32[name],
+                                     plain[name]):
+                label = f"{'K1' if name == 'sepconv_forward' else 'K2'} " \
+                        f"{part} {what}"
+                check(a.dtype == bf, f"{label}: {a.dtype} out")
+                bf16_err(a, c, f"{label} against the float32 kernel on "
+                               f"widened inputs, rounded")
+                errs[name] = max(errs[name], bf16_err(
+                    a, p, f"{label} against its plain bf16 version"))
+                share = (a != c).sum().item() / a.numel()
+                check(share <= BF16_FLIP_SHARE,
+                      f"{label}: {share:.3e} of the outputs differ from the "
+                      f"float32 kernel's, rounded (limit {BF16_FLIP_SHARE})")
+                shares.append(f"{part} {share:.2e}")
+        torch.cuda.synchronize()
+        print(f"[bf16] K1/K2 {what}: within one bf16 ulp of max + "
+              f"{TOL_ABS:g} of the float32 kernels on the widened inputs and "
+              f"of the plain bf16 versions; share of outputs that differ "
+              f"from the float32 kernels' rounded: {', '.join(shares)} "
+              f"(limit {BF16_FLIP_SHARE:g})")
+    print(f"[bf16] K1 and K2 in bf16 at {len(KERNEL_SHAPES)} shapes: "
           f"max|diff| to their plain bf16 versions K1 "
           f"{errs['sepconv_forward']:.3e}, K2 "
           f"{errs['sepconv_grad_kernels']:.3e}")
+    for name, res in (resources or {}).items():
+        print(f"[bf16] {name}: {res['registers']} registers, {res['spill']} "
+              f"bytes spilled")
+    earlier = None if earlier_lib is None else {
+        "sepconv_forward": on_library(sc, earlier_lib, sc.sepconv_forward),
+        "sepconv_grad_kernels": on_library(sc, earlier_lib,
+                                           sc.sepconv_grad_kernels)}
+    sc_args = {"sepconv_forward": (b[0], b[2], b[3]),
+               "sepconv_grad_kernels": tuple(b)}
+    for name, fn in (earlier or {}).items():  # at the SepConv shape
+        out = fn(*sc_args[name])
+        for a, p in zip(out if isinstance(out, tuple) else (out,),
+                        plain[name]):
+            bf16_err(a, p, f"earlier {name} bf16 against its plain bf16 "
+                           f"version")
     sc_calls = {"sepconv_forward": (
         lambda: sc.sepconv_forward(*wide[:1], *wide[2:]),
         lambda: sc.sepconv_forward(b[0], b[2], b[3]),
@@ -3430,9 +3508,10 @@ def bf16_kernel_phase(torch, mods, card):
         ms = statistics.median(bf16_ms)
         plain_ms = time_ms(torch, plain)
         library_ms = None if lib is None else time_ms(torch, lib)
-        t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
-        bound = max(t_ops, t_bytes)
         sepconv = name.startswith("sepconv")
+        rate = tensor_peak if sepconv else flops_peak
+        t_ops, t_bytes = ops / rate * 1e3, nbytes / bw_peak * 1e3
+        bound = max(t_ops, t_bytes)
         records.append({
             "name": f"{name}_bf16", "route": "cuda",
             "source": f"{PACKAGE}/csrc/{'sepconv' if sepconv else 'warp'}.cu",
@@ -3447,10 +3526,22 @@ def bf16_kernel_phase(torch, mods, card):
               f"bf16, float32) float32 {f32_ms[0]:.4f}, {f32_ms[1]:.4f} ms, "
               f"bf16 {bf16_ms[0]:.4f}, {bf16_ms[1]:.4f} ms (plain bf16 "
               f"{plain_ms:.4f} ms, bound {bound:.6f} ms by "
-              f"{records[-1]['bound_by']} at the bf16 bytes, "
-              f"{bound / ms:.3f} of it reached; library "
+              f"{records[-1]['bound_by']} at the bf16 bytes and "
+              f"{rate / 1e12:g} TFLOP/s, {bound / ms:.3f} of it reached; "
+              f"library "
               + ("none" if library_ms is None else f"{library_ms:.4f} ms")
               + f"; {card})")
+        if sepconv and earlier is None:
+            print(f"[bf16] {name} bf16: earlier design not given "
+                  f"(--earlier-sepconv)")
+        elif sepconv:
+            new_ms, old_ms = in_turns(
+                torch, (fn, lambda: earlier[name](*sc_args[name])))
+            records[-1]["earlier_ms_in_turns"] = old_ms
+            print(f"[bf16] {name} bf16, in turns (this, earlier, earlier, "
+                  f"this): this design {new_ms[0]:.4f}, {new_ms[1]:.4f} ms; "
+                  f"earlier design {old_ms[0]:.4f}, {old_ms[1]:.4f} ms; "
+                  f"bound {bound:.6f} ms ({card})")
     return records
 
 
@@ -3606,11 +3697,32 @@ def bf16_train_phase(torch, mods, card, dain_state):
     return paths
 
 
+@contextlib.contextmanager
+def deterministic(torch, algorithms):
+    """torch.backends.cudnn.deterministic, and with ``algorithms``
+    torch.use_deterministic_algorithms, both restored after."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(saved[1] or algorithms)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1])
+
+
 def bf16_card_vs_cpu_phase(torch):
     """A 64x64 clip of each BF16_CARD_VS_CPU preset in bf16 on the card
     against the same clip on the CPU: max|card − CPU| of the prediction
     within twice the CPU's own max|bf16 − float32| plus BF16_FLOOR of the
-    largest value, the loss likewise."""
+    largest value, the loss likewise. The card's side runs
+    BF16_SPREAD_RUNS times as it runs (cuDNN free to pick algorithms whose
+    sums change from run to run; their spread printed), then twice under
+    torch.backends.cudnn.deterministic and, for the BF16_BITWISE presets,
+    torch.use_deterministic_algorithms (restored after): those two must
+    agree bit for bit for the BF16_BITWISE presets (their difference is
+    printed for the others), and the first is held to the limit."""
     from meta_interpolation_tpu_torch.config import get_args
     from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
     from meta_interpolation_tpu_torch.meta.system import (
@@ -3619,27 +3731,49 @@ def bf16_card_vs_cpu_phase(torch):
         flags = BF16_EVAL[model][0]
         clip = SyntheticSeptuplet(model=model, mode="val",
                                   size=SMALL_HW)[0][0][None]
-        res = {}
-        for dev, dtype in (("cuda", "bfloat16"), ("cpu", "bfloat16"),
-                           ("cpu", "float32")):
+
+        def run(dev, dtype):
             system = SceneAdaptiveInterpolation(
                 get_args(flags + ["--dtype", dtype]), device=dev)
             losses, preds = system.run_validation_iter(clip)
-            res[dev, dtype] = (losses["loss"], preds.cpu())
-        card, cpu, f32 = (res[k] for k in (("cuda", "bfloat16"),
-                                           ("cpu", "bfloat16"),
-                                           ("cpu", "float32")))
+            return losses["loss"], preds.cpu()
+
+        free = [run("cuda", "bfloat16") for _ in range(BF16_SPREAD_RUNS)]
+        bitwise_runs = model in BF16_BITWISE
+        with deterministic(torch, bitwise_runs):
+            card, again = run("cuda", "bfloat16"), run("cuda", "bfloat16")
+        same = card[0] == again[0] and torch.equal(card[1], again[1])
+        runs = (f"loss {card[0]!r} vs {again[0]!r}, max|pred diff| "
+                f"{(card[1] - again[1]).abs().max().item():.3e}")
+        check(same or not bitwise_runs,
+              f"{model} bf16 on the card under deterministic algorithms: "
+              f"two runs differ ({runs})")
+        cpu, f32 = run("cpu", "bfloat16"), run("cpu", "float32")
         diff = (card[1] - cpu[1]).abs().max().item()
         gap = (cpu[1] - f32[1]).abs().max().item()
         lim = 2 * gap + BF16_FLOOR * cpu[1].abs().max().item()
         loss_lim = 2 * abs(cpu[0] - f32[0]) + BF16_FLOOR * abs(cpu[0])
+        losses = [loss for loss, _ in free]
+        spread = max((p - free[0][1]).abs().max().item() for _, p in free)
+        print(f"[bf16] {model} {SMALL_HW[0]}x{SMALL_HW[1]} clip, bf16 on the "
+              f"card as it runs, {BF16_SPREAD_RUNS} runs: losses "
+              f"{[f'{x:.6f}' for x in losses]} (spread "
+              f"{max(losses) - min(losses):.3e}, against the CPU "
+              f"{max(abs(x - cpu[0]) for x in losses):.3e} at most), "
+              f"max|pred diff| to the first run {spread:.3e}; two runs "
+              + ("under torch.use_deterministic_algorithms: bit for bit "
+                 "equal" if bitwise_runs else
+                 f"under cudnn.deterministic: {runs} (F.interpolate's "
+                 f"backward adds with atomics)"))
         check(diff <= lim and abs(card[0] - cpu[0]) <= loss_lim,
               f"{model} bf16 card vs CPU: pred {diff:.3e} > {lim:.3e} or "
               f"loss {abs(card[0] - cpu[0]):.3e} > {loss_lim:.3e}")
         print(f"[bf16] {model} {SMALL_HW[0]}x{SMALL_HW[1]} clip, bf16 card "
-              f"vs CPU: max|pred diff| {diff:.3e} (limit {lim:.3e}: the "
-              f"CPU's bf16 − float32 {gap:.3e}), loss {card[0]:.6f} vs "
-              f"{cpu[0]:.6f} (float32 {f32[0]:.6f})")
+              f"(the first deterministic run) vs CPU: max|pred diff| "
+              f"{diff:.3e} "
+              f"(limit {lim:.3e}: the CPU's bf16 − float32 {gap:.3e}), loss "
+              f"{card[0]:.6f} vs {cpu[0]:.6f} (limit {loss_lim:.3e}; float32 "
+              f"{f32[0]:.6f})")
 
 
 def bf16_serve_phase(torch, mods, card, dain_state):
@@ -4404,6 +4538,8 @@ def main():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build]   {line.strip()}")
     resources = sepconv_resources(report["sepconv"]["log"], "sepconv.cu")
+    bf16_resources = kernel_resources(report["sepconv"]["log"], "sepconv.cu",
+                                      BF16_SEPCONV_KERNELS)
     k3_resources = kernel_resources(report["warp"]["log"], "warp.cu",
                                     WARP_KERNELS)
     k4_resources = kernel_resources(report["flow_projection"]["log"],
@@ -4425,7 +4561,7 @@ def main():
                        fpb, card, k4_resources, earlier_k4))
     mods = (sc, wb, fpb)
     bf16_records = timed("bf16_kernels", bf16_kernel_phase, torch, mods,
-                         card)
+                         card, libs.get("sepconv"), bf16_resources)
     timed("sepconv", main_path_phase, torch, mods, libs.get("sepconv"))
     sepconv_launches = timed("sepconv_train", train_phase, torch, mods, sc,
                              card)
@@ -4470,7 +4606,7 @@ def main():
                **{k: {"dain_served": dain_launches[k]} for k in KERNELS[5:]}}
     check([rec["name"] for rec in records] == list(KERNELS),
           f"kernel records {[rec['name'] for rec in records]}")
-    # the bf16 paths: K1, K2, K3 and K3-grad in their bf16 instantiations
+    # the bf16 paths: K1, K2, K3 and K3-grad in their bf16 kernels
     # (records of their own), K3-grad² and K4 widened in their wrappers
     for k in KERNELS[4:]:
         by_path[k].update({path: counts[k] for path, counts in

@@ -52,7 +52,7 @@ class ConvNorm(nn.Module):
             return F.conv2d(x, self.conv.weight, self.conv.bias, padding=pad)
         # the body's maps are wider than one pixel, so F.pad's reflection
         # is jnp.pad's
-        x = F.pad(x, (pad,) * 4, mode="reflect")
+        x = layers.reflect_pad_same(x, pad)
         return F.conv2d(x, self.conv.weight, self.conv.bias)
 
 

@@ -144,6 +144,46 @@ def reflect_pad(x: torch.Tensor, pad: Union[int, Sequence[int]]
     return x.index_select(-1, _reflect_index(w, left, right, x.device))
 
 
+def _fold_reflection(g: torch.Tensor, p: int, dim: int) -> torch.Tensor:
+    """The cotangent of a reflection pad by ``p`` on both ends of ``dim``:
+    the centre, plus each border mirrored onto the ``p`` values next to its
+    edge (the edge itself is not repeated)."""
+    n = g.shape[dim] - 2 * p
+    spec = (lambda a, b: (a, b)) if dim == -1 else (
+        lambda a, b: (0, 0, a, b))
+    lead = g.narrow(dim, 0, p).flip(dim)
+    tail = g.narrow(dim, n + p, p).flip(dim)
+    return (g.narrow(dim, p, n) + F.pad(lead, spec(1, n - p - 1))
+            + F.pad(tail, spec(n - p - 1, 1)))
+
+
+class ReflectPadFunction(torch.autograd.Function):
+    """``F.pad(x, (p,) * 4, mode="reflect")`` whose backward adds the
+    borders' cotangents onto the mirrored rows and columns in a fixed
+    order; twice differentiable. On the card aten's backward of the pad
+    adds with atomics, in an order that changes from run to run, and
+    refuses to run under ``torch.use_deterministic_algorithms``."""
+
+    @staticmethod
+    def forward(ctx, x, p):
+        ctx.p = p
+        return F.pad(x, (p,) * 4, mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g):
+        p = ctx.p
+        return _fold_reflection(_fold_reflection(g, p, -1), p, -2), None
+
+
+def reflect_pad_same(x: torch.Tensor, p: int) -> torch.Tensor:
+    """``F.pad(x, (p,) * 4, mode="reflect")`` (a pad narrower than the
+    map); under ``torch.use_deterministic_algorithms`` the backward is
+    :class:`ReflectPadFunction`'s."""
+    if torch.are_deterministic_algorithms_enabled():
+        return ReflectPadFunction.apply(x, p)
+    return F.pad(x, (p,) * 4, mode="reflect")
+
+
 def pad_to_multiple(x: torch.Tensor, multiple: int = 128):
     """Reflect-pad H and W up to the next multiple, split evenly with the
     odd pixel at the bottom/right. Returns (padded, (left, right, top,

@@ -22,13 +22,15 @@ it stays plain jnp in the JAX package. A wrapper given a CUDA tensor
 launches its kernel or raises; it never falls back to the plain version.
 Each wrapper counts its launches in ``<wrapper>.launches``.
 
-Both kernels take float32 or bfloat16 (all operands of one type; a
-template instantiation each). In bf16 they widen every value to float32,
-sum in float32 and round each output once, as the TPU kernels do
-(``meta_interpolation_tpu/ops/sepconv.py:139-143``, ``:237-241``); on CPU
-tensors the wrappers do the same around the plain versions
-(:func:`_widened`). The JAX package's own CPU fallback, ``sepconv_ref``,
-sums its taps in bf16 instead.
+Both kernels take float32 or bfloat16 (all operands of one type; each
+type has CUDA kernels of its own, the bf16 ones banded matrix products on
+the tensor cores). In bf16 every product is exact in float32, every sum
+runs in float32 and each output is rounded once, as the TPU kernels do by
+upcasting (``meta_interpolation_tpu/ops/sepconv.py:139-143``,
+``:237-241``), up to the order of the float32 sums; on CPU tensors the
+wrappers widen around the plain versions (:func:`_widened`). The JAX
+package's own CPU fallback, ``sepconv_ref``, sums its taps in bf16
+instead.
 
 :func:`sepconv` is twice differentiable from the two kernels (second-order
 meta-training differentiates through its backward): the backward is K2
@@ -130,7 +132,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sepconv_forward.restype = i32
     lib.sepconv_grad_kernels.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.sepconv_grad_kernels.restype = i32
-    # the bf16 instantiations (a source from before them has none)
+    # the bf16 entry points (a source from before them has none)
     if hasattr(lib, "sepconv_forward_bf16"):
         lib.sepconv_forward_bf16.argtypes = lib.sepconv_forward.argtypes
         lib.sepconv_forward_bf16.restype = i32

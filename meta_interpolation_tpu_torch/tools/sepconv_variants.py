@@ -10,13 +10,16 @@ commit's (``git show <commit>:meta_interpolation_tpu_torch/csrc/sepconv.cu``)
 or a design under trial. Every version is built beside the checkout's
 kernels, one nvcc each, all started together, and its registers and spill
 bytes are printed (ptxas); with ``--sass DIR`` its SASS goes to
-``DIR/<NAME>.sass`` and its instruction counts by opcode are printed. Each
-version's K1 and K2 are held against the plain versions at the SepConv
-shape (maps 1x51x384x512) and timed in turns with the checkout's (this,
-version, version, this), with chip_smoke.py's card ms; a version that
-fails to build or to agree is reported, skipped, and fails the run at the
-end. Last, the SM clock
-and the power are sampled while the checkout's K1 and K2 run for a while.
+``DIR/<NAME>.sass`` and its instruction counts by opcode are printed, with
+its tensor-core instructions (HMMA: mma.sync, HGMMA: wgmma) counted on a
+line of their own. Each version's K1 and K2 are held against the plain
+versions at the SepConv shape (maps 1x51x384x512), in float32 and, where
+the version has bf16 entry points, in bf16 (within one bf16 ulp of max +
+1e-5 of the plain versions on the same bf16 inputs), and timed in turns
+with the checkout's (this, version, version, this), with chip_smoke.py's
+card ms; a version that fails to build or to agree is reported, skipped,
+and fails the run at the end. Last, the SM clock and the power are
+sampled while the checkout's K1 and K2 run for a while.
 """
 from __future__ import annotations
 
@@ -91,11 +94,19 @@ def main():
               for name, path in versions.items()}
     log = _build.build(["sepconv"])["sepconv"]["log"]
     cs.sepconv_resources(log, "this checkout", no_spill=False)
-    fns, failed = {}, []
+    cs.kernel_resources(log, "this checkout", cs.BF16_SEPCONV_KERNELS,
+                        no_spill=False)
+    fns, has_bf16, failed = {}, {}, []
     for name in versions:
         try:
-            lib = cs.finish_build(sc._bind, *builds[name], name,
-                                  cs.SEPCONV_KERNELS)
+            with open(versions[name]) as fh:
+                text = fh.read()
+            # bf16 entry points; the tensor-core kernels' ptxas names
+            has_bf16[name] = "sepconv_forward_bf16" in text
+            lib = cs.finish_build(sc._bind, *builds[name], name, {
+                **cs.SEPCONV_KERNELS,
+                **(cs.BF16_SEPCONV_KERNELS
+                   if "sepconv_fwd_bf16_kernel" in text else {})})
             fns[name] = (cs.on_library(sc, lib, sc.sepconv_forward),
                          cs.on_library(sc, lib, sc.sepconv_grad_kernels))
         except AssertionError as err:
@@ -110,6 +121,8 @@ def main():
                     lib, os.path.join(args.sass, f"{name}.sass")).items():
                 print(f"[sass] {name} {func}: {sum(count.values())} "
                       f"instructions, {dict(count.most_common(12))}")
+                print(f"[sass] {name} {func}: tensor cores HMMA "
+                      f"{count['HMMA']}, HGMMA {count['HGMMA']}")
 
     n, h, w, f = cs.KERNEL_SHAPES[-1]
     gen = torch.Generator().manual_seed(1)
@@ -120,6 +133,11 @@ def main():
     rkv, rkh = sc.grad_kernels_ref(inp, g, kv, kh)
     this = (lambda: sc.sepconv_forward(inp, kv, kh),
             lambda: sc.sepconv_grad_kernels(inp, g, kv, kh))
+    b = [t.to(torch.bfloat16) for t in (inp, g, kv, kh)]
+    b_ref = sc._widened(sc.sepconv_ref, b[0], b[2], b[3])
+    b_rkv, b_rkh = sc._widened(sc.grad_kernels_ref, *b)
+    b_this = (lambda: sc.sepconv_forward(b[0], b[2], b[3]),
+              lambda: sc.sepconv_grad_kernels(*b))
     for name, (k1, k2) in fns.items():
         try:
             cs.max_err(k1(inp, kv, kh), ref, f"{name} K1")
@@ -130,9 +148,21 @@ def main():
             failed.append(name)
             print(f"[variants] {name}: {err}")
             continue
-        for label, mine, theirs in [
-                ("K1", this[0], lambda: k1(inp, kv, kh)),
-                ("K2", this[1], lambda: k2(inp, g, kv, kh))]:
+        timings = [("K1", this[0], lambda: k1(inp, kv, kh)),
+                   ("K2", this[1], lambda: k2(inp, g, kv, kh))]
+        if has_bf16[name]:
+            try:
+                cs.bf16_err(k1(b[0], b[2], b[3]), b_ref, f"{name} K1 bf16")
+                gkv, gkh = k2(*b)
+                cs.bf16_err(gkv, b_rkv, f"{name} K2 gkv bf16")
+                cs.bf16_err(gkh, b_rkh, f"{name} K2 gkh bf16")
+            except AssertionError as err:
+                failed.append(name)
+                print(f"[variants] {name}: {err}")
+                continue
+            timings += [("K1 bf16", b_this[0], lambda: k1(b[0], b[2], b[3])),
+                        ("K2 bf16", b_this[1], lambda: k2(*b))]
+        for label, mine, theirs in timings:
             t_this, t_them = cs.in_turns(torch, (mine, theirs))
             print(f"[variants] {label} at maps {n}x{f}x{h}x{w}, in turns "
                   f"(this, {name}, {name}, this): this "

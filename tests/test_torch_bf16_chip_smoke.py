@@ -144,3 +144,39 @@ def test_bf16_sepconv_episode_launches_what_float32_does(counted,
     system.run_validation_iter(clip)
     assert counted == {"sepconv_forward": 6, "sepconv_grad_kernels": 4}
     assert per_clip == {"sepconv_forward": 14, "sepconv_grad_kernels": 12}
+
+
+@pytest.mark.parametrize("card,fp32,bw,bf16", [
+    ("NVIDIA H100 80GB HBM3, 700.00 W", 67.0e12, 3.35e12, 989e12),
+    ("NVIDIA H100 PCIe, 350.00 W", 51.2e12, 2.0e12, 756e12),
+    ("NVIDIA H100 NVL, 400.00 W", 60.0e12, 3.9e12, 835e12),
+    ("NVIDIA H200, 700.00 W", 67.0e12, 4.8e12, 989e12)])
+def test_peaks_give_the_bf16_tensor_core_rate_beside_fp32(card, fp32, bw,
+                                                           bf16):
+    """K1/K2 in bf16 are bound at the dense bf16 tensor-core rate, the
+    other kernels at the fp32 rate (data sheets)."""
+    assert chip_smoke.peaks(card) == (fp32, bw)
+    assert chip_smoke.bf16_tensor_peak(card) == bf16
+
+
+def test_bf16_sepconv_kernel_names_are_the_sources():
+    text = (ROOT / "meta_interpolation_tpu_torch" / "csrc"
+            / "sepconv.cu").read_text()
+    for entry, kernel in chip_smoke.BF16_SEPCONV_KERNELS.items():
+        assert f'extern "C" int {entry}(' in text
+        assert f"\n{kernel}(" in text
+    assert 0 < chip_smoke.BF16_FLIP_SHARE <= 1e-2
+
+
+def test_deterministic_sets_and_restores_the_flags():
+    saved = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled())
+    with chip_smoke.deterministic(torch, True):
+        assert torch.backends.cudnn.deterministic
+        assert torch.are_deterministic_algorithms_enabled()
+    assert (torch.backends.cudnn.deterministic,
+            torch.are_deterministic_algorithms_enabled()) == saved
+    with chip_smoke.deterministic(torch, False):
+        assert torch.backends.cudnn.deterministic
+        assert (torch.are_deterministic_algorithms_enabled() == saved[1])
+    assert set(chip_smoke.BF16_BITWISE) <= set(chip_smoke.BF16_CARD_VS_CPU)
