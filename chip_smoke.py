@@ -11,10 +11,13 @@ package; any failed check raises. ``--earlier-sepconv``,
 csrc/sepconv.cu, csrc/flow_projection.cu or csrc/warp.cu (e.g. from ``git
 show <commit>:meta_interpolation_tpu_torch/csrc/sepconv.cu``): it is built
 beside the kernels and timed in turns with them. The first two take the
-checkout's C interface; the third takes the interface before the warp
-kernels took the grid (K3 and its fy/fx gradient on coordinate planes),
-and runs inside the plain glue of ``ops/warp_bounded.py``
-(``grid_sample_bounded_ref``), as that tree did. Phases, in order:
+checkout's C interface; the third takes it too, told apart by its bf16
+entry point (``warp_sample_bounded_forward_bf16``; the earlier bf16 kernel,
+the gather design, then runs on both bf16 routes and every kernel is held
+to it bit for bit), or the interface before the warp kernels took the
+grid (K3 and its fy/fx gradient on coordinate planes), which runs inside
+the plain glue of ``ops/warp_bounded.py`` (``grid_sample_bounded_ref``),
+as that tree did. Phases, in order:
 
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every kernel under meta_interpolation_tpu_torch/csrc/, one
@@ -133,11 +136,16 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
          1 % of the outputs differing at all from the former (the share
          printed per shape); K3 and K3-grad within one bf16 ulp of max +
          1e-5 of their plain bf16 versions at every warp case, a bf16 grid
-         too; K3-grad² and K4 bit for bit their float32 kernels on the
+         too, and at two C = 5 cases past the tiled kernels' limit (the
+         gather route; each case's route printed, both taken), bit for bit
+         the gather kernels and, with --earlier-warp, the earlier bf16
+         kernels; K3-grad² and K4 bit for bit their float32 kernels on the
          widened operands; each bf16 kernel timed in turns with its
          float32 kernel, at its bf16 bytes' bound and, for K1 and K2, the
          bf16 tensor-core rate; with --earlier-sepconv the earlier bf16 K1
-         and K2 in turns too): every preset's
+         and K2 in turns too; K3 and K3-grad also at 1x3x256x512 and RRIN's
+         served batch 8x3x256x512 in turns with the gather kernels and the
+         earlier ones, beside bound and library): every preset's
          256x448 evaluation episode and first-order train iteration in
          float32 and bf16 in turns, with PSNR, peak memory, a profile and
          the same launches as float32 (the bf16 paths with the plain
@@ -180,7 +188,9 @@ and runs inside the plain glue of ``ops/warp_bounded.py``
      paths and K3/K3-grad (K3-grad² in second order) its VoxelFlow
      --remat paths; K4 the served DAIN frames'; K3-grad²
      and K4 also their bf16 paths', and the bf16 kernels of K1, K2, K3
-     and K3-grad four records of their own) and their sum
+     and K3-grad four records of their own, K3's and K3-grad's with their
+     times at one image and at the served batch, ``by_batch`` and
+     ``served_batch``) and their sum
      (``launches``), the card line again, and the last line {"ok": true,
      "device": {...}}.
 """
@@ -339,12 +349,18 @@ VF_WARP_CASE = (1, 3, 256, 448, -WARP_R, WARP_R - 1, "uniform", WARP_R,
 WARP_SHAPES = [(37, 53, -WARP_R, WARP_R - 1),
                (37, 53, -WARP_R - 3, WARP_R + 2),
                (256, 512, -WARP_R, WARP_R - 1)]
-# ptxas names of K3 and K3-grad in csrc/warp.cu, and of the kernels of the
-# warp.cu that took coordinate planes (--earlier-warp)
-WARP_KERNELS = {"warp_sample_bounded_forward": "warp_sample_fwd_kernel",
-                "warp_sample_bounded_grad_grid": "warp_sample_grad_grid_kernel",
-                "warp_sample_bounded_grad_grid_backward":
-                    "warp_sample_grad_grid_backward_kernel"}
+# ptxas names of K3, K3-grad (float32, and bf16 on the gather route),
+# K3-grad² and the bf16 tile kernels of K3 and K3-grad in csrc/warp.cu, and
+# of the kernels of the warp.cu that took coordinate planes (--earlier-warp)
+GATHER_WARP_KERNELS = {
+    "warp_sample_bounded_forward": "warp_sample_fwd_kernel",
+    "warp_sample_bounded_grad_grid": "warp_sample_grad_grid_kernel",
+    "warp_sample_bounded_grad_grid_backward":
+        "warp_sample_grad_grid_backward_kernel"}
+WARP_KERNELS = {**GATHER_WARP_KERNELS,
+                "warp_sample_bounded_forward_bf16": "warp_fwd_bf16_tile_kernel",
+                "warp_sample_bounded_grad_grid_bf16":
+                    "warp_grad_grid_bf16_tile_kernel"}
 EARLIER_WARP_KERNELS = {"warp_bounded_forward": "warp_bounded_fwd_kernel",
                         "warp_bounded_grad_frac":
                             "warp_bounded_grad_frac_kernel"}
@@ -549,8 +565,10 @@ def max_errs(got, want, what):
 
 
 def ptxas_report(log):
-    """{entry function: {"registers", "spill", "stack"}} from the log of
-    ``nvcc -Xptxas -v``; spill counts the bytes stored and loaded."""
+    """{entry function: {"registers", "spill", "stack"[, "smem"]}} from the
+    log of ``nvcc -Xptxas -v``; spill counts the bytes stored and loaded,
+    smem the static shared memory (ptxas names it only when there is
+    some)."""
     report, name = {}, None
     for line in str(log).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -566,15 +584,19 @@ def ptxas_report(log):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             report[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and name:
+            report[name]["smem"] = int(m.group(1))
     return report
 
 
 def kernel_resources(log, what, entries, no_spill=True):
-    """The registers and spill and stack bytes of the kernels ``entries``
-    names ({wrapper: ptxas entry name}) from the build log of a source,
-    the most over a template's instances; None where this run reused a
-    built library. Fails on a spill if ``no_spill``: the kernels are
-    designed to keep their state in registers."""
+    """The registers, spill and stack bytes and static shared memory (where
+    ptxas names some) of the kernels ``entries`` names ({wrapper: ptxas
+    entry name}) from the build log of a source, the most over a
+    template's instances; None where this run reused a built library.
+    Fails on a spill if ``no_spill``: the kernels are designed to keep
+    their state in registers."""
     report = ptxas_report(log)
     if not report:
         print(f"[build] {what}: library reused, no ptxas report")
@@ -582,12 +604,14 @@ def kernel_resources(log, what, entries, no_spill=True):
     resources = {}
     for name, entry in entries.items():
         hits = [v for k, v in report.items() if entry in k]
-        check(hits and all(len(hit) == 3 for hit in hits),
+        check(hits and all({"registers", "spill", "stack"} <= set(hit)
+                            for hit in hits),
               f"{what}: no ptxas report for {entry}")
-        res = resources[name] = {key: max(hit[key] for hit in hits)
-                                 for key in hits[0]}
+        res = resources[name] = {key: max(hit.get(key, 0) for hit in hits)
+                                 for key in set().union(*hits)}
         print(f"[build] {what} {name}: {res['registers']} registers, "
-              f"{res['spill']} bytes spilled, {res['stack']} bytes stack")
+              f"{res['spill']} bytes spilled, {res['stack']} bytes stack, "
+              f"{res.get('smem', 0)} bytes static shared memory")
         check(not no_spill or res["spill"] == 0,
               f"{what} {name} spills {res['spill']} bytes")
     return resources
@@ -860,16 +884,36 @@ def warp_grid(torch, kind, n, h, w, lo, hi, align_corners, seed):
     return ((2 * coord + 1) / size - 1).float()
 
 
+# an earlier csrc/warp.cu with today's C interface is told apart by this
+# symbol (its bf16 entry points)
+GRID_WARP_SYMBOL = "warp_sample_bounded_forward_bf16"
+
+
+def earlier_warp_kernels(path):
+    """The ptxas names of the kernels of an earlier csrc/warp.cu: those of
+    the gather design where the source has today's C interface, else those
+    of the plane interface."""
+    with open(path) as f:
+        text = f.read()
+    return GATHER_WARP_KERNELS if GRID_WARP_SYMBOL in text else \
+        EARLIER_WARP_KERNELS
+
+
 def bind_earlier_warp(lib):
-    """The C signatures of a csrc/warp.cu from before the kernels took the
-    grid: K3 and its fy/fx gradient on coordinate planes."""
+    """An earlier csrc/warp.cu, loaded: ("grid", lib) with today's C
+    signatures (ops/warp_bounded._bind) where it has GRID_WARP_SYMBOL,
+    else ("planes", lib) with those of a source from before the kernels
+    took the grid: K3 and its fy/fx gradient on coordinate planes."""
     import ctypes
+    if hasattr(lib, GRID_WARP_SYMBOL):
+        from meta_interpolation_tpu_torch.ops import warp_bounded as wb
+        return "grid", wb._bind(lib)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.warp_bounded_forward.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.warp_bounded_forward.restype = i32
     lib.warp_bounded_grad_frac.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
     lib.warp_bounded_grad_frac.restype = i32
-    return lib
+    return "planes", lib
 
 
 def earlier_warp(torch, wb, lib):
@@ -1009,13 +1053,16 @@ def warp_cases():
     return cases + [VF_WARP_CASE]
 
 
-def warp_kernel_phase(torch, wb, card, resources=None, earlier=None):
+def warp_kernel_phase(torch, wb, card, resources=None, earlier=None,
+                      earlier_lib=None):
     """Hold K3 and K3-grad against their plain versions at every
     warp_cases() entry and against the library calls within range; time
     both at the RRIN main-path shape and settings, beside the plain
     version, the bound and the library call, and in turns with the earlier
-    design (``earlier``: earlier_warp's (sampler, K3, K3-grad)) where
-    given. Returns the per-kernel records (launches filled in later)."""
+    design where given: ``earlier`` (earlier_warp's (sampler, K3,
+    K3-grad)) of the plane interface, or ``earlier_lib`` with today's C
+    interface (warp_f32_against_earlier). Returns the per-kernel records
+    (launches filled in later)."""
     import torch.nn.functional as F
     flops_peak, bw_peak = peaks(card)
     errs = {"fwd": 0.0, "grad": 0.0, "grad2": 0.0}
@@ -1141,9 +1188,12 @@ def warp_kernel_phase(torch, wb, card, resources=None, earlier=None):
                                                         flops_peak,
                                                         bw_peak)):
         rec["voxelflow_call"] = timing
+    if earlier_lib is not None:
+        warp_f32_against_earlier(torch, wb, earlier_lib, calls)
     if earlier is None:
-        print("[kernels] K3, K3-grad: earlier design not given "
-              "(--earlier-warp)")
+        if earlier_lib is None:
+            print("[kernels] K3, K3-grad: earlier design not given "
+                  "(--earlier-warp)")
         return records
     # the earlier K3 and its fy/fx gradient on the planes its glue makes
     # of the same grids
@@ -1168,6 +1218,49 @@ def warp_kernel_phase(torch, wb, card, resources=None, earlier=None):
                   f"{old_ms[1]:.4f} ms, eager call {old_call[0]:.4f}, "
                   f"{old_call[1]:.4f} ms")
     return records
+
+
+def warp_f32_against_earlier(torch, wb, lib, calls):
+    """The float32 K3, K3-grad and K3-grad² bit for bit those of ``lib``
+    (an earlier csrc/warp.cu with today's C interface) at every
+    warp_cases() entry, then K3 and K3-grad in turns with them (this,
+    earlier, earlier, this) on ``calls`` (warp_kernel_phase's RRIN-frame
+    calls on random and smooth displacements)."""
+    def earlier(name):
+        return on_library(wb, lib, getattr(wb, name))
+    cases = warp_cases()
+    for case in cases:
+        n, c, h, w, lo, hi, kind, r, align, padding = case
+        gen = torch.Generator().manual_seed(h * 1000 + w + hi + 17 * r + 2)
+        img = torch.rand(n, c, h, w, generator=gen).cuda()
+        g = torch.randn(n, c, h, w, generator=gen).cuda()
+        v = torch.randn(n, h, w, 2, generator=gen).cuda()
+        grid = warp_grid(torch, kind, n, h, w, lo, hi, align, 7).cuda()
+        what = f"float32 {n}x{c}x{h}x{w} {kind}, R={r}, {align}, {padding}"
+        opts = (r, align, padding)
+        for name, args in (("warp_sample_bounded_forward", (img, grid)),
+                           ("warp_sample_bounded_grad_grid", (img, grid, g)),
+                           ("warp_sample_bounded_grad_grid_backward",
+                            (img, grid, g, v))):
+            got = getattr(wb, name)(*args, *opts)
+            old = earlier(name)(*args, *opts)
+            for i, (a, b) in enumerate(zip(
+                    got if isinstance(got, tuple) else (got,),
+                    old if isinstance(old, tuple) else (old,))):
+                bitwise(torch, a, b, f"{name} output {i} {what} against the "
+                                     f"earlier design")
+    torch.cuda.synchronize()
+    print(f"[kernels] float32 K3, K3-grad and K3-grad² are bit for bit the "
+          f"earlier design's at {len(cases)} cases")
+    for kind, fns in calls.items():
+        for name, key in (("warp_sample_bounded_forward", "fwd"),
+                          ("warp_sample_bounded_grad_grid", "grad")):
+            new_ms, old_ms = in_turns(torch, (
+                fns[key], on_library(wb, lib, fns[key])))
+            print(f"[kernels] {name} float32, {kind} grid, in turns (this, "
+                  f"earlier, earlier, this): this {new_ms[0]:.4f}, "
+                  f"{new_ms[1]:.4f} ms; earlier {old_ms[0]:.4f}, "
+                  f"{old_ms[1]:.4f} ms")
 
 
 def library_double_backward(torch, img, grid, g, v, padding, align):
@@ -3256,6 +3349,15 @@ BF16_SERVE = {
     "sepconv": (4, {}, {}, {"sepconv_forward": CALLS}),
     "cain": (16, {"pad_multiple": 8, "fuse_pad": True}, {}, {})}
 BF16_SERVE_ITERS = 5
+# bf16 K3 / K3-grad timed at RRIN's padded frame, one image (the kernel
+# table's shape) and its served batch (bench.py), R = 8, zeros
+BF16_WARP_BATCHES = (1, BF16_SERVE["rrin"][0])
+# bf16 calls past the tiled kernels' limit (C > 4: a texel holds 4
+# channels), which take the gather route
+BF16_GATHER_CASES = [(2, 5, 37, 53, -WARP_R - 3, WARP_R + 2, "uniform",
+                      WARP_R, False, "zeros"),
+                     (1, 5, 256, 512, -WARP_R, WARP_R - 1, "smooth", WARP_R,
+                      True, "border")]
 # the 64x64 clip, card vs CPU in bf16: max|card − CPU| within twice
 # max|CPU bf16 − CPU float32| plus BF16_FLOOR of the largest value
 BF16_FLOOR = 1e-5
@@ -3290,35 +3392,60 @@ def bitwise(torch, got, want, what):
 
 
 class F32Forbidden:
-    """A loaded kernel library whose float32 entry points ``names`` raise:
-    on a bf16 path K1, K2, K3 and K3-grad must run their bf16 kernels."""
+    """A loaded kernel library whose entry points ``names`` raise: on a bf16
+    path K1, K2, K3 and K3-grad must run their bf16 kernels (``what``, the
+    float32 ones), and K3 and K3-grad their tiled ones (the gather route
+    is for shapes no main path has)."""
 
-    def __init__(self, lib, names):
-        self._lib, self._names = lib, set(names)
+    def __init__(self, lib, names, what="the float32"):
+        self._lib, self._names, self._what = lib, set(names), what
 
     def __getattr__(self, name):
         if name in self._names:
-            raise AssertionError(f"the float32 {name} ran on a bf16 path")
+            raise AssertionError(f"{self._what} {name} ran on a bf16 path")
         return getattr(self._lib, name)
+
+
+class Renamed:
+    """A loaded kernel library whose entry points ``names`` ({name:
+    other}) are ``other``: TILE_AS_GATHER runs the bf16 gather kernels
+    where the wrapper calls the tiled ones; GATHER_AS_BF16 runs an earlier
+    source's bf16 kernel (the gather design) on both routes."""
+
+    def __init__(self, lib, names):
+        self._lib, self._names = lib, names
+
+    def __getattr__(self, name):
+        return getattr(self._lib, self._names.get(name, name))
+
+
+TILE_AS_GATHER = {f"{k}_bf16": f"{k}_bf16_gather"
+                  for k in ("warp_sample_bounded_forward",
+                            "warp_sample_bounded_grad_grid")}
+GATHER_AS_BF16 = {v: k for k, v in TILE_AS_GATHER.items()}
 
 
 def bf16_only(sc, wb, fn):
     """``fn`` with the plain K1/K2 and bounded-sampler versions patched to
-    raise and the float32 entry points of K1, K2, K3 and K3-grad too: on
-    the card a bf16 path runs the bf16 kernels only."""
+    raise and the float32 entry points of K1, K2, K3 and K3-grad too, and
+    the gather route of K3 and K3-grad: on the card a bf16 path runs the
+    bf16 kernels only, K3 and K3-grad their tiled ones."""
     def forbidden(*_args, **_kw):
         raise AssertionError("a plain sepconv version ran on the card")
     sc_lib = F32Forbidden(sc._library(), ("sepconv_forward",
                                           "sepconv_grad_kernels"))
-    wb_lib = F32Forbidden(wb._library(), ("warp_sample_bounded_forward",
-                                          "warp_sample_bounded_grad_grid"))
+    wb_lib = F32Forbidden(F32Forbidden(wb._library(), GATHER_AS_BF16,
+                                       "the gather route's"),
+                          ("warp_sample_bounded_forward",
+                           "warp_sample_bounded_grad_grid"))
     fn = on_library(sc, sc_lib, on_library(wb, wb_lib, fn))
     fn = with_attr(sc, "sepconv_ref", forbidden,
                    with_attr(sc, "grad_kernels_ref", forbidden, fn))
     return plain_warp_forbidden(wb, fn)
 
 
-def bf16_kernel_phase(torch, mods, card, earlier_lib=None, resources=None):
+def bf16_kernel_phase(torch, mods, card, earlier_lib=None, resources=None,
+                      earlier_warp_lib=None):
     """K1 and K2 in bf16 at every KERNEL_SHAPES entry within one bf16 ulp of
     max + 1e-5 of the float32 kernel on the widened inputs, rounded, and of
     their plain bf16 versions, with at most BF16_FLIP_SHARE of the outputs
@@ -3332,8 +3459,13 @@ def bf16_kernel_phase(torch, mods, card, earlier_lib=None, resources=None):
     tensor-core rate, the others at the fp32 rate; bytes at their bf16
     size) and the library's bf16 call; K1 and K2 in bf16 also in turns
     with those of ``earlier_lib`` (an earlier csrc/sepconv.cu) where given.
-    ``resources``: the bf16 K1/K2 kernels' registers and spills (ptxas).
-    Returns the bf16 kernels' records."""
+    K3 and K3-grad in bf16 also at BF16_GATHER_CASES (the gather route),
+    each case's route printed, both routes taken; at every case bit for
+    bit the gather kernels and, where given, ``earlier_warp_lib`` (an
+    earlier csrc/warp.cu with today's C interface); and timed at
+    BF16_WARP_BATCHES (bf16_warp_timing). ``resources``: the bf16 kernels'
+    registers, spills and static shared memory (ptxas). Returns the bf16
+    kernels' records."""
     import torch.nn.functional as F
     sc, wb, fpb = mods
     bf = torch.bfloat16
@@ -3388,7 +3520,8 @@ def bf16_kernel_phase(torch, mods, card, earlier_lib=None, resources=None):
           f"{errs['sepconv_grad_kernels']:.3e}")
     for name, res in (resources or {}).items():
         print(f"[bf16] {name}: {res['registers']} registers, {res['spill']} "
-              f"bytes spilled")
+              f"bytes spilled, {res.get('smem', 0)} bytes static shared "
+              f"memory")
     earlier = None if earlier_lib is None else {
         "sepconv_forward": on_library(sc, earlier_lib, sc.sepconv_forward),
         "sepconv_grad_kernels": on_library(sc, earlier_lib,
@@ -3419,21 +3552,19 @@ def bf16_kernel_phase(torch, mods, card, earlier_lib=None, resources=None):
     sc_shape = f"in {n}x3x{h + f - 1}x{w + f - 1}, maps {n}x{f}x{h}x{w}, bf16"
 
     # K3 / K3-grad at every warp case in bf16 (the grid float32; every
-    # fourth case a bf16 grid), K3-grad² bit for bit its widened call
-    cases = warp_cases()
+    # fourth case a bf16 grid) and the gather route's, bit for bit the
+    # gather kernels and the earlier design; K3-grad² bit for bit its
+    # widened call
+    cases = warp_cases() + BF16_GATHER_CASES
+    views = {"the gather kernels": Renamed(wb._library(), TILE_AS_GATHER)}
+    if earlier_warp_lib is not None:
+        views["the earlier design"] = Renamed(earlier_warp_lib,
+                                              GATHER_AS_BF16)
+    routes = {"tile": 0, "gather": 0}
+    wb.reset_launches()
     for i, case in enumerate(cases):
         n, c, h, w, lo, hi, kind, r, align, padding = case
-        seed = h * 1000 + w + hi + 17 * r + 3 * align + 1
-        gen = torch.Generator().manual_seed(seed)
-        img = torch.rand(n, c, h, w, generator=gen).cuda().to(bf)
-        g = torch.randn(n, c, h, w, generator=gen).cuda().to(bf)
-        v = torch.randn(n, h, w, 2, generator=gen).cuda()
-        grid = warp_grid(torch, kind, n, h, w, lo, hi, align, seed).cuda()
-        if i % 4 == 3:
-            grid = grid.to(bf)
-        opts = (r, align, padding)
-        what = (f"bf16 {n}x{c}x{h}x{w} {kind}, R={r}, align_corners={align},"
-                f" {padding}, {grid.dtype} grid")
+        img, g, v, grid, opts, what = bf16_warp_inputs(torch, case, i)
         out = wb.warp_sample_bounded_forward(img, grid, *opts)
         check(out.dtype == bf, f"K3 {what}: {out.dtype} out")
         errs["warp_sample_bounded_forward"] = max(
@@ -3446,19 +3577,40 @@ def bf16_kernel_phase(torch, mods, card, earlier_lib=None, resources=None):
             errs["warp_sample_bounded_grad_grid"],
             bf16_err(ggrid, wb.grid_sample_bounded_grad_grid_ref(
                 img, grid, g, *opts), f"K3-grad {what}"))
+        for label, lib in views.items():
+            bitwise(torch, on_library(wb, lib, wb.warp_sample_bounded_forward)(
+                img, grid, *opts), out, f"K3 {what} against {label}")
+            bitwise(torch, on_library(wb, lib,
+                                      wb.warp_sample_bounded_grad_grid)(
+                img, grid, g, *opts), ggrid,
+                f"K3-grad {what} against {label}")
         gg, gv = wb.warp_sample_bounded_grad_grid_backward(img, grid, g, v,
                                                            *opts)
         wgg, wgv = wb.warp_sample_bounded_grad_grid_backward(
             img.float(), grid.float(), g.float(), v, *opts)
         bitwise(torch, gg, wgg.to(bf), f"K3-grad² gg {what}")
         bitwise(torch, gv, wgv.to(grid.dtype), f"K3-grad² grid {what}")
+        win = wb.bf16_window(n, c, h, w, r)
+        routes[win.route] += 1
+        print(f"[bf16] K3 / K3-grad {what}: {win.route} route (a block's "
+              f"window at most {win.rows}x{win.cols} texels, "
+              f"{win.shared_bytes} B), bit for bit {' and '.join(views)}")
     torch.cuda.synchronize()
+    check(all(routes.values()), f"bf16 K3 routes taken: {routes}")
+    # the gather route's own counts: each gather case's call and one a
+    # view (the tiled cases' gather view runs through the tile route)
+    gathered = [wb.warp_sample_bounded_forward.gather_launches,
+                wb.warp_sample_bounded_grad_grid.gather_launches]
+    check(gathered == [routes["gather"] * (1 + len(views))] * 2,
+          f"gather route launches {gathered}, routes {routes}")
     print(f"[bf16] K3 and K3-grad in bf16 agree with their plain bf16 "
           f"versions within one bf16 ulp of max + {TOL_ABS:g} at "
-          f"{len(cases)} cases (max|diff| K3 "
+          f"{len(cases)} cases ({routes['tile']} on the tile route, "
+          f"{routes['gather']} on the gather route; max|diff| K3 "
           f"{errs['warp_sample_bounded_forward']:.3e}, K3-grad "
-          f"{errs['warp_sample_bounded_grad_grid']:.3e}); K3-grad² on bf16 "
-          f"operands is its float32 kernel on the widened ones, rounded")
+          f"{errs['warp_sample_bounded_grad_grid']:.3e}), bit for bit "
+          f"{' and '.join(views)}; K3-grad² on bf16 operands is its float32 "
+          f"kernel on the widened ones, rounded")
     n, c, (h, w), r = 1, 3, WARP_SHAPES[-1][:2], WARP_R
     gen = torch.Generator().manual_seed(5)
     img = torch.rand(n, c, h, w, generator=gen).cuda()
@@ -3542,7 +3694,106 @@ def bf16_kernel_phase(torch, mods, card, earlier_lib=None, resources=None):
                   f"this): this design {new_ms[0]:.4f}, {new_ms[1]:.4f} ms; "
                   f"earlier design {old_ms[0]:.4f}, {old_ms[1]:.4f} ms; "
                   f"bound {bound:.6f} ms ({card})")
+    timing = bf16_warp_timing(torch, wb, card, earlier_warp_lib)
+    for rec in records:
+        by_batch = timing.get(rec["name"][:-len("_bf16")])
+        if by_batch:
+            rec["by_batch"] = by_batch
+            rec["served_batch"] = by_batch[-1]
     return records
+
+
+def bf16_warp_inputs(torch, case, i):
+    """The bf16 K3 check of warp case ``case``, the ``i``-th: (img, g, v,
+    grid, (R, align_corners, padding), label); img and g bf16, v float32,
+    the grid float32 or, every fourth case, bf16."""
+    n, c, h, w, lo, hi, kind, r, align, padding = case
+    bf = torch.bfloat16
+    seed = h * 1000 + w + hi + 17 * r + 3 * align + 1
+    gen = torch.Generator().manual_seed(seed)
+    img = torch.rand(n, c, h, w, generator=gen).cuda().to(bf)
+    g = torch.randn(n, c, h, w, generator=gen).cuda().to(bf)
+    v = torch.randn(n, h, w, 2, generator=gen).cuda()
+    grid = warp_grid(torch, kind, n, h, w, lo, hi, align, seed).cuda()
+    if i % 4 == 3:
+        grid = grid.to(bf)
+    what = (f"bf16 {n}x{c}x{h}x{w} {kind}, R={r}, align_corners={align}, "
+            f"{padding}, {grid.dtype} grid")
+    return img, g, v, grid, (r, align, padding), what
+
+
+def bf16_warp_timing(torch, wb, card, earlier_lib=None, label="earlier"):
+    """bf16 K3 and K3-grad at each BF16_WARP_BATCHES batch of RRIN's padded
+    frame (R = 8, zeros, align_corners=False, random displacements within
+    range): held bit for bit to the gather kernels and, where given,
+    ``earlier_lib``'s bf16 kernels (its _bf16 entry points on both
+    routes), then timed in turns with each (tile, gather, gather, tile;
+    this, ``label``, ``label``, this), beside the bound at the bf16 bytes
+    and the library's bf16 call (the grid rounded to bf16). Returns
+    {wrapper name: [a record a batch]}."""
+    import torch.nn.functional as F
+    flops_peak, bw_peak = peaks(card)
+    bf = torch.bfloat16
+    views = {"gather": Renamed(wb._library(), TILE_AS_GATHER)}
+    if earlier_lib is not None:
+        views[label] = Renamed(earlier_lib, GATHER_AS_BF16)
+    timing = {"warp_sample_bounded_forward": [],
+              "warp_sample_bounded_grad_grid": []}
+    c, (h, w), r = 3, WARP_SHAPES[-1][:2], WARP_R
+    opts = (r, False, "zeros")
+    for n in BF16_WARP_BATCHES:
+        gen = torch.Generator().manual_seed(5)
+        img = torch.rand(n, c, h, w, generator=gen).cuda().to(bf)
+        g = torch.randn(n, c, h, w, generator=gen).cuda().to(bf)
+        grid = warp_grid(torch, "library", n, h, w, -r, r - 2, False,
+                         6).cuda()
+        grid_b, pixels = grid.to(bf), n * h * w
+        for name, args, ops, nbytes, lib in [
+                ("warp_sample_bounded_forward", (img, grid, *opts),
+                 pixels * (40 + 7 * c), pixels * (8 + 4 * c),
+                 lambda: F.grid_sample(img, grid_b, mode="bilinear",
+                                       padding_mode="zeros",
+                                       align_corners=False)),
+                ("warp_sample_bounded_grad_grid", (img, grid, g, *opts),
+                 pixels * (50 + 16 * c), pixels * (16 + 4 * c),
+                 lambda: torch.ops.aten.grid_sampler_2d_backward(
+                     g, img, grid_b, 0, 0, False, [False, True])[1])]:
+            wrapper = getattr(wb, name)
+            t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+            bound = max(t_ops, t_bytes)
+            rec = {"shape": f"img {n}x{c}x{h}x{w} bf16, grid {n}x{h}x{w}x2 "
+                            f"float32, R={r}, zeros, align_corners=False",
+                   "route": wb.bf16_window(n, c, h, w, r).route,
+                   "bound_ms": bound,
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+                   "library_ms": time_ms(torch, lib)}
+            this = []
+            for label, view in views.items():
+                bitwise(torch, on_library(wb, view, wrapper)(*args),
+                        wrapper(*args), f"{name} bf16 {rec['shape']} "
+                                        f"against {label}")
+                mine, theirs = in_turns(torch, (
+                    lambda: wrapper(*args),
+                    on_library(wb, view, lambda: wrapper(*args))))
+                this += mine
+                rec[f"ms_in_turns_with_{label}"] = mine
+                rec[f"{label}_ms_in_turns"] = theirs
+            rec["ms"] = statistics.median(this)
+            timing[name].append(rec)
+            print(f"[bf16] {name} bf16 at {n}x{c}x{h}x{w}: "
+                  f"{rec['ms']:.4f} ms ({rec['route']} route, bit for bit "
+                  f"{' and '.join(views)}), "
+                  + "; ".join(f"in turns (this, {k}, {k}, this) this "
+                              f"{rec[f'ms_in_turns_with_{k}'][0]:.4f}, "
+                              f"{rec[f'ms_in_turns_with_{k}'][1]:.4f} ms, "
+                              f"{k} {rec[f'{k}_ms_in_turns'][0]:.4f}, "
+                              f"{rec[f'{k}_ms_in_turns'][1]:.4f} ms"
+                              for k in views)
+                  + f"; bound {bound:.6f} ms by {rec['bound_by']} "
+                  f"({nbytes / 1e6:.2f} MB), {bound / rec['ms']:.3f} of it "
+                  f"reached; library {rec['library_ms']:.4f} ms ({card})")
+    return timing
 
 
 def bf16_systems(flags, state=None):
@@ -4488,11 +4739,16 @@ def parse_args(argv=None):
                         help="an earlier csrc/flow_projection.cu to hold K4 "
                              "to bit for bit and time it against, in turns")
     parser.add_argument("--earlier-warp", metavar="PATH",
-                        help="an earlier csrc/warp.cu (K3 and its fy/fx "
-                             "gradient on coordinate planes) to run in the "
-                             "plain glue, hold to the plain composition and "
-                             "time against K3, K3-grad, the warp call and "
-                             "the RRIN episode, in turns")
+                        help="an earlier csrc/warp.cu: with today's C "
+                             "interface (its bf16 entry points), to hold "
+                             "K3, K3-grad and K3-grad² to bit for bit in "
+                             "float32 and bf16 and time K3 and K3-grad "
+                             "against, in turns; of the interface before "
+                             "(K3 and its fy/fx gradient on coordinate "
+                             "planes), to run in the plain glue, hold to "
+                             "the plain composition and time against K3, "
+                             "K3-grad, the warp call and the RRIN episode, "
+                             "in turns")
     return parser.parse_args(argv)
 
 
@@ -4526,7 +4782,8 @@ def main():
                    ("flow_projection", fpb._bind, args.earlier_projection,
                     PROJECTION_KERNELS),
                    ("warp", bind_earlier_warp, args.earlier_warp,
-                    EARLIER_WARP_KERNELS)] if path}
+                    args.earlier_warp and earlier_warp_kernels(
+                        args.earlier_warp))] if path}
     builds = {source: start_build(path, "earlier", source)
               for source, (_, path, _) in earlier.items()}
     report = _build.build()
@@ -4550,18 +4807,27 @@ def main():
     earlier_k4 = (on_library(fpb, libs["flow_projection"],
                              fpb.flow_projection_bounded)
                   if "flow_projection" in libs else None)
-    earlier_k3 = (earlier_warp(torch, wb, libs["warp"]) if "warp" in libs
+    # an earlier warp.cu of the plane interface runs in the plain glue; one
+    # with today's interface is bound as the checkout's (bf16: its one bf16
+    # kernel, the gather design)
+    warp_api, warp_lib = libs.get("warp", (None, None))
+    earlier_k3 = (earlier_warp(torch, wb, warp_lib) if warp_api == "planes"
                   else None)
+    earlier_grid_warp = warp_lib if warp_api == "grid" else None
 
     records = (timed("kernels", kernel_phase, torch, sc, card, resources,
                      libs.get("sepconv"))
                + timed("warp_kernels", warp_kernel_phase, torch, wb, card,
-                       k3_resources, earlier_k3)
+                       k3_resources, earlier_k3, earlier_grid_warp)
                + timed("projection_kernel", projection_kernel_phase, torch,
                        fpb, card, k4_resources, earlier_k4))
     mods = (sc, wb, fpb)
     bf16_records = timed("bf16_kernels", bf16_kernel_phase, torch, mods,
-                         card, libs.get("sepconv"), bf16_resources)
+                         card, libs.get("sepconv"),
+                         {**(bf16_resources or {}),
+                          **{k: v for k, v in (k3_resources or {}).items()
+                             if k.endswith("_bf16")}},
+                         earlier_grid_warp)
     timed("sepconv", main_path_phase, torch, mods, libs.get("sepconv"))
     sepconv_launches = timed("sepconv_train", train_phase, torch, mods, sc,
                              card)

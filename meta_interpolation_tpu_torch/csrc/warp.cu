@@ -62,22 +62,42 @@
 // its derivative (second-order meta-training) reads the image, grid, g
 // and v and writes gg and ggrid: 60 B a pixel, 7.86 MB, 2.35 us.
 // Both do ~40-80 operations a pixel, far from the fp32 rate, and at this
-// size a launch's fixed cost is of the bound's order. Design: a 3-D launch
-// (column chunk, row, image) with threads along x, no 64-bit division; each
-// thread takes kPix pixels of its row, kThreads apart, so that every grid
-// load (float2), g load and output store of a warp is one coalesced run;
-// all of a thread's grid loads are issued before their use, then all of a
-// pixel's taps, with the channel loop unrolled for C = 3. With |flow| <= R
-// a warp's taps fall in a band ~2R + 2 rows deep that L1 holds, so taps go
-// through the read-only path (__ldg): staging the tile's halo in shared
-// memory with cp.async lost to it, and 1 or 4 pixels a thread, 64 or 256
-// threads a block and g loaded ahead in the backward did not win (PERF.md).
-// The backward recomputes the four taps and keeps its three channel sums
-// in registers: no atomics, deterministic.
+// size a launch's fixed cost is of the bound's order.
+//
+// The float32 design (K3, K3-grad, K3-grad², and the bf16 gather route): a
+// 3-D launch (column chunk, row, image) with threads along x, no 64-bit
+// division; each thread takes kPix pixels of its row, kThreads apart, so
+// that every grid load (float2), g load and output store of a warp is one
+// coalesced run; all of a thread's grid loads are issued before their use,
+// then all of a pixel's taps, with the channel loop unrolled for C = 3.
+// With |flow| <= R a warp's taps fall in a band ~2R + 2 rows deep that L1
+// holds, so taps go through the read-only path (__ldg): for these float32
+// kernels, staging the tile's halo in shared memory with cp.async lost to
+// it, and 1 or 4 pixels a thread, 64 or 256 threads a block and g loaded
+// ahead in the backward did not win (PERF.md). The backward recomputes the
+// four taps and keeps its three channel sums in registers: no atomics,
+// deterministic.
+//
+// The bf16 design (K3 and K3-grad in bf16, the tile route): there the
+// float32 design issues 12 (K3-grad 15) dependent 2-byte gathers a pixel,
+// and their count and latency, not bytes, set its pace. A block owns a
+// 16 x 32 tile and stages its tap window, the tile grown by R on every
+// side and clipped to the image, once, with 16-byte loads, as channel-
+// interleaved 8-byte texels in shared memory: a tap is one 8-byte shared
+// load for all channels. A thread takes two adjacent pixels: grid and
+// grid gradient as float4, output and g as bf16 pairs. The window is
+// sized from R at launch; past C = 4 (a texel's channels) or 227 KB of
+// shared memory (R > 72 on a large frame) the wrapper takes the gather
+// route, the float32 design on bf16 (ops/warp_bounded.py, bf16_window).
+// Both routes give the same bits. Tiles of 8 x 64, 32 x 32, 16 x 16,
+// 32 x 16, 16 x 64 and 4 x 64, 4 pixels a thread, and the window copied
+// by cp.async then interleaved, were slower (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
 #include <type_traits>
 
 namespace {
@@ -379,6 +399,318 @@ warp_sample_grad_grid_backward_kernel(const float* __restrict__ img,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 K3 and K3-grad: a block's output tile and its tap window staged
+// in shared memory as channel-interleaved texels.
+//
+// A block owns kTileH x kTileW output pixels of one image. The floors lie
+// in [-R, R-1] (a NaN coordinate goes to -R) and the taps are edge-clamped,
+// so every tap of the tile lies in rows [y0 - R, y0 + kTileH - 1 + R] and
+// columns [x0 - R, x0 + kTileW - 1 + R], clipped to the image. The block
+// copies that window from the channel planes once, 8 columns at a time
+// (16-byte loads of the aligned chunks that cover them, shifted where a
+// row does not start on a chunk), and stores it as 8-byte texels (c0, c1,
+// c2, c3 or 0): a tap is then one 8-byte shared load for every channel.
+// A thread takes kPairs pairs of horizontally adjacent pixels: their grid
+// as one float4, their outputs as bf16 pairs, their g as bf16 pairs and
+// their grid gradients as one float4 (scalar where a pair is not aligned
+// or straddles the edge). The arithmetic is the gather kernels', in the
+// same order, so the two give the same bits.
+constexpr int kTileH = 16;       // output rows a block
+constexpr int kTileW = 32;       // output columns a block
+constexpr int kPairs = 1;        // pixel pairs a thread, side by side
+constexpr int kTileThreads = kTileH * kTileW / (2 * kPairs);
+constexpr int kTexelC = 4;       // channels a texel holds
+constexpr int kMaxWindowBytes = 232448;  // shared memory a block, sm_90
+
+using bf16 = __nv_bfloat16;
+
+// The values before p in its 16-byte chunk.
+__device__ __forceinline__ int misalignment(const bf16* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) & 15) >> 1);
+}
+
+// Values s .. s + 7 of the 16 bf16 values of (lo, hi), s in [0, 8).
+__device__ __forceinline__ uint4 shift8(uint4 lo, uint4 hi, int s) {
+  uint32_t v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  if (s & 4) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = i + 2 < 8 ? v[i + 2] : 0u;
+  }
+  if (s & 2) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = i + 1 < 8 ? v[i + 1] : 0u;
+  }
+  if (s & 1) {
+#pragma unroll
+    for (int i = 0; i < 7; ++i) v[i] = __funnelshift_r(v[i], v[i + 1], 16);
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// The 8 bf16 values at p, of which the first `valid` (>= 1) are read
+// (the rest are what the covering chunks hold); p need not be aligned.
+// Only the aligned chunks that hold a valid value are loaded.
+__device__ __forceinline__ uint4 load8(const bf16* p, int valid) {
+  const int s = misalignment(p);
+  const uint4* base = reinterpret_cast<const uint4*>(p - s);
+  const uint4 lo = __ldg(base);
+  if (s == 0) return lo;
+  const uint4 hi = s + valid > 8 ? __ldg(base + 1) : make_uint4(0, 0, 0, 0);
+  return shift8(lo, hi, s);
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// A block's window: its first row and column in the image, its rows and
+// columns, and its row pitch in texels (the same for every block).
+struct Window {
+  int r0, c0, rows, cols, pitch;
+};
+
+__device__ __forceinline__ Window block_window(int h, int w, int r,
+                                               int pitch) {
+  const int y0 = blockIdx.y * kTileH, x0 = blockIdx.x * kTileW;
+  Window win;
+  win.r0 = max(y0 - r, 0);
+  win.c0 = max(x0 - r, 0);
+  win.rows = static_cast<int>(min(static_cast<long long>(y0) + kTileH - 1 + r,
+                                  static_cast<long long>(h - 1))) - win.r0 + 1;
+  win.cols = static_cast<int>(min(static_cast<long long>(x0) + kTileW - 1 + r,
+                                  static_cast<long long>(w - 1))) - win.c0 + 1;
+  win.pitch = pitch;
+  return win;
+}
+
+// Copy the window of the nc (<= kTexelC) planes at `plane` into `texels`,
+// (rows, pitch) texels of 8 bytes: one work item a row and 8 columns, the
+// texels written two at a time (16 bytes).
+__device__ __forceinline__ void stage_window(uint4* texels, const bf16* plane,
+                                             int nc, int w, size_t hw,
+                                             const Window& win) {
+  const int chunks = (win.cols + 7) >> 3;
+  for (int i = threadIdx.x; i < win.rows * chunks; i += kTileThreads) {
+    const int row = i / chunks, k = i - row * chunks;
+    const int valid = win.cols - 8 * k;
+    const bf16* p = plane + static_cast<size_t>(win.r0 + row) * w + win.c0
+        + 8 * k;
+    uint4 v[kTexelC];
+#pragma unroll
+    for (int ch = 0; ch < kTexelC; ++ch) {
+      v[ch] = ch < nc ? load8(p + ch * hw, valid) : make_uint4(0, 0, 0, 0);
+    }
+    uint4* dst = texels + (row * win.pitch + 8 * k) / 2;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const uint32_t a = word(v[0], m), b = word(v[1], m);
+      const uint32_t c = word(v[2], m), d = word(v[3], m);
+      dst[m] = make_uint4(__byte_perm(a, b, 0x5410), __byte_perm(c, d, 0x5410),
+                          __byte_perm(a, b, 0x7632),
+                          __byte_perm(c, d, 0x7632));
+    }
+  }
+}
+
+// The kTexelC channels of the texel at (row, col) of the image, widened.
+__device__ __forceinline__ void texel(const uint2* texels, const Window& win,
+                                      int row, int col,
+                                      float (&v)[kTexelC]) {
+  const uint2 t = texels[(row - win.r0) * win.pitch + (col - win.c0)];
+  v[0] = __uint_as_float(t.x << 16);
+  v[1] = __uint_as_float(t.x & 0xffff0000u);
+  v[2] = __uint_as_float(t.y << 16);
+  v[3] = __uint_as_float(t.y & 0xffff0000u);
+}
+
+// The grid of pixels x and x + 1 of a row (x + 1 only if inside).
+__device__ __forceinline__ void load_pair(const float2* p, int x, int w,
+                                          float2 (&gv)[2]) {
+  if (x + 1 < w && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    gv[0] = make_float2(q.x, q.y);
+    gv[1] = make_float2(q.z, q.w);
+  } else {
+    gv[0] = x < w ? __ldg(p) : make_float2(0.f, 0.f);
+    gv[1] = x + 1 < w ? __ldg(p + 1) : make_float2(0.f, 0.f);
+  }
+}
+
+// A thread's pixel pairs: (y, x) of the first pixel of pair q.
+__device__ __forceinline__ int pair_y(int q) {
+  return blockIdx.y * kTileH + (threadIdx.x * kPairs + q) / (kTileW / 2);
+}
+__device__ __forceinline__ int pair_x(int q) {
+  return blockIdx.x * kTileW + 2 * ((threadIdx.x * kPairs + q) % (kTileW / 2));
+}
+
+template <int kC>
+__global__ void __launch_bounds__(kTileThreads)
+warp_fwd_bf16_tile_kernel(const bf16* __restrict__ img,
+                          const float2* __restrict__ grid,
+                          bf16* __restrict__ out, int c, int h, int w, int r,
+                          int pitch, bool align, bool border) {
+  extern __shared__ uint4 texels[];
+  const int b = blockIdx.z;
+  const int nc = kC > 0 ? kC : c;
+  const size_t hw = static_cast<size_t>(h) * w;
+  float2 gv[kPairs][2];
+#pragma unroll
+  for (int q = 0; q < kPairs; ++q) {
+    const int y = pair_y(q), x = pair_x(q);
+    if (y < h) {
+      load_pair(grid + (static_cast<size_t>(b) * h + y) * w + x, x, w, gv[q]);
+    }
+  }
+  const Window win = block_window(h, w, r, pitch);
+  const bf16* plane = img + static_cast<size_t>(b) * nc * hw;
+  stage_window(texels, plane, nc, w, hw, win);
+  __syncthreads();
+  const uint2* tx = reinterpret_cast<const uint2*>(texels);
+#pragma unroll
+  for (int q = 0; q < kPairs; ++q) {
+    const int y = pair_y(q), x = pair_x(q);
+    if (y >= h || x >= w) continue;
+    bf16 res[2][kTexelC];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      if (x + p >= w) break;
+      const Axis ax = axis<true>(gv[q][p].x, x + p, w, r, align, border);
+      const Axis ay = axis<true>(gv[q][p].y, y, h, r, align, border);
+      const float scale = border ? 1.f
+          : ((ax.valid && ay.valid) ? __fmul_rn(ay.m, ax.m) : 0.f);
+      float v00[kTexelC], v01[kTexelC], v10[kTexelC], v11[kTexelC];
+      texel(tx, win, ay.i0, ax.i0, v00);
+      texel(tx, win, ay.i0, ax.i1, v01);
+      texel(tx, win, ay.i1, ax.i0, v10);
+      texel(tx, win, ay.i1, ax.i1, v11);
+#pragma unroll
+      for (int ch = 0; ch < kTexelC; ++ch) {
+        if (ch >= nc) break;
+        const float top = fmaf(ax.w0, v00[ch], ax.w1 * v01[ch]);
+        const float bot = fmaf(ax.w0, v10[ch], ax.w1 * v11[ch]);
+        const float bil = fmaf(ay.w0, top, ay.w1 * bot);
+        // the sum rounded, then times the mass rounded, rounded
+        res[p][ch] = __float2bfloat16_rn(
+            border ? bil : round_bf16(bil) * round_bf16(scale));
+      }
+    }
+    bf16* o = out + static_cast<size_t>(b) * nc * hw
+        + static_cast<size_t>(y) * w + x;
+#pragma unroll
+    for (int ch = 0; ch < kTexelC; ++ch) {
+      if (ch >= nc) break;
+      if (x + 1 < w && (reinterpret_cast<uintptr_t>(o + ch * hw) & 3) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(o + ch * hw) =
+            __halves2bfloat162(res[0][ch], res[1][ch]);
+      } else {
+        o[ch * hw] = res[0][ch];
+        if (x + 1 < w) o[ch * hw + 1] = res[1][ch];
+      }
+    }
+  }
+}
+
+template <int kC>
+__global__ void __launch_bounds__(kTileThreads)
+warp_grad_grid_bf16_tile_kernel(const bf16* __restrict__ img,
+                                const float2* __restrict__ grid,
+                                const bf16* __restrict__ g,
+                                float2* __restrict__ ggrid, int c, int h,
+                                int w, int r, int pitch, bool align,
+                                bool border) {
+  extern __shared__ uint4 texels[];
+  const int b = blockIdx.z;
+  const int nc = kC > 0 ? kC : c;
+  const size_t hw = static_cast<size_t>(h) * w;
+  float2 gv[kPairs][2];
+#pragma unroll
+  for (int q = 0; q < kPairs; ++q) {
+    const int y = pair_y(q), x = pair_x(q);
+    if (y < h) {
+      load_pair(grid + (static_cast<size_t>(b) * h + y) * w + x, x, w, gv[q]);
+    }
+  }
+  const Window win = block_window(h, w, r, pitch);
+  const bf16* plane = img + static_cast<size_t>(b) * nc * hw;
+  stage_window(texels, plane, nc, w, hw, win);
+  __syncthreads();
+  const uint2* tx = reinterpret_cast<const uint2*>(texels);
+  // g_coordinate = g_grid * s: W / 2, or (W - 1) / 2 with align_corners
+  const float sx = 0.5f * static_cast<float>(align ? w - 1 : w);
+  const float sy = 0.5f * static_cast<float>(align ? h - 1 : h);
+#pragma unroll
+  for (int q = 0; q < kPairs; ++q) {
+    const int y = pair_y(q), x = pair_x(q);
+    if (y >= h || x >= w) continue;
+    const size_t row = (static_cast<size_t>(b) * h + y) * w + x;
+    // the pair's g, channel by channel
+    const bf16* gp = g + static_cast<size_t>(b) * nc * hw
+        + static_cast<size_t>(y) * w + x;
+    float gc[2][kTexelC];
+#pragma unroll
+    for (int ch = 0; ch < kTexelC; ++ch) {
+      gc[0][ch] = gc[1][ch] = 0.f;
+      if (ch >= nc) continue;
+      if (x + 1 < w && (reinterpret_cast<uintptr_t>(gp + ch * hw) & 3) == 0) {
+        const float2 v = __bfloat1622float2(
+            __ldg(reinterpret_cast<const __nv_bfloat162*>(gp + ch * hw)));
+        gc[0][ch] = v.x;
+        gc[1][ch] = v.y;
+      } else {
+        gc[0][ch] = __bfloat162float(__ldg(gp + ch * hw));
+        if (x + 1 < w) gc[1][ch] = __bfloat162float(__ldg(gp + ch * hw + 1));
+      }
+    }
+    float2 res[2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      if (x + p >= w) break;
+      const Axis ax = axis<true>(gv[q][p].x, x + p, w, r, align, border);
+      const Axis ay = axis<true>(gv[q][p].y, y, h, r, align, border);
+      float v00[kTexelC], v01[kTexelC], v10[kTexelC], v11[kTexelC];
+      texel(tx, win, ay.i0, ax.i0, v00);
+      texel(tx, win, ay.i0, ax.i1, v01);
+      texel(tx, win, ay.i1, ax.i0, v10);
+      texel(tx, win, ay.i1, ax.i1, v11);
+      // sums over channels of g times dbil/dfx, dbil/dfy and bil
+      float sdx = 0.f, sdy = 0.f, sb = 0.f;
+#pragma unroll
+      for (int ch = 0; ch < kTexelC; ++ch) {
+        if (ch >= nc) break;
+        const float top = fmaf(ax.w0, v00[ch], ax.w1 * v01[ch]);
+        const float bot = fmaf(ax.w0, v10[ch], ax.w1 * v11[ch]);
+        sdx = fmaf(gc[p][ch],
+                   fmaf(ay.w0, v01[ch] - v00[ch], ay.w1 * (v11[ch] - v10[ch])),
+                   sdx);
+        sdy = fmaf(gc[p][ch], bot - top, sdy);
+        sb = fmaf(gc[p][ch], fmaf(ay.w0, top, ay.w1 * bot), sb);
+      }
+      float gx, gy;
+      if (border) {
+        gx = ax.c * sdx;
+        gy = ay.c * sdy;
+      } else if (ax.valid && ay.valid) {
+        const float mass = ay.m * ax.m;
+        gx = fmaf(mass * ax.c, sdx, ay.m * ax.dm * sb);
+        gy = fmaf(mass * ay.c, sdy, ax.m * ay.dm * sb);
+      } else {
+        gx = gy = 0.f;
+      }
+      res[p] = make_float2(gx * sx, gy * sy);
+    }
+    float2* o = ggrid + row;
+    if (x + 1 < w && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+      *reinterpret_cast<float4*>(o) =
+          make_float4(res[0].x, res[0].y, res[1].x, res[1].y);
+    } else {
+      o[0] = res[0];
+      if (x + 1 < w) o[1] = res[1];
+    }
+  }
+}
+
 cudaError_t grid_for(int n, int c, int h, int w, int r, dim3* grid) {
   if (n < 1 || c < 1 || h < 1 || w < 1 || r < 1 || n > 65535 || h > 65535)
     return cudaErrorInvalidValue;
@@ -417,12 +749,79 @@ int grad_grid(const T* img, const float* grid, const T* g, float* ggrid,
   return cudaGetLastError();
 }
 
+// The bf16 tile kernels' launch: blocks, the window's row pitch in texels
+// and its shared memory, the most any block's window takes: min(kTileH +
+// 2R, H) rows of min(kTileW + 2R, W) texels, the pitch rounded up to whole
+// chunks of 8. C > kTexelC, or a window past kMaxWindowBytes, is refused:
+// the wrapper sends those to the gather kernels (ops/warp_bounded.py,
+// bf16_window, computes the same).
+struct TileLaunch {
+  dim3 blocks;
+  int pitch;
+  size_t smem;
+};
+
+template <typename Kernel>
+cudaError_t tile_launch(Kernel kernel, int n, int c, int h, int w, int r,
+                        TileLaunch* launch) {
+  dim3 unused;
+  cudaError_t err = grid_for(n, c, h, w, r, &unused);
+  if (err != cudaSuccess) return err;
+  const long long rows = std::min<long long>(kTileH + 2LL * r, h);
+  const long long cols = std::min<long long>(kTileW + 2LL * r, w);
+  const long long pitch = (cols + 7) / 8 * 8;
+  const long long bytes = rows * pitch * 8;
+  if (c > kTexelC || bytes > kMaxWindowBytes) return cudaErrorInvalidValue;
+  launch->blocks = dim3((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH,
+                        n);
+  launch->pitch = static_cast<int>(pitch);
+  launch->smem = static_cast<size_t>(bytes);
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+int forward_tile(const bf16* img, const float* grid, bf16* out, int n, int c,
+                 int h, int w, int r, int align_corners, int border,
+                 void* stream) {
+  const auto kernel = c == 3 ? warp_fwd_bf16_tile_kernel<3>
+                             : warp_fwd_bf16_tile_kernel<0>;
+  TileLaunch l;
+  cudaError_t err = tile_launch(kernel, n, c, h, w, r, &l);
+  if (err != cudaSuccess) return err;
+  kernel<<<l.blocks, kTileThreads, l.smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      img, reinterpret_cast<const float2*>(grid), out, c, h, w, r, l.pitch,
+      align_corners != 0, border != 0);
+  return cudaGetLastError();
+}
+
+int grad_grid_tile(const bf16* img, const float* grid, const bf16* g,
+                   float* ggrid, int n, int c, int h, int w, int r,
+                   int align_corners, int border, void* stream) {
+  const auto kernel = c == 3 ? warp_grad_grid_bf16_tile_kernel<3>
+                             : warp_grad_grid_bf16_tile_kernel<0>;
+  TileLaunch l;
+  cudaError_t err = tile_launch(kernel, n, c, h, w, r, &l);
+  if (err != cudaSuccess) return err;
+  kernel<<<l.blocks, kTileThreads, l.smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      img, reinterpret_cast<const float2*>(grid), g,
+      reinterpret_cast<float2*>(ggrid), c, h, w, r, l.pitch,
+      align_corners != 0, border != 0);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The entry points launch on `stream`, do not synchronise, and return the
 // launch status (cudaGetLastError) as an int: 0 is success. border: 1 for
 // padding_mode 'border', 0 for 'zeros'. The _bf16 ones take img, out and g
-// in bfloat16, the grid and ggrid in float32.
+// in bfloat16, the grid and ggrid in float32: the _bf16 ones run the tile
+// kernels, for C <= 4 and a window that fits (tile_launch; else they return
+// cudaErrorInvalidValue), the _bf16_gather ones the gather kernels, for any
+// C and R.
 extern "C" int warp_sample_bounded_forward(const float* img, const float* grid,
                                            float* out, int n, int c, int h,
                                            int w, int r, int align_corners,
@@ -432,6 +831,14 @@ extern "C" int warp_sample_bounded_forward(const float* img, const float* grid,
 }
 
 extern "C" int warp_sample_bounded_forward_bf16(
+    const __nv_bfloat16* img, const float* grid, __nv_bfloat16* out, int n,
+    int c, int h, int w, int r, int align_corners, int border,
+    void* stream) {
+  return forward_tile(img, grid, out, n, c, h, w, r, align_corners, border,
+                      stream);
+}
+
+extern "C" int warp_sample_bounded_forward_bf16_gather(
     const __nv_bfloat16* img, const float* grid, __nv_bfloat16* out, int n,
     int c, int h, int w, int r, int align_corners, int border,
     void* stream) {
@@ -450,6 +857,14 @@ extern "C" int warp_sample_bounded_grad_grid(const float* img,
 }
 
 extern "C" int warp_sample_bounded_grad_grid_bf16(
+    const __nv_bfloat16* img, const float* grid, const __nv_bfloat16* g,
+    float* ggrid, int n, int c, int h, int w, int r, int align_corners,
+    int border, void* stream) {
+  return grad_grid_tile(img, grid, g, ggrid, n, c, h, w, r, align_corners,
+                        border, stream);
+}
+
+extern "C" int warp_sample_bounded_grad_grid_bf16_gather(
     const __nv_bfloat16* img, const float* grid, const __nv_bfloat16* g,
     float* ggrid, int n, int c, int h, int w, int r, int align_corners,
     int border, void* stream) {

@@ -61,11 +61,21 @@ product are rounded to bf16: where the JAX package's TPU path rounds
 sums the sweep in bf16 instead. K3-grad returns the grid gradient in the
 grid's type. K3-grad² stays a float32 kernel: its wrapper widens bf16
 operands and rounds its results back, as every Pallas wrapper does.
+
+The bf16 K3 and K3-grad take one of two hand-written kernels by shape
+(:func:`bf16_window`): the tiled kernels, which stage each block's tap
+window in shared memory as channel-interleaved texels, where C ≤ 4 and
+that window fits a block's shared memory (min(16 + 2R, H) rows of
+min(32 + 2R, W) texels of 8 bytes, at most 227 KB: R ≤ 72 on a large
+frame, any R on a small one); else the gather kernels (the float32
+design on bf16). Both give the same bits. Each wrapper counts the gather
+route's launches also in ``<wrapper>.gather_launches``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -358,14 +368,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                                            + [i32] * 7
                                                            + [ptr])
     lib.warp_sample_bounded_grad_grid_backward.restype = i32
-    # the bf16 instantiations of K3 and K3-grad (absent from a source from
-    # before them)
+    # the bf16 kernels of K3 and K3-grad, tiled and gather (absent from a
+    # source from before them)
     for name in ("warp_sample_bounded_forward",
                  "warp_sample_bounded_grad_grid"):
-        if hasattr(lib, name + "_bf16"):
-            fn = getattr(lib, name + "_bf16")
-            fn.argtypes = getattr(lib, name).argtypes
-            fn.restype = i32
+        for suffix in ("_bf16", "_bf16_gather"):
+            if hasattr(lib, name + suffix):
+                fn = getattr(lib, name + suffix)
+                fn.argtypes = getattr(lib, name).argtypes
+                fn.restype = i32
     return lib
 
 
@@ -376,6 +387,58 @@ def _library() -> ctypes.CDLL:
 
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+# The bf16 kernels of K3 and K3-grad (csrc/warp.cu): a block's output tile
+# (kTileH, kTileW), the channels a staged texel holds (kTexelC) and its
+# bytes, and the shared memory a block may take on sm_90 (kMaxWindowBytes)
+BF16_TILE = (16, 32)
+TEXEL_CHANNELS, TEXEL_BYTES = 4, 8
+MAX_WINDOW_BYTES = 232448
+
+
+class Window(NamedTuple):
+    """The bf16 kernel that takes a call, and the tap window each of its
+    blocks stages: at most ``rows`` x ``cols`` texels (``cols`` the row
+    pitch, whole chunks of 8), ``shared_bytes`` in all."""
+    route: str   # "tile" (the tiled kernels) or "gather"
+    rows: int
+    cols: int
+    shared_bytes: int
+
+
+def window_span(t: int, length: int, r: int, size: int) -> Tuple[int, int]:
+    """The first and last index, along one axis of ``size``, that tile
+    ``t`` of ``length`` outputs stages: every tap of an output at p lies in
+    [p − R, p + R] (floors in [−R, R−1], edge-clamped), clipped to the
+    image."""
+    first = t * length
+    return max(first - r, 0), min(first + length - 1 + r, size - 1)
+
+
+def bf16_window(n: int, c: int, h: int, w: int, r: int,
+                tile: Tuple[int, int] = BF16_TILE) -> Window:
+    """The route and window of a bf16 K3 / K3-grad call on an (N, C, H, W)
+    image at R: the tiled kernels where a texel holds every channel (C ≤
+    4) and the largest block window, min(TH + 2R, H) rows of min(TW + 2R,
+    W) texels, fits a block's shared memory; else the gather kernels. The
+    C entry points size their launch by the same rule."""
+    rows = min(tile[0] + 2 * r, h)
+    cols = -(-min(tile[1] + 2 * r, w) // 8) * 8
+    nbytes = rows * cols * TEXEL_BYTES
+    fits = c <= TEXEL_CHANNELS and nbytes <= MAX_WINDOW_BYTES
+    return Window("tile" if fits else "gather", rows, cols, nbytes)
+
+
+def _entry(lib, name: str, img: torch.Tensor, r: int):
+    """The C entry point of K3 (``name`` warp_sample_bounded_forward) or
+    K3-grad for ``img``, and its route: float32 its kernel (route None);
+    bf16 the tiled kernel or, where :func:`bf16_window` sends the call
+    there, the gather one. Never a plain version."""
+    if img.dtype != torch.bfloat16:
+        return getattr(lib, name), None
+    route = bf16_window(*img.shape, r).route
+    suffix = "_bf16" if route == "tile" else "_bf16_gather"
+    return getattr(lib, name + suffix), route
 
 
 def _check(img: torch.Tensor, grid: torch.Tensor, r: int, padding_mode: str,
@@ -433,16 +496,16 @@ def warp_sample_bounded_forward(img: torch.Tensor, grid: torch.Tensor,
                                 r: int, align_corners: bool = False,
                                 padding_mode: str = "zeros") -> torch.Tensor:
     """K3: the sampler's output (N, C, H, W), of the image's type. Plain
-    version on CPU tensors, the kernel on CUDA."""
+    version on CPU tensors, the kernel on CUDA: in bf16 the tiled kernel,
+    or the gather one past its limit (C > 4, or a window over 227 KB of
+    shared memory; :func:`bf16_window`)."""
     if img.device.type == "cpu":
         return grid_sample_bounded_ref(img, grid, r, align_corners,
                                        padding_mode)
     n, c, h, w = _check(img, grid, r, padding_mode)
     img, grid = img.contiguous(), _aligned(grid)
     out = torch.empty_like(img)
-    lib = _library()
-    fn = (lib.warp_sample_bounded_forward_bf16
-          if img.dtype == torch.bfloat16 else lib.warp_sample_bounded_forward)
+    fn, route = _entry(_library(), "warp_sample_bounded_forward", img, r)
     code = _launch(fn, img.device,
                    img.data_ptr(), grid.data_ptr(), out.data_ptr(), n, c, h,
                    w, r, int(align_corners), int(padding_mode == "border"))
@@ -450,10 +513,13 @@ def warp_sample_bounded_forward(img: torch.Tensor, grid: torch.Tensor,
         raise RuntimeError(f"warp_sample_bounded_forward launch failed: "
                            f"cudaError {code}")
     warp_sample_bounded_forward.launches += 1
+    if route == "gather":
+        warp_sample_bounded_forward.gather_launches += 1
     return out
 
 
 warp_sample_bounded_forward.launches = 0
+warp_sample_bounded_forward.gather_launches = 0
 
 
 def warp_sample_bounded_grad_grid(img: torch.Tensor, grid: torch.Tensor,
@@ -463,7 +529,8 @@ def warp_sample_bounded_grad_grid(img: torch.Tensor, grid: torch.Tensor,
                                   ) -> torch.Tensor:
     """K3-grad: the grid gradient (N, H, W, 2), of the grid's type, for the
     output gradient g. The closed form on CPU tensors, the kernel on
-    CUDA."""
+    CUDA: in bf16 the tiled kernel, or the gather one past its limit (as
+    K3's)."""
     if img.device.type == "cpu":
         return grid_sample_bounded_grad_grid_ref(img, grid, g, r,
                                                  align_corners, padding_mode)
@@ -471,9 +538,7 @@ def warp_sample_bounded_grad_grid(img: torch.Tensor, grid: torch.Tensor,
     dtype = grid.dtype
     img, grid, g = img.contiguous(), _aligned(grid), _build.dense(g)
     ggrid = torch.empty_like(grid)
-    lib = _library()
-    fn = (lib.warp_sample_bounded_grad_grid_bf16
-          if img.dtype == torch.bfloat16 else lib.warp_sample_bounded_grad_grid)
+    fn, route = _entry(_library(), "warp_sample_bounded_grad_grid", img, r)
     code = _launch(fn, img.device,
                    img.data_ptr(), grid.data_ptr(), g.data_ptr(),
                    ggrid.data_ptr(), n, c, h, w, r, int(align_corners),
@@ -482,10 +547,13 @@ def warp_sample_bounded_grad_grid(img: torch.Tensor, grid: torch.Tensor,
         raise RuntimeError(f"warp_sample_bounded_grad_grid launch failed: "
                            f"cudaError {code}")
     warp_sample_bounded_grad_grid.launches += 1
+    if route == "gather":
+        warp_sample_bounded_grad_grid.gather_launches += 1
     return ggrid.to(dtype)
 
 
 warp_sample_bounded_grad_grid.launches = 0
+warp_sample_bounded_grad_grid.gather_launches = 0
 
 
 def warp_sample_bounded_grad_grid_backward(img: torch.Tensor,
@@ -526,8 +594,8 @@ warp_sample_bounded_grad_grid_backward.launches = 0
 
 
 def reset_launches():
-    warp_sample_bounded_forward.launches = 0
-    warp_sample_bounded_grad_grid.launches = 0
+    for fn in (warp_sample_bounded_forward, warp_sample_bounded_grad_grid):
+        fn.launches = fn.gather_launches = 0
     warp_sample_bounded_grad_grid_backward.launches = 0
 
 

@@ -1,21 +1,29 @@
 """Time versions of csrc/warp.cu against the checkout's K3 and K3-grad on
-one CUDA card.
+one CUDA card, in float32 and in bf16.
 
     python3 -m meta_interpolation_tpu_torch.tools.warp_variants \\
-        [--sass DIR] [--no-check] [NAME=PATH ...]
+        [--sass DIR] [--no-check] [--tile TH,TW,PAIRS ...] [NAME=PATH ...]
 
 Run from the root of a checkout (it uses chip_smoke.py's helpers). Each
 PATH is a version of csrc/warp.cu with the checkout's C interface (grid in,
-output or grid gradient out): a design under trial, as an edited copy.
-Every version is built beside the checkout's kernels, one nvcc each, all
-started together, and its registers and spill bytes are printed (ptxas);
-with ``--sass DIR`` its SASS goes to ``DIR/<NAME>.sass`` and its
-instruction counts by opcode are printed. The checkout and each version
-are held against the plain composition at every chip_smoke.py K3 check
-(``warp_cases``), and each version is timed in turns with the checkout's
-(this, version, version, this) at RRIN's padded frame (1x3x256x512, R = 8,
-zeros, align_corners False) on two grids within range, one with random
-displacements and one with smooth ones; a version that fails to
+output or grid gradient out; bf16 tiled and gather entry points): a design
+under trial, as an edited copy. ``--tile TH,TW,PAIRS`` adds the checkout's
+source with the bf16 tile kernels' kTileH, kTileW and kPairs set so (a
+block of TH x TW pixels, PAIRS pixel pairs a thread), written under
+build/warp_variants/. Every version is built beside the checkout's
+kernels, one nvcc each, all started together, and its registers, spill
+bytes and static shared memory are printed (ptxas); with ``--sass DIR``
+its SASS goes to ``DIR/<NAME>.sass`` and its instruction counts by opcode
+are printed. The checkout is held against the plain composition at every
+chip_smoke.py K3 check (``warp_cases``), and each version too; in bf16
+each version is held bit for bit to the checkout's bf16 kernels at every
+K3 check and the gather route's (``BF16_GATHER_CASES``). Each version is
+timed in turns with the checkout's (this, version, version, this): in
+float32 at RRIN's padded frame (1x3x256x512, R = 8, zeros, align_corners
+False) on two grids within range, one with random displacements and one
+with smooth ones; in bf16 at that frame and at RRIN's served batch
+(8x3x256x512) on the random one, where the checkout's tiled kernels are
+also timed in turns with its gather kernels. A version that fails to
 build or to agree is reported, skipped, and fails the run at the end.
 ``--no-check`` skips the checks of the versions, to time versions that are
 not meant to agree: the kernel with a phase cut out, to see what that phase
@@ -25,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 
 import torch
 
@@ -32,6 +41,8 @@ import chip_smoke as cs
 from meta_interpolation_tpu_torch.ops import _build
 from meta_interpolation_tpu_torch.ops import warp_bounded as wb
 from meta_interpolation_tpu_torch.tools.sepconv_variants import sass_counts
+
+TILE_CONSTANTS = ("kTileH", "kTileW", "kPairs")
 
 
 def agrees_everywhere():
@@ -41,17 +52,56 @@ def agrees_everywhere():
         cs.warp_checks(torch, wb, case)
 
 
+def bf16_cases():
+    return cs.warp_cases() + cs.BF16_GATHER_CASES
+
+
+def bf16_outputs():
+    """The bf16 K3 and K3-grad of the wrappers, as bound now, at every
+    bf16_cases() entry."""
+    outs = []
+    for i, case in enumerate(bf16_cases()):
+        img, g, _, grid, opts, what = cs.bf16_warp_inputs(torch, case, i)
+        outs.append((what, wb.warp_sample_bounded_forward(img, grid, *opts),
+                     wb.warp_sample_bounded_grad_grid(img, grid, g, *opts)))
+    return outs
+
+
+def tile_source(values):
+    """The checkout's csrc/warp.cu with the bf16 tile kernels' constants
+    TILE_CONSTANTS set to ``values``, written under build/warp_variants/:
+    (name, path)."""
+    text = (_build.CSRC / "warp.cu").read_text()
+    for const, value in zip(TILE_CONSTANTS, values):
+        text, hits = re.subn(rf"(constexpr int {const} = )\d+;",
+                             rf"\g<1>{value};", text)
+        if hits != 1:
+            raise SystemExit(f"warp_variants: no {const} in csrc/warp.cu")
+    name = "tile_" + "x".join(map(str, values))
+    path = os.path.join(cs.ROOT, "build", "warp_variants", f"{name}.cu")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+    return name, path
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("versions", nargs="*", metavar="NAME=PATH")
     parser.add_argument("--sass", metavar="DIR")
     parser.add_argument("--no-check", action="store_true",
                         help="time the versions without holding them to "
-                             "the plain composition")
+                             "the plain composition or the checkout")
+    parser.add_argument("--tile", action="append", default=[],
+                        metavar="TH,TW,PAIRS",
+                        help="the checkout's source with the bf16 tile "
+                             "kernels' kTileH, kTileW and kPairs set so")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("warp_variants: no CUDA device")
     versions = dict(v.split("=", 1) for v in args.versions)
+    versions.update(tile_source(tuple(int(x) for x in t.split(",")))
+                    for t in args.tile)
     card = cs.card_line()
     print(card)
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -63,28 +113,32 @@ def main():
     cs.kernel_resources(log, "this checkout", cs.WARP_KERNELS,
                         no_spill=False)
     agrees_everywhere()
+    ref_bf16 = bf16_outputs()
     print(f"[variants] this checkout agrees at {len(cs.warp_cases())} "
           f"cases")
-    fns, failed = {}, []
+    libs, failed = {}, []
     for name in versions:
         try:
             lib = cs.finish_build(wb._bind, *builds[name], name,
                                   cs.WARP_KERNELS)
-            fns[name] = (cs.on_library(wb, lib,
-                                       wb.warp_sample_bounded_forward),
-                         cs.on_library(wb, lib,
-                                       wb.warp_sample_bounded_grad_grid))
             if not args.no_check:
                 cs.on_library(wb, lib, agrees_everywhere)()
+                for (what, out, gg), (_, vout, vgg) in zip(
+                        ref_bf16, cs.on_library(wb, lib, bf16_outputs)()):
+                    cs.bitwise(torch, vout, out, f"{name} K3 {what}")
+                    cs.bitwise(torch, vgg, gg, f"{name} K3-grad {what}")
+                print(f"[variants] {name} agrees at {len(cs.warp_cases())} "
+                      f"cases, and in bf16 bit for bit the checkout at "
+                      f"{len(bf16_cases())}")
+            libs[name] = lib
         except AssertionError as err:
-            fns.pop(name, None)
             failed.append(name)
             print(f"[variants] {name}: {err}")
     if args.sass:
         os.makedirs(args.sass, exist_ok=True)
-        libs = {"this": str(_build.library_path("warp")),
-                **{name: builds[name][1] for name in fns}}
-        for name, lib in libs.items():
+        paths = {"this": str(_build.library_path("warp")),
+                 **{name: builds[name][1] for name in libs}}
+        for name, lib in paths.items():
             for func, count in sass_counts(
                     lib, os.path.join(args.sass, f"{name}.sass")).items():
                 print(f"[sass] {name} {func}: {sum(count.values())} "
@@ -103,19 +157,23 @@ def main():
             print(f"[variants] {what} this checkout, {label} grid: "
                   f"{cs.time_ms(torch, fn):.4f} ms, eager call "
                   f"{cs.call_ms(torch, fn):.4f} ms")
-        for name, (fwd, grad) in fns.items():
-            for what, mine, theirs in [
-                    ("K3", this[0], lambda: fwd(*args_fwd)),
-                    ("K3-grad", this[1], lambda: grad(*args_grad))]:
-                t_this, t_them = cs.in_turns(torch, (mine, theirs))
+        for name, lib in libs.items():
+            for what, mine in zip(("K3", "K3-grad"), this):
+                t_this, t_them = cs.in_turns(torch, (
+                    mine, cs.on_library(wb, lib, mine)))
                 print(f"[variants] {what} at {n}x{c}x{h}x{w}, {label} grid, "
                       f"in turns (this, {name}, {name}, this): this "
                       f"{t_this[0]:.4f}, {t_this[1]:.4f} ms; {name} "
                       f"{t_them[0]:.4f}, {t_them[1]:.4f} ms")
+    # bf16: the checkout's tiled kernels against its gather ones, then
+    # against each version's
+    cs.bf16_warp_timing(torch, wb, card)
+    for name, lib in libs.items():
+        cs.bf16_warp_timing(torch, wb, card, lib, name)
     print(card)
     if failed:
         raise SystemExit(f"warp_variants: {failed} failed to build or to "
-                         f"agree with the plain composition")
+                         f"agree")
 
 
 if __name__ == "__main__":

@@ -57,6 +57,50 @@ def test_f32_forbidden_raises_only_on_the_named_entry_points():
         lib.sepconv_forward
 
 
+def test_f32_forbidden_names_what_it_forbids():
+    class Lib:
+        warp_sample_bounded_forward_bf16_gather = "gather"
+        warp_sample_bounded_forward_bf16 = "tile"
+    lib = chip_smoke.F32Forbidden(Lib(), chip_smoke.GATHER_AS_BF16,
+                                  "the gather route's")
+    assert lib.warp_sample_bounded_forward_bf16 == "tile"
+    with pytest.raises(AssertionError, match="the gather route's warp"):
+        lib.warp_sample_bounded_forward_bf16_gather
+
+
+def test_renamed_runs_one_route_on_the_other():
+    """TILE_AS_GATHER: the checkout's gather kernels where the wrapper
+    calls the tiled ones; GATHER_AS_BF16: an earlier source's one bf16
+    kernel on both routes."""
+    class Lib:
+        warp_sample_bounded_forward = "f32"
+        warp_sample_bounded_forward_bf16 = "tile"
+        warp_sample_bounded_forward_bf16_gather = "gather"
+        warp_sample_bounded_grad_grid_bf16 = "grad tile"
+        warp_sample_bounded_grad_grid_bf16_gather = "grad gather"
+    gather = chip_smoke.Renamed(Lib(), chip_smoke.TILE_AS_GATHER)
+    assert gather.warp_sample_bounded_forward_bf16 == "gather"
+    assert gather.warp_sample_bounded_grad_grid_bf16 == "grad gather"
+    assert gather.warp_sample_bounded_forward == "f32"
+    earlier = chip_smoke.Renamed(Lib(), chip_smoke.GATHER_AS_BF16)
+    assert earlier.warp_sample_bounded_forward_bf16_gather == "tile"
+    assert earlier.warp_sample_bounded_grad_grid_bf16_gather == "grad tile"
+
+
+def test_bf16_gather_cases_take_the_gather_route():
+    """Both bf16 routes are held on the card: the warp cases on the tiled
+    kernels, BF16_GATHER_CASES on the gather ones; the timed batches on the
+    tiled ones."""
+    from meta_interpolation_tpu_torch.ops import warp_bounded as wb
+    route = lambda case: wb.bf16_window(*case[:4], case[7]).route
+    assert {route(c) for c in chip_smoke.warp_cases()} == {"tile"}
+    assert {route(c) for c in chip_smoke.BF16_GATHER_CASES} == {"gather"}
+    assert chip_smoke.BF16_WARP_BATCHES == (1, 8)
+    for n in chip_smoke.BF16_WARP_BATCHES:
+        assert wb.bf16_window(n, 3, 256, 512, chip_smoke.WARP_R).route \
+            == "tile"
+
+
 def test_serving_presets_are_bench_pys():
     """The batches and options of ``bench.py --model`` and of its CAIN
     serving headline."""

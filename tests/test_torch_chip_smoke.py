@@ -138,6 +138,63 @@ def test_parse_args_takes_an_earlier_warp(argv, want):
     assert args.earlier_projection is None and args.earlier_sepconv is None
 
 
+@pytest.mark.parametrize("symbols, api", [
+    # today's C interface: the bf16 entry points, before or after the
+    # gather route had its own
+    (("warp_sample_bounded_forward", "warp_sample_bounded_grad_grid",
+      "warp_sample_bounded_grad_grid_backward",
+      "warp_sample_bounded_forward_bf16",
+      "warp_sample_bounded_grad_grid_bf16"), "grid"),
+    # a source from before the kernels took the grid
+    (("warp_bounded_forward", "warp_bounded_grad_frac"), "planes")])
+def test_earlier_warp_binding_is_chosen_by_symbol(symbols, api):
+    """--earlier-warp binds a library with the bf16 entry point as the
+    checkout's (ops/warp_bounded._bind), else with the plane interface."""
+    from types import SimpleNamespace
+    lib = SimpleNamespace(**{name: SimpleNamespace() for name in symbols})
+    got, bound = chip_smoke.bind_earlier_warp(lib)
+    assert (got, bound) == (api, lib)
+    if api == "grid":
+        assert len(lib.warp_sample_bounded_forward.argtypes) == 11
+        assert (lib.warp_sample_bounded_forward_bf16.argtypes
+                == lib.warp_sample_bounded_forward.argtypes)
+        assert len(lib.warp_sample_bounded_grad_grid_bf16.argtypes) == 12
+    else:
+        assert len(lib.warp_bounded_forward.argtypes) == 12
+        assert len(lib.warp_bounded_grad_frac.argtypes) == 14
+
+
+@pytest.mark.parametrize("text, want", [
+    ('extern "C" int warp_sample_bounded_forward_bf16(', "gather"),
+    ('extern "C" int warp_bounded_forward(', "planes")])
+def test_earlier_warp_kernels_follow_the_source(tmp_path, text, want):
+    """The ptxas names an earlier warp.cu's report is read for: the
+    gather design's kernels, or the plane interface's."""
+    path = tmp_path / "warp.cu"
+    path.write_text(text)
+    assert chip_smoke.earlier_warp_kernels(str(path)) == (
+        chip_smoke.GATHER_WARP_KERNELS if want == "gather"
+        else chip_smoke.EARLIER_WARP_KERNELS)
+
+
+def test_kernel_resources_read_static_shared_memory():
+    """ptxas names static shared memory only where a kernel has some."""
+    log = f"""ptxas info    : Compiling entry function '{FWD}' for 'sm_90a'
+ptxas info    : Function properties for {FWD}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 4096 bytes smem, 360 bytes cmem[0]
+ptxas info    : Compiling entry function '{GRAD}' for 'sm_90a'
+ptxas info    : Function properties for {GRAD}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 0 barriers, 360 bytes cmem[0]
+"""
+    res = chip_smoke.sepconv_resources(log, "sepconv.cu")
+    assert res["sepconv_forward"] == {"registers": 40, "spill": 0,
+                                      "stack": 0, "smem": 4096}
+    assert res["sepconv_grad_kernels"] == {"registers": 56, "spill": 0,
+                                           "stack": 0}
+
+
 def test_kernel_resources_take_the_most_over_template_instances():
     """K3 is built for C = 3 and for any C: two entries, one wrapper."""
     log = "".join(
@@ -518,13 +575,14 @@ def test_timed_returns_what_it_ran_and_prints_its_time(capsys):
 
 K3GG = "_ZN12_GLOBAL__N_137warp_sample_grad_grid_backward_kernelILi3EEEvPKfPK6float2S2_S5_PfPS3_iiiibb"
 K3G = "_ZN12_GLOBAL__N_128warp_sample_grad_grid_kernelILi3EEEvPKfPK6float2S2_PS3_iiiibb"
+K3G_TILE = "_ZN12_GLOBAL__N_131warp_grad_grid_bf16_tile_kernelILi3EEEvPK13__nv_bfloat16PK6float2S3_PS4_iiiiibb"
 
 
 def test_kernel_resources_tell_k3_grad_from_its_derivative():
     """K3-grad's ptxas entry name is not a part of K3-grad²'s: each wrapper
     reads its own kernel's registers."""
     log = ""
-    for name, regs in ((K3G, 56), (K3GG, 64)):
+    for name, regs in ((K3G, 56), (K3GG, 64), (K3G_TILE, 48)):
         log += f"""ptxas info    : Compiling entry function '{name}' for 'sm_90a'
 ptxas info    : Function properties for {name}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -535,6 +593,7 @@ ptxas info    : Used {regs} registers
     res = chip_smoke.kernel_resources(log, "warp.cu", entries)
     assert res["warp_sample_bounded_grad_grid"]["registers"] == 56
     assert res["warp_sample_bounded_grad_grid_backward"]["registers"] == 64
+    assert res["warp_sample_bounded_grad_grid_bf16"]["registers"] == 48
 
 
 @pytest.mark.parametrize("steps,warps,second,want", [
