@@ -40,7 +40,10 @@ as that tree did. Phases, in order:
          versions'; K3 and K3-grad also against F.grid_sample and
          aten.grid_sampler_2d_backward within range, K3-grad² against
          F.grid_sample's double backward where this PyTorch has one; all
-         three timed at RRIN's and at VoxelFlow's call;
+         three timed at RRIN's and at VoxelFlow's call, K3-grad² also on
+         smooth displacements, at 8x3x256x512 and (after the second-order
+         training paths, which record it) at the shape those paths give it,
+         in turns with --earlier-warp's;
        - the bounded flow projection K4 at 1x256x448 (DAIN's served frame),
          R = 8, on a uniform and a smooth flow, and at 2x37x53 with R = 0,
          1, 16 (over 48 KB of shared memory) and 40 (a halo staged in
@@ -139,23 +142,30 @@ as that tree did. Phases, in order:
          too, and at two C = 5 cases past the tiled kernels' limit (the
          gather route; each case's route printed, both taken), bit for bit
          the gather kernels and, with --earlier-warp, the earlier bf16
-         kernels; K3-grad² and K4 bit for bit their float32 kernels on the
-         widened operands; each bf16 kernel timed in turns with its
-         float32 kernel, at its bf16 bytes' bound and, for K1 and K2, the
-         bf16 tensor-core rate; with --earlier-sepconv the earlier bf16 K1
-         and K2 in turns too; K3 and K3-grad also at 1x3x256x512 and RRIN's
-         served batch 8x3x256x512 in turns with the gather kernels and the
-         earlier ones, beside bound and library): every preset's
-         256x448 evaluation episode and first-order train iteration in
-         float32 and bf16 in turns, with PSNR, peak memory, a profile and
-         the same launches as float32 (the bf16 paths with the plain
-         versions and the float32 entry points of K1, K2, K3 and K3-grad
-         patched to raise), a second-order bf16 VoxelFlow iteration
-         (K3-grad² widened), bench.py's serving forwards (every weight in
-         bf16 at its batches and options) in frames a second beside
-         float32, and a 64x64 clip of five presets in bf16 on the card
-         against the CPU, within twice the CPU's own bf16 − float32
-         difference plus 1e-5 of the largest value (the card's side three
+         kernels; K3-grad² (its bf16 tile kernel, and past its limit its
+         float32 kernel widened, at one more case, R = 80) and K4 bit for
+         bit their float32 kernels on the widened operands, K3-grad² also
+         within one bf16 ulp of its plain version, one call's device ops
+         against the widened call's, and timed at the K3-grad² shapes
+         (1x and 8x RRIN frames, smooth displacements, VoxelFlow's call)
+         in turns with the widened call; each bf16 kernel timed in turns
+         with its float32 kernel, at its bf16 bytes' bound and, for K1 and
+         K2, the bf16 tensor-core rate; with --earlier-sepconv the earlier
+         bf16 K1 and K2 in turns too; K3 and K3-grad also at 1x3x256x512
+         and RRIN's served batch 8x3x256x512 in turns with the gather
+         kernels and the earlier ones, beside bound and library): every
+         preset's 256x448 evaluation episode and first-order train
+         iteration in float32 and bf16 in turns, with PSNR, peak memory, a
+         profile and the same launches as float32 (the bf16 paths with the
+         plain versions and the float32 entry points of K1, K2, K3,
+         K3-grad and K3-grad² patched to raise), a second-order bf16
+         VoxelFlow iteration (K3-grad²'s bf16 kernel), bench.py's serving
+         forwards (every weight in bf16 at its batches and options) in
+         frames a second beside float32, and a 64x64 clip of six presets
+         in bf16 on the card against the CPU (DAIN's CPU side handed the
+         card's flows, log depths and offsets), within twice the CPU's own
+         bf16 − float32 difference plus 1e-5 of the largest value (the
+         card's side three
          times as it runs, their spread printed, then twice under
          cudnn.deterministic, and for CAIN torch.use_deterministic_algorithms
          too, where the two must agree bit for bit; the first of those two
@@ -186,15 +196,17 @@ as that tree did. Phases, in order:
      training paths', the per-step BN ones included; K3-grad² their
      second-order training paths'; K1/K2 also the ``rest`` phase's SepConv
      paths and K3/K3-grad (K3-grad² in second order) its VoxelFlow
-     --remat paths; K4 the served DAIN frames'; K3-grad²
-     and K4 also their bf16 paths', and the bf16 kernels of K1, K2, K3
-     and K3-grad four records of their own, K3's and K3-grad's with their
-     times at one image and at the served batch, ``by_batch`` and
-     ``served_batch``) and their sum
+     --remat paths; K4 the served DAIN frames' and its bf16 paths'; the
+     bf16 kernels of K1, K2, K3, K3-grad and K3-grad² five records of
+     their own, K3's and K3-grad's with their times at one image and at
+     the served batch, ``by_batch`` and ``served_batch``; K3-grad²'s two
+     with their times at GRAD2_SHAPES, ``by_shape``, and at the
+     second-order main paths' shapes, ``main_path_shapes``) and their sum
      (``launches``), the card line again, and the last line {"ok": true,
      "device": {...}}.
 """
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -350,17 +362,37 @@ WARP_SHAPES = [(37, 53, -WARP_R, WARP_R - 1),
                (37, 53, -WARP_R - 3, WARP_R + 2),
                (256, 512, -WARP_R, WARP_R - 1)]
 # ptxas names of K3, K3-grad (float32, and bf16 on the gather route),
-# K3-grad² and the bf16 tile kernels of K3 and K3-grad in csrc/warp.cu, and
+# K3-grad² (float32, and bf16 past its tile kernel's limit, widened) and
+# the bf16 tile kernels of K3, K3-grad and K3-grad² in csrc/warp.cu, and
 # of the kernels of the warp.cu that took coordinate planes (--earlier-warp)
+GRAD2 = "warp_sample_bounded_grad_grid_backward"
 GATHER_WARP_KERNELS = {
     "warp_sample_bounded_forward": "warp_sample_fwd_kernel",
     "warp_sample_bounded_grad_grid": "warp_sample_grad_grid_kernel",
-    "warp_sample_bounded_grad_grid_backward":
-        "warp_sample_grad_grid_backward_kernel"}
+    GRAD2: "warp_sample_grad_grid_backward_kernel"}
 WARP_KERNELS = {**GATHER_WARP_KERNELS,
                 "warp_sample_bounded_forward_bf16": "warp_fwd_bf16_tile_kernel",
                 "warp_sample_bounded_grad_grid_bf16":
-                    "warp_grad_grid_bf16_tile_kernel"}
+                    "warp_grad_grid_bf16_tile_kernel",
+                f"{GRAD2}_bf16": "warp_grad_grid_backward_bf16_tile_kernel"}
+# bf16 K3-grad² calls past its tile kernel's limit, which take the gather
+# route (the float32 kernel on the widened operands) beside the C > 4 ones
+# of BF16_GATHER_CASES: a window past 227 KB of texels (R = 80 on a
+# 256x448 frame); the plain K3-grad² is the closed form, cheap at any R
+GRAD2_GATHER_CASES = [(1, 3, 256, 448, -80, 79, "uniform", 80, True,
+                       "border")]
+# K3-grad² timed (label, n, c, h, w, grid kind, R, align_corners, padding):
+# RRIN's padded frame on random and on smooth displacements within range,
+# VoxelFlow's call and RRIN's served batch; the shapes the second-order
+# main paths give it are timed after those paths ran (grad2_path_phase)
+GRAD2_SHAPES = [("1x3x256x512 random", 1, 3, 256, 512, "library", WARP_R,
+                 False, "zeros"),
+                ("1x3x256x512 smooth", 1, 3, 256, 512, "smooth", WARP_R,
+                 False, "zeros"),
+                ("VoxelFlow's call", 1, 3, 256, 448, "library", WARP_R, True,
+                 "border"),
+                ("8x3x256x512 random", 8, 3, 256, 512, "library", WARP_R,
+                 False, "zeros")]
 EARLIER_WARP_KERNELS = {"warp_bounded_forward": "warp_bounded_fwd_kernel",
                         "warp_bounded_grad_frac":
                             "warp_bounded_grad_frac_kernel"}
@@ -1058,8 +1090,9 @@ def warp_kernel_phase(torch, wb, card, resources=None, earlier=None,
     """Hold K3 and K3-grad against their plain versions at every
     warp_cases() entry and against the library calls within range; time
     both at the RRIN main-path shape and settings, beside the plain
-    version, the bound and the library call, and in turns with the earlier
-    design where given: ``earlier`` (earlier_warp's (sampler, K3,
+    version, the bound and the library call, K3-grad² also at
+    GRAD2_SHAPES (grad2_timing), and in turns with the earlier design where
+    given: ``earlier`` (earlier_warp's (sampler, K3,
     K3-grad)) of the plane interface, or ``earlier_lib`` with today's C
     interface (warp_f32_against_earlier). Returns the per-kernel records
     (launches filled in later)."""
@@ -1188,6 +1221,10 @@ def warp_kernel_phase(torch, wb, card, resources=None, earlier=None,
                                                         flops_peak,
                                                         bw_peak)):
         rec["voxelflow_call"] = timing
+    # K3-grad² at GRAD2_SHAPES, in turns with the earlier design's
+    records[2]["by_shape"] = grad2_timing(torch, wb, card, GRAD2_SHAPES,
+                                          earlier_lib, ("float32",))[
+        "float32"]
     if earlier_lib is not None:
         warp_f32_against_earlier(torch, wb, earlier_lib, calls)
     if earlier is None:
@@ -1261,6 +1298,118 @@ def warp_f32_against_earlier(torch, wb, lib, calls):
                   f"earlier, earlier, this): this {new_ms[0]:.4f}, "
                   f"{new_ms[1]:.4f} ms; earlier {old_ms[0]:.4f}, "
                   f"{old_ms[1]:.4f} ms")
+
+
+def grad2_inputs(torch, n, c, h, w, kind, r, align, seed=5):
+    """(img, grid, g, v) float32 on the card for a K3-grad² call: the grid
+    of warp_grid ``kind`` with floors in [-R, R-2]."""
+    gen = torch.Generator().manual_seed(seed)
+    img = torch.rand(n, c, h, w, generator=gen).cuda()
+    g = torch.randn(n, c, h, w, generator=gen).cuda()
+    v = torch.randn(n, h, w, 2, generator=gen).cuda()
+    grid = warp_grid(torch, kind, n, h, w, -r, r - 2, align, seed + 1).cuda()
+    return img, grid, g, v
+
+
+def widened_grad2(wb, lib=None):
+    """The bf16 K3-grad² call as it ran before its bf16 kernel: the image
+    and g widened, the float32 kernel (``lib``'s where given: an earlier
+    csrc/warp.cu), gg rounded back; three device ops beside the kernel."""
+    fn = wb.warp_sample_bounded_grad_grid_backward
+    fn = fn if lib is None else on_library(wb, lib, fn)
+
+    def run(img, grid, g, v, *opts):
+        gg, ggrid = fn(img.float(), grid, g.float(), v, *opts)
+        return gg.to(g.dtype), ggrid.to(grid.dtype)
+    return run
+
+
+def grad2_bf16(torch, wb, img, grid, g, v, opts, what, earlier_lib=None):
+    """The bf16 K3-grad² on (img, grid, g, v), as the wrapper runs it, held
+    bit for bit to the float32 kernel on the widened operands with gg
+    rounded (widened_grad2), and to ``earlier_lib``'s float32 kernel so
+    where given. Returns (gg, ggrid)."""
+    got = wb.warp_sample_bounded_grad_grid_backward(img, grid, g, v, *opts)
+    views = {"the float32 kernel on the widened operands": None}
+    if earlier_lib is not None:
+        views["the earlier design's, widened"] = earlier_lib
+    for label, lib in views.items():
+        want = widened_grad2(wb, lib)(img, grid, g, v, *opts)
+        for part, a, b in zip(("gg", "grid"), got, want):
+            bitwise(torch, a, b, f"K3-grad² {part} {what} against {label}")
+    return got
+
+
+def grad2_timing(torch, wb, card, shapes=GRAD2_SHAPES, earlier_lib=None,
+                 dtypes=("float32", "bf16")):
+    """K3-grad² at each of ``shapes`` (GRAD2_SHAPES' form), in ``dtypes``:
+    float32, and bf16 (image, g and gg bf16; grid and v float32). Held bit
+    for bit and timed in turns (this, other, other, this) with: in float32
+    ``earlier_lib``'s K3-grad² where given (an earlier csrc/warp.cu); in
+    bf16 the call as it ran before its bf16 kernel (widened_grad2, on this
+    float32 kernel and on ``earlier_lib``'s where given). Beside the bound:
+    bytes, each input read and each output written once (float32 24 + 12C
+    B a pixel, bf16 24 + 6C). Returns {dtype: [a record a shape]}."""
+    flops_peak, bw_peak = peaks(card)
+    fn = wb.warp_sample_bounded_grad_grid_backward
+    out = {dtype: [] for dtype in dtypes}
+    for label, n, c, h, w, kind, r, align, padding in shapes:
+        img, grid, g, v = grad2_inputs(torch, n, c, h, w, kind, r, align)
+        opts = (r, align, padding)
+        shape = (f"img {n}x{c}x{h}x{w}, grid {n}x{h}x{w}x2 float32 ({label}), "
+                 f"R={r}, {padding}, align_corners={align}")
+        pixels = n * h * w
+        for dtype in dtypes:
+            bf16 = dtype == "bf16"
+            im, gr = ((img.to(torch.bfloat16), g.to(torch.bfloat16)) if bf16
+                      else (img, g))
+            args = (im, grid, gr, v, *opts)
+            others = {}
+            if bf16:
+                grad2_bf16(torch, wb, *args[:4], opts, shape, earlier_lib)
+                others["widened"] = widened_grad2(wb)
+                if earlier_lib is not None:
+                    others["earlier widened"] = widened_grad2(wb,
+                                                              earlier_lib)
+            elif earlier_lib is not None:
+                others["earlier"] = on_library(wb, earlier_lib, fn)
+                for part, a, b in zip(("gg", "grid"), fn(*args),
+                                      others["earlier"](*args)):
+                    bitwise(torch, a, b, f"K3-grad² {part} float32 {shape} "
+                                         f"against the earlier design")
+            per_pixel = 24 + (6 if bf16 else 12) * c
+            t_ops = pixels * (80 + 27 * c) / flops_peak * 1e3
+            t_bytes = pixels * per_pixel / bw_peak * 1e3
+            rec = {"shape": shape, "dtype": dtype,
+                   "route": (wb.bf16_window(n, c, h, w, r).route if bf16
+                             else None),
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "mbytes": pixels * per_pixel / 1e6}
+            mine = []
+            for other, run in others.items():
+                t_this, t_other = in_turns(torch, (
+                    lambda: fn(*args), lambda run=run: run(*args)))
+                mine += t_this
+                rec[f"ms_in_turns_with_{other}"] = t_this
+                rec[f"{other}_ms_in_turns"] = t_other
+            rec["ms"] = (statistics.median(mine) if mine
+                         else time_ms(torch, lambda: fn(*args)))
+            out[dtype].append(rec)
+            print(f"[kernels] K3-grad² {dtype} at {shape}: {rec['ms']:.4f} "
+                  f"ms" + ("" if rec["route"] is None else
+                           f" ({rec['route']} route)")
+                  + "".join(f"; in turns (this, {k}, {k}, this) this "
+                            f"{rec[f'ms_in_turns_with_{k}'][0]:.4f}, "
+                            f"{rec[f'ms_in_turns_with_{k}'][1]:.4f} ms, "
+                            f"{k} {rec[f'{k}_ms_in_turns'][0]:.4f}, "
+                            f"{rec[f'{k}_ms_in_turns'][1]:.4f} ms"
+                            for k in others)
+                  + f"; bound {rec['bound_ms']:.6f} ms by {rec['bound_by']} "
+                  f"({rec['mbytes']:.2f} MB), "
+                  f"{rec['bound_ms'] / rec['ms']:.3f} of it reached ({card})")
+    torch.cuda.synchronize()
+    return out
 
 
 def library_double_backward(torch, img, grid, g, v, padding, align):
@@ -2269,7 +2418,7 @@ def train_launches(steps, warps, second):
 
 
 def warp_train_model(torch, mods, wb, card, model, state=None, preset=None,
-                     name=None, hold_first=True):
+                     name=None, hold_first=True, record=None):
     """Meta-training of one model of WARP_TRAIN on the card: (a) first
     order at its preset batch on 256x256 crops, median of WARP_TRAIN_REPS
     train iterations after a warm-up, peak memory, launches, a profile with
@@ -2282,7 +2431,9 @@ def warp_train_model(torch, mods, wb, card, model, state=None, preset=None,
     and its closed forms patched to raise). Returns the launches of (a)
     and (b), by path. ``preset`` (flags, batch, steps, warps) stands for
     WARP_TRAIN[model] and ``name`` for the model in the paths' names; with
-    ``hold_first`` False (c)'s first-order gradient is shown, not held."""
+    ``hold_first`` False (c)'s first-order gradient is shown, not held.
+    ``record`` (a Recording of the warp library) counts the shapes of
+    (b)'s kernel calls."""
     import numpy as np
 
     from meta_interpolation_tpu_torch.config import get_args
@@ -2309,6 +2460,8 @@ def warp_train_model(torch, mods, wb, card, model, state=None, preset=None,
         out = []
         run = plain_warp_forbidden(wb, lambda: out.append(
             system.run_train_iter(frames[:tasks], 0)))
+        if record is not None and order == "second":
+            run = on_library(wb, record, run)
         torch.cuda.reset_peak_memory_stats()
         reset_launches(mods)
         times = timed_iters(torch, run, reps, warmup=1)
@@ -2345,16 +2498,42 @@ def warp_train_model(torch, mods, wb, card, model, state=None, preset=None,
     return paths
 
 
-def warp_train_phase(torch, mods, wb, card):
+def warp_train_phase(torch, mods, wb, card, record=None):
     """warp_train_model for RRIN, SuperSloMo, VoxelFlow and DAIN (tamed
-    weights, dain_weights). Returns every path's launches."""
+    weights, dain_weights), ``record`` counting the shapes of the
+    second-order iterations' kernel calls. Returns every path's
+    launches."""
     paths = {}
     for model in WARP_TRAIN:
         state = (dain_weights(torch).state_dict() if model == "dain"
                  else None)
         paths.update(timed(f"{model}_train", warp_train_model, torch, mods,
-                           wb, card, model, state))
+                           wb, card, model, state, record=record))
     return paths
+
+
+def grad2_path_phase(torch, wb, card, record, earlier_lib=None):
+    """K3-grad² at each shape the second-order main paths gave it
+    (``record``, a Recording of their K3-grad² calls), printed with its
+    count, then timed there in float32 and bf16 on random displacements
+    within range as at GRAD2_SHAPES (grad2_timing, in turns with
+    ``earlier_lib`` where given and with the widened bf16 call). Returns
+    {dtype: [a record a shape]}."""
+    shapes = {}
+    for (name, n, c, h, w, r, align, border), count in sorted(
+            record.calls.items()):
+        padding = "border" if border else "zeros"
+        print(f"[kernels] K3-grad² on the second-order main paths: {count} "
+              f"calls of {name} at img {n}x{c}x{h}x{w}, R={r}, "
+              f"align_corners={bool(align)}, {padding}")
+        key = (n, c, h, w, r, bool(align), padding)
+        shapes[key] = shapes.get(key, 0) + count
+    check(shapes, "no K3-grad² call recorded on the second-order paths")
+    return grad2_timing(torch, wb, card, [
+        (f"main path, {count} calls", n, c, h, w, "library", r, align,
+         padding)
+        for (n, c, h, w, r, align, padding), count in shapes.items()],
+        earlier_lib)
 
 
 def dain_weights(torch):
@@ -3300,8 +3479,8 @@ def engine_phase(torch, mods, wb, card):
 
 
 # --dtype bfloat16: K1 and K2 in their bf16 kernels (banded products on the
-# tensor cores), K3 and K3-grad in their bf16 instantiations, K3-grad² and
-# K4 widened in their wrappers; every preset above with
+# tensor cores), K3, K3-grad and K3-grad² in their bf16 tile kernels, K4
+# widened in its wrapper; every preset above with
 # --dtype bfloat16; bench.py's serving forwards (every weight in bf16, its
 # batches and options at 256x448)
 BF16 = ["--dtype", "bfloat16"]
@@ -3361,7 +3540,13 @@ BF16_GATHER_CASES = [(2, 5, 37, 53, -WARP_R - 3, WARP_R + 2, "uniform",
 # the 64x64 clip, card vs CPU in bf16: max|card − CPU| within twice
 # max|CPU bf16 − CPU float32| plus BF16_FLOOR of the largest value
 BF16_FLOOR = 1e-5
-BF16_CARD_VS_CPU = ("sepconv", "rrin", "superslomo", "voxelflow", "cain")
+BF16_CARD_VS_CPU = ("sepconv", "rrin", "superslomo", "voxelflow", "dain",
+                    "cain")
+# DAIN's bf16 CPU side is handed the card side's PWC flows, log depths and
+# projected offsets, call by call (dain_handing), as the served frame's
+# check does in float32: with its own, a projection floor or hole near an
+# integer may flip between the devices
+DAIN_HANDED = ("flows", "log depth", "offsets")
 BF16_SPREAD_RUNS = 3  # the card's side as it runs, for its spread
 # presets whose card side is bit for bit the same from run to run under
 # torch.use_deterministic_algorithms (CAIN: its reflection pads then take
@@ -3393,9 +3578,9 @@ def bitwise(torch, got, want, what):
 
 class F32Forbidden:
     """A loaded kernel library whose entry points ``names`` raise: on a bf16
-    path K1, K2, K3 and K3-grad must run their bf16 kernels (``what``, the
-    float32 ones), and K3 and K3-grad their tiled ones (the gather route
-    is for shapes no main path has)."""
+    path K1, K2, K3, K3-grad and K3-grad² must run their bf16 kernels
+    (``what``, the float32 ones), and K3, K3-grad and K3-grad² their tile
+    ones (the gather route is for shapes no main path has)."""
 
     def __init__(self, lib, names, what="the float32"):
         self._lib, self._names, self._what = lib, set(names), what
@@ -3419,17 +3604,46 @@ class Renamed:
         return getattr(self._lib, self._names.get(name, name))
 
 
+class Recording:
+    """A loaded kernel library that counts the calls of its entry points
+    ``names`` in ``calls``, by (entry point, N, C, H, W, R, align_corners,
+    border): the shapes a main path gives a kernel."""
+
+    def __init__(self, lib, names):
+        self._lib, self._names = lib, set(names)
+        self.calls = collections.Counter()
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in self._names:
+            return fn
+
+        def record(*args):
+            self.calls[(name, *args[-8:-1])] += 1
+            return fn(*args)
+        return record
+
+
 TILE_AS_GATHER = {f"{k}_bf16": f"{k}_bf16_gather"
                   for k in ("warp_sample_bounded_forward",
                             "warp_sample_bounded_grad_grid")}
 GATHER_AS_BF16 = {v: k for k, v in TILE_AS_GATHER.items()}
 
 
+def earlier_bf16(lib):
+    """An earlier csrc/warp.cu's bf16 K3 and K3-grad on both routes: its
+    own gather entry points where it has them, else its one bf16 kernel
+    (the gather design) on both (GATHER_AS_BF16)."""
+    return (lib if hasattr(lib, "warp_sample_bounded_forward_bf16_gather")
+            else Renamed(lib, GATHER_AS_BF16))
+
+
 def bf16_only(sc, wb, fn):
     """``fn`` with the plain K1/K2 and bounded-sampler versions patched to
-    raise and the float32 entry points of K1, K2, K3 and K3-grad too, and
-    the gather route of K3 and K3-grad: on the card a bf16 path runs the
-    bf16 kernels only, K3 and K3-grad their tiled ones."""
+    raise and the float32 entry points of K1, K2, K3, K3-grad and K3-grad²
+    too (K3-grad²'s gather route is its float32 kernel, widened), and the
+    gather route of K3 and K3-grad: on the card a bf16 path runs the bf16
+    kernels only, K3, K3-grad and K3-grad² their tile ones."""
     def forbidden(*_args, **_kw):
         raise AssertionError("a plain sepconv version ran on the card")
     sc_lib = F32Forbidden(sc._library(), ("sepconv_forward",
@@ -3437,7 +3651,7 @@ def bf16_only(sc, wb, fn):
     wb_lib = F32Forbidden(F32Forbidden(wb._library(), GATHER_AS_BF16,
                                        "the gather route's"),
                           ("warp_sample_bounded_forward",
-                           "warp_sample_bounded_grad_grid"))
+                           "warp_sample_bounded_grad_grid", GRAD2))
     fn = on_library(sc, sc_lib, on_library(wb, wb_lib, fn))
     fn = with_attr(sc, "sepconv_ref", forbidden,
                    with_attr(sc, "grad_kernels_ref", forbidden, fn))
@@ -3451,9 +3665,14 @@ def bf16_kernel_phase(torch, mods, card, earlier_lib=None, resources=None,
     their plain bf16 versions, with at most BF16_FLIP_SHARE of the outputs
     differing at all from the former (the share printed per shape); K3 and
     K3-grad in bf16 within one bf16 ulp of max + 1e-5 of their plain bf16
-    versions at every warp_cases() entry (a bf16 grid too); K3-grad² and K4
-    on bf16 operands bit for bit their float32 kernels on the widened ones,
-    rounded. Each bf16 kernel timed in turns with its float32 kernel
+    versions at every warp_cases() entry (a bf16 grid too); K3-grad² (also
+    at GRAD2_GATHER_CASES, its gather route) and K4 on bf16 operands bit
+    for bit their float32 kernels on the widened ones, rounded (K3-grad²
+    also ``earlier_warp_lib``'s where given, grad2_bf16), K3-grad² within
+    one bf16 ulp of max + 1e-5 of its plain version, timed at GRAD2_SHAPES
+    in turns with the widened call (grad2_timing), and one call's device
+    ops and device ms against the widened call's (grad2_call_ops). Each
+    bf16 kernel timed in turns with its float32 kernel
     (float32, bf16, bf16, float32) at the main-path shape, beside its plain
     bf16 version, its bound (K1/K2: their operations at the bf16
     tensor-core rate, the others at the fp32 rate; bytes at their bf16
@@ -3471,7 +3690,7 @@ def bf16_kernel_phase(torch, mods, card, earlier_lib=None, resources=None,
     bf = torch.bfloat16
     flops_peak, bw_peak = peaks(card)
     tensor_peak = bf16_tensor_peak(card)
-    errs = dict.fromkeys(BF16_KERNELS, 0.0)
+    errs = dict.fromkeys(BF16_KERNELS + (GRAD2,), 0.0)
     for n, h, w, f in KERNEL_SHAPES:
         gen = torch.Generator().manual_seed(n * 100000 + h * 1000 + w + f + 1)
         inp = torch.rand(n, 3, h + f - 1, w + f - 1, generator=gen).cuda()
@@ -3558,8 +3777,7 @@ def bf16_kernel_phase(torch, mods, card, earlier_lib=None, resources=None,
     cases = warp_cases() + BF16_GATHER_CASES
     views = {"the gather kernels": Renamed(wb._library(), TILE_AS_GATHER)}
     if earlier_warp_lib is not None:
-        views["the earlier design"] = Renamed(earlier_warp_lib,
-                                              GATHER_AS_BF16)
+        views["the earlier design"] = earlier_bf16(earlier_warp_lib)
     routes = {"tile": 0, "gather": 0}
     wb.reset_launches()
     for i, case in enumerate(cases):
@@ -3584,37 +3802,60 @@ def bf16_kernel_phase(torch, mods, card, earlier_lib=None, resources=None,
                                       wb.warp_sample_bounded_grad_grid)(
                 img, grid, g, *opts), ggrid,
                 f"K3-grad {what} against {label}")
-        gg, gv = wb.warp_sample_bounded_grad_grid_backward(img, grid, g, v,
-                                                           *opts)
-        wgg, wgv = wb.warp_sample_bounded_grad_grid_backward(
-            img.float(), grid.float(), g.float(), v, *opts)
-        bitwise(torch, gg, wgg.to(bf), f"K3-grad² gg {what}")
-        bitwise(torch, gv, wgv.to(grid.dtype), f"K3-grad² grid {what}")
+        errs[GRAD2] = max(errs[GRAD2], grad2_plain_err(
+            torch, wb, grad2_bf16(torch, wb, img, grid, g, v, opts, what,
+                                  earlier_warp_lib),
+            img, grid, g, v, opts, what))
         win = wb.bf16_window(n, c, h, w, r)
         routes[win.route] += 1
-        print(f"[bf16] K3 / K3-grad {what}: {win.route} route (a block's "
-              f"window at most {win.rows}x{win.cols} texels, "
+        print(f"[bf16] K3 / K3-grad / K3-grad² {what}: {win.route} route (a "
+              f"block's window at most {win.rows}x{win.cols} texels, "
               f"{win.shared_bytes} B), bit for bit {' and '.join(views)}")
     torch.cuda.synchronize()
     check(all(routes.values()), f"bf16 K3 routes taken: {routes}")
     # the gather route's own counts: each gather case's call and one a
-    # view (the tiled cases' gather view runs through the tile route)
+    # view (the tiled cases' gather view runs through the tile route);
+    # K3-grad²'s gather route (widened) each gather case's call
     gathered = [wb.warp_sample_bounded_forward.gather_launches,
-                wb.warp_sample_bounded_grad_grid.gather_launches]
-    check(gathered == [routes["gather"] * (1 + len(views))] * 2,
+                wb.warp_sample_bounded_grad_grid.gather_launches,
+                wb.warp_sample_bounded_grad_grid_backward.gather_launches]
+    check(gathered == [routes["gather"] * (1 + len(views))] * 2
+          + [routes["gather"]],
           f"gather route launches {gathered}, routes {routes}")
+    # K3-grad² past the window limit at large R (its plain version is the
+    # closed form; K3's, the sweep, is not run there)
+    for i, case in enumerate(GRAD2_GATHER_CASES):
+        n, c, h, w, lo, hi, kind, r, align, padding = case
+        img, g, v, grid, opts, what = bf16_warp_inputs(torch, case, i)
+        check(wb.bf16_window(n, c, h, w, r).route == "gather",
+              f"K3-grad² {what}: not on the gather route")
+        before = wb.warp_sample_bounded_grad_grid_backward.gather_launches
+        errs[GRAD2] = max(errs[GRAD2], grad2_plain_err(
+            torch, wb, grad2_bf16(torch, wb, img, grid, g, v, opts, what,
+                                  earlier_warp_lib),
+            img, grid, g, v, opts, what))
+        check(wb.warp_sample_bounded_grad_grid_backward.gather_launches
+              == before + 1, f"K3-grad² {what}: no gather launch")
+        print(f"[bf16] K3-grad² {what}: gather route (the float32 kernel on "
+              f"the widened operands)")
     print(f"[bf16] K3 and K3-grad in bf16 agree with their plain bf16 "
           f"versions within one bf16 ulp of max + {TOL_ABS:g} at "
           f"{len(cases)} cases ({routes['tile']} on the tile route, "
           f"{routes['gather']} on the gather route; max|diff| K3 "
           f"{errs['warp_sample_bounded_forward']:.3e}, K3-grad "
           f"{errs['warp_sample_bounded_grad_grid']:.3e}), bit for bit "
-          f"{' and '.join(views)}; K3-grad² on bf16 operands is its float32 "
-          f"kernel on the widened ones, rounded")
+          f"{' and '.join(views)}; K3-grad² in bf16 at those and "
+          f"{len(GRAD2_GATHER_CASES)} more (gather) is bit for bit its "
+          f"float32 kernel on the widened operands, rounded"
+          + ("" if earlier_warp_lib is None else
+             " (this design's and the earlier one's)")
+          + f", within one bf16 ulp of max + {TOL_ABS:g} of its plain "
+          f"version (max|diff| {errs[GRAD2]:.3e})")
     n, c, (h, w), r = 1, 3, WARP_SHAPES[-1][:2], WARP_R
     gen = torch.Generator().manual_seed(5)
     img = torch.rand(n, c, h, w, generator=gen).cuda()
     g = torch.randn(n, c, h, w, generator=gen).cuda()
+    v = torch.randn(n, h, w, 2, generator=gen).cuda()
     grid = warp_grid(torch, "library", n, h, w, -r, r - 2, False, 6).cuda()
     img_b, g_b, grid_b = img.to(bf), g.to(bf), grid.to(bf)
     opts = (r, False, "zeros")
@@ -3635,6 +3876,14 @@ def bf16_kernel_phase(torch, mods, card, earlier_lib=None, resources=None,
         pixels * (50 + 16 * c), pixels * (16 + 4 * c),
         lambda: torch.ops.aten.grid_sampler_2d_backward(
             g_b, img_b, grid_b, 0, 0, False, [False, True])[1],
+        "meta_interpolation_tpu/ops/warp.py:310"),
+                GRAD2: (
+        lambda: wb.warp_sample_bounded_grad_grid_backward(img, grid, g, v,
+                                                          *opts),
+        lambda: wb.warp_sample_bounded_grad_grid_backward(img_b, grid, g_b,
+                                                          v, *opts),
+        lambda: widened_plain_grad2(wb, img_b, grid, g_b, v, opts),
+        pixels * (80 + 27 * c), pixels * (24 + 6 * c), None,
         "meta_interpolation_tpu/ops/warp.py:310")}
     wb_shape = (f"img {n}x{c}x{h}x{w} bf16, grid {n}x{h}x{w}x2 float32, "
                 f"R={r}, zeros, align_corners=False (library: the grid "
@@ -3700,7 +3949,59 @@ def bf16_kernel_phase(torch, mods, card, earlier_lib=None, resources=None,
         if by_batch:
             rec["by_batch"] = by_batch
             rec["served_batch"] = by_batch[-1]
+    grad2 = next(rec for rec in records if rec["name"] == f"{GRAD2}_bf16")
+    grad2["by_shape"] = grad2_timing(torch, wb, card, GRAD2_SHAPES,
+                                     earlier_warp_lib, ("bf16",))["bf16"]
+    grad2["device_ops"] = grad2_call_ops(torch, wb, img_b, grid, g_b, v,
+                                         opts, card)
     return records
+
+
+def widened_plain_grad2(wb, img, grid, g, v, opts):
+    """K3-grad²'s plain version on the widened operands, gg rounded to
+    g's type and the grid's cotangent to the grid's."""
+    gg, ggrid = wb.grid_sample_bounded_grad_grid_backward_ref(
+        img.float(), grid.float(), g.float(), v, *opts)
+    return gg.to(g.dtype), ggrid.to(grid.dtype)
+
+
+def grad2_plain_err(torch, wb, got, img, grid, g, v, opts, what):
+    """The larger max|diff| of a bf16 K3-grad² result ``got`` (gg, ggrid)
+    to its plain version on the widened operands, each held within one
+    bf16 ulp of max + TOL_ABS."""
+    want = wb.grid_sample_bounded_grad_grid_backward_ref(
+        img.float(), grid.float(), g.float(), v, *opts)
+    return max(bf16_err(a, b, f"K3-grad² {part} {what} against its plain "
+                              f"version")
+               for part, a, b in zip(("gg", "grid"), got, want))
+
+
+def grad2_call_ops(torch, wb, img, grid, g, v, opts, card, reps=10):
+    """One bf16 K3-grad² call (float32 grid) and the same call as it ran
+    before its bf16 kernel (widened_grad2), in turns (this, widened,
+    widened, this): the device ops and the device ms a call, from
+    torch.profiler over ``reps`` calls. Its bf16 kernel is one device op
+    a call; the widened call also three casts."""
+    paths = {"bf16 kernel": lambda: wb.warp_sample_bounded_grad_grid_backward(
+                 img, grid, g, v, *opts),
+             "widened": lambda: widened_grad2(wb)(img, grid, g, v, *opts)}
+    stats = {which: {"ops": [], "busy": []} for which in paths}
+    for which in ("bf16 kernel", "widened", "widened", "bf16 kernel"):
+        fn = paths[which]
+        fn()
+        _, busy, rows, _ = device_time_by_kernel(
+            torch, lambda: [fn() for _ in range(reps)])
+        stats[which]["ops"].append(sum(k for _, k, _ in rows) / reps)
+        stats[which]["busy"].append(busy / reps)
+    check(stats["bf16 kernel"]["ops"] == [1.0, 1.0],
+          f"a bf16 K3-grad² call ran {stats['bf16 kernel']['ops']} device "
+          f"ops, want one")
+    for which, st in stats.items():
+        print(f"[bf16] one K3-grad² call at {tuple(img.shape)}, {which}, in "
+              f"turns (bf16 kernel, widened, widened, bf16 kernel): "
+              f"{st['ops'][0]:.0f} device ops, device ms "
+              + ", ".join(f"{b:.4f}" for b in st["busy"]) + f" ({card})")
+    return stats
 
 
 def bf16_warp_inputs(torch, case, i):
@@ -3736,7 +4037,7 @@ def bf16_warp_timing(torch, wb, card, earlier_lib=None, label="earlier"):
     bf = torch.bfloat16
     views = {"gather": Renamed(wb._library(), TILE_AS_GATHER)}
     if earlier_lib is not None:
-        views[label] = Renamed(earlier_lib, GATHER_AS_BF16)
+        views[label] = earlier_bf16(earlier_lib)
     timing = {"warp_sample_bounded_forward": [],
               "warp_sample_bounded_grad_grid": []}
     c, (h, w), r = 3, WARP_SHAPES[-1][:2], WARP_R
@@ -3963,7 +4264,49 @@ def deterministic(torch, algorithms):
         torch.use_deterministic_algorithms(saved[1])
 
 
-def bf16_card_vs_cpu_phase(torch):
+def dain_handing(torch, record, dev, system, go):
+    """``go()`` with DAIN's PWC flows (``flows``), log depths (the output
+    of ``system.model.depthNet``) and projected offsets
+    (models/dain/model.py's ``flow_projection``) recorded, on the card
+    (``dev`` "cuda"), in ``record`` ({DAIN_HANDED name: [its results in
+    call order, on the CPU]}); on the CPU taken from ``record`` in call
+    order instead, every one of them."""
+    from meta_interpolation_tpu_torch.models.dain import model as dain_mod
+    cls = type(system.model)
+    real_flows, real_project = cls.flows, dain_mod.flow_projection
+
+    def take(kind, compute):
+        if dev == "cuda":
+            out = compute()
+            record[kind].append(tuple(t.detach().cpu() for t in out)
+                                if isinstance(out, tuple)
+                                else out.detach().cpu())
+            return out
+        check(record[kind], f"dain: the CPU run takes more {kind} than the "
+                            f"card run gave")
+        return record[kind].pop(0)
+
+    def flows(self, x0, x2):
+        return take("flows", lambda: real_flows(self, x0, x2))
+
+    def project(*args, **kwargs):
+        return take("offsets", lambda: real_project(*args, **kwargs))
+
+    hook = system.model.depthNet.register_forward_hook(
+        lambda _mod, _args, out: take("log depth", lambda: out))
+    try:
+        out = with_attr(cls, "flows", flows, with_attr(
+            dain_mod, "flow_projection", project, go))()
+    finally:
+        hook.remove()
+    check(dev == "cuda" or not any(record.values()),
+          f"dain: the CPU run left "
+          f"{ {k: len(v) for k, v in record.items()} } of the card's "
+          f"handed results")
+    return out
+
+
+def bf16_card_vs_cpu_phase(torch, dain_state):
     """A 64x64 clip of each BF16_CARD_VS_CPU preset in bf16 on the card
     against the same clip on the CPU: max|card − CPU| of the prediction
     within twice the CPU's own max|bf16 − float32| plus BF16_FLOOR of the
@@ -3973,7 +4316,9 @@ def bf16_card_vs_cpu_phase(torch):
     torch.backends.cudnn.deterministic and, for the BF16_BITWISE presets,
     torch.use_deterministic_algorithms (restored after): those two must
     agree bit for bit for the BF16_BITWISE presets (their difference is
-    printed for the others), and the first is held to the limit."""
+    printed for the others), and the first is held to the limit. DAIN
+    runs on ``dain_state`` (tamed weights), its CPU bf16 side handed the
+    first deterministic card run's DAIN_HANDED tensors (dain_handing)."""
     from meta_interpolation_tpu_torch.config import get_args
     from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
     from meta_interpolation_tpu_torch.meta.system import (
@@ -3982,24 +4327,32 @@ def bf16_card_vs_cpu_phase(torch):
         flags = BF16_EVAL[model][0]
         clip = SyntheticSeptuplet(model=model, mode="val",
                                   size=SMALL_HW)[0][0][None]
+        handed = {kind: [] for kind in DAIN_HANDED}
 
-        def run(dev, dtype):
+        def run(dev, dtype, hand=False):
             system = SceneAdaptiveInterpolation(
                 get_args(flags + ["--dtype", dtype]), device=dev)
-            losses, preds = system.run_validation_iter(clip)
+            if model == "dain":
+                system.load_net(dain_state)
+            go = lambda: system.run_validation_iter(clip)
+            losses, preds = (dain_handing(torch, handed, dev, system, go)
+                             if hand else go())
             return losses["loss"], preds.cpu()
 
         free = [run("cuda", "bfloat16") for _ in range(BF16_SPREAD_RUNS)]
         bitwise_runs = model in BF16_BITWISE
+        hand = model == "dain"
         with deterministic(torch, bitwise_runs):
-            card, again = run("cuda", "bfloat16"), run("cuda", "bfloat16")
+            card = run("cuda", "bfloat16", hand)
+            again = run("cuda", "bfloat16")
         same = card[0] == again[0] and torch.equal(card[1], again[1])
         runs = (f"loss {card[0]!r} vs {again[0]!r}, max|pred diff| "
                 f"{(card[1] - again[1]).abs().max().item():.3e}")
         check(same or not bitwise_runs,
               f"{model} bf16 on the card under deterministic algorithms: "
               f"two runs differ ({runs})")
-        cpu, f32 = run("cpu", "bfloat16"), run("cpu", "float32")
+        calls = {kind: len(v) for kind, v in handed.items()}
+        cpu, f32 = run("cpu", "bfloat16", hand), run("cpu", "float32")
         diff = (card[1] - cpu[1]).abs().max().item()
         gap = (cpu[1] - f32[1]).abs().max().item()
         lim = 2 * gap + BF16_FLOOR * cpu[1].abs().max().item()
@@ -4020,8 +4373,10 @@ def bf16_card_vs_cpu_phase(torch):
               f"{model} bf16 card vs CPU: pred {diff:.3e} > {lim:.3e} or "
               f"loss {abs(card[0] - cpu[0]):.3e} > {loss_lim:.3e}")
         print(f"[bf16] {model} {SMALL_HW[0]}x{SMALL_HW[1]} clip, bf16 card "
-              f"(the first deterministic run) vs CPU: max|pred diff| "
-              f"{diff:.3e} "
+              f"(the first deterministic run) vs CPU"
+              + (f" (the CPU handed the card's {', '.join(DAIN_HANDED)}: "
+                 f"{calls} calls)" if hand else "")
+              + f": max|pred diff| {diff:.3e} "
               f"(limit {lim:.3e}: the CPU's bf16 − float32 {gap:.3e}), loss "
               f"{card[0]:.6f} vs {cpu[0]:.6f} (limit {loss_lim:.3e}; float32 "
               f"{f32[0]:.6f})")
@@ -4105,7 +4460,7 @@ def bf16_phase(torch, mods, card):
                        dain_state))
     paths.update(timed("bf16_serve", bf16_serve_phase, torch, mods, card,
                        dain_state))
-    timed("bf16_card_vs_cpu", bf16_card_vs_cpu_phase, torch)
+    timed("bf16_card_vs_cpu", bf16_card_vs_cpu_phase, torch, dain_state)
     return paths
 
 
@@ -4836,8 +5191,14 @@ def main():
                                model, *preset, earlier=earlier_sampler)
                   for model, preset in WARP_MODELS.items()}
     timed("warp_call", warp_call_phase, torch, mods, earlier_sampler)
+    grad2_record = Recording(wb._library(), (GRAD2, f"{GRAD2}_bf16"))
     train_paths = timed("warp_train", warp_train_phase, torch, mods, wb,
-                        card)
+                        card, grad2_record)
+    grad2_paths = timed("grad2_path", grad2_path_phase, torch, wb, card,
+                        grad2_record, earlier_grid_warp)
+    records[4]["main_path_shapes"] = grad2_paths["float32"]
+    next(rec for rec in bf16_records if rec["name"] == f"{GRAD2}_bf16")[
+        "main_path_shapes"] = grad2_paths["bf16"]
     dain_launches, served_ms = timed("dain", dain_phase, torch, mods,
                                      earlier_k4)
     records[-1]["served_ms"] = served_ms
@@ -4872,9 +5233,9 @@ def main():
                **{k: {"dain_served": dain_launches[k]} for k in KERNELS[5:]}}
     check([rec["name"] for rec in records] == list(KERNELS),
           f"kernel records {[rec['name'] for rec in records]}")
-    # the bf16 paths: K1, K2, K3 and K3-grad in their bf16 kernels
-    # (records of their own), K3-grad² and K4 widened in their wrappers
-    for k in KERNELS[4:]:
+    # the bf16 paths: K1, K2, K3, K3-grad and K3-grad² in their bf16
+    # kernels (records of their own), K4 widened in its wrapper
+    for k in KERNELS[5:]:
         by_path[k].update({path: counts[k] for path, counts in
                            bf16_paths.items() if counts.get(k)})
     for rec in bf16_records:
@@ -4893,7 +5254,8 @@ def main():
     for rec in records:
         rec["launches_by_path"] = by_path[rec["name"]]
         rec["launches"] = sum(by_path[rec["name"]].values())
-        check(all(n > 0 for n in by_path[rec["name"]].values()),
+        check(by_path[rec["name"]]
+              and all(n > 0 for n in by_path[rec["name"]].values()),
               f"{rec['name']} never ran on a main path: "
               f"{by_path[rec['name']]}")
     print(json.dumps({"kernels": records}))

@@ -60,38 +60,54 @@
 // output (12 B): 4.19 MB, 1.25 us at 3.35 TB/s; the backward also reads g
 // and writes ggrid instead of the output: 40 B a pixel, 5.24 MB, 1.56 us;
 // its derivative (second-order meta-training) reads the image, grid, g
-// and v and writes gg and ggrid: 60 B a pixel, 7.86 MB, 2.35 us.
-// Both do ~40-80 operations a pixel, far from the fp32 rate, and at this
+// and v and writes gg and ggrid: 60 B a pixel, 7.86 MB, 2.35 us (in bf16,
+// image, g and gg at 2 B a value: 42 B a pixel, 5.5 MB, 1.64 us).
+// All do ~40-160 operations a pixel, far from the fp32 rate, and at this
 // size a launch's fixed cost is of the bound's order.
 //
-// The float32 design (K3, K3-grad, K3-grad², and the bf16 gather route): a
-// 3-D launch (column chunk, row, image) with threads along x, no 64-bit
-// division; each thread takes kPix pixels of its row, kThreads apart, so
-// that every grid load (float2), g load and output store of a warp is one
-// coalesced run; all of a thread's grid loads are issued before their use,
-// then all of a pixel's taps, with the channel loop unrolled for C = 3.
-// With |flow| <= R a warp's taps fall in a band ~2R + 2 rows deep that L1
-// holds, so taps go through the read-only path (__ldg): for these float32
-// kernels, staging the tile's halo in shared memory with cp.async lost to
-// it, and 1 or 4 pixels a thread, 64 or 256 threads a block and g loaded
-// ahead in the backward did not win (PERF.md). The backward recomputes the
-// four taps and keeps its three channel sums in registers: no atomics,
-// deterministic.
+// K3-grad² replaces none of the JAX package's Pallas kernels: the TPU path
+// gets this derivative by differentiating its XLA backward again
+// (meta_interpolation_tpu/ops/warp.py:275, :299-319), from the upcast
+// values in bf16 (:33-37). In float32 it is the gather kernel below; in
+// bf16 (the _bf16 entry point) the tile kernel, which gives the bits of
+// the float32 kernel on the widened operands with gg rounded once, and
+// past C = 4 or a window over 227 KB of shared memory the wrapper widens
+// the call onto the float32 kernel.
 //
-// The bf16 design (K3 and K3-grad in bf16, the tile route): there the
-// float32 design issues 12 (K3-grad 15) dependent 2-byte gathers a pixel,
-// and their count and latency, not bytes, set its pace. A block owns a
-// 16 x 32 tile and stages its tap window, the tile grown by R on every
-// side and clipped to the image, once, with 16-byte loads, as channel-
-// interleaved 8-byte texels in shared memory: a tap is one 8-byte shared
-// load for all channels. A thread takes two adjacent pixels: grid and
-// grid gradient as float4, output and g as bf16 pairs. The window is
-// sized from R at launch; past C = 4 (a texel's channels) or 227 KB of
-// shared memory (R > 72 on a large frame) the wrapper takes the gather
-// route, the float32 design on bf16 (ops/warp_bounded.py, bf16_window).
-// Both routes give the same bits. Tiles of 8 x 64, 32 x 32, 16 x 16,
-// 32 x 16, 16 x 64 and 4 x 64, 4 pixels a thread, and the window copied
-// by cp.async then interleaved, were slower (PERF.md).
+// The float32 design (K3, K3-grad, K3-grad², and the gather route of the
+// bf16 K3 and K3-grad): a 3-D launch (column chunk, row, image) with
+// threads along x, no 64-bit division; each thread takes kPix pixels of
+// its row, kThreads apart, so that every grid load (float2), g load and
+// output store of a warp is one coalesced run; all of a thread's grid
+// loads are issued before their use, then all of a pixel's taps, with the
+// channel loop unrolled for C = 3. With |flow| <= R a warp's taps fall in
+// a band ~2R + 2 rows deep that L1 holds, so taps go through the
+// read-only path (__ldg): for these float32 kernels, staging the tile's
+// halo in shared memory lost to it (K3 and K3-grad: planar, by cp.async;
+// K3-grad²: the bf16 tile design below with 16- or 12-byte float texels,
+// faster on random displacements and at 8 images, slower on the smooth
+// ones a flow network gives), and 1 or 4 pixels a thread, 64 or 256
+// threads a block and g loaded ahead in the backward did not win
+// (PERF.md). The backward recomputes the four taps and keeps its three
+// channel sums in registers: no atomics, deterministic.
+//
+// The bf16 design (K3, K3-grad and K3-grad² in bf16, the tile route):
+// there the float32 design issues 12 (K3-grad 15) dependent 2-byte
+// gathers a pixel, and their count and latency, not bytes, set its pace;
+// K3-grad²'s bf16 route before this kernel also widened the operands and
+// rounded gg in three device ops of their own. A block owns a 16 x 32
+// tile and stages its tap window, the tile grown by R on every side and
+// clipped to the image, once, with 16-byte loads, as channel-interleaved
+// 8-byte texels (c0, c1, c2, c3 or 0) in shared memory: a tap is one
+// 8-byte shared load for all channels. A thread takes two adjacent
+// pixels: grid, v and grid gradient as float4, output, g and gg as bf16
+// pairs. The window is sized from R at launch; past C = 4 (a texel's
+// channels) or 227 KB of shared memory (R > 72 on a large frame) the
+// wrapper takes the gather route (ops/warp_bounded.py, bf16_window). Both
+// routes give the same bits. Tiles of 8 x 64, 32 x 32, 16 x 16, 32 x 16,
+// 16 x 64, 8 x 32 and 4 x 64, 4 pixels a thread, the window copied by
+// cp.async then interleaved, and K3-grad²'s g loaded before the window
+// was staged, were slower (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -400,8 +416,8 @@ warp_sample_grad_grid_backward_kernel(const float* __restrict__ img,
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 K3 and K3-grad: a block's output tile and its tap window staged
-// in shared memory as channel-interleaved texels.
+// The bf16 K3, K3-grad and K3-grad²: a block's output tile and its tap
+// window staged in shared memory as channel-interleaved texels.
 //
 // A block owns kTileH x kTileW output pixels of one image. The floors lie
 // in [-R, R-1] (a NaN coordinate goes to -R) and the taps are edge-clamped,
@@ -537,6 +553,62 @@ __device__ __forceinline__ void load_pair(const float2* p, int x, int w,
   }
 }
 
+// The bf16 values of pixels x and x + 1 (x + 1 only if inside; else 0) of
+// the nc (<= kTexelC) channel planes, hw apart, from p (pixel x of plane
+// 0), widened: a pair as one load where it is aligned.
+__device__ __forceinline__ void load_pairs(const bf16* p, int x, int w,
+                                           size_t hw, int nc,
+                                           float (&v)[2][kTexelC]) {
+#pragma unroll
+  for (int ch = 0; ch < kTexelC; ++ch) {
+    v[0][ch] = v[1][ch] = 0.f;
+    if (ch >= nc) continue;
+    const bf16* q = p + ch * hw;
+    if (x + 1 < w && (reinterpret_cast<uintptr_t>(q) & 3) == 0) {
+      const float2 t = __bfloat1622float2(
+          __ldg(reinterpret_cast<const __nv_bfloat162*>(q)));
+      v[0][ch] = t.x;
+      v[1][ch] = t.y;
+    } else {
+      v[0][ch] = __bfloat162float(__ldg(q));
+      if (x + 1 < w) v[1][ch] = __bfloat162float(__ldg(q + 1));
+    }
+  }
+}
+
+// Store pixels x and x + 1 (x + 1 only if inside) of the nc channel
+// planes, hw apart, at p (pixel x of plane 0), each rounded once to bf16:
+// a pair as one store where it is aligned.
+__device__ __forceinline__ void store_pairs(bf16* p, int x, int w, size_t hw,
+                                            int nc,
+                                            const float (&v)[2][kTexelC]) {
+#pragma unroll
+  for (int ch = 0; ch < kTexelC; ++ch) {
+    if (ch >= nc) break;
+    bf16* q = p + ch * hw;
+    const bf16 a = __float2bfloat16_rn(v[0][ch]);
+    if (x + 1 < w && (reinterpret_cast<uintptr_t>(q) & 3) == 0) {
+      *reinterpret_cast<__nv_bfloat162*>(q) =
+          __halves2bfloat162(a, __float2bfloat16_rn(v[1][ch]));
+    } else {
+      q[0] = a;
+      if (x + 1 < w) q[1] = __float2bfloat16_rn(v[1][ch]);
+    }
+  }
+}
+
+// Store the (gx, gy) of pixels x and x + 1 (x + 1 only if inside) at o.
+__device__ __forceinline__ void store_pair(float2* o, int x, int w,
+                                           const float2 (&v)[2]) {
+  if (x + 1 < w && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+    *reinterpret_cast<float4*>(o) = make_float4(v[0].x, v[0].y, v[1].x,
+                                                v[1].y);
+  } else {
+    o[0] = v[0];
+    if (x + 1 < w) o[1] = v[1];
+  }
+}
+
 // A thread's pixel pairs: (y, x) of the first pixel of pair q.
 __device__ __forceinline__ int pair_y(int q) {
   return blockIdx.y * kTileH + (threadIdx.x * kPairs + q) / (kTileW / 2);
@@ -646,23 +718,9 @@ warp_grad_grid_bf16_tile_kernel(const bf16* __restrict__ img,
     if (y >= h || x >= w) continue;
     const size_t row = (static_cast<size_t>(b) * h + y) * w + x;
     // the pair's g, channel by channel
-    const bf16* gp = g + static_cast<size_t>(b) * nc * hw
-        + static_cast<size_t>(y) * w + x;
     float gc[2][kTexelC];
-#pragma unroll
-    for (int ch = 0; ch < kTexelC; ++ch) {
-      gc[0][ch] = gc[1][ch] = 0.f;
-      if (ch >= nc) continue;
-      if (x + 1 < w && (reinterpret_cast<uintptr_t>(gp + ch * hw) & 3) == 0) {
-        const float2 v = __bfloat1622float2(
-            __ldg(reinterpret_cast<const __nv_bfloat162*>(gp + ch * hw)));
-        gc[0][ch] = v.x;
-        gc[1][ch] = v.y;
-      } else {
-        gc[0][ch] = __bfloat162float(__ldg(gp + ch * hw));
-        if (x + 1 < w) gc[1][ch] = __bfloat162float(__ldg(gp + ch * hw + 1));
-      }
-    }
+    load_pairs(g + static_cast<size_t>(b) * nc * hw
+                   + static_cast<size_t>(y) * w + x, x, w, hw, nc, gc);
     float2 res[2];
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
@@ -700,14 +758,123 @@ warp_grad_grid_bf16_tile_kernel(const bf16* __restrict__ img,
       }
       res[p] = make_float2(gx * sx, gy * sy);
     }
-    float2* o = ggrid + row;
-    if (x + 1 < w && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
-      *reinterpret_cast<float4*>(o) =
-          make_float4(res[0].x, res[0].y, res[1].x, res[1].y);
-    } else {
-      o[0] = res[0];
-      if (x + 1 < w) o[1] = res[1];
+    store_pair(ggrid + row, x, w, res);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3-grad² in bf16 (image, g and gg bf16; grid, v and the grid's cotangent
+// float32): the tile, window and pixel pairs of the bf16 K3 and K3-grad.
+// A thread loads its pair's grid and v as one float4 each and g as a bf16
+// pair a channel, and stores gg as a bf16 pair a channel and the grid's
+// cotangent as one float4. The arithmetic is the float32 kernel's
+// (warp_sample_grad_grid_backward_kernel), in the same order with the same
+// fmaf chains, on the widened values with unrounded fractions (the TPU
+// path differentiates this from the upcast values,
+// meta_interpolation_tpu/ops/warp.py:33-37), and gg is rounded once: the
+// bits of the float32 kernel on the widened operands, gg rounded.
+template <int kC>
+__global__ void __launch_bounds__(kTileThreads)
+warp_grad_grid_backward_bf16_tile_kernel(const bf16* __restrict__ img,
+                                         const float2* __restrict__ grid,
+                                         const bf16* __restrict__ g,
+                                         const float2* __restrict__ v,
+                                         bf16* __restrict__ gg,
+                                         float2* __restrict__ ggrid, int c,
+                                         int h, int w, int r, int pitch,
+                                         bool align, bool border) {
+  extern __shared__ uint4 texels[];
+  const int b = blockIdx.z;
+  const int nc = kC > 0 ? kC : c;
+  const size_t hw = static_cast<size_t>(h) * w;
+  float2 gv[kPairs][2], vv[kPairs][2];
+#pragma unroll
+  for (int q = 0; q < kPairs; ++q) {
+    const int y = pair_y(q), x = pair_x(q);
+    if (y < h) {
+      const size_t row = (static_cast<size_t>(b) * h + y) * w + x;
+      load_pair(grid + row, x, w, gv[q]);
+      load_pair(v + row, x, w, vv[q]);
     }
+  }
+  const Window win = block_window(h, w, r, pitch);
+  stage_window(texels, img + static_cast<size_t>(b) * nc * hw, nc, w, hw,
+               win);
+  __syncthreads();
+  const uint2* tx = reinterpret_cast<const uint2*>(texels);
+  const float sx = 0.5f * static_cast<float>(align ? w - 1 : w);
+  const float sy = 0.5f * static_cast<float>(align ? h - 1 : h);
+#pragma unroll
+  for (int q = 0; q < kPairs; ++q) {
+    const int y = pair_y(q), x = pair_x(q);
+    if (y >= h || x >= w) continue;
+    const size_t crow = static_cast<size_t>(b) * nc * hw
+        + static_cast<size_t>(y) * w + x;
+    float gc[2][kTexelC], res[2][kTexelC];
+    float2 out[2];
+    load_pairs(g + crow, x, w, hw, nc, gc);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      if (x + p >= w) break;
+      const Axis ax = axis<false>(gv[q][p].x, x + p, w, r, align, border);
+      const Axis ay = axis<false>(gv[q][p].y, y, h, r, align, border);
+      const bool live = border || (ax.valid && ay.valid);
+      const float ux = vv[q][p].x * sx, uy = vv[q][p].y * sy;
+      // per channel, gg_c = ax_d dbil/dfx + ay_d dbil/dfy + b_d bil
+      float ax_d, ay_d, b_d;
+      if (border) {
+        ax_d = ux * ax.c;
+        ay_d = uy * ay.c;
+        b_d = 0.f;
+      } else if (live) {
+        ax_d = ux * ay.m * ax.m * ax.c;
+        ay_d = uy * ax.m * ay.m * ay.c;
+        b_d = ux * ay.m * ax.dm + uy * ax.m * ay.dm;
+      } else {
+        ax_d = ay_d = b_d = 0.f;
+      }
+      float v00[kTexelC], v01[kTexelC], v10[kTexelC], v11[kTexelC];
+      texel(tx, win, ay.i0, ax.i0, v00);
+      texel(tx, win, ay.i0, ax.i1, v01);
+      texel(tx, win, ay.i1, ax.i0, v10);
+      texel(tx, win, ay.i1, ax.i1, v11);
+      float sdx = 0.f, sdy = 0.f, sb = 0.f, sxy = 0.f;
+#pragma unroll
+      for (int ch = 0; ch < kTexelC; ++ch) {
+        if (ch >= nc) break;
+        const float gch = gc[p][ch];
+        const float top = fmaf(ax.w0, v00[ch], ax.w1 * v01[ch]);
+        const float bot = fmaf(ax.w0, v10[ch], ax.w1 * v11[ch]);
+        const float dbx = fmaf(ay.w0, v01[ch] - v00[ch],
+                               ay.w1 * (v11[ch] - v10[ch]));
+        const float dby = bot - top;
+        const float bil = fmaf(ay.w0, top, ay.w1 * bot);
+        sdx = fmaf(gch, dbx, sdx);
+        sdy = fmaf(gch, dby, sdy);
+        sb = fmaf(gch, bil, sb);
+        sxy = fmaf(gch, (v11[ch] - v10[ch]) - (v01[ch] - v00[ch]), sxy);
+        res[p][ch] = fmaf(ax_d, dbx, fmaf(ay_d, dby, b_d * bil));
+      }
+      float gx, gy;
+      if (border) {
+        const float hxy = ax.c * ay.c * sxy;
+        gx = sx * (uy * hxy);
+        gy = sy * (ux * hxy);
+      } else if (live) {
+        const float hxx = 2.f * ay.m * ax.dm * ax.c * sdx;
+        const float hyy = 2.f * ax.m * ay.dm * ay.c * sdy;
+        const float hxy = ay.dm * ax.m * ax.c * sdx
+            + ax.m * ay.m * ax.c * ay.c * sxy + ax.dm * ay.dm * sb
+            + ay.m * ax.dm * ay.c * sdy;
+        gx = sx * fmaf(ux, hxx, uy * hxy);
+        gy = sy * fmaf(ux, hxy, uy * hyy);
+      } else {
+        gx = gy = 0.f;
+      }
+      out[p] = make_float2(gx, gy);
+    }
+    store_pairs(gg + crow, x, w, hw, nc, res);
+    store_pair(ggrid + (static_cast<size_t>(b) * h + y) * w + x, x, w, out);
   }
 }
 
@@ -813,15 +980,33 @@ int grad_grid_tile(const bf16* img, const float* grid, const bf16* g,
   return cudaGetLastError();
 }
 
+int grad_grid_backward_tile(const bf16* img, const float* grid,
+                            const bf16* g, const float* v, bf16* gg,
+                            float* ggrid, int n, int c, int h, int w, int r,
+                            int align_corners, int border, void* stream) {
+  const auto kernel = c == 3 ? warp_grad_grid_backward_bf16_tile_kernel<3>
+                             : warp_grad_grid_backward_bf16_tile_kernel<0>;
+  TileLaunch l;
+  cudaError_t err = tile_launch(kernel, n, c, h, w, r, &l);
+  if (err != cudaSuccess) return err;
+  kernel<<<l.blocks, kTileThreads, l.smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      img, reinterpret_cast<const float2*>(grid), g,
+      reinterpret_cast<const float2*>(v), gg,
+      reinterpret_cast<float2*>(ggrid), c, h, w, r, l.pitch,
+      align_corners != 0, border != 0);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The entry points launch on `stream`, do not synchronise, and return the
 // launch status (cudaGetLastError) as an int: 0 is success. border: 1 for
-// padding_mode 'border', 0 for 'zeros'. The _bf16 ones take img, out and g
-// in bfloat16, the grid and ggrid in float32: the _bf16 ones run the tile
-// kernels, for C <= 4 and a window that fits (tile_launch; else they return
-// cudaErrorInvalidValue), the _bf16_gather ones the gather kernels, for any
-// C and R.
+// padding_mode 'border', 0 for 'zeros'. The _bf16 ones take img, out, g
+// and gg in bfloat16, the grid, v and ggrid in float32: the _bf16 ones run
+// the tile kernels, for C <= 4 and a window that fits (tile_launch; else
+// they return cudaErrorInvalidValue), the _bf16_gather ones the gather
+// kernels, for any C and R.
 extern "C" int warp_sample_bounded_forward(const float* img, const float* grid,
                                            float* out, int n, int c, int h,
                                            int w, int r, int align_corners,
@@ -887,4 +1072,12 @@ extern "C" int warp_sample_bounded_grad_grid_backward(
       reinterpret_cast<float2*>(ggrid), c, h, w, r, align_corners != 0,
       border != 0);
   return cudaGetLastError();
+}
+
+extern "C" int warp_sample_bounded_grad_grid_backward_bf16(
+    const __nv_bfloat16* img, const float* grid, const __nv_bfloat16* g,
+    const float* v, __nv_bfloat16* gg, float* ggrid, int n, int c, int h,
+    int w, int r, int align_corners, int border, void* stream) {
+  return grad_grid_backward_tile(img, grid, g, v, gg, ggrid, n, c, h, w, r,
+                                 align_corners, border, stream);
 }

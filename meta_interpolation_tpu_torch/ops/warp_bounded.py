@@ -51,25 +51,27 @@ wrapper given a CUDA tensor launches its kernel or raises; it never falls
 back to the plain version. Each wrapper counts its launches in
 ``<wrapper>.launches``.
 
-bfloat16 (``--dtype bfloat16``): K3 and K3-grad take a bf16 image (and
-output gradient) with a grid of either type; the coordinates are float32
-(a bf16 grid is widened), the fractions are rounded to bf16, the taps are
-summed in float32 and rounded once, and with 'zeros' the mass and its
-product are rounded to bf16: where the JAX package's TPU path rounds
+bfloat16 (``--dtype bfloat16``): K3, K3-grad and K3-grad² take a bf16
+image (and output gradient) with a grid of either type; the coordinates
+are float32 (a bf16 grid is widened). K3 and K3-grad round the fractions
+to bf16, sum the taps in float32 and round once, and with 'zeros' round
+the mass and its product to bf16: where the JAX package's TPU path rounds
 (``meta_interpolation_tpu/ops/warp.py:242-243``, ``:270``,
 ``warp_pallas.py:99-103``). Its CPU fallback, ``_warp_bounded_xla``,
 sums the sweep in bf16 instead. K3-grad returns the grid gradient in the
-grid's type. K3-grad² stays a float32 kernel: its wrapper widens bf16
-operands and rounds its results back, as every Pallas wrapper does.
+grid's type. K3-grad² computes from the widened values, as the JAX
+package differentiates its upcast sweep: its bf16 kernel gives the bits
+of the float32 kernel on the widened operands, gg rounded once.
 
-The bf16 K3 and K3-grad take one of two hand-written kernels by shape
-(:func:`bf16_window`): the tiled kernels, which stage each block's tap
+The bf16 kernels take one of two hand-written kernels by shape
+(:func:`bf16_window`): the tile kernels, which stage each block's tap
 window in shared memory as channel-interleaved texels, where C ≤ 4 and
 that window fits a block's shared memory (min(16 + 2R, H) rows of
 min(32 + 2R, W) texels of 8 bytes, at most 227 KB: R ≤ 72 on a large
-frame, any R on a small one); else the gather kernels (the float32
-design on bf16). Both give the same bits. Each wrapper counts the gather
-route's launches also in ``<wrapper>.gather_launches``.
+frame, any R on a small one); else the gather kernels (the float32 design
+on bf16; for K3-grad² the float32 kernel on the widened operands). Both
+give the same bits. Each wrapper counts the gather route's launches also
+in ``<wrapper>.gather_launches``.
 """
 from __future__ import annotations
 
@@ -368,10 +370,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                                            + [i32] * 7
                                                            + [ptr])
     lib.warp_sample_bounded_grad_grid_backward.restype = i32
-    # the bf16 kernels of K3 and K3-grad, tiled and gather (absent from a
-    # source from before them)
+    # the bf16 kernels, tiled and gather (absent from a source from before
+    # them)
     for name in ("warp_sample_bounded_forward",
-                 "warp_sample_bounded_grad_grid"):
+                 "warp_sample_bounded_grad_grid",
+                 "warp_sample_bounded_grad_grid_backward"):
         for suffix in ("_bf16", "_bf16_gather"):
             if hasattr(lib, name + suffix):
                 fn = getattr(lib, name + suffix)
@@ -388,9 +391,10 @@ def _library() -> ctypes.CDLL:
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
-# The bf16 kernels of K3 and K3-grad (csrc/warp.cu): a block's output tile
-# (kTileH, kTileW), the channels a staged texel holds (kTexelC) and its
-# bytes, and the shared memory a block may take on sm_90 (kMaxWindowBytes)
+# The bf16 tile kernels of K3, K3-grad and K3-grad² (csrc/warp.cu): a
+# block's output tile (kTileH, kTileW), the channels a staged texel holds
+# (kTexelC) and its bytes, and the shared memory a block may take on sm_90
+# (kMaxWindowBytes)
 BF16_TILE = (16, 32)
 TEXEL_CHANNELS, TEXEL_BYTES = 4, 8
 MAX_WINDOW_BYTES = 232448
@@ -400,7 +404,7 @@ class Window(NamedTuple):
     """The bf16 kernel that takes a call, and the tap window each of its
     blocks stages: at most ``rows`` x ``cols`` texels (``cols`` the row
     pitch, whole chunks of 8), ``shared_bytes`` in all."""
-    route: str   # "tile" (the tiled kernels) or "gather"
+    route: str   # "tile" (the tile kernels) or "gather"
     rows: int
     cols: int
     shared_bytes: int
@@ -417,11 +421,11 @@ def window_span(t: int, length: int, r: int, size: int) -> Tuple[int, int]:
 
 def bf16_window(n: int, c: int, h: int, w: int, r: int,
                 tile: Tuple[int, int] = BF16_TILE) -> Window:
-    """The route and window of a bf16 K3 / K3-grad call on an (N, C, H, W)
-    image at R: the tiled kernels where a texel holds every channel (C ≤
-    4) and the largest block window, min(TH + 2R, H) rows of min(TW + 2R,
-    W) texels, fits a block's shared memory; else the gather kernels. The
-    C entry points size their launch by the same rule."""
+    """The route and window of a bf16 K3, K3-grad or K3-grad² call on an
+    (N, C, H, W) image at R: the tile kernels where a texel holds every
+    channel (C ≤ 4) and the largest block window, min(TH + 2R, H) rows of
+    min(TW + 2R, W) texels, fits a block's shared memory; else the gather
+    kernels. The C entry points size their launch by the same rule."""
     rows = min(tile[0] + 2 * r, h)
     cols = -(-min(tile[1] + 2 * r, w) // 8) * 8
     nbytes = rows * cols * TEXEL_BYTES
@@ -430,10 +434,11 @@ def bf16_window(n: int, c: int, h: int, w: int, r: int,
 
 
 def _entry(lib, name: str, img: torch.Tensor, r: int):
-    """The C entry point of K3 (``name`` warp_sample_bounded_forward) or
-    K3-grad for ``img``, and its route: float32 its kernel (route None);
-    bf16 the tiled kernel or, where :func:`bf16_window` sends the call
-    there, the gather one. Never a plain version."""
+    """The C entry point of K3 (``name`` warp_sample_bounded_forward),
+    K3-grad or K3-grad² for ``img``, and its route: float32 its kernel
+    (route None); bf16 the tile kernel or, where :func:`bf16_window` sends
+    the call there, the gather one (K3-grad² has none: its wrapper widens
+    such a call onto the float32 kernel). Never a plain version."""
     if img.dtype != torch.bfloat16:
         return getattr(lib, name), None
     route = bf16_window(*img.shape, r).route
@@ -496,7 +501,7 @@ def warp_sample_bounded_forward(img: torch.Tensor, grid: torch.Tensor,
                                 r: int, align_corners: bool = False,
                                 padding_mode: str = "zeros") -> torch.Tensor:
     """K3: the sampler's output (N, C, H, W), of the image's type. Plain
-    version on CPU tensors, the kernel on CUDA: in bf16 the tiled kernel,
+    version on CPU tensors, the kernel on CUDA: in bf16 the tile kernel,
     or the gather one past its limit (C > 4, or a window over 227 KB of
     shared memory; :func:`bf16_window`)."""
     if img.device.type == "cpu":
@@ -529,7 +534,7 @@ def warp_sample_bounded_grad_grid(img: torch.Tensor, grid: torch.Tensor,
                                   ) -> torch.Tensor:
     """K3-grad: the grid gradient (N, H, W, 2), of the grid's type, for the
     output gradient g. The closed form on CPU tensors, the kernel on
-    CUDA: in bf16 the tiled kernel, or the gather one past its limit (as
+    CUDA: in bf16 the tile kernel, or the gather one past its limit (as
     K3's)."""
     if img.device.type == "cpu":
         return grid_sample_bounded_grad_grid_ref(img, grid, g, r,
@@ -564,39 +569,49 @@ def warp_sample_bounded_grad_grid_backward(img: torch.Tensor,
                                            padding_mode: str = "zeros"):
     """K3-grad²: (gg, ggrid), K3-grad's derivative for the cotangent v
     (N, H, W, 2) of its output, with respect to g and to the grid, each of
-    its input's type. The plain version on CPU tensors, the kernel on CUDA:
-    a float32 kernel: bf16 operands are widened, on either device, and the
-    results rounded back."""
-    if torch.bfloat16 in (img.dtype, grid.dtype, g.dtype, v.dtype):
-        gg, ggrid = warp_sample_bounded_grad_grid_backward(
+    its input's type, computed from the widened values. The plain version
+    on CPU tensors (bf16 ones widened and the results rounded back), the
+    kernel on CUDA: float32 its kernel; bf16 the tile kernel or, past its
+    limit (C > 4, or a window over 227 KB of shared memory;
+    :func:`bf16_window`), the float32 kernel on the widened operands, gg
+    rounded back (counted in ``gather_launches``)."""
+    if img.device.type == "cpu":
+        gg, ggrid = grid_sample_bounded_grad_grid_backward_ref(
             _widen(img), _widen(grid), _widen(g), _widen(v), r,
             align_corners, padding_mode)
         return gg.to(g.dtype), ggrid.to(grid.dtype)
-    if img.device.type == "cpu":
-        return grid_sample_bounded_grad_grid_backward_ref(
-            img, grid, g, v, r, align_corners, padding_mode)
     n, c, h, w = _check(img, grid, r, padding_mode, g, v)
+    if (img.dtype == torch.bfloat16
+            and bf16_window(n, c, h, w, r).route == "gather"):
+        gg, ggrid = warp_sample_bounded_grad_grid_backward(
+            img.float(), grid, g.float(), v, r, align_corners, padding_mode)
+        warp_sample_bounded_grad_grid_backward.gather_launches += 1
+        return gg.to(g.dtype), ggrid
+    fn, _ = _entry(_library(), "warp_sample_bounded_grad_grid_backward",
+                   img, r)
+    dtype = grid.dtype
     img, grid, g, v = (img.contiguous(), _aligned(grid), _build.dense(g),
                        _aligned(_build.dense(v)))
     gg, ggrid = torch.empty_like(g), torch.empty_like(grid)
-    code = _launch(_library().warp_sample_bounded_grad_grid_backward,
-                   img.device, img.data_ptr(), grid.data_ptr(), g.data_ptr(),
-                   v.data_ptr(), gg.data_ptr(), ggrid.data_ptr(), n, c, h, w,
-                   r, int(align_corners), int(padding_mode == "border"))
+    code = _launch(fn, img.device, img.data_ptr(), grid.data_ptr(),
+                   g.data_ptr(), v.data_ptr(), gg.data_ptr(),
+                   ggrid.data_ptr(), n, c, h, w, r, int(align_corners),
+                   int(padding_mode == "border"))
     if code != 0:
         raise RuntimeError(f"warp_sample_bounded_grad_grid_backward launch "
                            f"failed: cudaError {code}")
     warp_sample_bounded_grad_grid_backward.launches += 1
-    return gg, ggrid
+    return gg, ggrid.to(dtype)
 
 
 warp_sample_bounded_grad_grid_backward.launches = 0
+warp_sample_bounded_grad_grid_backward.gather_launches = 0
 
 
 def reset_launches():
-    for fn in (warp_sample_bounded_forward, warp_sample_bounded_grad_grid):
+    for fn in (warp_sample_bounded_forward, warp_sample_bounded_grad_grid,
+               warp_sample_bounded_grad_grid_backward):
         fn.launches = fn.gather_launches = 0
-    warp_sample_bounded_grad_grid_backward.launches = 0
 
 
 # ---------------------------------------------------------------------------

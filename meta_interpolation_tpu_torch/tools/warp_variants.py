@@ -1,12 +1,12 @@
-"""Time versions of csrc/warp.cu against the checkout's K3 and K3-grad on
-one CUDA card, in float32 and in bf16.
+"""Time versions of csrc/warp.cu against the checkout's K3, K3-grad and
+K3-grad² on one CUDA card, in float32 and in bf16.
 
     python3 -m meta_interpolation_tpu_torch.tools.warp_variants \\
         [--sass DIR] [--no-check] [--tile TH,TW,PAIRS ...] [NAME=PATH ...]
 
 Run from the root of a checkout (it uses chip_smoke.py's helpers). Each
 PATH is a version of csrc/warp.cu with the checkout's C interface (grid in,
-output or grid gradient out; bf16 tiled and gather entry points): a design
+output or grid gradient out; bf16 tile and gather entry points): a design
 under trial, as an edited copy. ``--tile TH,TW,PAIRS`` adds the checkout's
 source with the bf16 tile kernels' kTileH, kTileW and kPairs set so (a
 block of TH x TW pixels, PAIRS pixel pairs a thread), written under
@@ -16,18 +16,21 @@ bytes and static shared memory are printed (ptxas); with ``--sass DIR``
 its SASS goes to ``DIR/<NAME>.sass`` and its instruction counts by opcode
 are printed. The checkout is held against the plain composition at every
 chip_smoke.py K3 check (``warp_cases``), and each version too; in bf16
-each version is held bit for bit to the checkout's bf16 kernels at every
-K3 check and the gather route's (``BF16_GATHER_CASES``). Each version is
-timed in turns with the checkout's (this, version, version, this): in
-float32 at RRIN's padded frame (1x3x256x512, R = 8, zeros, align_corners
-False) on two grids within range, one with random displacements and one
-with smooth ones; in bf16 at that frame and at RRIN's served batch
-(8x3x256x512) on the random one, where the checkout's tiled kernels are
-also timed in turns with its gather kernels. A version that fails to
-build or to agree is reported, skipped, and fails the run at the end.
-``--no-check`` skips the checks of the versions, to time versions that are
-not meant to agree: the kernel with a phase cut out, to see what that phase
-costs.
+each version is held bit for bit to the checkout's bf16 K3, K3-grad and
+K3-grad² at every K3 check and the gather route's (``BF16_GATHER_CASES``).
+Each version is timed in turns with the checkout's (this, version,
+version, this): K3 and K3-grad in float32 at RRIN's padded frame
+(1x3x256x512, R = 8, zeros, align_corners False) on two grids within
+range, one with random displacements and one with smooth ones, and in
+bf16 at that frame and at RRIN's served batch (8x3x256x512) on the random
+one, where the checkout's tile kernels are also timed in turns with its
+gather kernels; K3-grad² in float32 and bf16 at chip_smoke.py's
+GRAD2_SHAPES and at 1x3x256x256, where the checkout's bf16 K3-grad² is
+also timed in turns with the float32 one on the widened operands. A
+version that fails to build or to agree is reported, skipped, and fails
+the run at the end. ``--no-check`` skips the checks of the versions, to
+time versions that are not meant to agree: the kernel with a phase cut
+out, to see what that phase costs.
 """
 from __future__ import annotations
 
@@ -43,6 +46,11 @@ from meta_interpolation_tpu_torch.ops import warp_bounded as wb
 from meta_interpolation_tpu_torch.tools.sepconv_variants import sass_counts
 
 TILE_CONSTANTS = ("kTileH", "kTileW", "kPairs")
+# K3-grad² timed at chip_smoke.py's shapes and at one 256x256 image (the
+# second-order main paths' crop)
+GRAD2_SHAPES = cs.GRAD2_SHAPES + [
+    ("1x3x256x256 random", 1, 3, 256, 256, "library", cs.WARP_R, False,
+     "zeros")]
 
 
 def agrees_everywhere():
@@ -57,13 +65,15 @@ def bf16_cases():
 
 
 def bf16_outputs():
-    """The bf16 K3 and K3-grad of the wrappers, as bound now, at every
-    bf16_cases() entry."""
+    """The bf16 K3, K3-grad and K3-grad² of the wrappers, as bound now, at
+    every bf16_cases() entry."""
     outs = []
     for i, case in enumerate(bf16_cases()):
-        img, g, _, grid, opts, what = cs.bf16_warp_inputs(torch, case, i)
+        img, g, v, grid, opts, what = cs.bf16_warp_inputs(torch, case, i)
         outs.append((what, wb.warp_sample_bounded_forward(img, grid, *opts),
-                     wb.warp_sample_bounded_grad_grid(img, grid, g, *opts)))
+                     wb.warp_sample_bounded_grad_grid(img, grid, g, *opts),
+                     *wb.warp_sample_bounded_grad_grid_backward(
+                         img, grid, g, v, *opts)))
     return outs
 
 
@@ -83,6 +93,27 @@ def tile_source(values):
     with open(path, "w") as f:
         f.write(text)
     return name, path
+
+
+def grad2_in_turns(libs, card):
+    """K3-grad² of the checkout (chip_smoke.grad2_timing: bf16 in turns
+    with the float32 kernel on the widened operands), then in turns with
+    each version's, float32 and bf16, at GRAD2_SHAPES."""
+    cs.grad2_timing(torch, wb, card, GRAD2_SHAPES)
+    fn = wb.warp_sample_bounded_grad_grid_backward
+    for label, n, c, h, w, kind, r, align, padding in GRAD2_SHAPES:
+        img, grid, g, v = cs.grad2_inputs(torch, n, c, h, w, kind, r, align)
+        opts = (r, align, padding)
+        for dtype in (torch.float32, torch.bfloat16):
+            im, gr = img.to(dtype), g.to(dtype)
+            this = lambda im=im, gr=gr: fn(im, grid, gr, v, *opts)
+            for name, lib in libs.items():
+                t_this, t_them = cs.in_turns(torch, (
+                    this, cs.on_library(wb, lib, this)))
+                print(f"[variants] K3-grad² {str(dtype)[6:]} at {label}, "
+                      f"in turns (this, {name}, {name}, this): this "
+                      f"{t_this[0]:.4f}, {t_this[1]:.4f} ms; {name} "
+                      f"{t_them[0]:.4f}, {t_them[1]:.4f} ms")
 
 
 def main():
@@ -123,10 +154,12 @@ def main():
                                   cs.WARP_KERNELS)
             if not args.no_check:
                 cs.on_library(wb, lib, agrees_everywhere)()
-                for (what, out, gg), (_, vout, vgg) in zip(
+                for ref, got in zip(
                         ref_bf16, cs.on_library(wb, lib, bf16_outputs)()):
-                    cs.bitwise(torch, vout, out, f"{name} K3 {what}")
-                    cs.bitwise(torch, vgg, gg, f"{name} K3-grad {what}")
+                    for part, a, b in zip(("K3", "K3-grad", "K3-grad² gg",
+                                           "K3-grad² grid"), got[1:],
+                                          ref[1:]):
+                        cs.bitwise(torch, a, b, f"{name} {part} {ref[0]}")
                 print(f"[variants] {name} agrees at {len(cs.warp_cases())} "
                       f"cases, and in bf16 bit for bit the checkout at "
                       f"{len(bf16_cases())}")
@@ -165,11 +198,12 @@ def main():
                       f"in turns (this, {name}, {name}, this): this "
                       f"{t_this[0]:.4f}, {t_this[1]:.4f} ms; {name} "
                       f"{t_them[0]:.4f}, {t_them[1]:.4f} ms")
-    # bf16: the checkout's tiled kernels against its gather ones, then
+    # bf16: the checkout's tile kernels against its gather ones, then
     # against each version's
     cs.bf16_warp_timing(torch, wb, card)
     for name, lib in libs.items():
         cs.bf16_warp_timing(torch, wb, card, lib, name)
+    grad2_in_turns(libs, card)
     print(card)
     if failed:
         raise SystemExit(f"warp_variants: {failed} failed to build or to "

@@ -1,7 +1,8 @@
 """Meta-training with an adversarial term held against the JAX package on
 the CPU: a training iteration of each GAN type in both cadences on
-VoxelFlow (the fast op-by-op JAX episode, on the exact warp), and the
-outer gradient with a generator term in float64. A file of its own beside
+VoxelFlow (the JAX episode jitted, on the exact warp: it compiles in
+seconds, and runs ~3× faster than op by op here), and the outer gradient
+with a generator term in float64. A file of its own beside
 tests/test_torch_adversarial.py (whose helpers and limits it takes), so
 the two run side by side under ``--dist loadfile``.
 
@@ -77,7 +78,7 @@ def test_train_iteration_matches_jax(gan_type, cadence, monkeypatch):
     if per_forward:
         cfg.update(number_of_training_steps_per_iter=2,
                    use_multi_step_loss_optimization=True)
-    jsys = JaxSystem(JaxConfig(**cfg, jit_episode=False))
+    jsys = JaxSystem(JaxConfig(**cfg))
     tsys = SceneAdaptiveInterpolation(Config(**cfg, device="cpu"))
     bridge.load_jax_meta_params(tsys, jax.tree.map(np.asarray,
                                                    jsys.meta_params))
@@ -114,8 +115,8 @@ def test_train_iteration_matches_jax(gan_type, cadence, monkeypatch):
 
 @pytest.mark.parametrize("gan_type", ["GAN", "WGAN"])
 def test_outer_gradient_with_a_gan_term_matches_jax_in_float64(gan_type):
-    """A training episode in float64 on both sides (JAX with x64 on, op by
-    op), at the inner SGD rule: every tensor's outer gradient, the
+    """A training episode in float64 on both sides (JAX with x64 on, its
+    gradient jitted), at the inner SGD rule: every tensor's outer gradient, the
     discriminator's parameters handed in as the loss's ctx (WGAN-GP's
     generator term is WGAN's)."""
     cfg = dict(VF, loss=f"1*MSE+0.005*{gan_type}", batch_size=1)
@@ -129,10 +130,10 @@ def test_outer_gradient_with_a_gan_term_matches_jax_in_float64(gan_type):
     try:
         mp = jax.tree.map(lambda a: jnp.asarray(np.asarray(a), jnp.float64),
                           jsys.meta_params)
-        grads = jax.grad(lambda m: sum(
+        grads = jax.jit(jax.grad(lambda m: sum(
             jsys.builder.task_episode(m, jnp.asarray(f, jnp.float64),
                                       jnp.ones(1), spec, training=True)[0]
-            for f in frames) / len(frames))(mp)
+            for f in frames) / len(frames)))(mp)
         want = jax.tree.map(np.asarray, grads)
     finally:
         jax.config.update("jax_enable_x64", False)

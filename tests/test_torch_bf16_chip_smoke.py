@@ -224,3 +224,58 @@ def test_deterministic_sets_and_restores_the_flags():
         assert torch.backends.cudnn.deterministic
         assert (torch.are_deterministic_algorithms_enabled() == saved[1])
     assert set(chip_smoke.BF16_BITWISE) <= set(chip_smoke.BF16_CARD_VS_CPU)
+
+
+class _Dain(torch.nn.Module):
+    """DAIN's three handed steps in miniature: a depth net, flows and a
+    projection of the flows (models/dain/model.py's names)."""
+
+    def __init__(self, scale):
+        super().__init__()
+        self.depthNet = torch.nn.Linear(4, 4)
+        self.scale = scale
+
+    def flows(self, x0, x2):
+        return x0 * self.scale, x2 * self.scale
+
+    def forward(self, x):
+        from meta_interpolation_tpu_torch.models.dain import model as dain
+        depth = self.depthNet(x)
+        f0, f2 = self.flows(x, x + 1)
+        return depth + f0 + f2 + dain.flow_projection(f0, depth)
+
+
+def test_bf16_card_vs_cpu_hands_dain_its_flows_depths_and_offsets(
+        monkeypatch):
+    """The bf16 card-vs-CPU phase holds DAIN with its CPU run handed the
+    card run's PWC flows, log depths and projected offsets, call by call:
+    exactly those, every one of them, and no more."""
+    from types import SimpleNamespace
+
+    from meta_interpolation_tpu_torch.models.dain import model as dain
+    assert "dain" in chip_smoke.BF16_CARD_VS_CPU
+    assert chip_smoke.DAIN_HANDED == ("flows", "log depth", "offsets")
+    monkeypatch.setattr(dain, "flow_projection",
+                        lambda flow, depth, **kw: flow * depth)
+    x = torch.arange(8.0).reshape(2, 4)
+    record = {kind: [] for kind in chip_smoke.DAIN_HANDED}
+    card = SimpleNamespace(model=_Dain(1.0))
+    want = chip_smoke.dain_handing(torch, record, "cuda", card,
+                                   lambda: card.model(x))
+    assert {k: len(v) for k, v in record.items()} == dict.fromkeys(
+        chip_smoke.DAIN_HANDED, 1)
+    # a CPU model with other weights gives the card's result, handed
+    cpu = SimpleNamespace(model=_Dain(2.0))
+    got = chip_smoke.dain_handing(torch, record, "cpu", cpu,
+                                  lambda: cpu.model(x))
+    assert torch.equal(got, want) and not any(record.values())
+    assert not torch.equal(cpu.model(x), want)      # unhanded it differs
+    with pytest.raises(AssertionError, match="takes more log depth"):
+        chip_smoke.dain_handing(torch, record, "cpu", cpu,
+                                lambda: cpu.model(x))
+    for _ in range(2):
+        chip_smoke.dain_handing(torch, record, "cuda", card,
+                                lambda: card.model(x))
+    with pytest.raises(AssertionError, match="left"):
+        chip_smoke.dain_handing(torch, record, "cpu", cpu,
+                                lambda: cpu.model(x))

@@ -576,13 +576,16 @@ def test_timed_returns_what_it_ran_and_prints_its_time(capsys):
 K3GG = "_ZN12_GLOBAL__N_137warp_sample_grad_grid_backward_kernelILi3EEEvPKfPK6float2S2_S5_PfPS3_iiiibb"
 K3G = "_ZN12_GLOBAL__N_128warp_sample_grad_grid_kernelILi3EEEvPKfPK6float2S2_PS3_iiiibb"
 K3G_TILE = "_ZN12_GLOBAL__N_131warp_grad_grid_bf16_tile_kernelILi3EEEvPK13__nv_bfloat16PK6float2S3_PS4_iiiiibb"
+K3GG_TILE = "_ZN12_GLOBAL__N_140warp_grad_grid_backward_bf16_tile_kernelILi3EEEvPK13__nv_bfloat16PK6float2S3_S6_PS4_PS5_iiiiibb"
 
 
 def test_kernel_resources_tell_k3_grad_from_its_derivative():
-    """K3-grad's ptxas entry name is not a part of K3-grad²'s: each wrapper
-    reads its own kernel's registers."""
+    """K3-grad's ptxas entry name is not a part of K3-grad²'s, nor the bf16
+    tile kernels' of each other's: each wrapper reads its own kernel's
+    registers."""
     log = ""
-    for name, regs in ((K3G, 56), (K3GG, 64), (K3G_TILE, 48)):
+    for name, regs in ((K3G, 56), (K3GG, 64), (K3G_TILE, 48),
+                       (K3GG_TILE, 60)):
         log += f"""ptxas info    : Compiling entry function '{name}' for 'sm_90a'
 ptxas info    : Function properties for {name}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -594,6 +597,8 @@ ptxas info    : Used {regs} registers
     assert res["warp_sample_bounded_grad_grid"]["registers"] == 56
     assert res["warp_sample_bounded_grad_grid_backward"]["registers"] == 64
     assert res["warp_sample_bounded_grad_grid_bf16"]["registers"] == 48
+    assert res["warp_sample_bounded_grad_grid_backward_bf16"][
+        "registers"] == 60
 
 
 @pytest.mark.parametrize("steps,warps,second,want", [

@@ -13,6 +13,21 @@ from meta_interpolation_tpu.ops import filter_interpolation as jax_fi
 from meta_interpolation_tpu_torch.ops import filter_interpolation as fi
 from meta_interpolation_tpu_torch.ops.correlation import correlation
 
+
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    """Two intra-op threads while this file runs: the tier-1 run puts six
+    test files side by side on one host, and a thread per core each slows
+    every file down."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 # float32, another summation order (a mean over C; a 16-tap sum)
 ATOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4

@@ -24,6 +24,21 @@ from meta_interpolation_tpu_torch.meta.system import (
     SceneAdaptiveInterpolation)
 from meta_interpolation_tpu_torch.ops import warp
 
+
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    """Two intra-op threads while this file runs: the tier-1 run puts six
+    test files side by side on one host, and a thread per core each slows
+    every file down."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 CASES = list(itertools.product(("zeros", "border"), (False, True)))
 RTOL = 1e-10
 

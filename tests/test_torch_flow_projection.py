@@ -27,6 +27,21 @@ from meta_interpolation_tpu.ops.flow_projection_pallas import (
 from meta_interpolation_tpu_torch.ops import flow_projection as fp
 from meta_interpolation_tpu_torch.ops import flow_projection_bounded as fpb
 
+
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    """Two intra-op threads while this file runs: the tier-1 run puts six
+    test files side by side on one host, and a thread per core each slows
+    every file down."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 # K4's plain version against the TPU kernel in interpret mode: the limits
 # of tests/test_dain_ops.py:193 (float32, another summation order)
 K4_ATOL, K4_RTOL = 2e-5, 1e-5

@@ -7,8 +7,10 @@ CLI.
 
 ``gamma_mult`` starts at 0, where gamma is 1 whatever the attenuator
 computes, so every test sets it to 0.5 on both sides. VoxelFlow carries the
-gradient cases (Meta-SGD, 1*MSE, one inner step, crop 32, the exact warp,
-JAX op by op); SepConv's JAX evaluation is compiled. Limits as PERF.md §2:
+gradient cases (Meta-SGD, 1*MSE, one inner step, crop 32, the exact
+warp); the JAX episodes and outer gradients are compiled, once for the
+tasks of a batch (on the exact warp a VoxelFlow episode compiles in
+seconds and runs faster than op by op). Limits as PERF.md §2:
 gamma 1e-5, predictions 1e-4 and 1e-3 of their range (a random-init
 SepConv's are ~1e-4), PSNR 1e-3 dB, the outer loss 1e-5 relative,
 each tensor's outer gradient within 1e-3 of its norm at the inner SGD rule
@@ -60,7 +62,7 @@ def two_threads():
 def systems(**cfg):
     """A JAX system and a port system with gamma_mult set and every group
     of the JAX meta-parameters bridged in."""
-    jsys = JaxSystem(JaxConfig(**cfg, jit_episode=cfg["model"] != "voxelflow"))
+    jsys = JaxSystem(JaxConfig(**cfg))
     jsys.meta_params["attenuator"]["gamma_mult"] = jnp.asarray(GAMMA_MULT)
     tsys = SceneAdaptiveInterpolation(Config(**cfg, device="cpu"))
     bridge.load_jax_meta_params(tsys, jax.tree.map(np.asarray,
@@ -200,7 +202,8 @@ def test_outer_gradient_matches_jax(order):
         return jsys.builder.task_episode(mp, task, jnp.ones((1,)), spec,
                                          training=True)[0]
 
-    runs = [jax.value_and_grad(outer)(jsys.meta_params, jnp.asarray(task))
+    outer_grad = jax.jit(jax.value_and_grad(outer))
+    runs = [outer_grad(jsys.meta_params, jnp.asarray(task))
             for task in frames]
     want = jax.tree.map(lambda *g: np.asarray(sum(g) / len(g)),
                         *[g for _, g in runs])

@@ -7,7 +7,8 @@ evaluation and ×2 slow motion leaving the statistics as they were;
 ``--resume``; the refusals; and the CLI.
 
 VoxelFlow (run_voxelflow.sh: Adam, Meta-SGD, 1*MSE, one inner step) at
-crop 32 on the exact warp, JAX op by op. Limits as PERF.md §2: the
+crop 32 on the exact warp; the JAX episodes and outer gradients compiled,
+once for the tasks of a batch. Limits as PERF.md §2: the
 statistics within 1e-5 (absolute; they are O(1)), predictions 1e-4, PSNR
 1e-3 dB, the outer loss 1e-5 relative, each tensor's outer gradient within
 1e-3 of its norm at the inner SGD rule and each group's after an inner
@@ -140,7 +141,7 @@ def clips(n, mode="train", crop=CROP):
 
 def systems(**extra):
     cfg = dict(PRESET, **extra)
-    jsys = JaxSystem(JaxConfig(**cfg, jit_episode=False))
+    jsys = JaxSystem(JaxConfig(**cfg))
     tsys = SceneAdaptiveInterpolation(Config(**cfg, device="cpu"))
     bridge.load_jax_meta_params(tsys, jax.tree.map(np.asarray,
                                                    jsys.meta_params))
@@ -170,8 +171,9 @@ def test_train_iteration_matches_jax(order, frames):
                                         training=True)
         return out[0], out[-1]
 
-    runs = [jax.value_and_grad(outer, has_aux=True)(
-        jsys.meta_params, jnp.asarray(task)) for task in frames]
+    outer_grad = jax.jit(jax.value_and_grad(outer, has_aux=True))
+    runs = [outer_grad(jsys.meta_params, jnp.asarray(task))
+            for task in frames]
     want_loss = sum(float(o) for (o, _), _ in runs) / len(runs)
     want = jax.tree.map(lambda *g: np.asarray(sum(g) / len(g)),
                         *[g for _, g in runs])

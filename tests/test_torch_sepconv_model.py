@@ -14,6 +14,21 @@ from meta_interpolation_tpu_torch.models import layers
 from meta_interpolation_tpu_torch.models import registry
 from meta_interpolation_tpu_torch.models.sepconv import SepConv, inner_mask
 
+
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    """Two intra-op threads while this file runs: the tier-1 run puts six
+    test files side by side on one host, and a thread per core each slows
+    every file down."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 LAYER_ATOL = 1e-6   # one resampling pass in float32
 MODEL_ATOL = 1e-4   # ~30 convolutions and two F=51 sepconvs in float32
 

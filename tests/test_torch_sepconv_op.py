@@ -15,6 +15,21 @@ import torch
 from meta_interpolation_tpu.ops import sepconv as jax_sc
 from meta_interpolation_tpu_torch.ops import sepconv as sc
 
+
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    """Two intra-op threads while this file runs: the tier-1 run puts six
+    test files side by side on one host, and a thread per core each slows
+    every file down."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 # only the summation order differs between the two frameworks
 FWD_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5

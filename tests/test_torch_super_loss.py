@@ -13,6 +13,21 @@ from meta_interpolation_tpu_torch.core import checkpoint as bridge
 from meta_interpolation_tpu_torch.core import losses
 from meta_interpolation_tpu_torch.ops import warp
 
+
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    """Two intra-op threads while this file runs: the tier-1 run puts six
+    test files side by side on one host, and a thread per core each slows
+    every file down."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ten 3x3 convolutions in float32 on He-init weights: features of O(1-10)
 FEAT_RTOL = 1e-5          # of the largest feature
 LOSS_RTOL = 1e-5

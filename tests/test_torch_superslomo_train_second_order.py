@@ -3,7 +3,9 @@
 K3-grad²'s plain versions, the Super loss's double backward through its
 VGG16) held against the JAX system: one inner SGD step, batch 1. Its own
 test process: the JAX second order through the unrolled sweep takes most
-of two minutes. The other cases are in tests/test_torch_superslomo_train.py.
+of two minutes op by op, a third less with the sweep compiled on its own
+(tests/test_torch_warp_train.py ``jitted_sweep``). The other cases are in
+tests/test_torch_superslomo_train.py.
 """
 import pytest
 

@@ -23,6 +23,21 @@ from meta_interpolation_tpu_torch.models import registry
 from meta_interpolation_tpu_torch.models.voxelflow import VoxelFlow
 from meta_interpolation_tpu_torch.ops import warp
 
+
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    """Two intra-op threads while this file runs: the tier-1 run puts six
+    test files side by side on one host, and a thread per core each slows
+    every file down."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ten convolutions, frozen BN and two bilinear samples in float32; outputs
 # are frames in [-1, 1]. A sample coordinate near 63 px carries float32
 # rounding of ~4e-6 px, and neighbouring pixels of the random frames

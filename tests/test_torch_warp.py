@@ -21,6 +21,21 @@ from meta_interpolation_tpu_torch.models import layers
 from meta_interpolation_tpu_torch.ops import warp
 from meta_interpolation_tpu_torch.ops import warp_bounded as wb
 
+
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    """Two intra-op threads while this file runs: the tier-1 run puts six
+    test files side by side on one host, and a thread per core each slows
+    every file down."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 # float32 with another summation order
 ATOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5

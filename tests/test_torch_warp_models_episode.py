@@ -13,7 +13,9 @@ systems run their episodes op by op (``jit_episode=False``, a flag of the
 JAX package): the bounded warp's unrolled (2R + 2)² sweep and its gradient
 make a jitted episode compile for minutes, while the op-by-op episodes
 share their compiled primitives across the tests of this file, the exact
-episode of each model running first.
+episode of each model running first; the bounded ones run the sweep
+itself compiled on its own (tests/test_torch_warp_train.py
+``jitted_sweep``).
 """
 import inspect
 
@@ -32,6 +34,7 @@ from meta_interpolation_tpu_torch.main import main
 from meta_interpolation_tpu_torch.meta.system import (
     SceneAdaptiveInterpolation)
 from meta_interpolation_tpu_torch.ops import warp_bounded as wb
+from test_torch_warp_train import jitted_sweep
 
 PRED_ATOL = 1e-4
 PSNR_TOL_DB = 1e-3
@@ -78,7 +81,8 @@ def _systems(cfg):
 
 
 def _hold_episode_to_jax(jsys, tsys, frames):
-    j_losses, j_preds = jsys.run_validation_iter(frames)
+    with jitted_sweep(jsys):
+        j_losses, j_preds = jsys.run_validation_iter(frames)
     t_losses, t_preds = tsys.run_validation_iter(frames)
     assert t_preds.shape == (1, 3, CROP, CROP)
     got, want = t_preds.numpy().transpose(0, 2, 3, 1), np.asarray(j_preds)

@@ -7,7 +7,9 @@ files (tests/test_torch_{rrin,superslomo,dain}_train*.py).
 Each test builds a JAX system and a port system with the JAX init and
 Meta-SGD rates bridged into the port. The JAX outer loss and gradient are
 ``jax.value_and_grad`` of its training task episode, op by op (the bounded
-warp's unrolled (2R + 2)² sweep compiles for minutes under ``jax.jit``).
+warp's unrolled (2R + 2)² sweep makes the whole episode compile for
+minutes under ``jax.jit``), but for the sweep itself, compiled on its own
+(``jitted_sweep``).
 First order runs at the preset's inner rule; second order at the inner SGD
 rule, whose second derivative is smooth (the first inner Adam step is
 ~lr·sign(g), whose derivative eps/(|g| + eps)² reaches 1e8 at g ≈ 0, so no
@@ -20,6 +22,7 @@ zero steps the other way on one side, which moves a small tensor's query
 gradient by more (SuperSloMo's flowComp.up1.conv1.bias by 1.4e-2 of its
 norm, its group by 1.3e-4; at the inner SGD rule every tensor within 7e-5).
 """
+import contextlib
 import inspect
 
 import jax
@@ -33,6 +36,7 @@ from meta_interpolation_tpu.config import Config as JaxConfig
 from meta_interpolation_tpu.meta import episode as jax_episode
 from meta_interpolation_tpu.meta.system import (
     SceneAdaptiveInterpolation as JaxSystem)
+from meta_interpolation_tpu.ops import warp as jax_warp
 from meta_interpolation_tpu_torch.config import Config
 from meta_interpolation_tpu_torch.core import checkpoint as bridge
 from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
@@ -121,6 +125,23 @@ def clips(model, n, crop=CROP):
     return np.stack([np.asarray(data[i][0]) for i in range(n)])
 
 
+@contextlib.contextmanager
+def jitted_sweep(jsys):
+    """Where ``jsys`` runs the bounded warp, its sweep (``ops/warp.py``
+    ``_warp_bounded_xla``, which an episode runs on the CPU) compiled on
+    its own while the block runs: one XLA program a shape and R in place
+    of the ops of its (2R + 2)² shifted windows dispatched one at a time,
+    the rest of an op-by-op episode as it was. The same function: the
+    reference is unchanged."""
+    real = jax_warp._warp_bounded_xla
+    if jsys.cfg.fast_warp_range:
+        jax_warp._warp_bounded_xla = jax.jit(real, static_argnums=5)
+    try:
+        yield
+    finally:
+        jax_warp._warp_bounded_xla = real
+
+
 def jax_outer(jsys, frames, jit=False):
     """The JAX outer loss and masked gradient: ``jax.value_and_grad`` of
     its training task episode on each task, averaged (its vmap and mean),
@@ -138,7 +159,9 @@ def jax_outer(jsys, frames, jit=False):
 
     step = jax.value_and_grad(outer)
     step = jax.jit(step) if jit else step
-    runs = [step(jsys.meta_params, jnp.asarray(task)) for task in frames]
+    with jitted_sweep(jsys):
+        runs = [step(jsys.meta_params, jnp.asarray(task))
+                for task in frames]
     grads = jax.tree.map(lambda *g: sum(g) / len(g), *[g for _, g in runs])
     grads = jax.tree.map(lambda g, m: g * float(m), grads,
                          jsys._trainable_mask)

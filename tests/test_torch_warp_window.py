@@ -1,4 +1,5 @@
-"""The tap window of the bf16 K3 / K3-grad tile kernels, on the CPU.
+"""The tap window of the bf16 K3 / K3-grad / K3-grad² tile kernels, on the
+CPU.
 
 csrc/warp.cu's bf16 kernels stage each block's tap window in shared memory
 and read every tap from there, so they are right only if every tap the
@@ -7,7 +8,8 @@ tile. Held here on the plain sampler's own tap indices
 (``ops/warp_bounded._axis``, the floors, the edge clamp) over grids within
 R, past R, far outside the image and at ±1e30; and the route function
 (``bf16_window``) that sends what does not fit to the gather kernels, with
-its constants read from the kernel source.
+its constants read from the kernel source; the entry point each call
+takes, the binding, the counters, and the bf16 K3-grad² on the CPU.
 """
 import re
 from pathlib import Path
@@ -18,6 +20,21 @@ import pytest
 import torch
 
 from meta_interpolation_tpu_torch.ops import warp_bounded as wb
+
+
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    """Two intra-op threads while this file runs: the tier-1 run puts six
+    test files side by side on one host, and a thread per core each slows
+    every file down."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 
 SRC = (Path(__file__).resolve().parents[1] / "meta_interpolation_tpu_torch"
        / "csrc" / "warp.cu")
@@ -102,6 +119,9 @@ def test_every_tap_lies_in_its_tiles_window(kind, padding, align, r, h, w):
     ((1, 3, 4096, 4096), 73, ("gather", 162, 184, 238464)),  # past 227 KB
     ((1, 3, 256, 448), 100, ("gather", 216, 232, 400896)),
     ((2, 5, 37, 53), 8, ("gather", 32, 48, 12288)),     # C > 4
+    ((1, 3, 256, 256), 8, ("tile", 32, 48, 12288)),     # second order
+    ((1, 3, 256, 448), 49, ("tile", 114, 136, 124032)),
+    ((1, 3, 256, 448), 80, ("gather", 176, 192, 270336)),  # chip_smoke's
 ])
 def test_route_sends_what_does_not_fit_to_the_gather_kernels(shape, r,
                                                              want):
@@ -122,48 +142,100 @@ def test_route_constants_are_the_kernels():
     # a texel is a uint2 of kTexelC bf16 values
     assert wb.TEXEL_BYTES == 2 * wb.TEXEL_CHANNELS
     assert re.search(r"const uint2 t = texels\[", text)
+    # K3-grad²'s bf16 tile kernel is launched by the same rule
+    assert re.search(r"int grad_grid_backward_tile\([^{]*\{\s*const auto "
+                     r"kernel = c == 3 \? warp_grad_grid_backward_bf16_"
+                     r"tile_kernel<3>[^}]*tile_launch\(kernel", text)
 
 
-@pytest.mark.parametrize("dtype, c, want", [
-    (torch.float32, 3, ("warp_sample_bounded_forward", None)),
-    (torch.float32, 5, ("warp_sample_bounded_forward", None)),
-    (torch.bfloat16, 3, ("warp_sample_bounded_forward_bf16", "tile")),
-    (torch.bfloat16, 4, ("warp_sample_bounded_forward_bf16", "tile")),
-    (torch.bfloat16, 5, ("warp_sample_bounded_forward_bf16_gather",
-                         "gather")),
+GRAD2 = "warp_sample_bounded_grad_grid_backward"
+NAMES = ("warp_sample_bounded_forward", "warp_sample_bounded_grad_grid",
+         GRAD2)
+
+
+@pytest.mark.parametrize("name, dtype, c, r, want", [
+    (NAMES[0], torch.float32, 3, 8, (NAMES[0], None)),
+    (NAMES[0], torch.float32, 5, 8, (NAMES[0], None)),
+    (NAMES[0], torch.bfloat16, 3, 8, (NAMES[0] + "_bf16", "tile")),
+    (NAMES[0], torch.bfloat16, 4, 8, (NAMES[0] + "_bf16", "tile")),
+    (NAMES[0], torch.bfloat16, 5, 8, (NAMES[0] + "_bf16_gather",
+                                      "gather")),
+    (NAMES[1], torch.bfloat16, 3, 8, (NAMES[1] + "_bf16", "tile")),
+    (NAMES[1], torch.bfloat16, 3, 80, (NAMES[1] + "_bf16_gather",
+                                       "gather")),
+    # K3-grad²: its float32 kernel, or its bf16 tile kernel
+    (GRAD2, torch.float32, 3, 8, (GRAD2, None)),
+    (GRAD2, torch.float32, 5, 80, (GRAD2, None)),
+    (GRAD2, torch.bfloat16, 3, 8, (GRAD2 + "_bf16", "tile")),
+    (GRAD2, torch.bfloat16, 4, 49, (GRAD2 + "_bf16", "tile")),
 ])
-def test_entry_point_follows_the_route(dtype, c, want):
-    lib = SimpleNamespace(**{name: name for name in (
-        "warp_sample_bounded_forward", "warp_sample_bounded_forward_bf16",
-        "warp_sample_bounded_forward_bf16_gather")})
-    img = torch.zeros(2, c, 37, 53, dtype=dtype)
-    assert wb._entry(lib, "warp_sample_bounded_forward", img, 8) == want
+def test_entry_point_follows_the_route(name, dtype, c, r, want):
+    lib = SimpleNamespace(**{base + suffix: base + suffix
+                             for base in NAMES
+                             for suffix in ("", "_bf16", "_bf16_gather")})
+    img = torch.zeros(1, c, 256, 448, dtype=dtype)
+    assert wb._entry(lib, name, img, r) == want
 
 
-def test_bind_sets_every_bf16_entry_point_it_finds():
-    """The checkout's source has both bf16 routes; an earlier source with
-    today's C interface may have one bf16 entry point each way (the gather
-    design)."""
-    names = ["warp_sample_bounded_forward", "warp_sample_bounded_grad_grid",
-             "warp_sample_bounded_grad_grid_backward"]
-    for extra in (("_bf16",), ("_bf16", "_bf16_gather")):
-        lib = SimpleNamespace(**{
-            name + suffix: SimpleNamespace()
-            for name in names for suffix in ("",) + (
-                extra if name != names[2] else ())})
-        wb._bind(lib)
-        for name in names[:2]:
-            for suffix in extra:
+@pytest.mark.parametrize("extra, grad2", [
+    ((), ()),                             # a source from before bf16
+    (("_bf16",), ()),                     # one bf16 kernel each way
+    (("_bf16", "_bf16_gather"), ()),      # both routes of K3 and K3-grad
+    (("_bf16", "_bf16_gather"), ("_bf16",)),  # and K3-grad²'s bf16 kernel
+])
+def test_bind_sets_every_bf16_entry_point_it_finds(extra, grad2):
+    """The checkout's source has every bf16 entry point; an earlier source
+    with today's C interface may have fewer: those it has are bound with
+    their float32 counterpart's signature, and none is made up."""
+    names = NAMES
+    lib = SimpleNamespace(**{
+        name + suffix: SimpleNamespace()
+        for name in names
+        for suffix in ("",) + (extra if name != GRAD2 else grad2)})
+    wb._bind(lib)
+    for name in names:
+        for suffix in ("_bf16", "_bf16_gather"):
+            if hasattr(lib, name + suffix):
                 fn = getattr(lib, name + suffix)
                 assert fn.argtypes == getattr(lib, name).argtypes
-        assert not hasattr(lib, names[0] + "_bf16_gather") or \
-            "_bf16_gather" in extra
+    assert len(getattr(lib, GRAD2).argtypes) == 14
+    assert hasattr(lib, GRAD2 + "_bf16") == bool(grad2)
+    assert not hasattr(lib, GRAD2 + "_bf16_gather")
+    assert not hasattr(lib, names[0] + "_bf16_gather") or \
+        "_bf16_gather" in extra
 
 
 def test_reset_launches_clears_the_gather_counts():
-    for fn in (wb.warp_sample_bounded_forward,
-               wb.warp_sample_bounded_grad_grid):
-        fn.gather_launches = 3
+    fns = (wb.warp_sample_bounded_forward, wb.warp_sample_bounded_grad_grid,
+           wb.warp_sample_bounded_grad_grid_backward)
+    for fn in fns:
+        fn.launches = fn.gather_launches = 3
     wb.reset_launches()
-    assert wb.warp_sample_bounded_forward.gather_launches == 0
-    assert wb.warp_sample_bounded_grad_grid.gather_launches == 0
+    for fn in fns:
+        assert fn.launches == fn.gather_launches == 0
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+@pytest.mark.parametrize("grid_dtype", [torch.float32, torch.bfloat16])
+def test_bf16_grad2_on_the_cpu_is_the_widened_plain_version_rounded(
+        padding, grid_dtype):
+    """On CPU tensors the bf16 K3-grad² is its plain version on the widened
+    operands, gg rounded to bf16 and the grid's cotangent to the grid's
+    type: the bits its bf16 kernel gives on the card."""
+    n, c, h, w, r = 2, 3, 9, 13, 3
+    rng = np.random.default_rng(3)
+    bf = torch.bfloat16
+    img = torch.from_numpy(rng.random((n, c, h, w), np.float32)).to(bf)
+    g = torch.from_numpy(rng.standard_normal((n, c, h, w),
+                                             np.float32)).to(bf)
+    v = torch.from_numpy(rng.standard_normal((n, h, w, 2), np.float32))
+    grid = _grid("past", n, h, w, r, False, seed=4).to(grid_dtype)
+    wb.reset_launches()
+    gg, ggrid = wb.warp_sample_bounded_grad_grid_backward(img, grid, g, v, r,
+                                                          False, padding)
+    want = wb.grid_sample_bounded_grad_grid_backward_ref(
+        img.float(), grid.float(), g.float(), v, r, False, padding)
+    assert gg.dtype == bf and ggrid.dtype == grid_dtype
+    assert torch.equal(gg, want[0].to(bf))
+    assert torch.equal(ggrid, want[1].to(grid_dtype))
+    assert wb.warp_sample_bounded_grad_grid_backward.launches == 0
