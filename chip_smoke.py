@@ -189,6 +189,20 @@ as that tree did. Phases, in order:
          (prep.cpp built with g++, no fallback; a batch bit for bit the
          numpy transcription of the C arithmetic, within one ulp of the
          numpy path); DAIN's off-path ops at 256x448 card vs CPU;
+       - task parallelism (``parallel``): run_sepconv.sh at batch 4 on 2
+         ranks of the one card over gloo (``--mesh_shape 2``, started by
+         parallel/launch.spawn, the CLI in each), a warm-up and a timed
+         train iteration of 2 tasks a rank and the epoch's validation:
+         28 K1 and 28 K2 a rank an iteration, 14/12 a validation clip; the
+         first iteration against one process on the same batch and
+         weights on the card (the loss within 1e-6, each group's gradient
+         before the step within 1e-5 of its norm plus twice the spread of
+         two one-process runs, the weights after the Adamax step within
+         the bound the gradients' difference puts on it,
+         adamax_step_bound); K1/K2 built by both ranks at once into
+         one fresh directory; halo_exchange bit for bit and
+         spatial_sharded_apply on interior rows (1e-5) on CUDA tensors;
+         and, beside the two, one rank alone over NCCL;
   5. a JSON line of per-kernel results, each with its launches on every
      main path that runs it (``launches_by_path``: K1/K2 the training
      CLI's, the SepConv test runs' and the engine's L2F and adversarial
@@ -196,10 +210,11 @@ as that tree did. Phases, in order:
      training paths', the per-step BN ones included; K3-grad² their
      second-order training paths'; K1/K2 also the ``rest`` phase's SepConv
      paths and K3/K3-grad (K3-grad² in second order) its VoxelFlow
-     --remat paths; K4 the served DAIN frames' and its bf16 paths'; the
-     bf16 kernels of K1, K2, K3, K3-grad and K3-grad² five records of
-     their own, K3's and K3-grad's with their times at one image and at
-     the served batch, ``by_batch`` and ``served_batch``; K3-grad²'s two
+     --remat paths, and each ``parallel`` rank's run; K4 the served DAIN
+     frames' and its bf16 paths'; the bf16 kernels of K1, K2, K3,
+     K3-grad and K3-grad² five records of their own, K3's and K3-grad's
+     with their times at one image and at the served batch, ``by_batch``
+     and ``served_batch``; K3-grad²'s two
      with their times at GRAD2_SHAPES, ``by_shape``, and at the
      second-order main paths' shapes, ``main_path_shapes``) and their sum
      (``launches``), the card line again, and the last line {"ok": true,
@@ -215,6 +230,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -5085,6 +5101,359 @@ def rest_phase(torch, mods, sc, wb, card):
     return paths
 
 
+# task parallelism (parallel/mesh.py): run_sepconv.sh at batch 4 over 2
+# ranks on the one card (--mesh_shape 2, gloo: NCCL refuses two ranks on
+# one device), 2 tasks a rank; each rank's loader takes 2 threads
+PARALLEL_RANKS, PARALLEL_TASKS = 2, 4
+PARALLEL_FLAGS = TRAIN_FLAGS + [
+    "--batch_size", str(PARALLEL_TASKS), "--crop_size", str(CLI_CROP),
+    "--max_epoch", "1", "--total_iter_per_epoch", "2", "--num_workers", "2"]
+# a rank's first-order iteration: K1_PER_CLIP K1 and K2_PER_CLIP + CALLS K2
+# a task (28 and 28 for 2 tasks); a validation clip (batch 1, which the
+# task axis does not divide) runs whole on each rank
+K1_PER_RANK_ITER = PARALLEL_TASKS // PARALLEL_RANKS * K1_PER_CLIP
+K2_PER_RANK_ITER = PARALLEL_TASKS // PARALLEL_RANKS * (K2_PER_CLIP + CALLS)
+# the ranks against one process: the order of the gradient's sum over tasks
+# differs (an all-reduce of the ranks' sums), and on the card the backward
+# itself is not reproducible (F.interpolate's backward adds with atomics;
+# one process against itself ~1e-5 of the net gradient's norm and ~2.5e-5
+# of the rates' on an H100, PERF.md): each group's gradient is held within
+# PARALLEL_GRAD_RTOL plus twice the spread of two one-process runs in the
+# same call; the forward is reproducible, so the loss to 1e-6
+PARALLEL_LOSS_RTOL, PARALLEL_GRAD_RTOL = 1e-6, 1e-5
+# the halo exchange and the row-sharded apply on CUDA tensors: a frame of
+# FULL_HW rows split in 2 bands, a halo of 32 rows, a two-conv stack
+HALO_ROWS, SHARDED_APPLY_RTOL = 32, 1e-5
+PARALLEL_TIMEOUT = 600
+
+
+def adamax_step_bound(torch, lr, d_grad, weight, eps=1e-8):
+    """How far apart two first outer Adamax (or Adam) steps may put a
+    weight when their gradients differ by ``d_grad``: the step lr·g/(|g| +
+    eps) has a slope of at most 1/eps (at g = 0, where a gradient within
+    rounding of zero steps either way), so lr·min(2, |Δg|/eps), plus the
+    rounding of each side's subtraction (an ulp of the weight) and of the
+    step itself."""
+    return (lr * torch.clamp(d_grad.double().abs() / eps, max=2.0)
+            + 2 * weight.double().abs() * 2.0 ** -23 + 1e-6 * lr)
+
+
+def halo_checks(torch, dev, mesh):
+    """halo_exchange and spatial_sharded_apply on CUDA tensors over the
+    mesh's spatial axis: each band padded with its neighbours' rows (and
+    its own reflected at the frame's ends) bit for bit, and the frame
+    assembled from a two-conv stack's bands against the dense stack on
+    its interior rows."""
+    from meta_interpolation_tpu_torch.parallel import spatial
+    gen = torch.Generator().manual_seed(11)
+    h, w = FULL_HW
+    x = torch.rand(1, 3, h, w, generator=gen).to(dev)
+    band = spatial.shard_rows(mesh, x)
+    padded = spatial.halo_exchange(band, HALO_ROWS, mesh.spatial_group)
+    rows = h // mesh.spatial
+    lo, hi = mesh.spatial_index * rows, (mesh.spatial_index + 1) * rows
+    top = (x[:, :, lo - HALO_ROWS:lo] if lo else
+           x[:, :, :HALO_ROWS].flip(2))
+    bottom = (x[:, :, hi:hi + HALO_ROWS] if hi < h else
+              x[:, :, -HALO_ROWS:].flip(2))
+    want = torch.cat([top, band, bottom], dim=2)
+    check(torch.equal(padded, want),
+          f"halo exchange on rank {mesh.rank} is not the neighbours' rows")
+    params = {"c1.weight": torch.randn(8, 3, 3, 3, generator=gen) * 0.3,
+              "c1.bias": torch.randn(8, generator=gen) * 0.1,
+              "c2.weight": torch.randn(3, 8, 3, 3, generator=gen) * 0.3,
+              "c2.bias": torch.randn(3, generator=gen) * 0.1}
+    params = {k: v.to(dev) for k, v in params.items()}
+
+    def stack(p, f0, f1):
+        y = torch.relu(torch.nn.functional.conv2d(
+            (f0 + f1) / 2, p["c1.weight"], p["c1.bias"], padding=1))
+        return torch.nn.functional.conv2d(y, p["c2.weight"], p["c2.bias"],
+                                          padding=1)
+    f1 = torch.rand(1, 3, h, w, generator=gen).to(dev)
+    out = spatial.gather_rows(mesh, spatial.spatial_sharded_apply(
+        stack, mesh, HALO_ROWS)(params, x, f1))
+    dense = stack(params, x, f1)
+    inner = slice(HALO_ROWS, -HALO_ROWS)
+    err = max_err(out[:, :, inner], dense[:, :, inner],
+                  "row-sharded conv stack")
+    scale = float(dense.abs().max())
+    check(err <= SHARDED_APPLY_RTOL * scale,
+          f"row-sharded apply: {err:.3e} on interior rows (max {scale:.3e})")
+    return {"halo": f"{tuple(padded.shape)} on {padded.device}",
+            "apply_err": err, "apply_scale": scale}
+
+
+def parallel_rank(rank, work):
+    """One rank of the parallel phase: both ranks build K1/K2 at once into
+    one fresh directory, run the halo checks, then the training CLI on
+    the 2-rank mesh with each train iteration's launches, seconds and
+    (rank 0) its batch, gradient and weights recorded; the results go to
+    ``work``."""
+    import pathlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from meta_interpolation_tpu_torch.main import main as port_main
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation as System)
+    from meta_interpolation_tpu_torch.ops import _build
+    from meta_interpolation_tpu_torch.ops import sepconv as sc
+    from meta_interpolation_tpu_torch.parallel import mesh as mesh_lib
+    work = pathlib.Path(work)
+    _build.BUILD_DIR = work / "kernels"
+    # every task computed as one process computes it (cuDNN's algorithms
+    # fixed): the ranks and that process then differ only in the order of
+    # the gradient's sum over tasks
+    torch.backends.cudnn.deterministic = True
+    dev = mesh_lib.init_distributed("cuda")
+    out = {"backend": dist.get_backend(), "device": str(dev)}
+    dist.barrier()
+    t0 = time.perf_counter()
+    out["build"] = {k: v["seconds"] for k, v in _build.build(
+        ["sepconv"]).items()}
+    out["build_s"] = time.perf_counter() - t0
+    out.update(halo_checks(torch, dev, mesh_lib.make_mesh(
+        f"1x{PARALLEL_RANKS}")))
+
+    first, trains, vals = {}, [], []
+    real_outer = System.outer_grads
+
+    def cpu(tree):
+        return {g: {k: v.detach().cpu().clone() for k, v in t.items()}
+                for g, t in tree.items() if g in ("net", "lrs")}
+
+    def outer_grads(self, frames, *args, **kwargs):
+        if not first:
+            first["frames"] = np.asarray(frames).copy()
+            first["before"] = cpu(self.meta_params)
+        loss, aux, grads = real_outer(self, frames, *args, **kwargs)
+        if "grads" not in first:
+            first["loss"], first["grads"] = float(loss), cpu(grads)
+        return loss, aux, grads
+
+    def counted(name, log):
+        real = getattr(System, name)
+
+        def wrapped(self, frames, *args, **kwargs):
+            torch.cuda.synchronize()
+            before = launch_counts((sc,))
+            t = time.perf_counter()
+            res = real(self, frames, *args, **kwargs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            after = launch_counts((sc,))
+            log.append((dt, {k: after[k] - before[k] for k in after},
+                        res[0]))
+            if name == "run_train_iter" and "after" not in first:
+                first["after"] = cpu(self.meta_params)
+            return res
+        return wrapped
+
+    run = with_attr(System, "outer_grads", outer_grads, with_attr(
+        System, "run_train_iter", counted("run_train_iter", trains),
+        with_attr(System, "run_validation_iter",
+                  counted("run_validation_iter", vals), port_main)))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches((sc,))
+    stats = run(PARALLEL_FLAGS + ["--mesh_shape", str(PARALLEL_RANKS),
+                                  "--checkpoint_dir", str(work / "ck")])
+    out["launches"] = launch_counts((sc,))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out.update(trains=trains, vals=vals, stats=stats)
+    if rank == 0:
+        torch.save(first, work / "first.pt")
+    torch.save(out, work / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def nccl_rank(rank, work):
+    """One rank alone with its card: init_distributed takes NCCL, and the
+    collectives the parallel module uses run through it."""
+    import pathlib
+
+    import torch
+    import torch.distributed as dist
+    from meta_interpolation_tpu_torch.parallel import mesh as mesh_lib
+    from meta_interpolation_tpu_torch.parallel import spatial
+    dev = mesh_lib.init_distributed("cuda")
+    backend = dist.get_backend()
+    x = torch.arange(12.0, device=dev).reshape(1, 1, 4, 3)
+    y = x.clone()
+    dist.all_reduce(y)
+    parts = [torch.empty_like(x)]
+    dist.all_gather(parts, x)
+    dist.broadcast(y, src=0)
+    padded = spatial.halo_exchange(x, 2, None)
+    ok = (torch.equal(y, x) and torch.equal(parts[0], x) and torch.equal(
+        padded, torch.cat([x[:, :, :2].flip(2), x, x[:, :, -2:].flip(2)],
+                          dim=2)))
+    torch.save({"backend": backend, "device": str(dev), "ok": ok},
+               pathlib.Path(work) / "nccl.pt")
+    dist.destroy_process_group()
+
+
+def parallel_phase(torch, mods, card):
+    """run_sepconv.sh at batch 4 on 2 ranks of the one card over gloo
+    (--mesh_shape 2), through the CLI: a warm-up and a timed train
+    iteration of 2 tasks a rank, then the epoch's validation; the first
+    iteration held against one process on the same batch and weights on
+    the card (the loss, each group's gradient before the step against the
+    card's own spread, the weights after it by adamax_step_bound); K1 and
+    K2 launches a rank;
+    the halo exchange and the row-sharded apply on CUDA tensors; and,
+    beside the two, one rank alone over NCCL. Returns each rank's launches
+    over its run."""
+    import shutil
+    import tempfile
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation as System)
+    from meta_interpolation_tpu_torch.parallel.launch import spawn
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="smoke_parallel_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        # the NCCL rank beside the two gloo ranks, in a thread of its own
+        nccl_failed = []
+
+        def run_nccl():
+            t = time.perf_counter()
+            try:
+                spawn(nccl_rank, 1, args=(work,), timeout=PARALLEL_TIMEOUT)
+            except BaseException as e:  # re-raised after the gloo ranks
+                nccl_failed.append(e)
+            nccl_failed.append(time.perf_counter() - t)
+
+        nccl_thread = threading.Thread(target=run_nccl)
+        t0 = time.perf_counter()
+        nccl_thread.start()
+        spawn(parallel_rank, PARALLEL_RANKS, args=(work,),
+              timeout=PARALLEL_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+        nccl_thread.join()
+        if isinstance(nccl_failed[0], BaseException):
+            raise nccl_failed[0]
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                            weights_only=False)
+                 for r in range(PARALLEL_RANKS)]
+        first = torch.load(os.path.join(work, "first.pt"),
+                           weights_only=False)
+        want_iter = {"sepconv_forward": K1_PER_RANK_ITER,
+                     "sepconv_grad_kernels": K2_PER_RANK_ITER}
+        want_clip = {"sepconv_forward": K1_PER_CLIP,
+                     "sepconv_grad_kernels": K2_PER_CLIP}
+        for r, rank in enumerate(ranks):
+            check(rank["backend"] == "gloo" and rank["device"] == "cuda:0",
+                  f"rank {r}: {rank['backend']} on {rank['device']}")
+            check(len(rank["trains"]) == 2 and len(rank["vals"]) == 2,
+                  f"rank {r}: {len(rank['trains'])} train and "
+                  f"{len(rank['vals'])} validation iterations")
+            for _, got, _ in rank["trains"]:
+                check({k: got[k] for k in want_iter} == want_iter,
+                      f"rank {r}: a train iteration launched {got}, want "
+                      f"{want_iter}")
+            for _, got, _ in rank["vals"]:
+                check({k: got[k] for k in want_clip} == want_clip,
+                      f"rank {r}: a validation clip launched {got}, want "
+                      f"{want_clip}")
+            losses = [t[2]["loss"] for t in rank["trains"]]
+            check(losses == [t[2]["loss"] for t in ranks[0]["trains"]]
+                  and rank["stats"] == ranks[0]["stats"],
+                  f"rank {r}: losses {losses}, stats {rank['stats']} differ "
+                  f"from rank 0's")
+            print(f"[parallel] rank {r}: {rank['backend']} on "
+                  f"{rank['device']}, K1/K2 "
+                  f"{[t[1]['sepconv_forward'] for t in rank['trains']]}/"
+                  f"{[t[1]['sepconv_grad_kernels'] for t in rank['trains']]}"
+                  f" a train iteration (want {K1_PER_RANK_ITER}/"
+                  f"{K2_PER_RANK_ITER}), {want_clip} a validation clip; "
+                  f"s/iteration warm-up {rank['trains'][0][0]:.4f}, timed "
+                  f"{rank['trains'][1][0]:.4f} ({card}; 2 ranks share the "
+                  f"card: no speed-up is measured); peak memory "
+                  f"{rank['peak_gib']:.2f} GiB; K1/K2 built by both ranks "
+                  f"at once into one directory in {rank['build_s']:.1f} s "
+                  f"({rank['build']}); halo exchange {rank['halo']} bit for "
+                  f"bit, row-sharded apply {rank['apply_err']:.3e} on "
+                  f"interior rows (max {rank['apply_scale']:.3e})")
+
+        # one process, the same batch and weights, on the card, with the
+        # ranks' cuDNN setting: its outer gradient twice (the card's own
+        # spread), then its train iteration
+        system = System(get_args(PARALLEL_FLAGS))
+        with torch.no_grad():
+            for g, tree in first["before"].items():
+                for k, v in tree.items():
+                    system.meta_params[g][k].copy_(v)
+        taken = []
+        real = system.outer_grads
+        system.outer_grads = lambda *a, **k: taken.append(
+            real(*a, **k)) or taken[-1]
+
+        def on_cpu(tree):
+            return {g: {k: v.detach().cpu() for k, v in t.items()}
+                    for g, t in tree.items() if g in first["grads"]}
+
+        with deterministic(torch, False):
+            system.outer_grads(first["frames"], 0, True)
+            system.run_train_iter(first["frames"], 0, do_evaluation=True)
+        (loss2, _, grads2), (loss, _, grads) = taken
+        loss, loss2 = float(loss), float(loss2)
+        grads, grads2 = on_cpu(grads), on_cpu(grads2)
+        after, lr = on_cpu(system.meta_params), system.cfg.outer_lr
+        del system, taken
+
+        def group_rel(a, b):
+            return {g: sum(float((v - b[g][k]).double().norm()) ** 2
+                           for k, v in a[g].items()) ** 0.5
+                    / sum(float(v.double().norm()) ** 2
+                          for v in b[g].values()) ** 0.5 for g in b}
+
+        rel, own = group_rel(first["grads"], grads), group_rel(grads2, grads)
+        print(f"[parallel] vs one process on the card ({card}): loss "
+              f"{first['loss']!r} vs {loss!r} (again {loss2!r}), gradient "
+              + ", ".join(f"{g} {v:.3e}" for g, v in rel.items())
+              + " of its norm; one process against itself "
+              + ", ".join(f"{g} {v:.3e}" for g, v in own.items()))
+        check(abs(first["loss"] - loss) <= PARALLEL_LOSS_RTOL * abs(loss),
+              f"ranks' loss {first['loss']!r} vs one process {loss!r}")
+        flips, total, worst = 0, 0, 0.0
+        for g, tree in first["after"].items():
+            for k, v in tree.items():
+                want = after[g][k]
+                d = (v - want).double().abs()
+                bound = adamax_step_bound(
+                    torch, lr, first["grads"][g][k] - grads[g][k], want)
+                check(bool((d <= bound).all()),
+                      f"{g}/{k}: weights after the step differ by "
+                      f"{float(d.max()):.3e}, over the step's bound")
+                flips += int((d > 0.1 * lr).sum())
+                total += d.numel()
+                worst = max(worst, float(d.max()))
+        print(f"[parallel] weights after the Adamax step within the step's "
+              f"bound, largest difference {worst:.3e} ({worst / lr:.3f} "
+              f"lr), {flips} of {total} beyond 0.1 lr; the ranks' run took "
+              f"{ranks_s:.1f} s")
+        for g, v in rel.items():
+            check(v <= PARALLEL_GRAD_RTOL + 2 * own[g],
+                  f"{g} gradient: ranks vs one process {v:.3e} of its norm, "
+                  f"over {PARALLEL_GRAD_RTOL:.0e} + 2 x {own[g]:.3e} (one "
+                  f"process against itself)")
+
+        nccl = torch.load(os.path.join(work, "nccl.pt"), weights_only=False)
+        check(nccl["backend"] == "nccl" and nccl["ok"],
+              f"NCCL rank: {nccl}")
+        print(f"[parallel] 1 rank alone, beside the two: {nccl['backend']} "
+              f"on {nccl['device']}, all_reduce, all_gather, broadcast and "
+              f"the halo exchange right, in {nccl_failed[0]:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {f"sepconv_parallel_rank{r}": rank["launches"]
+            for r, rank in enumerate(ranks)}
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--earlier-sepconv", metavar="PATH",
@@ -5208,6 +5577,7 @@ def main():
     engine_paths = timed("engine", engine_phase, torch, mods, wb, card)
     bf16_paths = timed("bf16", bf16_phase, torch, mods, card)
     rest_paths = timed("rest", rest_phase, torch, mods, sc, wb, card)
+    parallel_paths = timed("parallel", parallel_phase, torch, mods, card)
     # each kernel's launches on the main paths that run it, each read on
     # its own: K1 and K2 on two; K3 and K3-grad on the three evaluation
     # CLIs and the six training paths of the warp models; K3-grad² on their
@@ -5250,6 +5620,10 @@ def main():
         for k in (KERNELS[:2] if not path.startswith("voxelflow")
                   else KERNELS[2:4] + ((KERNELS[4],) if path.endswith(
                       "second_order") else ())):
+            by_path[k][path] = counts[k]
+    # task parallelism: K1/K2 in each rank's process, over its whole run
+    for path, counts in parallel_paths.items():
+        for k in KERNELS[:2]:
             by_path[k][path] = counts[k]
     for rec in records:
         rec["launches_by_path"] = by_path[rec["name"]]

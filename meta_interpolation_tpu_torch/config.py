@@ -2,11 +2,13 @@
 
 The port's own copy of ``meta_interpolation_tpu/config.py``: the same
 dataclass and the same flags, so command lines carry over unchanged, plus
-``--device {cuda,cpu}``. Flags of the JAX package's TPU group that steer
-its compilation or sharding (``--mesh_shape``, ``--episode_parallel``,
-``--jit_episode``) are accepted and have no effect here; ``--remat``
+``--device {cuda,cpu}``. ``--jit_episode``, which steers the JAX
+package's compilation, is accepted and has no effect here; ``--remat``
 recomputes each model forward in its backward
-(``torch.utils.checkpoint``); ``--spatial_shards`` above 1 raises.
+(``torch.utils.checkpoint``). ``--mesh_shape`` and ``--episode_parallel``
+take effect in a run of several ranks under ``torchrun``
+(``parallel/mesh.py``); ``--spatial_shards`` above 1 raises (the exact
+row-sharded evaluation is not ported yet).
 """
 from __future__ import annotations
 
@@ -218,6 +220,13 @@ _HELP = {
         "(voxelflow); the statistics stay frozen",
     "device": "cuda (the hand-written kernels) or cpu (their plain "
               "PyTorch versions)",
+    "mesh_shape": "under torchrun: the ranks as TASK or TASKxSPATIAL (e.g. "
+                  "4 or 2x2; default every rank on the task axis); the "
+                  "task axis splits each batch's tasks over the ranks",
+    "episode_parallel": "under torchrun: false runs rank 0 alone (the "
+                        "other ranks idle)",
+    "spatial_shards": "the exact row-sharded evaluation over the mesh's "
+                      "spatial axis: not ported yet, above 1 raises",
 }
 
 

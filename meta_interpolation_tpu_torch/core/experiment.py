@@ -9,6 +9,13 @@ images, and with ``--lpips`` LPIPS on the card), and the ×2 slow-motion
 writer of ``--mode test``. ``--use_tensorboard`` logs the losses, PSNR and
 SSIM to ``log_dir/exp_name`` (when the ``tensorboard`` package is there);
 ``--profile_dir`` traces the whole run (``utils/profiling.trace``).
+
+In a run of several ranks every rank drives the same loops (each
+iteration's collectives need all of them) and sees the same global
+losses, metrics and predictions, so ``best_PSNR`` and the plateau
+schedule agree on every rank; only rank 0 writes: checkpoints,
+tensorboard, the trace, ``--viz`` images, test-mode frames and the log
+lines.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..parallel.mesh import barrier, is_rank0, log
 from ..utils.meters import AverageMeter
 from . import checkpoint as ckpt_lib
 from . import metrics as metrics_lib
@@ -32,31 +40,35 @@ class ExperimentBuilder:
         self.best_psnr = 0.0
         self.start_epoch = cfg.start_epoch
         self.exp_dir = os.path.join(cfg.checkpoint_dir, cfg.exp_name)
+        self.writes = is_rank0()
         self.writer = None
-        if cfg.use_tensorboard:
+        if cfg.use_tensorboard and self.writes:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self.writer = SummaryWriter(
                     os.path.join(cfg.log_dir, cfg.exp_name))
             except ImportError:
-                print("[tb] tensorboard unavailable — logging disabled")
+                log("[tb] tensorboard unavailable — logging disabled")
         if cfg.resume:
             self._resume()
 
     def _resume(self):
+        barrier(self.system.mesh)
         exp = self.cfg.resume_exp or self.cfg.exp_name
         state = ckpt_lib.load_checkpoint(
             os.path.join(self.cfg.checkpoint_dir, exp))
         if state is None:
-            print("[resume] no checkpoint found — training from scratch")
+            log("[resume] no checkpoint found — training from scratch")
             return
         self.system.load_state_dict(state["system"])
         self.best_psnr = float(state.get("best_PSNR", 0.0))
         self.start_epoch = int(state.get("epoch", 0))
-        print(f"[resume] epoch {self.start_epoch}, best PSNR "
-              f"{self.best_psnr:.2f}")
+        log(f"[resume] epoch {self.start_epoch}, best PSNR "
+            f"{self.best_psnr:.2f}")
 
     def _save(self, epoch: int, is_best: bool):
+        if not self.writes:
+            return
         ckpt_lib.save_checkpoint(
             {"epoch": epoch + 1, "arch": vars(self.cfg),
              "system": self.system.state_dict(),
@@ -101,7 +113,7 @@ class ExperimentBuilder:
                 msg = f"[epoch {epoch} it {it}] loss {loss_meter.avg:.4f}"
                 if psnr_meter.count:
                     msg += f" psnr {psnr_meter.avg:.2f}"
-                print(msg + f" ({time.time() - t0:.1f}s)")
+                log(msg + f" ({time.time() - t0:.1f}s)")
                 self._log_tb({"Loss/train": loss_meter.avg},
                              epoch * self.cfg.total_iter_per_epoch + it)
         return loss_meter.avg
@@ -135,7 +147,7 @@ class ExperimentBuilder:
                     device=preds.device)
                 lpips_meter.update(eval_lpips(dn(preds).clamp(0, 1),
                                               dn(tgt).clamp(0, 1)))
-            if save_images and self.cfg.viz:
+            if save_images and self.cfg.viz and self.writes:
                 from ..utils.viz import save_batch_images
                 save_batch_images(preds, meta, os.path.join(
                     self.exp_dir, self.cfg.dataset))
@@ -143,7 +155,7 @@ class ExperimentBuilder:
                f"PSNR {psnr_meter.avg:.3f} SSIM {ssim_meter.avg:.4f}")
         if self.cfg.lpips:
             msg += f" LPIPS {lpips_meter.avg:.4f}"
-        print(msg)
+        log(msg)
         self._log_tb({"Loss/val": loss_meter.avg, "PSNR": psnr_meter.avg,
                       "SSIM": ssim_meter.avg}, epoch)
         out = {"loss": loss_meter.avg, "psnr": psnr_meter.avg,
@@ -161,6 +173,8 @@ class ExperimentBuilder:
         count = 0
         for frames, meta in self.data.get_test_batches():
             preds = self.system.run_test_iter(np.asarray(frames))
+            if not self.writes:
+                continue
             for b in range(preds.shape[0]):
                 paths = meta[b]["imgpaths"]
                 p1, p2 = str(paths[1]), str(paths[2])
@@ -184,12 +198,12 @@ class ExperimentBuilder:
                 pred01 = to_hwc(self.system.model_def.denormalize(preds[b]))
                 save_image(np.clip(pred01, 0, 1), out_path)
                 count += 1
-        print(f"[test] wrote {count} interpolated frames")
+        log(f"[test] wrote {count} interpolated frames")
         return count
 
     def run_experiment(self):
         from ..utils.profiling import trace
-        with trace(self.cfg.profile_dir,
+        with trace(self.cfg.profile_dir if self.writes else None,
                    cuda=self.system.device.type == "cuda"):
             if self.cfg.mode == "val":
                 return self.validate(save_images=True)

@@ -169,9 +169,15 @@ class TaskLoader:
 
 class MetaLearningSystemDataLoader:
     """Reference loader API (data/__init__.py:520-625): train / val / test
-    batch generators over one dataset."""
+    batch generators over one dataset.
 
-    def __init__(self, cfg):
+    ``mesh_task_size``: the task axis of a task-parallel run. Above 1 the
+    tail partial train batch is dropped, since each train batch must
+    split evenly over the ranks (JAX :178-212); evaluation keeps every
+    clip (a partial batch runs whole on every rank). Every rank builds the
+    same global batches, from one seed and one shuffle."""
+
+    def __init__(self, cfg, mesh_task_size: int = 1):
         from .datasets import get_dataset
         self.cfg = cfg
         self.dataset = get_dataset(cfg.dataset, cfg.data_root, cfg.model,
@@ -183,6 +189,7 @@ class MetaLearningSystemDataLoader:
                            "test": cfg.test_batch_size}
         self.num_workers = cfg.num_workers
         self.seed = cfg.random_seed
+        self.mesh_task_size = max(1, int(mesh_task_size))
 
     def _batches(self, mode: str, total_batches: int, epoch: int = 0):
         # per-split shallow copy: switch_set mutates current_set_name
@@ -190,7 +197,9 @@ class MetaLearningSystemDataLoader:
         dataset.switch_set(mode)
         loader = TaskLoader(dataset, self.batch_size[mode],
                             shuffle=(mode == "train"),
-                            num_workers=self.num_workers, seed=self.seed)
+                            num_workers=self.num_workers, seed=self.seed,
+                            drop_last=(mode == "train"
+                                       and self.mesh_task_size > 1))
         loader.set_epoch(epoch)
         for count, batch in enumerate(loader, 1):
             yield batch

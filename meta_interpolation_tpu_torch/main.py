@@ -65,36 +65,123 @@ other readers: ``--dataset middlebury``, ``hd``, ``snufilm`` (with
 Training writes ``checkpoint_dir/exp_name/checkpoint.pth`` every epoch
 (and ``model_best.pth``); ``--resume`` continues from it. Runs on the CUDA
 card unless ``--device cpu`` is given.
+
+Episode (task) parallelism: start one rank a card with ``torchrun``,
+
+    torchrun --standalone --nproc_per_node 4 -m \
+        meta_interpolation_tpu_torch.main --model cain --mode train \
+        --batch_size 8 [--mesh_shape 4] ...
+
+Each rank runs its slice of every batch's tasks (here 2) on its own card
+and the outer gradient is summed over the ranks (``parallel/mesh.py``);
+only rank 0 writes. Ranks that share a card (more ranks than cards, or
+``--device cpu``) talk over gloo, ranks on cards of their own over NCCL.
+``--mesh_shape TxS`` adds a spatial axis: ranks along it hold the same
+tasks. ``--episode_parallel false`` runs rank 0 alone. A plain ``python
+-m`` run (or a world of one rank) starts no process group.
 """
 from __future__ import annotations
 
-import torch
+import os
 
-from .config import get_args
+import torch
+import torch.distributed as dist
+
+from .config import Config, get_args
 from .core.experiment import ExperimentBuilder
 from .data.loader import MetaLearningSystemDataLoader
 from .meta.system import SceneAdaptiveInterpolation
+from .parallel import mesh as mesh_lib
+from .parallel.mesh import log
+
+
+def make_rank_mesh(cfg: Config, n_dev: int):
+    """The mesh of a run of ``n_dev`` ranks (JAX main.py:22-55, the
+    devices being ranks): None with one rank, or with
+    ``--episode_parallel false`` and no ``--spatial_shards``. Returns
+    (mesh, whether this rank takes part)."""
+    if cfg.spatial_shards > 1 and n_dev == 1:
+        # a sharding request that cannot be honored must not silently run
+        # the full-frame unsharded graph (the OOM it was meant to avoid)
+        raise ValueError(
+            f"--spatial_shards {cfg.spatial_shards} requested but only one "
+            f"device is visible; spatial sharding needs a multi-chip mesh")
+    if n_dev == 1:
+        return None, True
+    if not (cfg.episode_parallel or cfg.spatial_shards > 1):
+        return None, dist.get_rank() == 0
+    shape, ranks = cfg.mesh_shape, None
+    if cfg.spatial_shards > 1 and not shape:
+        if not cfg.episode_parallel:
+            # honor --episode_parallel false: spatial-only mesh on the
+            # first spatial_shards ranks, the rest stay idle
+            shape = f"1x{cfg.spatial_shards}"
+            ranks = range(cfg.spatial_shards)
+            log(f"[mesh] episode_parallel off: using "
+                f"{cfg.spatial_shards}/{n_dev} devices spatially")
+        else:
+            if n_dev % cfg.spatial_shards:
+                raise ValueError(
+                    f"--spatial_shards {cfg.spatial_shards} must divide "
+                    f"the device count ({n_dev})")
+            shape = f"{n_dev // cfg.spatial_shards}x{cfg.spatial_shards}"
+    mesh = mesh_lib.make_mesh(shape, ranks=ranks)
+    if mesh is None:
+        return None, False
+    if cfg.spatial_shards > 1 and mesh.spatial == 1:
+        raise ValueError(
+            f"--spatial_shards {cfg.spatial_shards} but --mesh_shape "
+            f"{shape} has a spatial axis of 1; use NxM with "
+            f"M == spatial_shards")
+    log(f"mesh: {mesh}")
+    return mesh, True
 
 
 def main(argv=None):
     cfg = get_args(argv)
-    system = SceneAdaptiveInterpolation(cfg)
+    # a run of several ranks (torchrun) joins their process group here,
+    # and leaves it at the end; a plain run starts none
+    started = (int(os.environ.get("WORLD_SIZE", "1")) > 1
+               and not dist.is_initialized())
+    device = (mesh_lib.init_distributed(cfg.device)
+              if dist.is_initialized() or started else None)
+    try:
+        n_dev = dist.get_world_size() if dist.is_initialized() else 1
+        mesh, member = make_rank_mesh(cfg, n_dev)
+        if not member:
+            print(f"[mesh] rank {dist.get_rank()}: outside the mesh, idle")
+            return None
+        return _run(cfg, device, mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(cfg: Config, device, mesh):
+    system = SceneAdaptiveInterpolation(cfg, device=device, mesh=mesh)
     dev = system.device
-    print(f"device: {dev}"
-          + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
-             else ""))
+    log(f"device: {dev}"
+        + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
+           else ""))
     if cfg.pretrained_model:
         from .core import checkpoint as ckpt_lib
-        print(f"Loading pretrained model: {cfg.pretrained_model}")
+        log(f"Loading pretrained model: {cfg.pretrained_model}")
         merged, loaded = ckpt_lib.import_pth(cfg.pretrained_model,
                                              system.model.state_dict())
         system.load_net(merged)
-        print(f"[checkpoint] loaded {sum(loaded.values())}/{len(loaded)} "
-              f"tensors")
+        log(f"[checkpoint] loaded {sum(loaded.values())}/{len(loaded)} "
+            f"tensors")
         if cfg.fix_loaded:
             system.freeze_loaded(loaded)
-            print("[fix_loaded] frozen the loaded parameters")
-    data = MetaLearningSystemDataLoader(cfg)
+            log("[fix_loaded] frozen the loaded parameters")
+    # rank 0 first: a --mode test directory's frames are renamed when its
+    # dataset is built
+    if not mesh_lib.is_rank0():
+        mesh_lib.barrier(mesh)
+    data = MetaLearningSystemDataLoader(
+        cfg, mesh_task_size=mesh.task if mesh is not None else 1)
+    if mesh_lib.is_rank0():
+        mesh_lib.barrier(mesh)
     return ExperimentBuilder(cfg, data, system).run_experiment()
 
 

@@ -90,6 +90,63 @@ class EpisodeSpec:
     collect_query_preds: bool = False
 
 
+# momentum of every per-step BN statistics update (models/layers
+# meta_batch_norm's default, the reference's F.batch_norm(momentum=0.1));
+# fold_bn_states_sequential relies on it
+BN_MOMENTUM = 0.1
+
+
+def bn_update_counts(spec: EpisodeSpec, rows: int) -> np.ndarray:
+    """How many times one training task's episode updates each per-step
+    BN statistics row (JAX ``bn_update_counts``, meta/episode.py:111-133):
+    each step's support forwards update row s, each MSL query forward of
+    steps 0..n−2 row s, and the final query row max(n − 1, 0)."""
+    counts = np.zeros((rows,), np.int64)
+    n = spec.num_steps
+    if n == 0:
+        counts[0] += 1
+        return counts
+    counts[:n] += len(spec.support_idxs)
+    if spec.use_msl and n >= 2:
+        counts[:n - 1] += 1
+    counts[n - 1] += 1
+    return counts
+
+
+def fold_bn_states_sequential(s0: Params, per_task: Params,
+                              spec: EpisodeSpec, tasks_each: int = 1
+                              ) -> Params:
+    """The per-step BN statistics after running, one after another,
+    blocks of ``tasks_each`` tasks that each started from ``s0`` (JAX
+    ``fold_bn_states_sequential``, meta/episode.py:136-171).
+
+    Training-mode BN normalises with the batch's statistics, so the
+    running statistics are written and never read: a task's episode maps
+    a row as ``r = a·s0 + b``, with ``a = (1 − momentum)^c`` for the row's
+    ``c`` updates (:func:`bn_update_counts`) and ``b`` independent of
+    ``s0``; a block of ``tasks_each`` tasks folded in turn maps it with
+    ``A = a^tasks_each``. The blocks' results ``r_k`` (stacked on dim 0 of
+    each ``per_task`` leaf) then compose in order as ``A^K·s0 + Σ_k
+    A^(K−1−k)·(r_k − A·s0)``: what running every task in turn gives, up to
+    the rounding of the re-association. A rank of a task-parallel mesh
+    folds its own tasks in turn from ``s0``, and the ranks' results fold
+    here with ``tasks_each`` tasks a rank."""
+    out = {}
+    for name, leaf in s0.items():
+        r = per_task[name]
+        k, rows = r.shape[0], leaf.shape[0]
+        counts = bn_update_counts(spec, rows) * tasks_each
+        a = torch.as_tensor((1.0 - BN_MOMENTUM) ** counts, dtype=leaf.dtype,
+                            device=leaf.device)
+        a = a.reshape((rows,) + (1,) * (leaf.ndim - 1))
+        offsets = r - a * leaf
+        exps = torch.arange(k - 1, -1, -1, dtype=leaf.dtype,
+                            device=leaf.device)
+        w = a[None] ** exps.reshape((k,) + (1,) * leaf.ndim)
+        out[name] = a ** k * leaf + (w * offsets).sum(0)
+    return out
+
+
 def to_float32(tree):
     """Every floating tensor of a tensor, tuple, list or dict as float32
     (``bf16_apply``'s cast of the prediction and of every aux leaf)."""
@@ -395,20 +452,26 @@ class EpisodeBuilder:
 
     def batched_episode(self, meta_params: Dict[str, Params],
                         frames: torch.Tensor, msl_weights, spec: EpisodeSpec,
-                        training: bool = False, with_metrics: bool = False):
+                        training: bool = False, with_metrics: bool = False,
+                        num_tasks: Optional[int] = None):
         """Loop over tasks; frames (B, T, C, H, W). Returns (mean outer
-        loss, aux) with aux['preds'] (B, C, H, W), aux['query_loss'] and,
+        loss, aux) with aux['preds'] (B, C, H, W), aux['query_loss'], the
+        per-task aux['task_losses'] and aux['task_query_losses'] (B,) and,
         ``with_metrics``, the task-mean aux['psnr'] / aux['ssim'].
 
-        Training backpropagates each task's outer loss over B as soon as
-        it is taken, so the leaves of ``meta_params`` accumulate the
-        gradient of the mean with only one task's graph alive (JAX's vmap
-        and mean compute the same); the loss returned is detached.
+        Training backpropagates each task's outer loss over ``num_tasks``
+        (default B) as soon as it is taken, so the leaves of
+        ``meta_params`` accumulate the gradient of the mean with only one
+        task's graph alive (JAX's vmap and mean compute the same); the
+        loss returned is detached. A rank of a task-parallel mesh runs its
+        slice of the global batch with ``num_tasks`` the global count, so
+        the SUM all-reduce of the ranks' gradients is the gradient of the
+        global mean (``parallel/mesh.all_reduce_grads``).
 
         Per-step BN statistics: in training the tasks update the shared
         statistics one after another, the reference's order, and
         aux['bn_state'] is the last task's (the sequential composition JAX
-        recovers in closed form, ``fold_bn_states_sequential``); in
+        recovers in closed form, :func:`fold_bn_states_sequential`); in
         evaluation each task starts from the meta-parameters' statistics
         and its own are dropped. The collected predictions of the spec are
         aux['support_preds'] (B, S, P, C, H, W) and aux['query_preds'] (B,
@@ -424,7 +487,7 @@ class EpisodeBuilder:
                                            msl_weights, spec,
                                            training=training, task=task)
             if training:
-                (o / len(frames)).backward()
+                (o / (num_tasks or len(frames))).backward()
                 o = o.detach()
                 bn = task.bn_state
             outer.append(o)
@@ -435,7 +498,10 @@ class EpisodeBuilder:
             if task.query_preds:
                 qp.append(torch.stack(task.query_preds))
         preds = torch.stack(preds)
-        aux = {"preds": preds, "query_loss": torch.stack(q_losses).mean()}
+        q_losses = torch.stack(q_losses)
+        aux = {"preds": preds, "query_loss": q_losses.mean(),
+               "task_losses": torch.stack(outer),
+               "task_query_losses": q_losses}
         if training and self.passes_bn_state:
             aux["bn_state"] = bn
         if sp:
@@ -444,7 +510,7 @@ class EpisodeBuilder:
             aux["query_preds"] = torch.stack(qp)
         if with_metrics:
             aux.update(self.metrics(preds, frames, spec))
-        return torch.stack(outer).mean(), aux
+        return aux["task_losses"].mean(), aux
 
     def metrics(self, preds: torch.Tensor, frames: torch.Tensor,
                 spec: EpisodeSpec) -> Dict[str, torch.Tensor]:

@@ -14,6 +14,13 @@ outer-trained), ``bn_state`` (per-step BN statistics,
 ``--per_step_bn_statistics``; written back after each train iteration,
 never by the optimizer) and ``loss_ctx`` (the adversarial loss's
 discriminator, trained by its own Adam after the outer step).
+
+Given a ``parallel/mesh.Mesh`` the system is one rank of a task-parallel
+run (JAX's system on a mesh): each iteration takes this rank's slice of
+the global batch, the outer gradient is summed over the task axis before
+the optimizer's step, and the predictions, losses, metrics, per-step BN
+statistics and the discriminator's inputs are those of the global batch
+on every rank.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from ..config import Config
 from ..core import adversarial
 from ..core import losses as losses_lib
 from ..models import layers, registry
+from ..parallel import mesh as mesh_lib
 from . import episode as episode_lib
 from .inner_optimizers import make_inner_optimizer
 
@@ -56,7 +64,8 @@ class PlateauScheduler:
             if self.bad_epochs > self.patience:
                 self.lr *= self.factor
                 self.bad_epochs = 0
-                print(f"PlateauScheduler: reducing outer lr to {self.lr:.3e}")
+                mesh_lib.log(f"PlateauScheduler: reducing outer lr to "
+                             f"{self.lr:.3e}")
         return self.lr
 
 
@@ -94,9 +103,13 @@ def _resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 
 def _unported(cfg: Config):
-    """Flags whose behaviour the port does not have yet."""
+    """Flags whose behaviour the port does not have yet: the exact
+    row-sharded evaluation of --spatial_shards needs row-sharded
+    convolutions, pooling, upsampling, K1/K2, K3 and CAIN's
+    channel-attention mean (ROADMAP Queue 1)."""
     return [flag for flag, on in [
-        ("--spatial_shards", cfg.spatial_shards > 1),
+        ("--spatial_shards (the exact row-sharded evaluation)",
+         cfg.spatial_shards > 1),
     ] if on]
 
 
@@ -116,10 +129,12 @@ def _adapt_bn_affine(inner_keep: Dict[str, bool]) -> Dict[str, bool]:
 
 
 class SceneAdaptiveInterpolation:
-    """Meta-learning system: build with a Config, drive with run_*_iter."""
+    """Meta-learning system: build with a Config, drive with run_*_iter.
+    ``mesh``: this rank's task-parallel mesh (None: one process)."""
 
     def __init__(self, cfg: Config,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         unported = _unported(cfg)
         if unported:
             raise NotImplementedError(
@@ -135,6 +150,9 @@ class SceneAdaptiveInterpolation:
             raise ValueError(f"--dtype takes {tuple(DTYPES)}, got "
                              f"{cfg.dtype!r}")
         self.cfg = cfg
+        self.mesh = mesh
+        if cfg.mode == "train":
+            mesh_lib.validate_train_batch(mesh, cfg.batch_size)
         self.model_def = registry.get(cfg.model)
         if cfg.mode == "train" or cfg.second_order:
             self._refuse_untrainable()
@@ -251,6 +269,8 @@ class SceneAdaptiveInterpolation:
             cfg.outer_lr)
         self.scheduler = PlateauScheduler(cfg.outer_lr)
         self.current_epoch = 0
+        if mesh is not None:
+            mesh_lib.replicate_params(mesh, self.meta_params)
 
     def freeze_loaded(self, loaded: Dict[str, bool]) -> None:
         """--fix_loaded (JAX meta/system.py:325-346): the net tensors that
@@ -276,6 +296,42 @@ class SceneAdaptiveInterpolation:
         """(B, T, H, W, C) numpy/tensor → (B, T, C, H, W) on the device."""
         frames = np.asarray(frames, np.float32).transpose(0, 1, 4, 2, 3)
         return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+
+    def _shard_batch(self, frames):
+        """This rank's tasks of the global (B, T, H, W, C) batch, and
+        whether they are a slice of it (JAX ``_shard_batch``, :475-485):
+        the whole batch with no mesh, or when the task axis does not
+        divide B (every rank then runs all of it)."""
+        if self.mesh is None:
+            return frames, False
+        local = mesh_lib.shard_task_batch(self.mesh, frames)
+        return local, len(local) < len(frames)
+
+    def _join_ranks(self, aux, frames, spec: episode_lib.EpisodeSpec,
+                    with_metrics: bool):
+        """A rank's episode aux → the global batch's: the predictions,
+        per-task losses and collected predictions gathered in global task
+        order, the mean losses and metrics taken over all of them as one
+        process takes them (so every rank holds the same values), and the
+        per-step BN statistics of the ranks' task blocks folded in rank
+        order. ``frames``: the global batch. Returns (mean outer loss,
+        aux)."""
+        mesh = self.mesh
+        local_tasks = len(aux["preds"])
+        out = {k: mesh_lib.gather_tasks(mesh, aux[k]) for k in (
+            "preds", "task_losses", "task_query_losses", "support_preds",
+            "query_preds") if k in aux}
+        out["query_loss"] = out["task_query_losses"].mean()
+        if "bn_state" in aux:
+            per_rank = {k: mesh_lib.gather_tasks(mesh, v[None])
+                        for k, v in aux["bn_state"].items()}
+            out["bn_state"] = episode_lib.fold_bn_states_sequential(
+                self.meta_params["bn_state"], per_rank, spec,
+                tasks_each=local_tasks)
+        if with_metrics:
+            out.update(self.builder.metrics(out["preds"], self._frames(frames),
+                                            spec))
+        return out["task_losses"].mean(), out
 
     def _use_second_order(self, epoch: int) -> bool:
         return (self.cfg.second_order
@@ -303,7 +359,9 @@ class SceneAdaptiveInterpolation:
         the optimizer (JAX ``train_step``'s ``value_and_grad``, :449-462).
         Returns (loss, aux, grads): aux as ``batched_episode``'s, ``grads``
         like ``meta_params``, zero where the trainable mask is off. Under
-        --disc_per_forward aux also holds the replay's predictions."""
+        --disc_per_forward aux also holds the replay's predictions. On a
+        mesh: of the global batch, the gradient summed over the task
+        axis."""
         self._refuse_untrainable()
         spec = self._spec(
             "train", self.cfg.num_inner_steps, self._use_second_order(epoch),
@@ -316,13 +374,19 @@ class SceneAdaptiveInterpolation:
         leaves = {g: {k: v.detach().requires_grad_(self.trainable[g][k])
                       for k, v in tree.items()}
                   for g, tree in self.meta_params.items()}
+        local, sharded = self._shard_batch(frames)
         loss, aux = self.builder.batched_episode(
-            leaves, self._frames(frames), msl_w, spec, training=True,
-            with_metrics=with_metrics)
+            leaves, self._frames(local), msl_w, spec, training=True,
+            with_metrics=with_metrics and not sharded,
+            num_tasks=len(frames))
         grads = {g: {k: (v.grad if v.grad is not None
                          else torch.zeros_like(v))
                      for k, v in tree.items()}
                  for g, tree in leaves.items()}
+        if sharded:
+            grads = mesh_lib.all_reduce_grads(self.mesh, grads,
+                                              self.trainable)
+            loss, aux = self._join_ranks(aux, frames, spec, with_metrics)
         return loss, aux, grads
 
     def run_train_iter(self, frames, epoch: int, do_evaluation: bool = False):
@@ -377,14 +441,19 @@ class SceneAdaptiveInterpolation:
     def run_validation_iter(self, frames):
         """Eval episode: adapt with grads, query under no-grad (reference
         :608-627). frames: (B, T, H, W, C) in model input space. Returns
-        (losses, preds) with preds (B, C, H, W) on the device."""
+        (losses, preds) with preds (B, C, H, W) on the device, the global
+        batch's on a mesh (a batch the task axis does not divide runs
+        whole on every rank, and counts once)."""
         spec = self._spec("train", self.cfg.num_eval_steps, use_msl=True)
         msl_w = episode_lib.per_step_loss_importance(
             self.cfg.num_eval_steps, self.current_epoch,
             self.cfg.multi_step_loss_num_epochs)
+        local, sharded = self._shard_batch(frames)
         loss, aux = self.builder.batched_episode(
-            self.meta_params, self._frames(frames), msl_w, spec,
-            training=False, with_metrics=True)
+            self.meta_params, self._frames(local), msl_w, spec,
+            training=False, with_metrics=not sharded)
+        if sharded:
+            loss, aux = self._join_ranks(aux, frames, spec, True)
         losses = {"loss": float(loss), "total": float(aux["query_loss"]),
                   "psnr": float(aux["psnr"]), "ssim": float(aux["ssim"])}
         return losses, aux["preds"]
@@ -393,13 +462,15 @@ class SceneAdaptiveInterpolation:
         """×2 slow motion on 4 consecutive frames (reference :630-697):
         adapt for ``num_eval_steps`` on the support (0, 1, 2) and (1, 2,
         3), then synthesize the midpoint of frames 1 and 2. frames (B, 4,
-        H, W, C) in model input space → preds (B, C, H, W) on the device.
-        First order whatever --second_order says (JAX passes it on):
-        nothing differentiates the adapted weights, so the order changes
-        no value."""
+        H, W, C) in model input space → preds (B, C, H, W) on the device
+        (the global batch's on a mesh). First order whatever
+        --second_order says (JAX passes it on): nothing differentiates the
+        adapted weights, so the order changes no value."""
         spec = self._spec("test", self.cfg.num_eval_steps)
-        return self.builder.test_episode(self.meta_params,
-                                         self._frames(frames), spec)
+        local, sharded = self._shard_batch(frames)
+        preds = self.builder.test_episode(self.meta_params,
+                                          self._frames(local), spec)
+        return mesh_lib.gather_tasks(self.mesh, preds) if sharded else preds
 
     def epoch_end(self, val_loss: float):
         """The plateau schedule, once an epoch on the validation loss; the
