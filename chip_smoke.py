@@ -202,7 +202,26 @@ as that tree did. Phases, in order:
          adamax_step_bound); K1/K2 built by both ranks at once into
          one fresh directory; halo_exchange bit for bit and
          spatial_sharded_apply on interior rows (1e-5) on CUDA tensors;
-         and, beside the two, one rank alone over NCCL;
+         and, beside the two, one rank alone over NCCL, where the row
+         bands' collectives and their adjoints run too;
+       - the exact row-sharded evaluation (``--spatial_shards 2`` on the
+         same two gloo ranks, ``--mesh_shape 1x2``): the row-aware ops
+         (convs with zero and reflected borders, the align_corners
+         upsample, the global mean) on bands against the whole frame,
+         values and gradients, on CUDA tensors; then through the CLI
+         SepConv's evaluation (run_sepconv.sh) and CAIN's (run_cain.sh,
+         the full architecture) on one 256x448 Vimeo-format septuplet,
+         and SepConv's --mode test on one 720x1280 clip: 14/12 K1/K2 a
+         rank a validation clip and 6/4 a test clip, each on a band of half
+         the padded rows (shapes printed); against one process on the
+         card on the same batch and weights, the support gradients within
+         1e-4 of their norm (CAIN's, which float32 rounds to ~2e-4 at
+         random init, no farther from the float64 gradient than the one
+         process's), and, the one process handed the ranks' inner
+         gradients (Adam's first step is a sign near g = 0), the
+         prediction within 1e-4 of its largest value + 1e-5, the PSNR
+         within 1e-3 dB and the loss 1e-5; seconds a clip and each rank's
+         peak memory beside the one process's;
   5. a JSON line of per-kernel results, each with its launches on every
      main path that runs it (``launches_by_path``: K1/K2 the training
      CLI's, the SepConv test runs' and the engine's L2F and adversarial
@@ -210,7 +229,8 @@ as that tree did. Phases, in order:
      training paths', the per-step BN ones included; K3-grad² their
      second-order training paths'; K1/K2 also the ``rest`` phase's SepConv
      paths and K3/K3-grad (K3-grad² in second order) its VoxelFlow
-     --remat paths, and each ``parallel`` rank's run; K4 the served DAIN
+     --remat paths, and each ``parallel`` rank's run and its row-sharded
+     evaluation and test runs; K4 the served DAIN
      frames' and its bf16 paths'; the bf16 kernels of K1, K2, K3,
      K3-grad and K3-grad² five records of their own, K3's and K3-grad's
      with their times at one image and at the served batch, ``by_batch``
@@ -254,7 +274,7 @@ TRAIN_FLAGS = ["--model", "sepconv", "--mode", "train", "--dataset",
                "--number_of_training_steps_per_iter", "3",
                "--number_of_evaluation_steps_per_iter", "3", "--metasgd"]
 TASKS = 3                      # the preset's batch
-TRAIN_ITERS, TRAIN_REPS = 4, 3  # CLI iterations; timed iterations
+TRAIN_ITERS, TRAIN_REPS = 4, 2  # CLI iterations; timed iterations
 # first order, a task: the evaluation episode's launches with the query on
 # the tape, plus its backward (a K2 a query sepconv)
 K1_PER_TRAIN_ITER = TASKS * K1_PER_CLIP
@@ -366,7 +386,7 @@ WARP_TRAIN = {
                              "--number_of_evaluation_steps_per_iter", "1"],
              6, 1, 0)}
 SECOND_ORDER_STEPS = 1
-WARP_TRAIN_REPS = 2
+WARP_TRAIN_REPS = 1
 # VoxelFlow's K3 call: one frame of its padded 256x448 input, border
 # padding, align_corners=True
 VF_WARP_CASE = (1, 3, 256, 448, -WARP_R, WARP_R - 1, "uniform", WARP_R,
@@ -453,7 +473,7 @@ CAIN_FLAGS = ["--model", "cain", "--loss", "1*L1", "--optimizer", "Adam",
 CAIN_EVAL_FLAGS = CAIN_FLAGS + ["--mode", "val"]
 CAIN_TRAIN_FLAGS = CAIN_FLAGS + ["--mode", "train", "--batch_size", "8"]
 CAIN_TASKS, CAIN_PARAMS = 8, 42_780_432
-CAIN_EPISODE_REPS = 3
+CAIN_EPISODE_REPS = 2
 # --mode test: run_test.sh (CAIN, Adam, one evaluation step), and the same
 # flags with SepConv's Adamax and Meta-SGD, on a directory of TEST_FRAMES
 # frames f00.png ... f05.png, then again on its own output
@@ -2219,7 +2239,7 @@ def handing_inner(torch, real, record, dev, dist):
                                "card run")
         check(not any(g.requires_grad for g in grads.values()),
               "a handed support gradient would cut the second order")
-        theirs = record.pop(0)
+        theirs = {k: t.to(grads[k].device) for k, t in record.pop(0).items()}
         for k, g in grads.items():
             dist["d2"] += float((g - theirs[k]).norm()) ** 2
             dist["n2"] += float(g.norm()) ** 2
@@ -4170,7 +4190,7 @@ def bf16_eval_phase(torch, mods, card, dain_state):
                 for dtype, s in systems.items()}
         times, peak, out, runs = bf16_turns(
             torch, mods, sc, wb, runs, per_clip,
-            f"{model} {FULL_HW} episode", reps=2)
+            f"{model} {FULL_HW} episode")
         for dtype, (losses, preds) in out.items():
             check(tuple(preds.shape) == (1, 3) + FULL_HW
                   and preds.dtype == torch.float32
@@ -4485,14 +4505,14 @@ def bf16_phase(torch, mods, card):
 # off-path ops. SepConv at run_sepconv.sh's preset (batch 3, 3 steps,
 # Adamax, Meta-SGD) on 256x256 crops; the evaluations at 256x448
 VGG_LOSSES = {"vgg22_ssim": "1*L1+0.1*VGG22+1*SSIM", "vggp": "1*VGGP"}
-LOSS_TURNS = 3
+LOSS_TURNS = 2
 # LPIPS on the card against the CPU, on the same images
 LPIPS_ATOL = 1e-4
 REMAT = ["--remat"]
-REMAT_REPS = 2
+REMAT_REPS = 1
 # the legacy scripts' defaults: --batch_size 4, --num_inner_update 1,
 # --crop_size 128 (the CLI runs); the steps timed on 256x256 crops
-LEGACY_BATCH, LEGACY_STEPS, LEGACY_CROP, LEGACY_REPS = 4, 1, 128, 2
+LEGACY_BATCH, LEGACY_STEPS, LEGACY_CROP, LEGACY_REPS = 4, 1, 128, 1
 # a legacy step over the batch: n inner steps of the two support pairs,
 # one model call (CALLS sepconvs) each, then the query. MAML's query runs
 # with grad and takes its backward; Reptile's and the evaluation's run
@@ -5125,6 +5145,23 @@ PARALLEL_LOSS_RTOL, PARALLEL_GRAD_RTOL = 1e-6, 1e-5
 # FULL_HW rows split in 2 bands, a halo of 32 rows, a two-conv stack
 HALO_ROWS, SHARDED_APPLY_RTOL = 32, 1e-5
 PARALLEL_TIMEOUT = 600
+# the exact row-sharded evaluation on the same two ranks: each clip's
+# frames whole on both, the rows of each activation split in 2 bands.
+# SepConv (EVAL_FLAGS) and CAIN (CAIN_EVAL_FLAGS) validate one Vimeo-format
+# septuplet of FULL_HW through the CLI; SepConv's --mode test (TEST_FLAGS,
+# one evaluation step) one clip of SPATIAL_HD; each against one process on
+# the card handed the ranks' inner gradients: the prediction within
+# TOL_REL of its largest value + TOL_ABS (cain_card_vs_cpu's rule: a
+# random-init CAIN predicts ~50 and rounds at that scale), the
+# PSNR within PSNR_TOL_DB, the loss SPATIAL_LOSS_RTOL
+SPATIAL_FLAGS = ["--mesh_shape", f"1x{PARALLEL_RANKS}", "--spatial_shards",
+                 str(PARALLEL_RANKS), "--num_workers", "1"]
+SPATIAL_HD = (720, 1280)
+SPATIAL_LOSS_RTOL = 1e-5
+# the ranks' support gradients (summed over the bands) against one
+# process's, in norm: only the order of the sums differs
+SPATIAL_GRAD_RTOL = 1e-4
+SPATIAL_OP_SHAPE = (1, 8, 64, 96)     # a frame the op checks split in 2
 
 
 def adamax_step_bound(torch, lr, d_grad, weight, eps=1e-8):
@@ -5182,6 +5219,160 @@ def halo_checks(torch, dev, mesh):
           f"row-sharded apply: {err:.3e} on interior rows (max {scale:.3e})")
     return {"halo": f"{tuple(padded.shape)} on {padded.device}",
             "apply_err": err, "apply_scale": scale}
+
+
+def spatial_op_checks(torch, dev, mesh):
+    """The row-aware ops on this rank's band of a frame against the same
+    op on the whole frame, on CUDA tensors: a zero-padded conv, CAIN's
+    reflect-padded and zero-padded ConvNorm, the align_corners upsample and
+    the global mean (read by each band's rows), each band's output
+    gathered; the values and the gradients of Σ out·g in the frame (the
+    bands' halo adjoints) and in the parameters, summed over the ranks.
+    Returns the largest error over the checks."""
+    from meta_interpolation_tpu_torch.models import cain, layers
+    from meta_interpolation_tpu_torch.parallel import spatial
+
+    class Mean(torch.nn.Module):
+        def forward(self, x):
+            return x * layers.global_avg_pool(x)
+
+    gen = torch.Generator().manual_seed(17)
+    n, c, h, w = SPATIAL_OP_SHAPE
+    ops = {"conv": layers.xavier_conv(c, c, 3, gen),
+           "convnorm_reflect": cain.ConvNorm(c, c, 3, False, gen),
+           "convnorm_zero": cain.ConvNorm(c, c, 3, True, gen),
+           "upsample": layers.Upsample(2, align_corners=True),
+           "mean": Mean()}
+    x = torch.randn(SPATIAL_OP_SHAPE, generator=gen).to(dev)
+    worst = 0.0
+    for name, op in ops.items():
+        op = op.to(dev)
+        params = list(op.parameters())
+        scale = 2 if name == "upsample" else 1
+        g = torch.randn(n, c, h * scale, w * scale, generator=gen).to(dev)
+        whole = x.clone().requires_grad_()
+        want = op(whole)
+        want_g = torch.autograd.grad((want * g).sum(), [whole] + params)
+        band = x.clone().requires_grad_()
+        with spatial.row_shard(mesh) as shard:
+            got = spatial.gather_band(op(spatial.band(band)))
+        got_g = spatial.all_reduce_grads(torch.autograd.grad(
+            (got * g).sum(), [band] + params), shard)
+        for i, (a, b) in enumerate(zip((got,) + tuple(got_g),
+                                       (want,) + tuple(want_g))):
+            worst = max(worst, max_err(a.detach(), b.detach(),
+                                       f"row-sharded {name} ({i})"))
+    return worst
+
+
+def write_septuplet(root, hw):
+    """A Vimeo90K-format tree at ``root`` (the lists and
+    sequences/00001/0001/im1..im7.png) holding one synthetic septuplet of
+    ``hw``: the CLI validates it whole."""
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.utils.viz import save_image
+    seq = os.path.join(root, "sequences", "00001", "0001")
+    os.makedirs(seq)
+    for name in ("sep_trainlist.txt", "sep_testlist.txt"):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("00001/0001\n")
+    clip = SyntheticSeptuplet(mode="val", size=hw)[0][0]
+    for i, frame in enumerate(clip, 1):
+        save_image(frame, os.path.join(seq, f"im{i}.png"))
+
+
+def spatial_paths(work):
+    """The row-sharded runs of the parallel phase: path → (CLI flags, the
+    System method each clip goes through, K1/K2 a clip)."""
+    val = ["--dataset", "vimeo90k", "--data_root",
+           os.path.join(work, "vimeo")]
+    return {
+        "sepconv_spatial_val": (EVAL_FLAGS + val, "run_validation_iter",
+                                (K1_PER_CLIP, K2_PER_CLIP)),
+        "cain_spatial_val": (CAIN_EVAL_FLAGS + val, "run_validation_iter",
+                             (0, 0)),
+        "sepconv_spatial_test": (
+            TEST_FLAGS + TEST_MODELS["sepconv"]
+            + ["--data_root", os.path.join(work, "hd")],
+            "run_test_iter", (K1_PER_TEST_CLIP, K2_PER_TEST_CLIP))}
+
+
+def spatial_runs(torch, work, mesh, dev):
+    """Each row-sharded run through the CLI on this rank, its launch
+    counts set to 0 just before and read just after: per clip its
+    seconds, launches, the K1 band shapes (the sepconv op's input and
+    kernel maps), and its frames, losses and prediction; the rank's peak
+    memory over the run."""
+    import pathlib
+
+    import numpy as np
+    import torch.distributed as dist
+    from meta_interpolation_tpu_torch.main import main as port_main
+    from meta_interpolation_tpu_torch.meta.inner_optimizers import (
+        InnerOptimizer)
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation as System)
+    from meta_interpolation_tpu_torch.ops import sepconv as sc
+    out = {"ops_err": spatial_op_checks(torch, dev, mesh)}
+    for path, (flags, method, _) in spatial_paths(work).items():
+        clips, shapes, inner = [], [], []
+        real = getattr(System, method)
+        real_sepconv = sc.sepconv
+
+        def clip(self, frames, *args, **kwargs):
+            torch.cuda.synchronize()
+            comm.clear()
+            before = launch_counts((sc,))
+            t = time.perf_counter()
+            res = real(self, frames, *args, **kwargs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            after = launch_counts((sc,))
+            losses, preds = res if method == "run_validation_iter" else (
+                None, res)
+            clips.append({"s": dt, "comm": dict(comm), "launches": {
+                k: after[k] - before[k] for k in after},
+                "frames": np.asarray(frames).copy(), "losses": losses,
+                "preds": preds.detach().cpu()})
+            return res
+
+        def sepconv(inp, kv, kh):
+            shapes.append((tuple(inp.shape), tuple(kv.shape)))
+            return real_sepconv(inp, kv, kh)
+
+        # every collective of the run: its count and host seconds (a gloo
+        # collective on CUDA tensors returns once its data is back)
+        comm = collections.Counter()
+
+        def timed_collective(real):
+            def run(*args, **kwargs):
+                t = time.perf_counter()
+                out = real(*args, **kwargs)
+                comm[real.__name__] += 1
+                comm["s"] += time.perf_counter() - t
+                return out
+            return run
+
+        # each inner step's support gradients, summed over the bands, as
+        # the update takes them (handing_inner's recording side)
+        run = with_attr(System, method, clip, with_attr(
+            sc, "sepconv", sepconv, with_attr(
+                InnerOptimizer, "update", handing_inner(
+                    torch, InnerOptimizer.update, inner, "cuda", None),
+                with_attr(dist, "all_gather", timed_collective(
+                    dist.all_gather), with_attr(
+                        dist, "all_reduce", timed_collective(
+                            dist.all_reduce), port_main)))))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches((sc,))
+        run(flags + SPATIAL_FLAGS + ["--checkpoint_dir", str(
+            pathlib.Path(work) / f"ck_{path}")])
+        out[path] = {"clips": clips, "launches": launch_counts((sc,)),
+                     "band_shapes": sorted(set(shapes)),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "inner": inner if mesh.rank == 0 else None}
+    return out
 
 
 def parallel_rank(rank, work):
@@ -5262,6 +5453,10 @@ def parallel_rank(rank, work):
     out["launches"] = launch_counts((sc,))
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out.update(trains=trains, vals=vals, stats=stats)
+    t0 = time.perf_counter()
+    out["spatial"] = spatial_runs(torch, str(work), mesh_lib.make_mesh(
+        f"1x{PARALLEL_RANKS}"), dev)
+    out["spatial_s"] = time.perf_counter() - t0
     if rank == 0:
         torch.save(first, work / "first.pt")
     torch.save(out, work / f"rank{rank}.pt")
@@ -5289,9 +5484,185 @@ def nccl_rank(rank, work):
     ok = (torch.equal(y, x) and torch.equal(parts[0], x) and torch.equal(
         padded, torch.cat([x[:, :, :2].flip(2), x, x[:, :, -2:].flip(2)],
                           dim=2)))
+    # the row bands' collectives and their adjoints over NCCL, one band:
+    # the halo rows are zeros and take no cotangent, the sum and the
+    # gather are identities
+    shard = spatial.RowShard(0, 1, None)
+    xr = x.clone().requires_grad_()
+    halo = spatial.halo_rows(xr, 2, shard)
+    w = torch.arange(halo.numel(), device=dev, dtype=x.dtype).reshape(
+        halo.shape)
+    total = spatial.all_reduce_sum(xr, shard)
+    gathered = spatial.gather_band(xr, shard)
+    grad, = torch.autograd.grad((halo * w).sum() + (total * x).sum()
+                                + (gathered * 2).sum(), [xr])
+    ok = ok and (torch.equal(halo[:, :, 2:-2], x)
+                 and not halo[:, :, :2].any() and not halo[:, :, -2:].any()
+                 and torch.equal(total, x) and torch.equal(gathered, x)
+                 and torch.equal(grad, w[:, :, 2:-2] + x + 2))
     torch.save({"backend": backend, "device": str(dev), "ok": ok},
                pathlib.Path(work) / "nccl.pt")
     dist.destroy_process_group()
+
+
+def grads_rel(got, want):
+    """|got − want| / |want| over a dict of tensors (float64)."""
+    d2 = sum(float((got[k].double() - want[k].double()).norm()) ** 2
+             for k in want)
+    return (d2 / sum(float(v.double().norm()) ** 2
+                     for v in want.values())) ** 0.5
+
+
+def support_grads64(torch, system, frames):
+    """The first inner step's support gradient of an evaluation episode in
+    float64 on the card (``system`` at its initial weights, task 0 of
+    ``frames``): the exact gradient the float32 ones round."""
+    from meta_interpolation_tpu_torch.meta.episode import TaskState
+    builder = system.builder
+    spec = system._spec("train", system.cfg.num_eval_steps, use_msl=True)
+    net = system.meta_params["net"]
+    live = builder._live(net)
+    src = {k: v.double().requires_grad_(k in live) for k, v in net.items()}
+    loss = builder._support_loss(src, system._frames(frames)[0].double(),
+                                 spec, 0, TaskState())
+    grads = torch.autograd.grad(loss, [src[k] for k in live])
+    return {k: g.detach().cpu() for k, g in zip(live, grads)}
+
+
+def spatial_against_one(torch, ranks, work, card):
+    """Each row-sharded run's first clip against one process on the card
+    on the same frames and weights (the same seed; cuDNN deterministic,
+    as in the ranks), on its own and handed the ranks' support gradients:
+    the support gradients within SPATIAL_GRAD_RTOL (CAIN's: no farther
+    from the float64 gradient than twice the one process's), and the
+    handed run's
+    prediction, PSNR and loss within their limits; the launches a clip and
+    the band shapes; seconds a clip and peak memory beside the ranks'.
+    Returns each rank's launches on each path."""
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.meta.inner_optimizers import (
+        InnerOptimizer)
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation as System)
+    from meta_interpolation_tpu_torch.models.sepconv import SepConv
+    launches = {}
+    for path, (flags, method, (k1, k2)) in spatial_paths(work).items():
+        want = {"sepconv_forward": k1, "sepconv_grad_kernels": k2}
+        runs = [rank["spatial"][path] for rank in ranks]
+        first = runs[0]["clips"][0]
+        for r, run in enumerate(runs):
+            check(len(run["clips"]) == 1, f"{path} rank {r}: "
+                  f"{len(run['clips'])} clips, want 1")
+            got = {k: run["clips"][0]["launches"][k] for k in want}
+            check(got == want, f"{path} rank {r}: a clip launched {got}, "
+                  f"want {want}")
+            check(torch.equal(run["clips"][0]["preds"], first["preds"]),
+                  f"{path} rank {r}: its prediction differs from rank 0's")
+            launches[f"{path}_rank{r}"] = run["launches"]
+        shapes = runs[0]["band_shapes"]
+        if k1:
+            grid = SepConv.grid_rows(first["frames"].shape[2])
+            check(all(kv[2] == grid // PARALLEL_RANKS for _, kv in shapes),
+                  f"{path}: K1 bands {shapes}, want {grid // PARALLEL_RANKS}"
+                  f" of the {grid} padded rows")
+        # one process on its own, then handed the ranks' summed support
+        # gradients at each inner step (handing_inner): Adam's and Adamax's
+        # first step is lr·sign(g) wherever |g| >> 1e-8, so an element whose
+        # gradient is within rounding of 0 steps either way (ROADMAP Queue
+        # 3); handed, both take the same steps, and the prediction, PSNR and
+        # loss are held to their limits
+        # one system for both runs (an evaluation episode adapts copies);
+        # the one process's peak memory counts its weights, as a rank's
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        system = System(get_args(flags))
+        runs_one, own_grads = {}, []
+        for how in ("own", "handed"):
+            record = list(runs[0]["inner"])
+            dist = collections.Counter()
+            update = (handing_inner(torch, InnerOptimizer.update, own_grads,
+                                    "cuda", None) if how == "own" else
+                      handing_inner(torch, InnerOptimizer.update, record,
+                                    "cpu", dist))
+            with deterministic(torch, False):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = with_attr(InnerOptimizer, "update", update, getattr(
+                    system, method))(first["frames"])
+                torch.cuda.synchronize()
+                one_s = time.perf_counter() - t
+            losses, preds = (res if first["losses"] is not None
+                             else (None, res))
+            runs_one[how] = {
+                "s": one_s, "losses": losses, "preds": preds.detach().cpu(),
+                "err": float((first["preds"] - preds.cpu()).abs().max()),
+                "peak": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                "dist": dist}
+            del res, preds
+            check(how == "own" or not record, f"{path}: the ranks took more "
+                  f"inner steps than the one process")
+        own, handed = runs_one["own"], runs_one["handed"]
+        preds, dist = handed["preds"], handed["dist"]
+        scale = float(preds.abs().max())
+        check(handed["err"] <= TOL_REL * scale + TOL_ABS,
+              f"{path}: the ranks' prediction {handed['err']:.3e} from one "
+              f"process's handed their support gradients, over {TOL_REL:.0e}"
+              f" x {scale:.3e} + {TOL_ABS:.0e} (on its own {own['err']:.3e})")
+        grad_rel = (dist["d2"] / dist["n2"]) ** 0.5 if dist["n2"] else 0.0
+        line = (f"[spatial] {path}: 2 ranks of {tuple(first['frames'].shape)}"
+                f" in 2 row bands vs one process on the card ({card}): "
+                f"support gradients {grad_rel:.3e} of their norm apart, "
+                f"{dist['flips']} of {dist['n']} elements of the other sign;")
+        if path.startswith("cain"):
+            # a random-init CAIN's float32 gradient is ~2e-4 of its norm
+            # from the exact one (float64, on the CPU): held against the
+            # float64 gradient, the ranks' no farther than twice the one
+            # process's
+            exact = support_grads64(torch, system, first["frames"])
+            ranks_d = grads_rel(runs[0]["inner"][0], exact)
+            own_d = grads_rel(own_grads[0], exact)
+            check(ranks_d <= 2 * own_d + SPATIAL_GRAD_RTOL * 1e-2,
+                  f"{path}: the ranks' support gradient {ranks_d:.3e} of its "
+                  f"norm from float64's, the one process's {own_d:.3e}")
+            line += (f" from the float64 gradient: ranks {ranks_d:.3e}, one "
+                     f"process {own_d:.3e};")
+        else:
+            check(grad_rel <= SPATIAL_GRAD_RTOL,
+                  f"{path}: the ranks' support gradients {grad_rel:.3e} of "
+                  f"their norm from one process's")
+        line += (f" prediction {handed['err']:.3e} from the one process handed"
+                 f" the ranks' gradients (limit {TOL_REL:.0e} x max |pred| "
+                 f"{scale:.3e} + {TOL_ABS:.0e}), {own['err']:.3e} from it on "
+                 f"its own")
+        if first["losses"] is not None:
+            got_l, losses = first["losses"], handed["losses"]
+            check(abs(got_l["psnr"] - losses["psnr"]) <= PSNR_TOL_DB,
+                  f"{path}: PSNR {got_l['psnr']!r} vs {losses['psnr']!r}")
+            check(abs(got_l["loss"] - losses["loss"])
+                  <= SPATIAL_LOSS_RTOL * abs(losses["loss"]),
+                  f"{path}: loss {got_l['loss']!r} vs {losses['loss']!r}")
+            line += (f"; PSNR {got_l['psnr']!r} vs {losses['psnr']!r} handed"
+                     f", {own['losses']['psnr']!r} on its own; loss "
+                     f"{got_l['loss']!r} vs {losses['loss']!r} handed, "
+                     f"{own['losses']['loss']!r} on its own")
+        one_s, one_peak = own["s"], own["peak"]
+        del system
+        print(line)
+        print(f"[spatial] {path}: K1/K2 a clip a rank "
+              f"{[run['clips'][0]['launches']['sepconv_forward'] for run in runs]}"
+              f"/{[run['clips'][0]['launches']['sepconv_grad_kernels'] for run in runs]}"
+              f" (want {k1}/{k2}); K1 (input, maps) shapes {shapes}; "
+              f"s/clip ranks {[round(run['clips'][0]['s'], 4) for run in runs]}"
+              f" (2 ranks share the card; collectives a clip "
+              f"{ {k: v for k, v in first['comm'].items() if k != 's'} }, "
+              f"{first['comm'].get('s', 0.0):.4f} s of rank 0's host in "
+              f"them), one process {one_s:.4f}; peak "
+              f"memory a rank {[round(run['peak_gib'], 3) for run in runs]} "
+              f"GiB (its whole CLI run), one process {one_peak:.3f} GiB (its "
+              f"weights and the clip) ({card})")
+    return launches
 
 
 def parallel_phase(torch, mods, card):
@@ -5316,6 +5687,8 @@ def parallel_phase(torch, mods, card):
     work = tempfile.mkdtemp(prefix="smoke_parallel_",
                             dir=os.path.join(ROOT, "build"))
     try:
+        write_septuplet(os.path.join(work, "vimeo"), FULL_HW)
+        write_frames(os.path.join(work, "hd"), SPATIAL_HD, 4)
         # the NCCL rank beside the two gloo ranks, in a thread of its own
         nccl_failed = []
 
@@ -5442,16 +5815,31 @@ def parallel_phase(torch, mods, card):
                   f"over {PARALLEL_GRAD_RTOL:.0e} + 2 x {own[g]:.3e} (one "
                   f"process against itself)")
 
+        for r, rank in enumerate(ranks):
+            print(f"[spatial] rank {r}: the row-aware ops on 2 bands of "
+                  f"{SPATIAL_OP_SHAPE} against the whole frame on the card, "
+                  f"values and gradients, largest error "
+                  f"{rank['spatial']['ops_err']:.3e}"
+                  f"; the row-sharded runs took {rank['spatial_s']:.1f} s")
+        print(f"[time] parallel_spatial_ranks: "
+              f"{max(rank['spatial_s'] for rank in ranks):.1f} s")
+        t = time.perf_counter()
+        spatial_launches = spatial_against_one(torch, ranks, work, card)
+        print(f"[time] parallel_spatial_one_process: "
+              f"{time.perf_counter() - t:.1f} s")
         nccl = torch.load(os.path.join(work, "nccl.pt"), weights_only=False)
         check(nccl["backend"] == "nccl" and nccl["ok"],
               f"NCCL rank: {nccl}")
         print(f"[parallel] 1 rank alone, beside the two: {nccl['backend']} "
-              f"on {nccl['device']}, all_reduce, all_gather, broadcast and "
-              f"the halo exchange right, in {nccl_failed[0]:.1f} s")
+              f"on {nccl['device']}, all_reduce, all_gather, broadcast, "
+              f"the halo exchange and the row bands' collectives with their "
+              f"adjoints right, in {nccl_failed[0]:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {f"sepconv_parallel_rank{r}": rank["launches"]
-            for r, rank in enumerate(ranks)}
+    return {**{f"sepconv_parallel_rank{r}": rank["launches"]
+               for r, rank in enumerate(ranks)},
+            **{path: counts for path, counts in spatial_launches.items()
+               if path.startswith("sepconv")}}
 
 
 def parse_args(argv=None):

@@ -7,8 +7,9 @@ package's compilation, is accepted and has no effect here; ``--remat``
 recomputes each model forward in its backward
 (``torch.utils.checkpoint``). ``--mesh_shape`` and ``--episode_parallel``
 take effect in a run of several ranks under ``torchrun``
-(``parallel/mesh.py``); ``--spatial_shards`` above 1 raises (the exact
-row-sharded evaluation is not ported yet).
+(``parallel/mesh.py``); ``--spatial_shards`` above 1 runs the exact
+row-sharded evaluation of SepConv and CAIN (``parallel/spatial.py``) and
+raises for what it does not cover yet (``meta/system.py`` ``_unported``).
 """
 from __future__ import annotations
 
@@ -225,8 +226,10 @@ _HELP = {
                   "task axis splits each batch's tasks over the ranks",
     "episode_parallel": "under torchrun: false runs rank 0 alone (the "
                         "other ranks idle)",
-    "spatial_shards": "the exact row-sharded evaluation over the mesh's "
-                      "spatial axis: not ported yet, above 1 raises",
+    "spatial_shards": "under torchrun: the exact row-sharded evaluation "
+                      "(--mode val / test of sepconv and cain, float32, "
+                      "L1 / MSE / Charb) over the mesh's spatial axis of "
+                      "this many ranks",
 }
 
 

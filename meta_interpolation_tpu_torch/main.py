@@ -79,6 +79,19 @@ only rank 0 writes. Ranks that share a card (more ranks than cards, or
 ``--mesh_shape TxS`` adds a spatial axis: ranks along it hold the same
 tasks. ``--episode_parallel false`` runs rank 0 alone. A plain ``python
 -m`` run (or a world of one rank) starts no process group.
+
+The exact row-sharded evaluation splits every frame's rows over the
+ranks of the spatial axis (SepConv and CAIN, ``--mode val`` and ``test``):
+
+    torchrun --standalone --nproc_per_node 2 -m \
+        meta_interpolation_tpu_torch.main --model sepconv --mode val \
+        --dataset synthetic --loss 1*L1 --optimizer Adamax --metasgd \
+        --inner_lr 1e-5 --number_of_evaluation_steps_per_iter 3 \
+        --spatial_shards 2
+
+``--spatial_shards S`` lays the ranks out 1xS (or TxS with
+``--mesh_shape``; with ``--episode_parallel false`` the first S ranks
+run and the others idle).
 """
 from __future__ import annotations
 

@@ -39,6 +39,13 @@ before the inner loop (``meta_params['attenuator']``), the per-step BN
 statistics thread through every forward (``meta_params['bn_state']``), and
 the adversarial loss reads the discriminator's parameters
 (``meta_params['loss_ctx']``).
+
+Inside ``parallel/spatial.row_shard`` (the exact ``--spatial_shards``
+evaluation) the model runs on this rank's band of rows and returns the
+whole frame gathered from the bands, so every loss, prediction and metric
+is the whole frame's on every rank; each inner step sums the ranks'
+support gradients over the bands before the update, so the adapted
+weights stay the same on every rank.
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import metrics as metrics_lib
 from ..models.layers import torch_default_init_
+from ..parallel import spatial
 from .inner_optimizers import InnerOptimizer
 
 Params = Dict[str, torch.Tensor]
@@ -382,6 +390,9 @@ class EpisodeBuilder:
                 loss = self._support_loss(src, frames, spec, step, task,
                                           spec.collect_support_preds)
                 grads = torch.autograd.grad(loss, [src[k] for k in live])
+            if spatial.current() is not None:
+                # each rank's gradient is its band's part
+                grads = spatial.all_reduce_grads(grads)
             new, state = self.inner_opt.update(
                 {k: params[k] for k in live}, dict(zip(live, grads)), lrs,
                 state, step)

@@ -21,9 +21,19 @@ the global batch, the outer gradient is summed over the task axis before
 the optimizer's step, and the predictions, losses, metrics, per-step BN
 statistics and the discriminator's inputs are those of the global batch
 on every rank.
+
+Under ``--spatial_shards S`` (``--mode val`` and ``--mode test`` of SepConv
+and CAIN, float32, pixel losses) the ranks of the mesh's spatial axis
+also split each frame's rows: the episode runs inside
+``parallel/spatial.row_shard``, where the model works on this rank's
+band and returns the whole frame, and each inner step's gradient is
+summed over the bands. The result is the unsharded run's, up to the order
+of the sums (JAX's GSPMD partition of the same episode). A frame whose
+grid does not split into bands runs unsharded on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -34,6 +44,7 @@ from ..core import adversarial
 from ..core import losses as losses_lib
 from ..models import layers, registry
 from ..parallel import mesh as mesh_lib
+from ..parallel import spatial
 from . import episode as episode_lib
 from .inner_optimizers import make_inner_optimizer
 
@@ -102,14 +113,34 @@ def _resolve_device(device: Union[str, torch.device]) -> torch.device:
     return device
 
 
+# what --spatial_shards runs on row bands: the evaluation modes of these
+# models, with these loss terms (each term a mean of the gathered frame's
+# pixels)
+SPATIAL_MODES = ("val", "test")
+SPATIAL_MODELS = ("sepconv", "cain")
+SPATIAL_LOSSES = ("L1", "MSE", "Charb")
+
+
 def _unported(cfg: Config):
-    """Flags whose behaviour the port does not have yet: the exact
-    row-sharded evaluation of --spatial_shards needs row-sharded
-    convolutions, pooling, upsampling, K1/K2, K3 and CAIN's
-    channel-attention mean (ROADMAP Queue 1)."""
-    return [flag for flag, on in [
-        ("--spatial_shards (the exact row-sharded evaluation)",
-         cfg.spatial_shards > 1),
+    """Flags whose behaviour the port does not have yet: of the exact
+    row-sharded evaluation (--spatial_shards above 1), training, bf16, the
+    warp models and DAIN, the feature and adversarial loss terms and the
+    engine's per-task options (ROADMAP Queue 1)."""
+    if cfg.spatial_shards <= 1:
+        return []
+    terms = [t.loss_type for t in losses_lib.parse_loss_spec(cfg.loss)
+             if t.loss_type not in SPATIAL_LOSSES]
+    return [f"--spatial_shards with {what}" for what, on in [
+        (f"--mode {cfg.mode} (row-sharded training)",
+         cfg.mode not in SPATIAL_MODES),
+        (f"--model {cfg.model} (only {', '.join(SPATIAL_MODELS)})",
+         cfg.model not in SPATIAL_MODELS),
+        (f"--dtype {cfg.dtype}", cfg.dtype != "float32"),
+        (f"the loss terms {', '.join(terms)} (only "
+         f"{', '.join(SPATIAL_LOSSES)})", bool(terms)),
+        ("--attenuate", cfg.attenuate),
+        ("--per_step_bn_statistics", cfg.per_step_bn_statistics),
+        ("--remat", cfg.remat),
     ] if on]
 
 
@@ -269,6 +300,8 @@ class SceneAdaptiveInterpolation:
             cfg.outer_lr)
         self.scheduler = PlateauScheduler(cfg.outer_lr)
         self.current_epoch = 0
+        # frame heights --spatial_shards ran unsharded (logged once each)
+        self._unsplit = set()
         if mesh is not None:
             mesh_lib.replicate_params(mesh, self.meta_params)
 
@@ -298,14 +331,30 @@ class SceneAdaptiveInterpolation:
         return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
 
     def _shard_batch(self, frames):
-        """This rank's tasks of the global (B, T, H, W, C) batch, and
-        whether they are a slice of it (JAX ``_shard_batch``, :475-485):
-        the whole batch with no mesh, or when the task axis does not
-        divide B (every rank then runs all of it)."""
+        """This rank's tasks of the global (B, T, H, W, C) batch, whether
+        they are a slice of it, and the context the episode runs in (JAX
+        ``_shard_batch``, :475-485): the whole batch with no mesh, or when
+        the task axis does not divide B (every rank then runs all of it);
+        under --spatial_shards a row shard over the mesh's spatial axis
+        where the model's grid splits (else, logged once, none)."""
         if self.mesh is None:
-            return frames, False
-        local = mesh_lib.shard_task_batch(self.mesh, frames)
-        return local, len(local) < len(frames)
+            return frames, False, contextlib.nullcontext()
+        rows = False
+        if self.cfg.spatial_shards > 1:
+            local, rows = mesh_lib.shard_task_spatial_batch(
+                self.mesh, frames, self.model.row_bands)
+            h = np.shape(frames)[2]
+            if not rows and h not in self._unsplit:
+                self._unsplit.add(h)
+                mesh_lib.log(
+                    f"[spatial] frames of {h} rows: {self.cfg.model}'s grid "
+                    f"does not split into {self.mesh.spatial} bands; they "
+                    f"run unsharded on every rank")
+        else:
+            local = mesh_lib.shard_task_batch(self.mesh, frames)
+        context = (spatial.row_shard(self.mesh) if rows
+                   else contextlib.nullcontext())
+        return local, len(local) < len(frames), context
 
     def _join_ranks(self, aux, frames, spec: episode_lib.EpisodeSpec,
                     with_metrics: bool):
@@ -374,7 +423,7 @@ class SceneAdaptiveInterpolation:
         leaves = {g: {k: v.detach().requires_grad_(self.trainable[g][k])
                       for k, v in tree.items()}
                   for g, tree in self.meta_params.items()}
-        local, sharded = self._shard_batch(frames)
+        local, sharded, _ = self._shard_batch(frames)
         loss, aux = self.builder.batched_episode(
             leaves, self._frames(local), msl_w, spec, training=True,
             with_metrics=with_metrics and not sharded,
@@ -448,10 +497,11 @@ class SceneAdaptiveInterpolation:
         msl_w = episode_lib.per_step_loss_importance(
             self.cfg.num_eval_steps, self.current_epoch,
             self.cfg.multi_step_loss_num_epochs)
-        local, sharded = self._shard_batch(frames)
-        loss, aux = self.builder.batched_episode(
-            self.meta_params, self._frames(local), msl_w, spec,
-            training=False, with_metrics=not sharded)
+        local, sharded, rows = self._shard_batch(frames)
+        with rows:
+            loss, aux = self.builder.batched_episode(
+                self.meta_params, self._frames(local), msl_w, spec,
+                training=False, with_metrics=not sharded)
         if sharded:
             loss, aux = self._join_ranks(aux, frames, spec, True)
         losses = {"loss": float(loss), "total": float(aux["query_loss"]),
@@ -467,9 +517,10 @@ class SceneAdaptiveInterpolation:
         --second_order says (JAX passes it on): nothing differentiates the
         adapted weights, so the order changes no value."""
         spec = self._spec("test", self.cfg.num_eval_steps)
-        local, sharded = self._shard_batch(frames)
-        preds = self.builder.test_episode(self.meta_params,
-                                          self._frames(local), spec)
+        local, sharded, rows = self._shard_batch(frames)
+        with rows:
+            preds = self.builder.test_episode(self.meta_params,
+                                              self._frames(local), spec)
         return mesh_lib.gather_tasks(self.mesh, preds) if sharded else preds
 
     def epoch_end(self, val_loss: float):

@@ -10,6 +10,13 @@ reduction 16) and a tail conv each, and a tail conv; the result is
 shuffled ×8 back, cropped, and the mean of the two frames' means added.
 Only 3×3 and 1×1 convolutions (cuDNN): no kernel of the port's own.
 
+In a row shard (``parallel/spatial.row_shard``, the exact
+``--spatial_shards`` evaluation) every rank prepares the whole frames
+(the means, the apron, the grid pad and the space-to-depth shuffle), takes
+its band of the shuffled rows, runs the body on it (row-aware convs and
+channel-attention means, ``models/layers.py``) and gathers the bands
+before the crop.
+
 Module names follow the reference state dict and the JAX tree
 (``encoder.interpolate.body.{g}.body.{b}.body.0.conv.weight``, …), so
 ``core/checkpoint.params_from_jax`` bridges it unchanged.
@@ -27,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from . import layers
 
 # a conv's border handling (--fuse_pad, --fuse_groups): False the exact
@@ -48,6 +56,9 @@ class ConvNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pad = self.conv.kernel_size[0] // 2
+        if spatial.current() is not None:
+            return layers.band_conv(x, self.conv.weight, self.conv.bias,
+                                    pad, reflect=self.mode is not True)
         if self.mode is True:
             return F.conv2d(x, self.conv.weight, self.conv.bias, padding=pad)
         # the body's maps are wider than one pixel, so F.pad's reflection
@@ -226,6 +237,14 @@ class CAIN(nn.Module):
             ch, group_modes(fuse_pad, n_resgroups, n_resblocks), reduction,
             generator)})
 
+    def row_bands(self, h: int, shards: int) -> bool:
+        """Whether a frame of ``h`` rows runs exactly in ``shards`` row
+        bands: its shuffled grid splits into equal bands of at least 2
+        rows (a reflected border row comes from the band's own rows)."""
+        rows = h + 2 * self.apron
+        rows = (rows + (-rows) % self.pad_multiple) // 2 ** self.depth
+        return rows % shards == 0 and rows // shards >= 2
+
     def forward(self, frame0: torch.Tensor, frame1: torch.Tensor
                 ) -> torch.Tensor:
         layers.full_float32()
@@ -237,9 +256,14 @@ class CAIN(nn.Module):
         x0, pads = layers.pad_to_multiple(x0, self.pad_multiple)
         x1, _ = layers.pad_to_multiple(x1, self.pad_multiple)
         s = 2 ** self.depth
-        feats = self.encoder["interpolate"](layers.pixel_shuffle(x0, 1 / s),
-                                            layers.pixel_shuffle(x1, 1 / s))
-        out = layers.unpad(layers.pixel_shuffle(feats, s), pads)
+        x0, x1 = (layers.pixel_shuffle(x, 1 / s) for x in (x0, x1))
+        shard = spatial.current()
+        if shard is not None:
+            x0, x1 = spatial.band(x0, shard), spatial.band(x1, shard)
+        out = layers.pixel_shuffle(self.encoder["interpolate"](x0, x1), s)
+        if shard is not None:
+            out = spatial.gather_band(out, shard)
+        out = layers.unpad(out, pads)
         if self.apron:
             a = self.apron
             out = out[..., a:-a, a:-a]

@@ -7,6 +7,16 @@ weight bridge maps onto the JAX ``kernel``/``bias`` leaves). Transposed
 convs are ``nn.ConvTranspose2d`` (weight (in, out, kh, kw)), and batch norm
 is :class:`EvalBatchNorm2d`, which always normalises with its stored
 statistics.
+
+Inside ``parallel/spatial.row_shard`` (the exact ``--spatial_shards``
+evaluation) the row-aware ops work on this rank's band of rows: the
+convolutions of :class:`Conv2d` and :func:`band_conv` (a halo from the
+neighbouring bands, the conv's own border rule at the frame's top and
+bottom), :func:`upsample_bilinear` with ``align_corners=True`` (source
+rows from the frame's global coordinates) and :func:`global_avg_pool`
+(the bands' sums all-reduced). :func:`avg_pool` needs no change: it is
+local while every band has even rows. Outside the context they are the
+whole-frame ops.
 """
 from __future__ import annotations
 
@@ -16,6 +26,8 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import spatial
 
 
 def full_float32() -> None:
@@ -30,11 +42,47 @@ def full_float32() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
+def band_conv(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor], pad: int,
+              reflect: bool = False) -> torch.Tensor:
+    """A stride-1 (2·pad + 1)-square conv of this rank's band of rows
+    (``spatial.current()``), as the whole frame's conv computes those rows:
+    ``pad`` rows of each neighbouring band, then the conv's own border
+    rule past the frame's top and bottom (zeros, or with ``reflect`` the
+    band's own rows mirrored, the edge not repeated) and on the columns,
+    and no row padding in the conv itself."""
+    shard = spatial.current()
+    xh = spatial.halo_rows(x, pad, shard)
+    if not reflect:
+        return F.conv2d(xh, weight, bias, padding=(0, pad))
+    if x.shape[-2] <= pad:
+        raise ValueError(f"a reflect-padded band needs more than {pad} "
+                         f"rows, got {x.shape[-2]}")
+    last = shard.index == shard.count - 1
+    top = (x[..., 1:pad + 1, :].flip(-2) if shard.index == 0
+           else xh[..., :pad, :])
+    bottom = x[..., -pad - 1:-1, :].flip(-2) if last else xh[..., -pad:, :]
+    xh = torch.cat([top, x, bottom], dim=-2)
+    return F.conv2d(F.pad(xh, (pad, pad, 0, 0), mode="reflect"), weight,
+                    bias)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (zero padding, stride 1), row-aware inside a row
+    shard (:func:`band_conv`); its state dict is ``nn.Conv2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.current() is None or self.padding[0] == 0:
+            return super().forward(x)
+        return band_conv(x, self.weight, self.bias, self.padding[0])
+
+
 def xavier_conv(in_ch: int, out_ch: int, k: int,
                 generator: Optional[torch.Generator] = None) -> nn.Conv2d:
     """k×k stride-1 conv, padding k // 2, xavier-uniform weight and zero
-    bias (``meta_interpolation_tpu/models/cain.py:34`` ``_xavier_conv``)."""
-    conv = nn.Conv2d(in_ch, out_ch, k, padding=k // 2)
+    bias (``meta_interpolation_tpu/models/cain.py:34`` ``_xavier_conv``);
+    row-aware (:class:`Conv2d`)."""
+    conv = Conv2d(in_ch, out_ch, k, padding=k // 2)
     bound = math.sqrt(6.0 / ((in_ch + out_ch) * k * k))
     with torch.no_grad():
         conv.weight.uniform_(-bound, bound, generator=generator)
@@ -213,14 +261,19 @@ def pixel_shuffle(x: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """NCHW → NC11, the spatial mean (reference AdaptiveAvgPool2d(1))."""
-    return x.mean(dim=(-2, -1), keepdim=True)
+    """NCHW → NC11, the spatial mean (reference AdaptiveAvgPool2d(1)); in
+    a row shard the whole frame's, from the bands' sums."""
+    shard = spatial.current()
+    if shard is None:
+        return x.mean(dim=(-2, -1), keepdim=True)
+    total = spatial.all_reduce_sum(x.sum(dim=(-2, -1), keepdim=True), shard)
+    return total / (x.shape[-2] * shard.count * x.shape[-1])
 
 
 def sub_mean(x: torch.Tensor):
     """Subtract each image's per-channel spatial mean (model_utils.py
-    :11-15). Returns (x − mean, mean)."""
-    mean = global_avg_pool(x)
+    :11-15), of the whole frame ``x``. Returns (x − mean, mean)."""
+    mean = x.mean(dim=(-2, -1), keepdim=True)
     return x - mean, mean
 
 
@@ -245,8 +298,42 @@ def resize_bilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
 
 def upsample_bilinear(x: torch.Tensor, scale: int = 2,
                       align_corners: bool = False) -> torch.Tensor:
+    shard = spatial.current()
+    if shard is not None:
+        if not align_corners:
+            raise NotImplementedError(
+                "a row-sharded bilinear upsample with align_corners=False")
+        return _band_upsample(x, scale, shard)
     return F.interpolate(x, scale_factor=scale, mode="bilinear",
                          align_corners=align_corners)
+
+
+def _band_upsample(x: torch.Tensor, scale: int,
+                   shard: "spatial.RowShard") -> torch.Tensor:
+    """This rank's band of the align_corners=True upsample of the whole
+    frame, from its band and one halo row each way: output row Y reads the
+    input at src = Y·(H_in − 1)/(H_out − 1) (global rows, in
+    ``F.interpolate``'s arithmetic), which for the output band [s·a, s·b)
+    lies in [a − 1, b]. The columns are ``F.interpolate``'s (its rows an
+    identity at a scale of 1)."""
+    rows, w = x.shape[-2], x.shape[-1]
+    h_in = rows * shard.count
+    h_out, a = h_in * scale, shard.index * rows
+    xh = F.interpolate(spatial.halo_rows(x, 1, shard),
+                       size=(rows + 2, w * scale), mode="bilinear",
+                       align_corners=True)
+    # F.interpolate's index arithmetic: float32, or float64 for float64
+    opmath = torch.float64 if x.dtype == torch.float64 else torch.float32
+    y = torch.arange(a * scale, (a + rows) * scale, device=x.device,
+                     dtype=opmath)
+    src = y * torch.tensor((h_in - 1) / (h_out - 1), dtype=opmath)
+    y0 = src.floor().long().clamp(max=h_in - 1)
+    lam = (src - y0).to(x.dtype)[:, None]
+    y1 = torch.where(y0 < h_in - 1, y0 + 1, y0)
+    # global row r sits at r − (a − 1) of the halo band
+    top = xh.index_select(-2, y0 - (a - 1))
+    bottom = xh.index_select(-2, y1 - (a - 1))
+    return top * (1 - lam) + bottom * lam
 
 
 class Upsample(nn.Module):

@@ -13,6 +13,13 @@ directly and JAX parameter trees bridge by name.
 
 Padding protocol (JAX ``models/sepconv.py:111-118``): replicate-pad 25 px,
 grow to the next ×128 on the bottom/right, crop back after.
+
+In a row shard (``parallel/spatial.row_shard``, the exact
+``--spatial_shards`` evaluation) every rank pads the whole frames, takes
+its band of the grid's rows, runs the encoder-decoder and the subnets on
+it (row-aware convs and upsamples, ``models/layers.py``) and the sepconv
+op on its band: rows [r0, r0 + rows + 50) of the whole padded frame, with
+the band's own kernel maps. The bands are gathered before the crop.
 """
 from __future__ import annotations
 
@@ -22,10 +29,13 @@ import torch
 from torch import nn
 
 from ..ops import sepconv as sepconv_op
+from ..parallel import spatial
 from . import layers
 
 PAD = 25
 F_TAPS = 51
+# the encoder pools five times: a band's rows are a multiple of 2**5
+POOLS = 5
 # subnets the reference calls without the adapted params, so they are
 # left out of inner-loop adaptation (they stay outer-trainable)
 INNER_FROZEN = ("moduleVertical1", "moduleVertical2",
@@ -74,18 +84,32 @@ class SepConv(nn.Module):
                      "moduleHorizontal1", "moduleHorizontal2"):
             self.add_module(name, _subnet(gen))
 
+    @staticmethod
+    def grid_rows(h: int) -> int:
+        """The rows of the padded ×128 grid of a frame of ``h`` rows."""
+        return -(-(h + 2 * PAD) // 128) * 128
+
+    def row_bands(self, h: int, shards: int) -> bool:
+        """Whether a frame of ``h`` rows runs exactly in ``shards`` row
+        bands: its grid splits into equal bands whose rows every pool
+        halves evenly."""
+        return self.grid_rows(h) % (shards * 2 ** POOLS) == 0
+
     def forward(self, frame0: torch.Tensor, frame1: torch.Tensor
                 ) -> torch.Tensor:
         layers.full_float32()
         h, w = frame0.shape[2], frame0.shape[3]
         # left/top get exactly PAD, bottom/right absorb the rounding
-        target_h = -(-(h + 2 * PAD) // 128) * 128
+        target_h = self.grid_rows(h)
         target_w = -(-(w + 2 * PAD) // 128) * 128
         pads = (PAD, target_w - PAD - w, PAD, target_h - PAD - h)
         x0 = layers.replicate_pad(frame0, pads)
         x1 = layers.replicate_pad(frame1, pads)
 
-        c1 = self.moduleConv1(torch.cat([x0, x1], 1))
+        shard = spatial.current()
+        inp = torch.cat([x0, x1], 1)
+        c1 = self.moduleConv1(inp if shard is None
+                              else spatial.band(inp, shard))
         c2 = self.moduleConv2(layers.avg_pool(c1))
         c3 = self.moduleConv3(layers.avg_pool(c2))
         c4 = self.moduleConv4(layers.avg_pool(c3))
@@ -106,9 +130,18 @@ class SepConv(nn.Module):
         kh2 = self.moduleHorizontal2(comb)
 
         pad_k = F_TAPS // 2
-        dot1 = sepconv_op.sepconv(layers.replicate_pad(x0, pad_k), kv1, kh1)
-        dot2 = sepconv_op.sepconv(layers.replicate_pad(x1, pad_k), kv2, kh2)
-        out = dot1 + dot2
+        p0 = layers.replicate_pad(x0, pad_k)
+        p1 = layers.replicate_pad(x1, pad_k)
+        if shard is not None:
+            # the band's taps reach 2·pad_k rows past it, in the whole
+            # padded frame every rank holds
+            r0, rows = shard.index * kv1.shape[2], kv1.shape[2]
+            p0 = p0[:, :, r0:r0 + rows + 2 * pad_k]
+            p1 = p1[:, :, r0:r0 + rows + 2 * pad_k]
+        out = sepconv_op.sepconv(p0, kv1, kh1) + sepconv_op.sepconv(
+            p1, kv2, kh2)
+        if shard is not None:
+            out = spatial.gather_band(out, shard)
         return out[:, :, PAD:PAD + h, PAD:PAD + w]
 
 

@@ -15,8 +15,10 @@ are explicit:
     (:func:`gather_tasks`), so every rank sees the global batch's
     predictions, losses and metrics, as JAX's global arrays are seen.
   * the spatial axis: ranks that share a task coordinate hold the same
-    tasks (replicated over the spatial axis, JAX's task-only placement);
-    the row-sharded apply is in ``parallel/spatial.py``.
+    tasks (replicated over the spatial axis, JAX's task-only placement).
+    Under ``--spatial_shards`` they also split each frame's rows for the
+    exact row-sharded evaluation (:func:`shard_task_spatial_batch`, the
+    bands' ops in ``parallel/spatial.py``).
 
 Rank ``r`` of a mesh sits at task ``r // spatial``, spatial ``r %
 spatial``, JAX's device array reshaped to the mesh. A multi-node run
@@ -148,6 +150,22 @@ def shard_task_batch(mesh: Mesh, frames):
         return frames
     per = b // mesh.task
     return frames[mesh.task_index * per:(mesh.task_index + 1) * per]
+
+
+def shard_task_spatial_batch(mesh: Mesh, frames, splits) -> Tuple[Any, bool]:
+    """This rank's tasks of a global (B, T, H, W, C) batch
+    (:func:`shard_task_batch`), and whether the model runs them on row
+    bands over the spatial axis: the counterpart of JAX's
+    ``shard_task_spatial_batch`` (:95-112). Every rank keeps the whole
+    frames; the model cuts its band after its whole-frame preparation.
+    ``splits(h, shards)``: whether the model's grid of a frame of ``h``
+    rows splits into ``shards`` bands it runs exactly (JAX's ``h %
+    spatial``); where it does not, the batch runs unsharded on every rank
+    of the spatial axis. The decision reads global shapes only, so every
+    rank makes the same."""
+    rows = mesh.spatial > 1 and bool(splits(np.shape(frames)[2],
+                                            mesh.spatial))
+    return shard_task_batch(mesh, frames), rows
 
 
 def _flat(tensors):

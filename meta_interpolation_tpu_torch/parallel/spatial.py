@@ -1,32 +1,56 @@
 """Row (H-axis) sharding with a halo exchange, for frames served across
 ranks.
 
-Counterpart of ``meta_interpolation_tpu/parallel/spatial.py``. Each rank
-of the mesh's spatial axis holds a band of the frame's rows; the halo
-exchange pads its band with its neighbours' edge rows, so a conv stack
-run on the band sees its full receptive field across the seams.
+Counterpart of ``meta_interpolation_tpu/parallel/spatial.py``, and of the
+exact row-sharded evaluation that GSPMD derives for JAX's
+``--spatial_shards`` (``parallel/mesh.py`` ``shard_task_spatial_batch``).
+Each rank of the mesh's spatial axis holds a band of the frame's rows.
+
+The approximate apply, JAX's contract:
 
   * :func:`halo_exchange`: the collective, pad a band from its neighbours;
   * :func:`spatial_sharded_apply`: run a whole-frame apply on this rank's
     band plus the halo and crop the halo off; :func:`gather_rows`
     assembles the frame from the bands.
 
-The apply is exact at every seam for ops whose receptive-field radius is
-at most the halo, and approximate at the frame's top and bottom, where
-the end bands see their own rows reflected where the whole-frame model
-sees its per-layer padding, and for global ops (CAIN's channel-attention
-mean sees the band's statistics): JAX's contract, the same class of
-approximation as the tiling of oversized frames in evaluation. The exact
-row-sharded evaluation (``--spatial_shards``) is not here.
+  It is exact at every seam for ops whose receptive-field radius is at
+  most the halo, and approximate at the frame's top and bottom, where the
+  end bands see their own rows reflected where the whole-frame model sees
+  its per-layer padding, and for global ops (CAIN's channel-attention
+  mean sees the band's statistics).
+
+The exact row-sharded evaluation: the system runs an episode inside
+:func:`row_shard`, and each row-aware op of ``models/layers.py`` reads
+:func:`current` to work on its band of equal rows, its global offset
+``index * rows`` and the frame's ``count * rows``. Outside the context
+every op works on whole frames, as before. The collectives, each an
+autograd Function whose backward is its adjoint, so an inner step's
+gradient is the whole frame's once the ranks' parameter gradients are
+summed (:func:`all_reduce_grads`):
+
+  * :func:`halo_rows`: a band with ``halo`` rows of each neighbour, zeros
+    past the frame's ends (the op applies its own border rule there);
+    each halo row's cotangent goes back to the rank that owns the row;
+  * :func:`all_reduce_sum`: the sum over the bands (a global mean's
+    numerator), its backward the sum of the ranks' cotangents;
+  * :func:`gather_band`: the whole frame from the equal bands, its
+    backward this rank's rows of the cotangent (every rank computes the
+    same loss on the same gathered frame).
+
+Every rank runs the same collectives in the same order, forward and
+backward, whatever its band holds.
 """
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+import contextvars
+import dataclasses
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-from .mesh import Mesh
+from .mesh import Mesh, _flat, _unflat
 
 
 def halo_exchange(x: torch.Tensor, halo: int, group=None) -> torch.Tensor:
@@ -44,9 +68,7 @@ def halo_exchange(x: torch.Tensor, halo: int, group=None) -> torch.Tensor:
                          f"band's rows)")
     n = dist.get_world_size(group)
     idx = dist.get_rank(group)
-    edges = torch.cat([x[:, :, :halo], x[:, :, -halo:]], dim=2).contiguous()
-    parts = [torch.empty_like(edges) for _ in range(n)]
-    dist.all_gather(parts, edges, group=group)
+    parts = _edges(x[:, :, :halo], x[:, :, -halo:], RowShard(idx, n, group))
     top = (x[:, :, :halo].flip(2) if idx == 0
            else parts[idx - 1][:, :, halo:])
     bottom = (x[:, :, -halo:].flip(2) if idx == n - 1
@@ -57,21 +79,13 @@ def halo_exchange(x: torch.Tensor, halo: int, group=None) -> torch.Tensor:
 def shard_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """This rank's band of an (N, C, H, W) frame: the ``spatial_index``-th
     of ``mesh.spatial`` equal bands of rows."""
-    h = x.shape[2]
-    if h % mesh.spatial:
-        raise ValueError(f"{h} rows do not split into {mesh.spatial} bands")
-    band = h // mesh.spatial
-    return x[:, :, mesh.spatial_index * band:
-             (mesh.spatial_index + 1) * band]
+    return band(x, RowShard.of(mesh))
 
 
 def gather_rows(mesh: Mesh, band: torch.Tensor) -> torch.Tensor:
     """The whole (N, C, H, W) frame from every rank's band, on every rank
     of the spatial axis."""
-    band = band.contiguous()
-    parts = [torch.empty_like(band) for _ in range(mesh.spatial)]
-    dist.all_gather(parts, band, group=mesh.spatial_group)
-    return torch.cat(parts, dim=2)
+    return torch.cat(_all_gather(band, RowShard.of(mesh)), dim=2)
 
 
 def spatial_sharded_apply(apply_fn: Callable, mesh: Mesh, halo: int = 32
@@ -87,3 +101,166 @@ def spatial_sharded_apply(apply_fn: Callable, mesh: Mesh, halo: int = 32
         f1_h = halo_exchange(shard_rows(mesh, f1), halo, mesh.spatial_group)
         return apply_fn(params, f0_h, f1_h)[:, :, halo:-halo]
     return sharded
+
+
+# -- the exact row-sharded evaluation --------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """This rank's place among the bands: band ``index`` of ``count``, the
+    bands' ranks forming ``group`` (the mesh's spatial group; None: the
+    whole world)."""
+    index: int
+    count: int
+    group: Any = None
+
+    @classmethod
+    def of(cls, mesh: Mesh) -> "RowShard":
+        """The mesh's spatial axis, seen from this rank."""
+        return cls(mesh.spatial_index, mesh.spatial, mesh.spatial_group)
+
+
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar("row_shard",
+                                                          default=None)
+
+
+def current() -> Optional[RowShard]:
+    """The row shard the ops run under, or None (whole frames)."""
+    return _CURRENT.get()
+
+
+@contextlib.contextmanager
+def row_shard(shard):
+    """Run the block's row-aware ops on this rank's band: ``shard`` a
+    :class:`RowShard` or a mesh (its spatial axis); None runs whole
+    frames."""
+    if isinstance(shard, Mesh):
+        shard = RowShard.of(shard)
+    token = _CURRENT.set(shard)
+    try:
+        yield shard
+    finally:
+        _CURRENT.reset(token)
+
+
+def band(x: torch.Tensor, shard: Optional[RowShard] = None) -> torch.Tensor:
+    """This rank's band of a whole frame's rows (dim −2), a view."""
+    shard = shard or current()
+    h = x.shape[-2]
+    if h % shard.count:
+        raise ValueError(f"{h} rows do not split into {shard.count} bands")
+    rows = h // shard.count
+    return x[..., shard.index * rows:(shard.index + 1) * rows, :]
+
+
+def _all_gather(t: torch.Tensor, shard: RowShard):
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(shard.count)]
+    dist.all_gather(parts, t, group=shard.group)
+    return parts
+
+
+def _edges(top: torch.Tensor, bottom: torch.Tensor, shard: RowShard):
+    """Every rank's (top, bottom) rows, each rank's as one tensor."""
+    return _all_gather(torch.cat([top, bottom], dim=-2), shard)
+
+
+class HaloFunction(torch.autograd.Function):
+    """(…, rows, W) band → (…, halo + rows + halo, W): the ``halo`` rows
+    of the band above and of the band below, zeros past the frame's ends.
+    One ``all_gather`` of every band's edge rows each way."""
+
+    @staticmethod
+    def forward(ctx, x, halo, shard):
+        if not 0 < halo <= x.shape[-2]:
+            raise ValueError(f"halo {halo} must be in 1..{x.shape[-2]} "
+                             f"(the band's rows)")
+        ctx.halo, ctx.shard = halo, shard
+        parts = _edges(x[..., :halo, :], x[..., -halo:, :], shard)
+        i, zeros = shard.index, x.new_zeros(
+            x.shape[:-2] + (halo, x.shape[-1]))
+        above = parts[i - 1][..., halo:, :] if i > 0 else zeros
+        below = (parts[i + 1][..., :halo, :] if i < shard.count - 1
+                 else zeros)
+        return torch.cat([above, x, below], dim=-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        halo, shard, i = ctx.halo, ctx.shard, ctx.shard.index
+        # each rank's cotangents of its halo rows, sent to their owners:
+        # the band above owns this rank's top halo, the band below its
+        # bottom one
+        parts = _edges(g[..., :halo, :], g[..., -halo:, :], shard)
+        gx = g[..., halo:-halo, :].clone()
+        if i > 0:
+            gx[..., :halo, :] += parts[i - 1][..., halo:, :]
+        if i < shard.count - 1:
+            gx[..., -halo:, :] += parts[i + 1][..., :halo, :]
+        return gx, None, None
+
+
+def halo_rows(x: torch.Tensor, halo: int,
+              shard: Optional[RowShard] = None) -> torch.Tensor:
+    """This rank's band with ``halo`` rows of each neighbour's band, zeros
+    past the frame's ends; differentiable (:class:`HaloFunction`)."""
+    return HaloFunction.apply(x, halo, shard or current())
+
+
+class AllReduceSumFunction(torch.autograd.Function):
+    """The sum of ``x`` over the bands' ranks; its backward sums the
+    ranks' cotangents, the adjoint of a value every rank reads."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=shard.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.shard.group)
+        return g, None
+
+
+def all_reduce_sum(x: torch.Tensor,
+                   shard: Optional[RowShard] = None) -> torch.Tensor:
+    """Σ over the bands' ranks of ``x``, differentiable."""
+    return AllReduceSumFunction.apply(x, shard or current())
+
+
+class GatherBandFunction(torch.autograd.Function):
+    """The whole frame from every rank's equal band (rows, dim −2); its
+    backward takes this rank's rows of the cotangent, which every rank
+    computes alike from the same gathered frame."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard, ctx.rows = shard, x.shape[-2]
+        return torch.cat(_all_gather(x, shard), dim=-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.shard.index * ctx.rows
+        return g[..., lo:lo + ctx.rows, :], None
+
+
+def gather_band(x: torch.Tensor,
+                shard: Optional[RowShard] = None) -> torch.Tensor:
+    """The whole frame from the bands, on every rank; differentiable."""
+    return GatherBandFunction.apply(x, shard or current())
+
+
+def all_reduce_grads(grads: Sequence[torch.Tensor],
+                     shard: Optional[RowShard] = None):
+    """The ranks' parameter gradients summed over the bands: one SUM
+    all-reduce of one flat buffer. Each rank's gradient is its band's part
+    of the whole frame's, so the sum is the whole frame's."""
+    shard = shard or current()
+    grads = list(grads)
+    if not grads:
+        return grads
+    flat = _flat(grads)
+    dist.all_reduce(flat, group=shard.group)
+    return _unflat(flat, grads)
