@@ -43,7 +43,12 @@ as that tree did. Phases, in order:
          three timed at RRIN's and at VoxelFlow's call, K3-grad² also on
          smooth displacements, at 8x3x256x512 and (after the second-order
          training paths, which record it) at the shape those paths give it,
-         in turns with --earlier-warp's;
+         in turns with --earlier-warp's; K3 and K3-grad's band entries (the
+         row-sharded evaluation) on the first and last of 2 bands of a
+         256x448 frame at each padding and align_corners, R = 8, bit for
+         bit the whole-frame kernel's rows and against the plain version
+         with row0, the bf16 and K3-grad² band calls refused, both timed on
+         a 128-row band of a 1x3x256x512 image;
        - the bounded flow projection K4 at 1x256x448 (DAIN's served frame),
          R = 8, on a uniform and a smooth flow, and at 2x37x53 with R = 0,
          1, 16 (over 48 KB of shared memory) and 40 (a halo staged in
@@ -213,7 +218,12 @@ as that tree did. Phases, in order:
          the full architecture) on one 256x448 Vimeo-format septuplet,
          and SepConv's --mode test on one 720x1280 clip: 14/12 K1/K2 a
          rank a validation clip and 6/4 a test clip, each on a band of half
-         the padded rows (shapes printed); against one process on the
+         the padded rows (shapes printed); RRIN's, SuperSloMo's and
+         VoxelFlow's evaluation (their presets, --fast_warp_range 8) of the
+         septuplet and RRIN's --mode test of the 720x1280 clip: K3/K3-grad
+         a rank a clip 6/4, 18/12, 6/4 and 6/4, all on the band entries,
+         each sampling the whole padded frame at the band's half of its
+         rows (image, band grid and row0 printed); against one process on the
          card on the same batch and weights, the support gradients within
          1e-4 of their norm (CAIN's, which float32 rounds to ~2e-4 at
          random init, no farther from the float64 gradient than the one
@@ -230,7 +240,8 @@ as that tree did. Phases, in order:
      second-order training paths'; K1/K2 also the ``rest`` phase's SepConv
      paths and K3/K3-grad (K3-grad² in second order) its VoxelFlow
      --remat paths, and each ``parallel`` rank's run and its row-sharded
-     evaluation and test runs; K4 the served DAIN
+     evaluation and test runs, K3/K3-grad those of the warp models; K3
+     and K3-grad also ``band``, their band call's times; K4 the served DAIN
      frames' and its bf16 paths'; the bf16 kernels of K1, K2, K3,
      K3-grad and K3-grad² five records of their own, K3's and K3-grad's
      with their times at one image and at the served batch, ``by_batch``
@@ -429,6 +440,12 @@ GRAD2_SHAPES = [("1x3x256x512 random", 1, 3, 256, 512, "library", WARP_R,
                  "border"),
                 ("8x3x256x512 random", 8, 3, 256, 512, "library", WARP_R,
                  False, "zeros")]
+# the band entries of K3 and K3-grad (the row-sharded evaluation): checked
+# on the first and last of BAND_COUNT bands of a BAND_HW frame at each
+# padding and align_corners, R = WARP_R, displacements past R; timed on a
+# band of BAND_TIMED_HW's image (RRIN's padded frame), the first of 2
+BAND_HW, BAND_COUNT = (256, 448), 2
+BAND_TIMED_HW = (256, 512)
 EARLIER_WARP_KERNELS = {"warp_bounded_forward": "warp_bounded_fwd_kernel",
                         "warp_bounded_grad_frac":
                             "warp_bounded_grad_frac_kernel"}
@@ -1018,7 +1035,9 @@ def earlier_warp(torch, wb, lib):
 
     class Accumulate(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, img, dy0, dx0, fy, fx, r):
+        def forward(ctx, img, dy0, dx0, fy, fx, r, row0=0):
+            check(row0 == 0 and dy0.shape[1] == img.shape[2],
+                  "the earlier warp samples whole frames only")
             ctx.save_for_backward(img, dy0, dx0, fy, fx)
             ctx.r = r
             return k3(img, dy0, dx0, fy, fx, r)
@@ -1033,7 +1052,7 @@ def earlier_warp(torch, wb, lib):
             if ctx.needs_input_grad[0]:
                 gimg = wb.warp_bounded_grad_img_ref(img, dy0, dx0, fy, fx, g,
                                                     ctx.r)
-            return gimg, None, None, gfy, gfx, None
+            return gimg, None, None, gfy, gfx, None, None
 
     return (functools.partial(wb.grid_sample_bounded_ref,
                               warp=Accumulate.apply), k3, k3_grad)
@@ -1291,6 +1310,134 @@ def warp_kernel_phase(torch, wb, card, resources=None, earlier=None,
                   f"{old_ms[1]:.4f} ms, eager call {old_call[0]:.4f}, "
                   f"{old_call[1]:.4f} ms")
     return records
+
+
+def warp_band_phase(torch, wb, card):
+    """The band entries of K3 and K3-grad: on the first and last of
+    BAND_COUNT bands of a BAND_HW frame at each padding and align_corners,
+    R = WARP_R, displacements reaching past R, each band call bit for bit
+    the whole-frame kernel's rows and within TOL_REL·max + TOL_ABS of the
+    plain version with ``row0``; the bf16 and K3-grad² band calls raise.
+    Then both timed on the first band of a BAND_TIMED_HW image, random
+    displacements within range (RRIN's padded frame), beside the plain
+    version, the bound and the library call on the same band. Returns
+    {K3 name: timing, K3-grad name: timing}."""
+    import torch.nn.functional as F
+    n, c, r = 1, 3, WARP_R
+    h, w = BAND_HW
+    rows = h // BAND_COUNT
+    checked, worst = 0, {"fwd": 0.0, "grad": 0.0}
+    for align in (False, True):
+        for padding in wb.PADDING_MODES:
+            seed = 31 + 2 * align + (padding == "border")
+            gen = torch.Generator().manual_seed(seed)
+            img = torch.rand(n, c, h, w, generator=gen).cuda()
+            g = torch.randn(n, c, h, w, generator=gen).cuda()
+            grid = warp_grid(torch, "uniform", n, h, w, -r - 3, r + 2, align,
+                             seed).cuda()
+            opts = (r, align, padding)
+            whole = wb.warp_sample_bounded_forward(img, grid, *opts)
+            whole_g = wb.warp_sample_bounded_grad_grid(img, grid, g, *opts)
+            for row0 in (0, h - rows):
+                sl = slice(row0, row0 + rows)
+                what = (f"band rows {row0}..{row0 + rows - 1} of {n}x{c}x{h}x"
+                        f"{w}, R={r}, align_corners={align}, {padding}")
+                band = grid[:, sl].contiguous()
+                gb = g[:, :, sl].contiguous()
+                out = wb.warp_sample_bounded_forward(img, band, *opts,
+                                                     row0=row0)
+                ggrid = wb.warp_sample_bounded_grad_grid(img, band, gb, *opts,
+                                                         row0=row0)
+                check(torch.equal(out, whole[:, :, sl]),
+                      f"K3 on {what} is not the whole frame's rows")
+                check(torch.equal(ggrid, whole_g[:, sl]),
+                      f"K3-grad on {what} is not the whole frame's rows")
+                worst["fwd"] = max(worst["fwd"], max_err(
+                    out, wb.grid_sample_bounded_ref(img, band, *opts,
+                                                    row0=row0),
+                    f"K3 on {what} against plain"))
+                worst["grad"] = max(worst["grad"], max_err(
+                    ggrid, wb.grid_sample_bounded_grad_grid_ref(
+                        img, band, gb, *opts, row0), f"K3-grad on {what} "
+                                                     f"against plain"))
+                checked += 1
+    refused = []
+    band, gb = grid[:, rows:], g[:, :, rows:]
+    for what, call in [
+            ("bf16 K3", lambda: wb.warp_sample_bounded_forward(
+                img.bfloat16(), band, *opts, row0=rows)),
+            ("bf16 K3-grad", lambda: wb.warp_sample_bounded_grad_grid(
+                img.bfloat16(), band, gb.bfloat16(), *opts, row0=rows)),
+            ("K3-grad²", lambda: wb.warp_sample_bounded_grad_grid_backward(
+                img, band, gb, torch.ones_like(band), *opts))]:
+        try:
+            call()
+        except NotImplementedError:
+            refused.append(what)
+        else:
+            check(False, f"the {what} band call did not raise")
+    torch.cuda.synchronize()
+    print(f"[kernels] K3 / K3-grad band entries: {checked} band calls of "
+          f"{rows} of {h} rows (first and last band, both paddings and "
+          f"align_corners, R={r}, floors in [{-r - 3}, {r + 2}]) bit for bit "
+          f"the whole-frame kernel's rows; against the plain version with "
+          f"row0 max|diff| {worst['fwd']:.3e} / {worst['grad']:.3e}; the "
+          f"{', '.join(refused)} band calls raise")
+
+    flops_peak, bw_peak = peaks(card)
+    h, w = BAND_TIMED_HW
+    rows = h // BAND_COUNT
+    gen = torch.Generator().manual_seed(37)
+    img = torch.rand(n, c, h, w, generator=gen).cuda()
+    g = torch.randn(n, c, rows, w, generator=gen).cuda()
+    grid = warp_grid(torch, "library", n, h, w, -r, r - 2, False,
+                     38)[:, :rows].contiguous().cuda()
+    opts = (r, False, "zeros")
+    calls = {
+        "fwd": (lambda: wb.warp_sample_bounded_forward(img, grid, *opts,
+                                                       row0=0),
+                lambda: wb.grid_sample_bounded_ref(img, grid, *opts),
+                lambda: F.grid_sample(img, grid, mode="bilinear",
+                                      padding_mode="zeros",
+                                      align_corners=False)),
+        "grad": (lambda: wb.warp_sample_bounded_grad_grid(img, grid, g,
+                                                          *opts, row0=0),
+                 lambda: wb.grid_sample_bounded_grad_grid_ref(img, grid, g,
+                                                              *opts),
+                 lambda: torch.ops.aten.grid_sampler_2d_backward(
+                     g, img, grid, 0, 0, False, [False, True])[1])}
+    # the band's work: its pixels' grid (and g, ggrid) and output, and the
+    # image rows its taps can reach (the band + R, clipped)
+    pixels, reach = n * rows * w, n * min(rows + r + 1, h) * w
+    out = {}
+    for key, name, ops, nbytes in (
+            ("fwd", "warp_sample_bounded_forward", pixels * (40 + 7 * c),
+             pixels * (8 + 4 * c) + reach * 4 * c),
+            ("grad", "warp_sample_bounded_grad_grid", pixels * (50 + 16 * c),
+             pixels * (16 + 4 * c) + reach * 4 * c)):
+        kernel, plain, library = calls[key]
+        err = max_err(kernel(), plain(), f"{name} band against plain")
+        lib_err = max_err(kernel(), library(), f"{name} band against the "
+                                               f"library")
+        t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+        out[name] = {
+            "shape": f"img {n}x{c}x{h}x{w}, grid and output rows 0..{rows - 1}"
+                     f" ({n}x{rows}x{w}x2), R={r}, zeros, align_corners=False",
+            "max_abs_err": max(err, worst[key]), "library_err": lib_err,
+            "ms": time_ms(torch, kernel), "call_ms": call_ms(torch, kernel),
+            "plain_ms": time_ms(torch, plain),
+            "library_ms": time_ms(torch, library),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "mbytes": nbytes / 1e6}
+        t = out[name]
+        print(f"[kernels] {name} on a band ({t['shape']}): {t['ms']:.4f} ms "
+              f"(eager call {t['call_ms']:.4f}; plain {t['plain_ms']:.4f}, "
+              f"library {t['library_ms']:.4f}, against it {lib_err:.3e}; "
+              f"bound {t['bound_ms']:.6f} ms by {t['bound_by']}, "
+              f"{t['mbytes']:.2f} MB, {t['bound_ms'] / t['ms']:.3f} reached)"
+              f" ({card})")
+    return out
 
 
 def warp_f32_against_earlier(torch, wb, lib, calls):
@@ -5281,28 +5428,46 @@ def write_septuplet(root, hw):
         save_image(frame, os.path.join(seq, f"im{i}.png"))
 
 
+def spatial_launches(k1=0, k2=0, k3=0, k3g=0):
+    """A clip's launches of K1, K2, K3 and K3-grad."""
+    return dict(zip(KERNELS[:4], (k1, k2, k3, k3g)))
+
+
 def spatial_paths(work):
     """The row-sharded runs of the parallel phase: path → (CLI flags, the
-    System method each clip goes through, K1/K2 a clip)."""
+    System method each clip goes through, the launches a clip of K1, K2,
+    K3 and K3-grad). The warp models run their presets with
+    --fast_warp_range WARP_R (K3 / K3-grad on each rank's band); RRIN's
+    test mode (TEST_FLAGS, one evaluation step) one clip of SPATIAL_HD."""
     val = ["--dataset", "vimeo90k", "--data_root",
            os.path.join(work, "vimeo")]
+    # a test run writes its frames beside its inputs: a directory a model
+    hd = ["--data_root", os.path.join(work, "hd")]
+    hd_rrin = ["--data_root", os.path.join(work, "hd_rrin")]
     return {
         "sepconv_spatial_val": (EVAL_FLAGS + val, "run_validation_iter",
-                                (K1_PER_CLIP, K2_PER_CLIP)),
+                                spatial_launches(K1_PER_CLIP, K2_PER_CLIP)),
         "cain_spatial_val": (CAIN_EVAL_FLAGS + val, "run_validation_iter",
-                             (0, 0)),
+                             spatial_launches()),
         "sepconv_spatial_test": (
-            TEST_FLAGS + TEST_MODELS["sepconv"]
-            + ["--data_root", os.path.join(work, "hd")],
-            "run_test_iter", (K1_PER_TEST_CLIP, K2_PER_TEST_CLIP))}
+            TEST_FLAGS + TEST_MODELS["sepconv"] + hd, "run_test_iter",
+            spatial_launches(K1_PER_TEST_CLIP, K2_PER_TEST_CLIP)),
+        **{f"{model}_spatial_val": (flags + val, "run_validation_iter",
+                                    spatial_launches(k3=k3, k3g=k3g))
+           for model, (flags, k3, k3g) in WARP_MODELS.items()},
+        "rrin_spatial_test": (RRIN_FLAGS + TEST_FLAGS + hd_rrin,
+                              "run_test_iter",
+                              spatial_launches(k3=K3_PER_CLIP,
+                                               k3g=K3G_PER_CLIP))}
 
 
 def spatial_runs(torch, work, mesh, dev):
     """Each row-sharded run through the CLI on this rank, its launch
     counts set to 0 just before and read just after: per clip its
-    seconds, launches, the K1 band shapes (the sepconv op's input and
-    kernel maps), and its frames, losses and prediction; the rank's peak
-    memory over the run."""
+    seconds, launches (and K3 / K3-grad's on their band entries), the K1
+    band shapes (the sepconv op's input and kernel maps) and the bounded
+    sampler's (image, band grid, row0), and its frames, losses and
+    prediction; the rank's peak memory over the run."""
     import pathlib
 
     import numpy as np
@@ -5313,25 +5478,33 @@ def spatial_runs(torch, work, mesh, dev):
     from meta_interpolation_tpu_torch.meta.system import (
         SceneAdaptiveInterpolation as System)
     from meta_interpolation_tpu_torch.ops import sepconv as sc
+    from meta_interpolation_tpu_torch.ops import warp as warp_ops
+    from meta_interpolation_tpu_torch.ops import warp_bounded as wb
     out = {"ops_err": spatial_op_checks(torch, dev, mesh)}
+    mods, bounded = (sc, wb), KERNELS[2:4]
+
+    def band_launches():
+        return {k: getattr(wb, k).band_launches for k in bounded}
     for path, (flags, method, _) in spatial_paths(work).items():
-        clips, shapes, inner = [], [], []
+        clips, shapes, k3_shapes, inner = [], [], [], []
         real = getattr(System, method)
         real_sepconv = sc.sepconv
+        real_bounded = warp_ops.grid_sample_bounded
 
         def clip(self, frames, *args, **kwargs):
             torch.cuda.synchronize()
             comm.clear()
-            before = launch_counts((sc,))
+            before, band_before = launch_counts(mods), band_launches()
             t = time.perf_counter()
             res = real(self, frames, *args, **kwargs)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
-            after = launch_counts((sc,))
+            after, band_after = launch_counts(mods), band_launches()
             losses, preds = res if method == "run_validation_iter" else (
                 None, res)
             clips.append({"s": dt, "comm": dict(comm), "launches": {
-                k: after[k] - before[k] for k in after},
+                k: after[k] - before[k] for k in after}, "band_launches": {
+                k: band_after[k] - band_before[k] for k in band_after},
                 "frames": np.asarray(frames).copy(), "losses": losses,
                 "preds": preds.detach().cpu()})
             return res
@@ -5339,6 +5512,10 @@ def spatial_runs(torch, work, mesh, dev):
         def sepconv(inp, kv, kh):
             shapes.append((tuple(inp.shape), tuple(kv.shape)))
             return real_sepconv(inp, kv, kh)
+
+        def grid_sample_bounded(img, grid, *args, row0=0, **kwargs):
+            k3_shapes.append((tuple(img.shape), tuple(grid.shape), row0))
+            return real_bounded(img, grid, *args, row0=row0, **kwargs)
 
         # every collective of the run: its count and host seconds (a gloo
         # collective on CUDA tensors returns once its data is back)
@@ -5357,27 +5534,32 @@ def spatial_runs(torch, work, mesh, dev):
         # the update takes them (handing_inner's recording side)
         run = with_attr(System, method, clip, with_attr(
             sc, "sepconv", sepconv, with_attr(
-                InnerOptimizer, "update", handing_inner(
+                warp_ops, "grid_sample_bounded", grid_sample_bounded,
+                with_attr(InnerOptimizer, "update", handing_inner(
                     torch, InnerOptimizer.update, inner, "cuda", None),
-                with_attr(dist, "all_gather", timed_collective(
-                    dist.all_gather), with_attr(
-                        dist, "all_reduce", timed_collective(
-                            dist.all_reduce), port_main)))))
+                    with_attr(dist, "all_gather", timed_collective(
+                        dist.all_gather), with_attr(
+                            dist, "all_reduce", timed_collective(
+                                dist.all_reduce), port_main))))))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launches((sc,))
+        base = torch.cuda.memory_allocated()
+        reset_launches(mods)
         run(flags + SPATIAL_FLAGS + ["--checkpoint_dir", str(
             pathlib.Path(work) / f"ck_{path}")])
-        out[path] = {"clips": clips, "launches": launch_counts((sc,)),
+        out[path] = {"clips": clips, "launches": launch_counts(mods),
                      "band_shapes": sorted(set(shapes)),
+                     "k3_shapes": sorted(set(k3_shapes)),
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "base_gib": base / 2**30,
                      "inner": inner if mesh.rank == 0 else None}
     return out
 
 
 def parallel_rank(rank, work):
     """One rank of the parallel phase: both ranks build K1/K2 at once into
-    one fresh directory, run the halo checks, then the training CLI on
+    one fresh directory (K3's library, built once already, copied there
+    by the parent), run the halo checks, then the training CLI on
     the 2-rank mesh with each train iteration's launches, seconds and
     (rank 0) its batch, gradient and weights recorded; the results go to
     ``work``."""
@@ -5403,7 +5585,7 @@ def parallel_rank(rank, work):
     dist.barrier()
     t0 = time.perf_counter()
     out["build"] = {k: v["seconds"] for k, v in _build.build(
-        ["sepconv"]).items()}
+        ["sepconv", "warp"]).items()}
     out["build_s"] = time.perf_counter() - t0
     out.update(halo_checks(torch, dev, mesh_lib.make_mesh(
         f"1x{PARALLEL_RANKS}")))
@@ -5536,18 +5718,21 @@ def spatial_against_one(torch, ranks, work, card):
     the support gradients within SPATIAL_GRAD_RTOL (CAIN's: no farther
     from the float64 gradient than twice the one process's), and the
     handed run's
-    prediction, PSNR and loss within their limits; the launches a clip and
-    the band shapes; seconds a clip and peak memory beside the ranks'.
-    Returns each rank's launches on each path."""
+    prediction, PSNR and loss within their limits; the launches a clip
+    (K3 / K3-grad's all on their band entries) and the band shapes;
+    seconds a clip and peak memory beside the ranks'. Returns each rank's
+    launches on each path."""
     from meta_interpolation_tpu_torch.config import get_args
     from meta_interpolation_tpu_torch.meta.inner_optimizers import (
         InnerOptimizer)
     from meta_interpolation_tpu_torch.meta.system import (
         SceneAdaptiveInterpolation as System)
+    from meta_interpolation_tpu_torch.models import registry
     from meta_interpolation_tpu_torch.models.sepconv import SepConv
     launches = {}
-    for path, (flags, method, (k1, k2)) in spatial_paths(work).items():
-        want = {"sepconv_forward": k1, "sepconv_grad_kernels": k2}
+    bounded = KERNELS[2:4]
+    for path, (flags, method, want) in spatial_paths(work).items():
+        model = path.split("_")[0]
         runs = [rank["spatial"][path] for rank in ranks]
         first = runs[0]["clips"][0]
         for r, run in enumerate(runs):
@@ -5556,11 +5741,27 @@ def spatial_against_one(torch, ranks, work, card):
             got = {k: run["clips"][0]["launches"][k] for k in want}
             check(got == want, f"{path} rank {r}: a clip launched {got}, "
                   f"want {want}")
+            band = run["clips"][0]["band_launches"]
+            check(band == {k: want[k] for k in bounded},
+                  f"{path} rank {r}: K3 / K3-grad launched {band} times on "
+                  f"their band entries, want all of {want}")
             check(torch.equal(run["clips"][0]["preds"], first["preds"]),
                   f"{path} rank {r}: its prediction differs from rank 0's")
             launches[f"{path}_rank{r}"] = run["launches"]
+            if want[bounded[0]]:
+                # every bounded sample of the whole padded frame at this
+                # rank's band of its rows
+                grid = registry.get(model).build.grid_rows(
+                    first["frames"].shape[2])
+                rows = grid // PARALLEL_RANKS
+                check(run["k3_shapes"] and all(
+                    img[2] == grid and g[1] == rows and row0 == r * rows
+                    for img, g, row0 in run["k3_shapes"]),
+                    f"{path} rank {r}: K3 (image, grid, row0) "
+                    f"{run['k3_shapes']}, want {rows} of the {grid} padded "
+                    f"rows from row {r * rows}")
         shapes = runs[0]["band_shapes"]
-        if k1:
+        if want["sepconv_forward"]:
             grid = SepConv.grid_rows(first["frames"].shape[2])
             check(all(kv[2] == grid // PARALLEL_RANKS for _, kv in shapes),
                   f"{path}: K1 bands {shapes}, want {grid // PARALLEL_RANKS}"
@@ -5650,18 +5851,31 @@ def spatial_against_one(torch, ranks, work, card):
         one_s, one_peak = own["s"], own["peak"]
         del system
         print(line)
-        print(f"[spatial] {path}: K1/K2 a clip a rank "
-              f"{[run['clips'][0]['launches']['sepconv_forward'] for run in runs]}"
-              f"/{[run['clips'][0]['launches']['sepconv_grad_kernels'] for run in runs]}"
-              f" (want {k1}/{k2}); K1 (input, maps) shapes {shapes}; "
+        ran = [k for k in want if want[k]] or list(want)[:2]
+        short = {"sepconv_forward": "K1", "sepconv_grad_kernels": "K2",
+                 bounded[0]: "K3", bounded[1]: "K3-grad"}
+        shape_txt = (f"K1 (input, maps) shapes {shapes}" if
+                     want["sepconv_forward"] else
+                     f"K3 (image, band grid, row0) a rank "
+                     f"{[run['k3_shapes'] for run in runs]}"
+                     if want[bounded[0]] else "no kernel")
+        print(f"[spatial] {path}: "
+              + "/".join(short[k] for k in ran) + " a clip a rank "
+              + "/".join(str([run["clips"][0]["launches"][k] for run in runs])
+                         for k in ran)
+              + f" (want {'/'.join(str(want[k]) for k in ran)}; on band "
+              f"entries {[run['clips'][0]['band_launches'] for run in runs]})"
+              f"; {shape_txt}; "
               f"s/clip ranks {[round(run['clips'][0]['s'], 4) for run in runs]}"
               f" (2 ranks share the card; collectives a clip "
               f"{ {k: v for k, v in first['comm'].items() if k != 's'} }, "
               f"{first['comm'].get('s', 0.0):.4f} s of rank 0's host in "
               f"them), one process {one_s:.4f}; peak "
               f"memory a rank {[round(run['peak_gib'], 3) for run in runs]} "
-              f"GiB (its whole CLI run), one process {one_peak:.3f} GiB (its "
-              f"weights and the clip) ({card})")
+              f"GiB (its whole CLI run; "
+              f"{[round(run['base_gib'], 3) for run in runs]} held before "
+              f"it), one process {one_peak:.3f} GiB (its weights and the "
+              f"clip) ({card})")
     return launches
 
 
@@ -5688,7 +5902,13 @@ def parallel_phase(torch, mods, card):
                             dir=os.path.join(ROOT, "build"))
     try:
         write_septuplet(os.path.join(work, "vimeo"), FULL_HW)
-        write_frames(os.path.join(work, "hd"), SPATIAL_HD, 4)
+        for name in ("hd", "hd_rrin"):
+            write_frames(os.path.join(work, name), SPATIAL_HD, 4)
+        # the warp kernels as built at the start: the ranks reuse them
+        from meta_interpolation_tpu_torch.ops import _build
+        os.makedirs(os.path.join(work, "kernels"))
+        shutil.copy(_build.library_path("warp"),
+                    os.path.join(work, "kernels"))
         # the NCCL rank beside the two gloo ranks, in a thread of its own
         nccl_failed = []
 
@@ -5839,7 +6059,7 @@ def parallel_phase(torch, mods, card):
     return {**{f"sepconv_parallel_rank{r}": rank["launches"]
                for r, rank in enumerate(ranks)},
             **{path: counts for path, counts in spatial_launches.items()
-               if path.startswith("sepconv")}}
+               if path.split("_")[0] in ("sepconv",) + tuple(WARP_MODELS)}}
 
 
 def parse_args(argv=None):
@@ -5933,6 +6153,10 @@ def main():
                        k3_resources, earlier_k3, earlier_grid_warp)
                + timed("projection_kernel", projection_kernel_phase, torch,
                        fpb, card, k4_resources, earlier_k4))
+    # K3 and K3-grad on a band of rows (the row-sharded evaluation)
+    for rec, band in zip(records[2:4], timed(
+            "warp_band", warp_band_phase, torch, wb, card).values()):
+        rec["band"] = band
     mods = (sc, wb, fpb)
     bf16_records = timed("bf16_kernels", bf16_kernel_phase, torch, mods,
                          card, libs.get("sepconv"),
@@ -6009,9 +6233,12 @@ def main():
                   else KERNELS[2:4] + ((KERNELS[4],) if path.endswith(
                       "second_order") else ())):
             by_path[k][path] = counts[k]
-    # task parallelism: K1/K2 in each rank's process, over its whole run
+    # task parallelism: K1/K2 in each rank's process, over its whole run;
+    # the row-sharded evaluation: K1/K2 (SepConv) or K3/K3-grad (the warp
+    # models) on each rank's bands, over each CLI run
     for path, counts in parallel_paths.items():
-        for k in KERNELS[:2]:
+        for k in (KERNELS[2:4] if path.split("_")[0] in WARP_MODELS
+                  else KERNELS[:2]):
             by_path[k][path] = counts[k]
     for rec in records:
         rec["launches_by_path"] = by_path[rec["name"]]

@@ -48,6 +48,14 @@
 // floors lie in [-R, R-1], so on Hopper the sweep is one direct 2x2 gather
 // a pixel, and R enters only through the clamp.
 //
+// Row bands (the row-sharded evaluation, --spatial_shards): the float32 K3
+// and K3-grad also take a band of output rows, the _band entry points. The
+// grid, output and gradients hold the band's h_out rows, and output row y
+// measures its displacement from image row row0 + y of the whole image,
+// which every rank holds. The image's H stays in the clamp and the zero
+// padding, so a band's rows are the whole-frame call's rows bit for bit.
+// The bf16 tile kernels and K3-grad² have no band form.
+//
 // Rounding: ix, iy, the clamps and the floors are written with __fadd_rn /
 // __fsub_rn / __fmul_rn in PyTorch's operation order, so that they are
 // bitwise equal to the plain composition's on the card and on the CPU: an
@@ -193,18 +201,23 @@ __device__ __forceinline__ Axis axis(float g, int pos, int size, int r,
 // model's frames: the channel loop unrolls and all of a pixel's taps are
 // issued together), or 0 to take it at run time.
 // T: the image's storage type, float or __nv_bfloat16.
+// A band (row0, h_out): the grid, out (and g, ggrid below) hold h_out rows,
+// output row y being image row row0 + y; the image keeps its h rows for the
+// taps, the edge clamp and the zero padding. The whole frame is row0 = 0,
+// h_out = h, with the same arithmetic.
 template <int kC, typename T>
 __global__ void __launch_bounds__(kThreads)
 warp_sample_fwd_kernel(const T* __restrict__ img,
                        const float2* __restrict__ grid,
-                       T* __restrict__ out, int c, int h, int w, int r,
-                       bool align, bool border) {
+                       T* __restrict__ out, int c, int h, int w, int row0,
+                       int h_out, int r, bool align, bool border) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   const int y = blockIdx.y, b = blockIdx.z;
   const int x_base = blockIdx.x * (kThreads * kPix) + threadIdx.x;
   const int nc = kC > 0 ? kC : c;
   const size_t hw = static_cast<size_t>(h) * w;
-  const float2* grow = grid + (static_cast<size_t>(b) * h + y) * w;
+  const size_t ohw = static_cast<size_t>(h_out) * w;
+  const float2* grow = grid + (static_cast<size_t>(b) * h_out + y) * w;
   float2 gv[kPix];
 #pragma unroll
   for (int p = 0; p < kPix; ++p) {
@@ -212,14 +225,14 @@ warp_sample_fwd_kernel(const T* __restrict__ img,
     gv[p] = x < w ? __ldg(grow + x) : make_float2(0.f, 0.f);
   }
   const T* plane = img + static_cast<size_t>(b) * nc * hw;
-  T* orow = out + static_cast<size_t>(b) * nc * hw
+  T* orow = out + static_cast<size_t>(b) * nc * ohw
       + static_cast<size_t>(y) * w;
 #pragma unroll
   for (int p = 0; p < kPix; ++p) {
     const int x = x_base + p * kThreads;
     if (x >= w) break;
     const Axis ax = axis<kBf16>(gv[p].x, x, w, r, align, border);
-    const Axis ay = axis<kBf16>(gv[p].y, y, h, r, align, border);
+    const Axis ay = axis<kBf16>(gv[p].y, row0 + y, h, r, align, border);
     const float scale = border ? 1.f
         : ((ax.valid && ay.valid) ? __fmul_rn(ay.m, ax.m) : 0.f);
     const int o00 = ay.i0 * w + ax.i0, o01 = ay.i0 * w + ax.i1;
@@ -232,10 +245,10 @@ warp_sample_fwd_kernel(const T* __restrict__ img,
       const float bil = fmaf(ay.w0, top, ay.w1 * bot);
       if constexpr (kBf16) {
         // the sum rounded, then times the mass rounded, rounded
-        orow[ch * hw + x] = __float2bfloat16_rn(
+        orow[ch * ohw + x] = __float2bfloat16_rn(
             border ? bil : round_bf16(bil) * round_bf16(scale));
       } else {
-        orow[ch * hw + x] = bil * scale;
+        orow[ch * ohw + x] = bil * scale;
       }
     }
   }
@@ -247,14 +260,16 @@ warp_sample_grad_grid_kernel(const T* __restrict__ img,
                              const float2* __restrict__ grid,
                              const T* __restrict__ g,
                              float2* __restrict__ ggrid, int c, int h, int w,
-                             int r, bool align, bool border) {
+                             int row0, int h_out, int r, bool align,
+                             bool border) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   const int y = blockIdx.y, b = blockIdx.z;
   const int x_base = blockIdx.x * (kThreads * kPix) + threadIdx.x;
   const int nc = kC > 0 ? kC : c;
   const size_t hw = static_cast<size_t>(h) * w;
-  const size_t row = (static_cast<size_t>(b) * h + y) * w;
-  const T* grow = g + static_cast<size_t>(b) * nc * hw
+  const size_t ohw = static_cast<size_t>(h_out) * w;
+  const size_t row = (static_cast<size_t>(b) * h_out + y) * w;
+  const T* grow = g + static_cast<size_t>(b) * nc * ohw
       + static_cast<size_t>(y) * w;
   float2 gv[kPix];
 #pragma unroll
@@ -271,7 +286,7 @@ warp_sample_grad_grid_kernel(const T* __restrict__ img,
     const int x = x_base + p * kThreads;
     if (x >= w) break;
     const Axis ax = axis<kBf16>(gv[p].x, x, w, r, align, border);
-    const Axis ay = axis<kBf16>(gv[p].y, y, h, r, align, border);
+    const Axis ay = axis<kBf16>(gv[p].y, row0 + y, h, r, align, border);
     const int o00 = ay.i0 * w + ax.i0, o01 = ay.i0 * w + ax.i1;
     const int o10 = ay.i1 * w + ax.i0, o11 = ay.i1 * w + ax.i1;
     // sums over channels of g times dbil/dfx, dbil/dfy and bil
@@ -281,7 +296,7 @@ warp_sample_grad_grid_kernel(const T* __restrict__ img,
     for (int ch = 0; ch < nc; ++ch, q += hw) {
       const float v00 = ld(q + o00), v01 = ld(q + o01);
       const float v10 = ld(q + o10), v11 = ld(q + o11);
-      const float gc = ld(grow + ch * hw + x);
+      const float gc = ld(grow + ch * ohw + x);
       const float top = fmaf(ax.w0, v00, ax.w1 * v01);
       const float bot = fmaf(ax.w0, v10, ax.w1 * v11);
       sdx = fmaf(gc, fmaf(ay.w0, v01 - v00, ay.w1 * (v11 - v10)), sdx);
@@ -887,32 +902,43 @@ cudaError_t grid_for(int n, int c, int h, int w, int r, dim3* grid) {
   return cudaSuccess;
 }
 
+// The launch of a band of h_out output rows from image row row0: the
+// whole-frame grid_for over h_out rows, the band inside the image.
+cudaError_t band_grid_for(int n, int c, int h, int w, int row0, int h_out,
+                          int r, dim3* grid) {
+  if (row0 < 0 || h_out < 1 || h_out > h - row0) return cudaErrorInvalidValue;
+  cudaError_t err = grid_for(n, c, h, w, r, grid);
+  grid->y = h_out;
+  return err;
+}
+
 template <typename T>
 int forward(const T* img, const float* grid, T* out, int n, int c, int h,
-            int w, int r, int align_corners, int border, void* stream) {
+            int w, int row0, int h_out, int r, int align_corners, int border,
+            void* stream) {
   dim3 blocks;
-  cudaError_t err = grid_for(n, c, h, w, r, &blocks);
+  cudaError_t err = band_grid_for(n, c, h, w, row0, h_out, r, &blocks);
   if (err != cudaSuccess) return err;
   (c == 3 ? warp_sample_fwd_kernel<3, T> : warp_sample_fwd_kernel<0, T>)
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, reinterpret_cast<const float2*>(grid), out, c, h, w, r,
-      align_corners != 0, border != 0);
+      img, reinterpret_cast<const float2*>(grid), out, c, h, w, row0, h_out,
+      r, align_corners != 0, border != 0);
   return cudaGetLastError();
 }
 
 template <typename T>
 int grad_grid(const T* img, const float* grid, const T* g, float* ggrid,
-              int n, int c, int h, int w, int r, int align_corners,
-              int border, void* stream) {
+              int n, int c, int h, int w, int row0, int h_out, int r,
+              int align_corners, int border, void* stream) {
   dim3 blocks;
-  cudaError_t err = grid_for(n, c, h, w, r, &blocks);
+  cudaError_t err = band_grid_for(n, c, h, w, row0, h_out, r, &blocks);
   if (err != cudaSuccess) return err;
   (c == 3 ? warp_sample_grad_grid_kernel<3, T>
           : warp_sample_grad_grid_kernel<0, T>)
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       img, reinterpret_cast<const float2*>(grid), g,
-      reinterpret_cast<float2*>(ggrid), c, h, w, r, align_corners != 0,
-      border != 0);
+      reinterpret_cast<float2*>(ggrid), c, h, w, row0, h_out, r,
+      align_corners != 0, border != 0);
   return cudaGetLastError();
 }
 
@@ -1011,8 +1037,29 @@ extern "C" int warp_sample_bounded_forward(const float* img, const float* grid,
                                            float* out, int n, int c, int h,
                                            int w, int r, int align_corners,
                                            int border, void* stream) {
-  return forward(img, grid, out, n, c, h, w, r, align_corners, border,
+  return forward(img, grid, out, n, c, h, w, 0, h, r, align_corners, border,
                  stream);
+}
+
+// The float32 K3 and K3-grad on a band: out, the grid, g and ggrid hold
+// h_out rows, output row y sampling around image row row0 + y of the
+// (N, C, H, W) image (0 <= row0, row0 + h_out <= H); H stays the image's for
+// the clamp and the zero padding. row0 = 0, h_out = H is the whole-frame
+// call, bit for bit; a band's rows are the whole-frame call's same rows.
+extern "C" int warp_sample_bounded_forward_band(
+    const float* img, const float* grid, float* out, int n, int c, int h,
+    int w, int row0, int h_out, int r, int align_corners, int border,
+    void* stream) {
+  return forward(img, grid, out, n, c, h, w, row0, h_out, r, align_corners,
+                 border, stream);
+}
+
+extern "C" int warp_sample_bounded_grad_grid_band(
+    const float* img, const float* grid, const float* g, float* ggrid, int n,
+    int c, int h, int w, int row0, int h_out, int r, int align_corners,
+    int border, void* stream) {
+  return grad_grid(img, grid, g, ggrid, n, c, h, w, row0, h_out, r,
+                   align_corners, border, stream);
 }
 
 extern "C" int warp_sample_bounded_forward_bf16(
@@ -1027,7 +1074,7 @@ extern "C" int warp_sample_bounded_forward_bf16_gather(
     const __nv_bfloat16* img, const float* grid, __nv_bfloat16* out, int n,
     int c, int h, int w, int r, int align_corners, int border,
     void* stream) {
-  return forward(img, grid, out, n, c, h, w, r, align_corners, border,
+  return forward(img, grid, out, n, c, h, w, 0, h, r, align_corners, border,
                  stream);
 }
 
@@ -1037,8 +1084,8 @@ extern "C" int warp_sample_bounded_grad_grid(const float* img,
                                              int n, int c, int h, int w,
                                              int r, int align_corners,
                                              int border, void* stream) {
-  return grad_grid(img, grid, g, ggrid, n, c, h, w, r, align_corners, border,
-                   stream);
+  return grad_grid(img, grid, g, ggrid, n, c, h, w, 0, h, r, align_corners,
+                   border, stream);
 }
 
 extern "C" int warp_sample_bounded_grad_grid_bf16(
@@ -1053,8 +1100,8 @@ extern "C" int warp_sample_bounded_grad_grid_bf16_gather(
     const __nv_bfloat16* img, const float* grid, const __nv_bfloat16* g,
     float* ggrid, int n, int c, int h, int w, int r, int align_corners,
     int border, void* stream) {
-  return grad_grid(img, grid, g, ggrid, n, c, h, w, r, align_corners, border,
-                   stream);
+  return grad_grid(img, grid, g, ggrid, n, c, h, w, 0, h, r, align_corners,
+                   border, stream);
 }
 
 extern "C" int warp_sample_bounded_grad_grid_backward(

@@ -81,7 +81,8 @@ tasks. ``--episode_parallel false`` runs rank 0 alone. A plain ``python
 -m`` run (or a world of one rank) starts no process group.
 
 The exact row-sharded evaluation splits every frame's rows over the
-ranks of the spatial axis (SepConv and CAIN, ``--mode val`` and ``test``):
+ranks of the spatial axis (SepConv, CAIN, RRIN, SuperSloMo and VoxelFlow,
+``--mode val`` and ``test``):
 
     torchrun --standalone --nproc_per_node 2 -m \
         meta_interpolation_tpu_torch.main --model sepconv --mode val \

@@ -22,8 +22,9 @@ the optimizer's step, and the predictions, losses, metrics, per-step BN
 statistics and the discriminator's inputs are those of the global batch
 on every rank.
 
-Under ``--spatial_shards S`` (``--mode val`` and ``--mode test`` of SepConv
-and CAIN, float32, pixel losses) the ranks of the mesh's spatial axis
+Under ``--spatial_shards S`` (``--mode val`` and ``--mode test`` of SepConv,
+CAIN, RRIN, SuperSloMo and VoxelFlow, float32, pixel losses and
+SuperSloMo's ``Super``) the ranks of the mesh's spatial axis
 also split each frame's rows: the episode runs inside
 ``parallel/spatial.row_shard``, where the model works on this rank's
 band and returns the whole frame, and each inner step's gradient is
@@ -114,22 +115,25 @@ def _resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 
 # what --spatial_shards runs on row bands: the evaluation modes of these
-# models, with these loss terms (each term a mean of the gathered frame's
-# pixels)
+# models (each with its row_bands), with these loss terms (each term a mean
+# of the gathered frame's pixels), and SuperSloMo's Super terms, which read
+# its gathered whole-frame flows and warped frames
 SPATIAL_MODES = ("val", "test")
-SPATIAL_MODELS = ("sepconv", "cain")
+SPATIAL_MODELS = ("sepconv", "cain", "rrin", "superslomo", "voxelflow")
 SPATIAL_LOSSES = ("L1", "MSE", "Charb")
+SPATIAL_MODEL_LOSSES = {"superslomo": ("Super", "SuperNoPrcp")}
 
 
 def _unported(cfg: Config):
     """Flags whose behaviour the port does not have yet: of the exact
-    row-sharded evaluation (--spatial_shards above 1), training, bf16, the
-    warp models and DAIN, the feature and adversarial loss terms and the
-    engine's per-task options (ROADMAP Queue 1)."""
+    row-sharded evaluation (--spatial_shards above 1), training, bf16,
+    DAIN, the feature and adversarial loss terms and the engine's per-task
+    options (ROADMAP Queue 1)."""
     if cfg.spatial_shards <= 1:
         return []
+    allowed = SPATIAL_LOSSES + SPATIAL_MODEL_LOSSES.get(cfg.model, ())
     terms = [t.loss_type for t in losses_lib.parse_loss_spec(cfg.loss)
-             if t.loss_type not in SPATIAL_LOSSES]
+             if t.loss_type not in allowed]
     return [f"--spatial_shards with {what}" for what, on in [
         (f"--mode {cfg.mode} (row-sharded training)",
          cfg.mode not in SPATIAL_MODES),
@@ -137,7 +141,7 @@ def _unported(cfg: Config):
          cfg.model not in SPATIAL_MODELS),
         (f"--dtype {cfg.dtype}", cfg.dtype != "float32"),
         (f"the loss terms {', '.join(terms)} (only "
-         f"{', '.join(SPATIAL_LOSSES)})", bool(terms)),
+         f"{', '.join(allowed)})", bool(terms)),
         ("--attenuate", cfg.attenuate),
         ("--per_step_bn_statistics", cfg.per_step_bn_statistics),
         ("--remat", cfg.remat),

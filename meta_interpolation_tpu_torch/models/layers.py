@@ -10,13 +10,14 @@ statistics.
 
 Inside ``parallel/spatial.row_shard`` (the exact ``--spatial_shards``
 evaluation) the row-aware ops work on this rank's band of rows: the
-convolutions of :class:`Conv2d` and :func:`band_conv` (a halo from the
-neighbouring bands, the conv's own border rule at the frame's top and
-bottom), :func:`upsample_bilinear` with ``align_corners=True`` (source
-rows from the frame's global coordinates) and :func:`global_avg_pool`
-(the bands' sums all-reduced). :func:`avg_pool` needs no change: it is
-local while every band has even rows. Outside the context they are the
-whole-frame ops.
+convolutions of :class:`Conv2d`, :func:`conv_as_input` and
+:func:`band_conv` (a halo from the neighbouring bands, the conv's own
+border rule at the frame's top and bottom), :func:`upsample_bilinear`
+(source rows from the frame's global coordinates, either
+``align_corners``) and :func:`global_avg_pool` (the bands' sums
+all-reduced). :func:`avg_pool` and :func:`max_pool` need no change: they
+are local while every band has even rows. Outside the context they are
+the whole-frame ops.
 """
 from __future__ import annotations
 
@@ -49,12 +50,16 @@ def band_conv(x: torch.Tensor, weight: torch.Tensor,
     (``spatial.current()``), as the whole frame's conv computes those rows:
     ``pad`` rows of each neighbouring band, then the conv's own border
     rule past the frame's top and bottom (zeros, or with ``reflect`` the
-    band's own rows mirrored, the edge not repeated) and on the columns,
-    and no row padding in the conv itself."""
+    band's own rows mirrored, the edge not repeated) and on the columns.
+    The zero-padded conv pads its halo band on all sides, as the whole
+    frame's conv pads the frame, and drops the ``pad`` rows it computes
+    past each halo: padded in its columns only, cuDNN's heuristics took
+    an algorithm with a 4 GiB workspace for SuperSloMo's 7×7 convs at
+    256×448 on the card."""
     shard = spatial.current()
     xh = spatial.halo_rows(x, pad, shard)
     if not reflect:
-        return F.conv2d(xh, weight, bias, padding=(0, pad))
+        return F.conv2d(xh, weight, bias, padding=pad)[..., pad:-pad, :]
     if x.shape[-2] <= pad:
         raise ValueError(f"a reflect-padded band needs more than {pad} "
                          f"rows, got {x.shape[-2]}")
@@ -100,10 +105,14 @@ def conv_as_input(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``conv(x)`` with its weight and bias cast to ``x``'s type, as every
     JAX conv casts its kernel (``models/layers.py:226``, ``:250``): where
     a layer before it promoted a bf16 activation to float32, it runs in
-    float32."""
+    float32. Inside a row shard a zero-padded stride-1 conv runs on the
+    band (:func:`band_conv`)."""
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
-                    conv.padding, conv.dilation, conv.groups)
+    weight = conv.weight.to(x.dtype)
+    if spatial.current() is not None and conv.padding[0]:
+        return band_conv(x, weight, bias, conv.padding[0])
+    return F.conv2d(x, weight, bias, conv.stride, conv.padding,
+                    conv.dilation, conv.groups)
 
 
 def torch_default_init_(conv: nn.Module,
@@ -244,6 +253,26 @@ def pad_to_multiple(x: torch.Tensor, multiple: int = 128):
     return reflect_pad(x, pads), pads
 
 
+class PaddedGridBands:
+    """``grid_rows`` and ``row_bands`` of a model that reflect-pads its
+    frames to a multiple of ``MULTIPLE`` rows (:func:`pad_to_multiple`)
+    and halves them with ``POOLS`` 2×2 pools: its grid runs exactly on
+    row bands (``parallel/spatial.row_shard``) when it splits into equal
+    bands whose rows every pool halves evenly."""
+    MULTIPLE: int
+    POOLS: int
+
+    @classmethod
+    def grid_rows(cls, h: int) -> int:
+        """The rows of the padded grid of a frame of ``h`` rows."""
+        return h + (-h) % cls.MULTIPLE
+
+    def row_bands(self, h: int, shards: int) -> bool:
+        """Whether a frame of ``h`` rows runs exactly in ``shards`` row
+        bands."""
+        return self.grid_rows(h) % (shards * 2 ** self.POOLS) == 0
+
+
 def unpad(x: torch.Tensor, pads: Sequence[int]) -> torch.Tensor:
     left, right, top, bottom = pads
     h, w = x.shape[-2], x.shape[-1]
@@ -300,33 +329,36 @@ def upsample_bilinear(x: torch.Tensor, scale: int = 2,
                       align_corners: bool = False) -> torch.Tensor:
     shard = spatial.current()
     if shard is not None:
-        if not align_corners:
-            raise NotImplementedError(
-                "a row-sharded bilinear upsample with align_corners=False")
-        return _band_upsample(x, scale, shard)
+        return _band_upsample(x, scale, shard, align_corners)
     return F.interpolate(x, scale_factor=scale, mode="bilinear",
                          align_corners=align_corners)
 
 
-def _band_upsample(x: torch.Tensor, scale: int,
-                   shard: "spatial.RowShard") -> torch.Tensor:
-    """This rank's band of the align_corners=True upsample of the whole
-    frame, from its band and one halo row each way: output row Y reads the
-    input at src = Y·(H_in − 1)/(H_out − 1) (global rows, in
-    ``F.interpolate``'s arithmetic), which for the output band [s·a, s·b)
-    lies in [a − 1, b]. The columns are ``F.interpolate``'s (its rows an
-    identity at a scale of 1)."""
+def _band_upsample(x: torch.Tensor, scale: int, shard: "spatial.RowShard",
+                   align_corners: bool) -> torch.Tensor:
+    """This rank's band of the bilinear ×scale upsample of the whole frame,
+    from its band and one halo row each way: output row Y reads the input
+    at src = Y·(H_in − 1)/(H_out − 1) with align_corners, else at
+    max((Y + 0.5)/s − 0.5, 0) (global rows, in ``F.interpolate``'s
+    arithmetic), which for the output band [s·a, s·b) lies in [a − 1, b];
+    at the frame's ends the clamps, not the halo's zeros, give the value.
+    The columns are ``F.interpolate``'s (its rows an identity at a scale
+    of 1)."""
     rows, w = x.shape[-2], x.shape[-1]
     h_in = rows * shard.count
     h_out, a = h_in * scale, shard.index * rows
     xh = F.interpolate(spatial.halo_rows(x, 1, shard),
                        size=(rows + 2, w * scale), mode="bilinear",
-                       align_corners=True)
+                       align_corners=align_corners)
     # F.interpolate's index arithmetic: float32, or float64 for float64
     opmath = torch.float64 if x.dtype == torch.float64 else torch.float32
     y = torch.arange(a * scale, (a + rows) * scale, device=x.device,
                      dtype=opmath)
-    src = y * torch.tensor((h_in - 1) / (h_out - 1), dtype=opmath)
+    if align_corners:
+        src = y * torch.tensor((h_in - 1) / (h_out - 1), dtype=opmath)
+    else:
+        src = ((y + 0.5) * torch.tensor(1.0 / scale, dtype=opmath)
+               - 0.5).clamp(min=0.0)
     y0 = src.floor().long().clamp(max=h_in - 1)
     lam = (src - y0).to(x.dtype)[:, None]
     y1 = torch.where(y0 < h_in - 1, y0 + 1, y0)

@@ -21,6 +21,14 @@ the exact ``F.grid_sample``. Inputs are mean-subtracted upstream (the
 registry) and reflect-padded to ×64. ``forward`` returns ``(pred, aux)``,
 aux holding the flows and warped frames the ``Super`` loss reads
 (``core/losses.py``).
+
+In a row shard (``parallel/spatial.row_shard``, the exact
+``--spatial_shards`` evaluation) every rank pads the whole frames and runs
+both U-Nets on its band of the ×64 grid's rows (row-aware convs and
+upsamples, ``models/layers.py``); all six warps sample the whole padded
+frames at the band's flows and rows, so no warp reads a banded feature.
+The prediction and every aux tensor are gathered before the crop: the
+loss then runs on whole frames on every rank.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import torch
 from torch import nn
 
 from ..ops import warp as warp_ops
+from ..parallel import spatial
 from . import layers
 
 T = 0.5  # the middle frame
@@ -96,9 +105,12 @@ class UNet(nn.Module):
         return _act(self.conv3(x))
 
 
-class SuperSloMo(nn.Module):
+class SuperSloMo(layers.PaddedGridBands, nn.Module):
     """``forward(frame0, frame1)``: NCHW frames, mean-subtracted → (the
     middle frame, NCHW; aux)."""
+
+    MULTIPLE = 64  # the padded grid
+    POOLS = 5  # a U-Net's average pools
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  warp_range: Optional[int] = None):
@@ -107,44 +119,54 @@ class SuperSloMo(nn.Module):
         self.arbTimeFlowIntrp = UNet(20, 5, generator)
         self.warp_range = warp_range
 
-    def _warp(self, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    def _warp(self, img: torch.Tensor, flow: torch.Tensor,
+              row0: int = 0) -> torch.Tensor:
         return warp_ops.backward_warp_rrin(img, flow.permute(0, 2, 3, 1),
-                                           warp_range=self.warp_range)
+                                           warp_range=self.warp_range,
+                                           row0=row0)
 
     def forward(self, frame0: torch.Tensor, frame1: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, Tuple[torch.Tensor, ...]]]:
         layers.full_float32()
         t = T
-        i0, pads = layers.pad_to_multiple(frame0, 64)
-        i1, _ = layers.pad_to_multiple(frame1, 64)
+        i0, pads = layers.pad_to_multiple(frame0, self.MULTIPLE)
+        i1, _ = layers.pad_to_multiple(frame1, self.MULTIPLE)
+        shard = spatial.current()
+        b0, b1, row0 = i0, i1, 0
+        if shard is not None:
+            b0, b1 = spatial.band(i0, shard), spatial.band(i1, shard)
+            row0 = shard.index * b0.shape[2]
 
-        flow = self.flowComp(torch.cat([i0, i1], 1))
+        flow = self.flowComp(torch.cat([b0, b1], 1))
         f01, f10 = flow[:, :2], flow[:, 2:]
         c00 = c11 = -(1 - t) * t
         c01, c10 = t * t, (1 - t) * (1 - t)
         f_t0 = c00 * f01 + c01 * f10
         f_t1 = c10 * f01 + c11 * f10
-        g_i0_t0 = self._warp(i0, f_t0)
-        g_i1_t1 = self._warp(i1, f_t1)
+        g_i0_t0 = self._warp(i0, f_t0, row0)
+        g_i1_t1 = self._warp(i1, f_t1, row0)
 
         intrp = self.arbTimeFlowIntrp(torch.cat(
-            [i0, i1, f01, f10, f_t1, f_t0, g_i1_t1, g_i0_t0], 1))
+            [b0, b1, f01, f10, f_t1, f_t0, g_i1_t1, g_i0_t0], 1))
         f_t0_f = intrp[:, :2] + f_t0
         f_t1_f = intrp[:, 2:4] + f_t1
         v_t0 = torch.sigmoid(intrp[:, 4:5])
         v_t1 = 1.0 - v_t0
-        g_i0_f = self._warp(i0, f_t0_f)
-        g_i1_f = self._warp(i1, f_t1_f)
+        g_i0_f = self._warp(i0, f_t0_f, row0)
+        g_i1_f = self._warp(i1, f_t1_f, row0)
         w0, w1 = 1 - t, t
         pred = (w0 * v_t0 * g_i0_f + w1 * v_t1 * g_i1_f) / (
             w0 * v_t0 + w1 * v_t1)
 
-        warped_i0 = self._warp(i0, f10)
-        warped_i1 = self._warp(i1, f01)
+        warped_i0 = self._warp(i0, f10, row0)
+        warped_i1 = self._warp(i1, f01, row0)
 
         def unpad(*xs):
+            # the whole frame's rows on every rank (the bands gathered)
+            if shard is not None:
+                xs = [spatial.gather_band(x, shard) for x in xs]
             return tuple(layers.unpad(x, pads) for x in xs)
         aux = {"bidirectional_flow": unpad(f01, f10),
                "warped_intermediate_frames": unpad(g_i0_t0, g_i1_t1),
                "warped_input_frames": unpad(warped_i0, warped_i1)}
-        return layers.unpad(pred, pads), aux
+        return unpad(pred)[0], aux

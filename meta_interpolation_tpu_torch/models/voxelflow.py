@@ -30,6 +30,15 @@ BN scale and bias are per-step rows (S, C) too, row ``num_step`` applied
 (the reference's combination without
 ``--enable_inner_loop_optimizable_bn_params``); otherwise the flat affine
 goes with the per-step statistics.
+
+In a row shard (``parallel/spatial.row_shard``, the exact
+``--spatial_shards`` evaluation) every rank pads the whole frames and runs
+the net on its band of the ×64 grid's rows (row-aware convs through
+``layers.conv_as_input`` and upsamples; the max pools and the frozen BN
+are local); the head's flow and mask are the band's, and
+``voxelflow_sample`` samples the whole padded frames at the band's rows.
+The bands of the output are gathered before the crop. The per-step BN
+(``bn_state``), whose batch statistics span the frame, is not banded.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ import torch
 from torch import nn
 
 from ..ops import warp as warp_ops
+from ..parallel import spatial
 from . import layers
 
 INIT_STD = 0.01
@@ -48,9 +58,12 @@ BLOCKS = (("conv1", 6, 64, 5), ("conv2", 64, 128, 5), ("conv3", 128, 256, 3),
           ("deconv2", 384, 128, 5), ("deconv3", 192, 64, 5))
 
 
-class VoxelFlow(nn.Module):
+class VoxelFlow(layers.PaddedGridBands, nn.Module):
     """``forward(frame0, frame1)``: NCHW frames in [−1, 1] → the middle
     frame (``syn_type='inter'``) or the next one (``'extra'``), NCHW."""
+
+    MULTIPLE = 64  # the padded grid
+    POOLS = 3  # the encoder's max pools
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  warp_range: Optional[int] = None, syn_type: str = "inter",
@@ -103,7 +116,15 @@ class VoxelFlow(nn.Module):
         with ``num_step`` clipped to the state's rows."""
         layers.full_float32()
         inp, pads = layers.pad_to_multiple(torch.cat([frame0, frame1], 1),
-                                           64)
+                                           self.MULTIPLE)
+        shard = spatial.current()
+        x, row0 = inp, 0
+        if shard is not None:
+            if bn_state is not None:
+                raise NotImplementedError(
+                    "VoxelFlow's per-step batch norm on row bands")
+            x = spatial.band(inp, shard)
+            row0 = shard.index * x.shape[2]
         new_state: Dict[str, torch.Tensor] = {}
         if bn_state is not None:
             rows = bn_state["conv1_bn.running_mean"].shape[0]
@@ -112,7 +133,7 @@ class VoxelFlow(nn.Module):
         def cbr(name, x):
             return self._cbr(name, x, bn_state, new_state, num_step)
 
-        conv1 = cbr("conv1", inp)
+        conv1 = cbr("conv1", x)
         conv2 = cbr("conv2", layers.max_pool(conv1, 2))
         conv3 = cbr("conv3", layers.max_pool(conv2, 2))
         x = cbr("bottleneck", layers.max_pool(conv3, 2))
@@ -130,7 +151,9 @@ class VoxelFlow(nn.Module):
         out = warp_ops.voxelflow_sample(
             inp[:, 0:3], inp[:, 3:6], flow, mask,
             warp_range=None if extra else self.warp_range,
-            offsets=(-2.0, -1.0) if extra else (-1.0, 1.0))
+            offsets=(-2.0, -1.0) if extra else (-1.0, 1.0), row0=row0)
+        if shard is not None:
+            out = spatial.gather_band(out, shard)
         out = layers.unpad(out, pads)
         return out if bn_state is None else (out, new_state)
 

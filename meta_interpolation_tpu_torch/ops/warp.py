@@ -24,6 +24,12 @@ them, with grid (x, y) in [−1, 1] and flow (u = dx, v = dy) in pixels.
     :func:`voxelflow_sample` is VoxelFlow's symmetric two-frame sampler
     (border padding, align_corners=True).
   * :class:`FlowStats` records the displacements the exact sampler sees.
+
+Row bands (the row-sharded evaluation, ``--spatial_shards``): given a
+flow of a band of output rows and ``row0``, the band's first global row,
+each function samples the whole image at those rows: the pixel grid's
+rows are ``row0 + arange(rows)``, normalised by the whole image's H, and
+the bounded sampler measures each displacement from its global row.
 """
 from __future__ import annotations
 
@@ -50,7 +56,8 @@ class FlowStats:
 
     The displacement is the sample coordinate less the output pixel
     (ix − x, iy − y), computed from the grid as :func:`grid_sample` reads
-    it, so each model's grid convention is folded in. Every call of
+    it, so each model's grid convention is folded in; y is the output's
+    global row (``row0`` + its row on a band). Every call of
     :func:`grid_sample` inside the context records (one host read each)."""
 
     _active: Optional["FlowStats"] = None
@@ -74,10 +81,10 @@ class FlowStats:
     def frac_beyond(self) -> float:
         return self.n_beyond / max(self.n_total, 1)
 
-    def _record(self, ix: torch.Tensor, iy: torch.Tensor):
+    def _record(self, ix: torch.Tensor, iy: torch.Tensor, row0: int = 0):
         h, w = ix.shape[-2], ix.shape[-1]
         dx = ix - torch.arange(w, dtype=ix.dtype, device=ix.device)
-        dy = iy - torch.arange(h, dtype=iy.dtype,
+        dy = iy - torch.arange(row0, row0 + h, dtype=iy.dtype,
                                device=iy.device)[:, None]
         r = self.r
         beyond = (dx < -r) | (dx > r - 1) | (dy < -r) | (dy > r - 1)
@@ -100,13 +107,15 @@ def _source_coords(grid: torch.Tensor, h: int, w: int, align_corners: bool):
 
 def grid_sample(img: torch.Tensor, grid: torch.Tensor,
                 align_corners: bool = False,
-                padding_mode: str = "zeros") -> torch.Tensor:
+                padding_mode: str = "zeros", row0: int = 0) -> torch.Tensor:
     """Exact bilinear sampling. img (N, C, H, W); grid (N, Ho, Wo, 2).
     Twice differentiable (:class:`GridSampleFunction`). Inside a
-    :class:`FlowStats` context the call records its displacements."""
+    :class:`FlowStats` context the call records its displacements, from
+    global rows ``row0`` + its output rows (a band's; the sampling itself
+    needs no offset)."""
     if FlowStats._active is not None:
         FlowStats._active._record(*_source_coords(
-            grid.detach(), img.shape[2], img.shape[3], align_corners))
+            grid.detach(), img.shape[2], img.shape[3], align_corners), row0)
     if img.dtype == torch.bfloat16:
         # the coordinates stay float32 (JAX ops/warp.py:169-171): a bf16
         # image is sampled widened and the result rounded once
@@ -227,65 +236,75 @@ class GridSampleBackwardFunction(torch.autograd.Function):
 
 def grid_sample_bounded(img: torch.Tensor, grid: torch.Tensor,
                         max_displacement: int, align_corners: bool = False,
-                        padding_mode: str = "zeros") -> torch.Tensor:
+                        padding_mode: str = "zeros", row0: int = 0
+                        ) -> torch.Tensor:
     """Bilinear sampling exact for displacements (per axis) in [−R, R−1]
-    from the output pixel and clamped to that window beyond. The grid must
-    have the image's H×W. Out-of-image samples follow ``padding_mode``
-    ('zeros' or 'border'). One kernel launch each way on the card
+    from the output pixel and clamped to that window beyond. The grid has
+    the image's H×W, or H_out rows of a band whose output row y is image
+    row ``row0`` + y. Out-of-image samples follow ``padding_mode`` ('zeros'
+    or 'border'). One kernel launch each way on the card
     (``ops/warp_bounded.py``); the plain composition on the CPU."""
     if padding_mode not in warp_bounded.PADDING_MODES:
         raise ValueError(f"the bounded sampler takes padding "
                          f"{warp_bounded.PADDING_MODES}, got {padding_mode!r}")
     return warp_bounded.GridSampleBoundedFunction.apply(
-        img, grid, int(max_displacement), align_corners, padding_mode)
+        img, grid, int(max_displacement), align_corners, padding_mode,
+        int(row0))
 
 
 def sample(img: torch.Tensor, grid: torch.Tensor, align_corners: bool,
-           padding_mode: str, warp_range: Optional[int] = None
-           ) -> torch.Tensor:
-    """Exact sampler (``warp_range`` None or 0) or the bounded fast path."""
+           padding_mode: str, warp_range: Optional[int] = None,
+           row0: int = 0) -> torch.Tensor:
+    """Exact sampler (``warp_range`` None or 0) or the bounded fast path;
+    ``row0``: the first global row of a band's grid."""
     if warp_range:
         return grid_sample_bounded(img, grid, int(warp_range),
                                    align_corners=align_corners,
-                                   padding_mode=padding_mode)
+                                   padding_mode=padding_mode, row0=row0)
     return grid_sample(img, grid, align_corners=align_corners,
-                       padding_mode=padding_mode)
+                       padding_mode=padding_mode, row0=row0)
 
 
-def _pixel_grid(img: torch.Tensor, flow: torch.Tensor):
-    """(x + u, y + v), each (N, H, W), in the compute dtype."""
-    h, w = img.shape[2], img.shape[3]
+def _pixel_grid(img: torch.Tensor, flow: torch.Tensor, row0: int = 0):
+    """(x + u, y + v), each (N, rows, W) for a flow of ``rows`` rows, the
+    global rows ``row0`` + 0 .., in the compute dtype."""
+    w = img.shape[3]
     ct = _compute_dtype(flow.dtype)
     xs = torch.arange(w, dtype=ct, device=flow.device)[None, None, :]
-    ys = torch.arange(h, dtype=ct, device=flow.device)[None, :, None]
+    ys = torch.arange(row0, row0 + flow.shape[1], dtype=ct,
+                      device=flow.device)[None, :, None]
     return xs + flow[..., 0].to(ct), ys + flow[..., 1].to(ct)
 
 
 def backward_warp(img: torch.Tensor, flow: torch.Tensor,
                   align_corners: bool = False, padding_mode: str = "zeros",
-                  warp_range: Optional[int] = None) -> torch.Tensor:
-    """out(y, x) = img(y + v, x + u); flow (N, H, W, 2) in pixels."""
+                  warp_range: Optional[int] = None, row0: int = 0
+                  ) -> torch.Tensor:
+    """out(y, x) = img(y + v, x + u); flow (N, H, W, 2) in pixels, or the
+    rows of a band from global row ``row0``."""
     h, w = img.shape[2], img.shape[3]
-    ix, iy = _pixel_grid(img, flow)
+    ix, iy = _pixel_grid(img, flow, row0)
     if align_corners:
         gx, gy = 2.0 * ix / (w - 1) - 1.0, 2.0 * iy / (h - 1) - 1.0
     else:
         gx, gy = (2.0 * ix + 1.0) / w - 1.0, (2.0 * iy + 1.0) / h - 1.0
     return sample(img, torch.stack([gx, gy], dim=-1),
                   align_corners=align_corners, padding_mode=padding_mode,
-                  warp_range=warp_range)
+                  warp_range=warp_range, row0=row0)
 
 
 def backward_warp_rrin(img: torch.Tensor, flow: torch.Tensor,
-                       warp_range: Optional[int] = None) -> torch.Tensor:
+                       warp_range: Optional[int] = None, row0: int = 0
+                       ) -> torch.Tensor:
     """RRIN's warp (reference rrin/model.py:8-21): the grid is normalised
     as ``2·(pos/size − 0.5)`` with align_corners=False, so the sample lands
-    at ``pos − 0.5``; the quirk is kept for weight parity."""
+    at ``pos − 0.5``; the quirk is kept for weight parity. A flow of a
+    band's rows from global row ``row0`` samples the whole ``img``."""
     h, w = img.shape[2], img.shape[3]
-    x, y = _pixel_grid(img, flow)
+    x, y = _pixel_grid(img, flow, row0)
     gx, gy = 2.0 * (x / w - 0.5), 2.0 * (y / h - 0.5)
     return sample(img, torch.stack([gx, gy], dim=-1), align_corners=False,
-                  padding_mode="zeros", warp_range=warp_range)
+                  padding_mode="zeros", warp_range=warp_range, row0=row0)
 
 
 @functools.lru_cache(maxsize=16)
@@ -308,8 +327,8 @@ def linspace(n: int, device: torch.device) -> torch.Tensor:
 def voxelflow_sample(frame0: torch.Tensor, frame1: torch.Tensor,
                      flow: torch.Tensor, mask: torch.Tensor,
                      warp_range: Optional[int] = None,
-                     offsets: Tuple[float, float] = (-1.0, 1.0)
-                     ) -> torch.Tensor:
+                     offsets: Tuple[float, float] = (-1.0, 1.0),
+                     row0: int = 0) -> torch.Tensor:
     """DVF's trilinear sampling (JAX ``ops/warp.py:381-403``, reference
     voxel_flow.py:471-507). frames (N, C, H, W); ``flow`` (N, H, W, 2) in
     normalised grid units (the tanh head already halved); ``mask`` (N, 1,
@@ -318,17 +337,20 @@ def voxelflow_sample(frame0: torch.Tensor, frame1: torch.Tensor,
     align_corners=True, through :func:`sample`; the two are blended with
     (1 + mask)/2. The default (−1, 1) interpolates (JAX's function);
     VoxelFlow's extrapolation passes (−2, −1) (JAX ``models/voxelflow.py``
-    :195-207)."""
+    :195-207). A flow and mask of a band's rows from global row ``row0``
+    sample the whole frames at those rows: the whole frame's linspace,
+    sliced (a band's own linspace would differ in the last bit)."""
     h, w = frame0.shape[2], frame0.shape[3]
+    rows = flow.shape[1]
     gx = linspace(w, flow.device)[None, None, :]
-    gy = linspace(h, flow.device)[None, :, None]
+    gy = linspace(h, flow.device)[None, row0:row0 + rows, None]
     u, v = flow[..., 0], flow[..., 1]
     a, b = offsets
     grid1 = torch.stack([gx + a * u, gy + a * v], dim=-1)
     grid2 = torch.stack([gx + b * u, gy + b * v], dim=-1)
     out1 = sample(frame0, grid1, align_corners=True, padding_mode="border",
-                  warp_range=warp_range)
+                  warp_range=warp_range, row0=row0)
     out2 = sample(frame1, grid2, align_corners=True, padding_mode="border",
-                  warp_range=warp_range)
+                  warp_range=warp_range, row0=row0)
     m = 0.5 * (1.0 + mask)
     return m * out1 + (1.0 - m) * out2

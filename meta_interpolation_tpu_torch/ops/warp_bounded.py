@@ -13,8 +13,13 @@ over the edge-clamped image: with dy0, dx0 ∈ [−R, R−1] an edge-clamped
 bilinear 2×2 tap at (y+dy0+fy, x+dx0+fx). Padding 'border' clamps the
 coordinate to the image first; 'zeros' rescales by the in-bounds bilinear
 mass and zeroes samples whose 2×2 support lies wholly outside. Layout: img
-and out (N, C, H, W); grid (N, H, W, 2) with (gx, gy) last, the image's
-H×W.
+(N, C, H, W); grid (N, H, W, 2) with (gx, gy) last and out (N, C, H, W),
+the image's H×W, or for a band of output rows (the row-sharded evaluation,
+``--spatial_shards``) a grid and out of H_out rows, output row y being
+image row row0 + y: K3, K3-grad and their plain versions take ``row0``,
+and a band's rows are those of the whole grid's call bit for bit. K3 and
+K3-grad have band entries in float32; the bf16 kernels and K3-grad² raise
+on a band.
 
 Plain PyTorch pieces (they run for CPU tensors; the kernels are held
 against them on the card):
@@ -113,33 +118,40 @@ def _unnormalize(grid: torch.Tensor, h: int, w: int, align_corners: bool):
 # ---------------------------------------------------------------------------
 
 def warp_bounded_ref(img: torch.Tensor, dy0: torch.Tensor, dx0: torch.Tensor,
-                     fy: torch.Tensor, fx: torch.Tensor, r: int
+                     fy: torch.Tensor, fx: torch.Tensor, r: int, row0: int = 0
                      ) -> torch.Tensor:
     """The (2R+2)² weighted sweep over an edge-padded copy, as the JAX
     package's ``ops/warp.py`` ``_warp_bounded_xla`` computes it. dy0/dx0
-    int32, fy/fx (N, H, W). Differentiable by autograd."""
-    h, w = img.shape[2], img.shape[3]
+    int32, fy/fx (N, H_out, W): the output's rows, image rows row0 ..
+    row0 + H_out − 1 (the whole image by default). Differentiable by
+    autograd."""
+    n, c, _, w = img.shape
+    rows = dy0.shape[1]
     imgp = F.pad(img, (r, r + 1, r, r + 1), mode="replicate")
     shifts = range(-r, r + 2)
     wys = [torch.where(dy0 == d, 1.0 - fy, 0.0)
            + torch.where(dy0 == d - 1, fy, 0.0) for d in shifts]
     wxs = [torch.where(dx0 == e, 1.0 - fx, 0.0)
            + torch.where(dx0 == e - 1, fx, 0.0) for e in shifts]
-    out = torch.zeros_like(img)
+    out = img.new_zeros((n, c, rows, w))
     for di, d in enumerate(shifts):
+        top = row0 + d + r
         for ei, e in enumerate(shifts):
             wgt = (wys[di] * wxs[ei])[:, None]
-            out = out + wgt * imgp[:, :, d + r:d + r + h, e + r:e + r + w]
+            out = out + wgt * imgp[:, :, top:top + rows, e + r:e + r + w]
     return out
 
 
-def _taps(img: torch.Tensor, dy0: torch.Tensor, dx0: torch.Tensor, r: int):
-    """The four edge-clamped taps (v00, v01, v10, v11), each (N, C, H, W),
-    their flat indices into an (H·W) plane, and the 0/1 masks of the rows
+def _taps(img: torch.Tensor, dy0: torch.Tensor, dx0: torch.Tensor, r: int,
+          row0: int = 0):
+    """The four edge-clamped taps (v00, v01, v10, v11), each (N, C, H_out,
+    W) for the output rows row0 .. row0 + H_out − 1 of dy0's, their flat
+    indices into the image's (H·W) plane, and the 0/1 masks of the rows
     (my0, my1) and columns (mx0, mx1) that lie in the sweep's window
     [−R, R+1]; all masks are 1 when dy0, dx0 ∈ [−R, R−1]."""
     n, c, h, w = img.shape
-    ys = torch.arange(h, device=img.device)[None, :, None]
+    ho = dy0.shape[1]
+    ys = torch.arange(row0, row0 + ho, device=img.device)[None, :, None]
     xs = torch.arange(w, device=img.device)[None, None, :]
     in_win = lambda d: ((d >= -r) & (d <= r + 1)).to(img.dtype)
     rows = [(ys + dy0 + k).clamp(0, h - 1) for k in (0, 1)]
@@ -148,25 +160,28 @@ def _taps(img: torch.Tensor, dy0: torch.Tensor, dx0: torch.Tensor, r: int):
     taps, index = [], []
     for row in rows:
         for col in cols:
-            idx = (row * w + col).reshape(n, 1, h * w)
+            idx = (row * w + col).reshape(n, 1, ho * w)
             index.append(idx)
-            taps.append(flat.gather(2, idx.expand(n, c, h * w))
-                        .reshape(n, c, h, w))
+            taps.append(flat.gather(2, idx.expand(n, c, ho * w))
+                        .reshape(n, c, ho, w))
     masks = [in_win(dy0), in_win(dy0 + 1), in_win(dx0), in_win(dx0 + 1)]
     return taps, index, masks
 
 
 def warp_bounded_grad_frac_ref(img: torch.Tensor, dy0: torch.Tensor,
                                dx0: torch.Tensor, fy: torch.Tensor,
-                               fx: torch.Tensor, g: torch.Tensor, r: int):
-    """(gfy, gfx), each (N, H, W), for the output gradient g (N, C, H, W):
+                               fx: torch.Tensor, g: torch.Tensor, r: int,
+                               row0: int = 0):
+    """(gfy, gfx), each (N, H_out, W), for the output gradient g (N, C,
+    H_out, W) of the output rows from row0:
 
         gfy = Σ_c g_c·[my1(wx0·v10 + wx1·v11) − my0(wx0·v00 + wx1·v01)]
         gfx = Σ_c g_c·[mx1(wy0·v01 + wy1·v11) − mx0(wy0·v00 + wy1·v10)]
 
     over the four clamped taps, with wy0 = my0(1−fy), wy1 = my1·fy and wx
     likewise."""
-    (v00, v01, v10, v11), _, (my0, my1, mx0, mx1) = _taps(img, dy0, dx0, r)
+    (v00, v01, v10, v11), _, (my0, my1, mx0, mx1) = _taps(img, dy0, dx0, r,
+                                                          row0)
     wy0, wy1 = (my0 * (1.0 - fy))[:, None], (my1 * fy)[:, None]
     wx0, wx1 = (mx0 * (1.0 - fx))[:, None], (mx1 * fx)[:, None]
     gfy = (g * (my1[:, None] * (wx0 * v10 + wx1 * v11)
@@ -178,19 +193,20 @@ def warp_bounded_grad_frac_ref(img: torch.Tensor, dy0: torch.Tensor,
 
 def warp_bounded_grad_img_ref(img: torch.Tensor, dy0: torch.Tensor,
                               dx0: torch.Tensor, fy: torch.Tensor,
-                              fx: torch.Tensor, g: torch.Tensor, r: int
-                              ) -> torch.Tensor:
+                              fx: torch.Tensor, g: torch.Tensor, r: int,
+                              row0: int = 0) -> torch.Tensor:
     """The image gradient: each output pixel adds its four tap weights
     times g to the clamped taps it read (``scatter_add``)."""
     n, c, h, w = img.shape
-    _, index, (my0, my1, mx0, mx1) = _taps(img, dy0, dx0, r)
+    ho = dy0.shape[1]
+    _, index, (my0, my1, mx0, mx1) = _taps(img, dy0, dx0, r, row0)
     wy = [my0 * (1.0 - fy), my1 * fy]
     wx = [mx0 * (1.0 - fx), mx1 * fx]
     gimg = torch.zeros((n, c, h * w), dtype=g.dtype, device=g.device)
     for k, idx in enumerate(index):
         wgt = (wy[k // 2] * wx[k % 2])[:, None]
-        gimg.scatter_add_(2, idx.expand(n, c, h * w),
-                          (g * wgt).reshape(n, c, h * w))
+        gimg.scatter_add_(2, idx.expand(n, c, ho * w),
+                          (g * wgt).reshape(n, c, ho * w))
     return gimg.reshape(n, c, h, w)
 
 
@@ -198,14 +214,15 @@ class WarpBoundedRef(torch.autograd.Function):
     """The sweep with its closed-form gradients: forward
     :func:`warp_bounded_ref`, backward :func:`warp_bounded_grad_frac_ref`
     and :func:`warp_bounded_grad_img_ref`. dy0/dx0 are integers and get
-    none. The backward is not itself differentiable
-    (``once_differentiable``), like the JAX custom VJP."""
+    none; ``row0`` places the output's rows in the image. The backward is
+    not itself differentiable (``once_differentiable``), like the JAX
+    custom VJP."""
 
     @staticmethod
-    def forward(ctx, img, dy0, dx0, fy, fx, r):
+    def forward(ctx, img, dy0, dx0, fy, fx, r, row0=0):
         ctx.save_for_backward(img, dy0, dx0, fy, fx)
-        ctx.r = r
-        return warp_bounded_ref(img, dy0, dx0, fy, fx, r)
+        ctx.r, ctx.row0 = r, row0
+        return warp_bounded_ref(img, dy0, dx0, fy, fx, r, row0)
 
     @staticmethod
     @once_differentiable
@@ -214,20 +231,25 @@ class WarpBoundedRef(torch.autograd.Function):
         gfy = gfx = gimg = None
         if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
             gfy, gfx = warp_bounded_grad_frac_ref(img, dy0, dx0, fy, fx, g,
-                                                  ctx.r)
+                                                  ctx.r, ctx.row0)
         if ctx.needs_input_grad[0]:
-            gimg = warp_bounded_grad_img_ref(img, dy0, dx0, fy, fx, g, ctx.r)
-        return gimg, None, None, gfy, gfx, None
+            gimg = warp_bounded_grad_img_ref(img, dy0, dx0, fy, fx, g, ctx.r,
+                                             ctx.row0)
+        return gimg, None, None, gfy, gfx, None, None
 
 
 def grid_sample_bounded_ref(img: torch.Tensor, grid: torch.Tensor, r: int,
                             align_corners: bool = False,
                             padding_mode: str = "zeros",
-                            warp=WarpBoundedRef.apply) -> torch.Tensor:
+                            warp=WarpBoundedRef.apply, row0: int = 0
+                            ) -> torch.Tensor:
     """The whole sampler in plain PyTorch, as the JAX package's
-    ``grid_sample_bounded``; ``warp(img, dy0, dx0, fy, fx, r)`` is the
-    accumulation (the sweep; ``chip_smoke.py --earlier-warp`` passes an
-    earlier kernel's). Differentiable by autograd."""
+    ``grid_sample_bounded``; ``warp(img, dy0, dx0, fy, fx, r, row0)`` is
+    the accumulation (the sweep; ``chip_smoke.py --earlier-warp`` passes an
+    earlier kernel's). A grid of H_out rows samples a band: output row y
+    measures its displacement from image row row0 + y (row0 + H_out ≤ H),
+    and its rows are those of the whole grid's call. Differentiable by
+    autograd."""
     n, c, h, w = img.shape
     ix, iy = _unnormalize(grid, h, w, align_corners)
     ct = ix.dtype
@@ -239,7 +261,8 @@ def grid_sample_bounded_ref(img: torch.Tensor, grid: torch.Tensor, r: int,
         inb = (ix > -1.0) & (ix < w) & (iy > -1.0) & (iy < h)
 
     xs = torch.arange(w, dtype=ct, device=img.device)[None, None, :]
-    ys = torch.arange(h, dtype=ct, device=img.device)[None, :, None]
+    ys = torch.arange(row0, row0 + grid.shape[1], dtype=ct,
+                      device=img.device)[None, :, None]
     dy = (iy - ys).clamp(-r, r - 1)
     dx = (ix - xs).clamp(-r, r - 1)
     dy0f, dx0f = torch.floor(dy), torch.floor(dx)
@@ -247,7 +270,7 @@ def grid_sample_bounded_ref(img: torch.Tensor, grid: torch.Tensor, r: int,
     fx = (dx - dx0f).to(img.dtype)
     # a bf16 sweep runs on the widened image and fractions, rounded once
     out = warp(_widen(img), dy0f.to(torch.int32), dx0f.to(torch.int32),
-               _widen(fy), _widen(fx), r).to(img.dtype)
+               _widen(fy), _widen(fx), r, row0).to(img.dtype)
 
     if padding_mode != "border":
         # zero padding: re-weight by the in-bounds bilinear mass
@@ -292,10 +315,11 @@ def _axis(i: torch.Tensor, pos: torch.Tensor, size: int, r: int,
 def grid_sample_bounded_grad_grid_ref(img: torch.Tensor, grid: torch.Tensor,
                                       g: torch.Tensor, r: int,
                                       align_corners: bool = False,
-                                      padding_mode: str = "zeros"
-                                      ) -> torch.Tensor:
-    """The grid gradient (N, H, W, 2) of :func:`grid_sample_bounded_ref`
-    for the output gradient g, in closed form, per axis (x shown):
+                                      padding_mode: str = "zeros",
+                                      row0: int = 0) -> torch.Tensor:
+    """The grid gradient (N, H_out, W, 2) of :func:`grid_sample_bounded_ref`
+    (a band of the output rows from row0, the whole image by default) for
+    the output gradient g, in closed form, per axis (x shown):
 
         g_ix = Σ_c g_c·[mass·cx·∂bil_c/∂fx + bil_c·Y·(mx1 − mx0)]  (zeros)
         g_ix = bx·cx·Σ_c g_c·∂bil_c/∂fx                            (border)
@@ -308,10 +332,11 @@ def grid_sample_bounded_grad_grid_ref(img: torch.Tensor, grid: torch.Tensor,
     border = padding_mode == "border"
     ix, iy = _unnormalize(grid, h, w, align_corners)
     xs = torch.arange(w, dtype=ix.dtype, device=img.device)[None, None, :]
-    ys = torch.arange(h, dtype=ix.dtype, device=img.device)[None, :, None]
+    ys = torch.arange(row0, row0 + grid.shape[1], dtype=ix.dtype,
+                      device=img.device)[None, :, None]
     dx0, fx, mx, dmx, cx, vx = _axis(ix, xs, w, r, border)
     dy0, fy, my, dmy, cy, vy = _axis(iy, ys, h, r, border)
-    (v00, v01, v10, v11), _, _ = _taps(_widen(img), dy0, dx0, r)
+    (v00, v01, v10, v11), _, _ = _taps(_widen(img), dy0, dx0, r, row0)
     # the fractions as the forward rounds them; the sums in float32 or wider
     fx = _widen(fx.to(img.dtype))[:, None]
     fy = _widen(fy.to(img.dtype))[:, None]
@@ -370,6 +395,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                                            + [i32] * 7
                                                            + [ptr])
     lib.warp_sample_bounded_grad_grid_backward.restype = i32
+    # the float32 band entries (absent from a source from before them):
+    # (…, n, c, h, w, row0, h_out, r, align_corners, border, stream)
+    for name, ptrs in (("warp_sample_bounded_forward_band", 3),
+                       ("warp_sample_bounded_grad_grid_band", 4)):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = [ptr] * ptrs + [i32] * 9 + [ptr]
+            getattr(lib, name).restype = i32
     # the bf16 kernels, tiled and gather (absent from a source from before
     # them)
     for name in ("warp_sample_bounded_forward",
@@ -446,32 +478,53 @@ def _entry(lib, name: str, img: torch.Tensor, r: int):
     return getattr(lib, name + suffix), route
 
 
+def is_band(img: torch.Tensor, grid: torch.Tensor, row0: int) -> bool:
+    """Whether a call samples a band of output rows (a grid of other rows
+    than the image's, or rows from ``row0`` > 0) rather than the whole
+    frame."""
+    return row0 != 0 or grid.shape[1] != img.shape[2]
+
+
+def _no_band(what: str, img: torch.Tensor, grid: torch.Tensor, row0: int):
+    """Refuse a band call to ``what``, which has no band form."""
+    if is_band(img, grid, row0):
+        raise NotImplementedError(
+            f"{what} on a band of rows (grid {tuple(grid.shape)}, row0 "
+            f"{row0}, image {tuple(img.shape)}): only the float32 K3 and "
+            f"K3-grad have a band form")
+
+
 def _check(img: torch.Tensor, grid: torch.Tensor, r: int, padding_mode: str,
-           g=None, v=None):
+           g=None, v=None, row0: int = 0):
     """Validate what the kernels take, in one pass; returns (n, c, h, w).
     The image is float32 or bfloat16 and g of its type; the grid and v are
-    float32 or bfloat16 (the wrappers widen a bf16 grid)."""
+    float32 or bfloat16 (the wrappers widen a bf16 grid). The grid holds
+    H_out rows from ``row0`` (row0 + H_out ≤ H; g holds H_out rows too)."""
     if img.device.type != "cuda":
         raise ValueError(f"warp kernels take CPU or CUDA tensors, got "
                          f"{img.device}")
     n, c, h, w = img.shape
+    ho = grid.shape[1] if grid.dim() == 4 else -1
 
     def bad(t, like, dtypes):
-        return t is not None and (t.shape != like.shape
+        return t is not None and (tuple(t.shape) != like
                                   or t.device != img.device
                                   or t.dtype not in dtypes)
-    if (tuple(grid.shape) != (n, h, w, 2) or grid.device != img.device
+    if (tuple(grid.shape) != (n, ho, w, 2) or not 0 <= row0 <= h - ho
+            or ho < 1 or grid.device != img.device
             or img.dtype not in KERNEL_DTYPES
             or grid.dtype not in KERNEL_DTYPES
-            or bad(g, img, (img.dtype,)) or bad(v, grid, KERNEL_DTYPES)
+            or bad(g, (n, c, ho, w), (img.dtype,))
+            or bad(v, tuple(grid.shape), KERNEL_DTYPES)
             or r < 1 or padding_mode not in PADDING_MODES):
         raise ValueError(
             f"warp kernels take a float32 or bfloat16 image (N, C, H, W), a "
-            f"grid (N, H, W, 2), an output gradient of the image's shape "
-            f"and type and a grid cotangent of the grid's shape, on one "
+            f"grid (N, H_out, W, 2) of rows row0 .. row0 + H_out - 1 of the "
+            f"image's, an output gradient (N, C, H_out, W) of the image's "
+            f"type and a grid cotangent of the grid's shape, on one "
             f"device, R >= 1 and padding {PADDING_MODES}; got image "
             f"{tuple(img.shape)} {img.dtype}, grid {tuple(grid.shape)} "
-            f"{grid.dtype} on {grid.device}"
+            f"{grid.dtype} on {grid.device}, row0 {row0}"
             + ("" if g is None else f", g {tuple(g.shape)} {g.dtype}")
             + ("" if v is None else f", v {tuple(v.shape)} {v.dtype}")
             + f", R={r}, padding {padding_mode!r}")
@@ -497,19 +550,53 @@ def _aligned(grid: torch.Tensor) -> torch.Tensor:
     return grid
 
 
+def _band_launch(name: str, img: torch.Tensor, ptrs, n, c, h, w, row0, ho,
+                 r, align_corners, padding_mode):
+    """Launch the float32 band entry ``name`` (K3 or K3-grad) on the
+    tensors at ``ptrs``."""
+    code = _launch(getattr(_library(), name), img.device, *ptrs, n, c, h, w,
+                   row0, ho, r, int(align_corners),
+                   int(padding_mode == "border"))
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {code}")
+
+
+def _no_band_dtype(what: str, img: torch.Tensor):
+    """Refuse a bf16 band call: the bf16 kernels have no band form."""
+    if img.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{what}: a band of rows is not bfloat16 (the bf16 kernels have "
+            f"no band form)")
+
+
 def warp_sample_bounded_forward(img: torch.Tensor, grid: torch.Tensor,
                                 r: int, align_corners: bool = False,
-                                padding_mode: str = "zeros") -> torch.Tensor:
-    """K3: the sampler's output (N, C, H, W), of the image's type. Plain
-    version on CPU tensors, the kernel on CUDA: in bf16 the tile kernel,
-    or the gather one past its limit (C > 4, or a window over 227 KB of
-    shared memory; :func:`bf16_window`)."""
+                                padding_mode: str = "zeros",
+                                row0: int = 0) -> torch.Tensor:
+    """K3: the sampler's output (N, C, H_out, W), of the image's type, for
+    a grid (N, H_out, W, 2): the whole frame, or a band of the output rows
+    from ``row0`` (float32 only; ``warp_sample_bounded_forward_band``,
+    counted in ``band_launches`` too). Plain version on CPU tensors, the
+    kernel on CUDA: in bf16 the tile kernel, or the gather one past its
+    limit (C > 4, or a window over 227 KB of shared memory;
+    :func:`bf16_window`)."""
+    band = is_band(img, grid, row0)
+    if band:
+        _no_band_dtype("warp_sample_bounded_forward", img)
     if img.device.type == "cpu":
         return grid_sample_bounded_ref(img, grid, r, align_corners,
-                                       padding_mode)
-    n, c, h, w = _check(img, grid, r, padding_mode)
+                                       padding_mode, row0=row0)
+    n, c, h, w = _check(img, grid, r, padding_mode, row0=row0)
     img, grid = img.contiguous(), _aligned(grid)
-    out = torch.empty_like(img)
+    out = img.new_empty((n, c, grid.shape[1], w))
+    if band:
+        _band_launch("warp_sample_bounded_forward_band", img,
+                     (img.data_ptr(), grid.data_ptr(), out.data_ptr()), n, c,
+                     h, w, row0, grid.shape[1], r, align_corners,
+                     padding_mode)
+        warp_sample_bounded_forward.launches += 1
+        warp_sample_bounded_forward.band_launches += 1
+        return out
     fn, route = _entry(_library(), "warp_sample_bounded_forward", img, r)
     code = _launch(fn, img.device,
                    img.data_ptr(), grid.data_ptr(), out.data_ptr(), n, c, h,
@@ -525,24 +612,38 @@ def warp_sample_bounded_forward(img: torch.Tensor, grid: torch.Tensor,
 
 warp_sample_bounded_forward.launches = 0
 warp_sample_bounded_forward.gather_launches = 0
+warp_sample_bounded_forward.band_launches = 0
 
 
 def warp_sample_bounded_grad_grid(img: torch.Tensor, grid: torch.Tensor,
                                   g: torch.Tensor, r: int,
                                   align_corners: bool = False,
-                                  padding_mode: str = "zeros"
-                                  ) -> torch.Tensor:
-    """K3-grad: the grid gradient (N, H, W, 2), of the grid's type, for the
-    output gradient g. The closed form on CPU tensors, the kernel on
-    CUDA: in bf16 the tile kernel, or the gather one past its limit (as
-    K3's)."""
+                                  padding_mode: str = "zeros",
+                                  row0: int = 0) -> torch.Tensor:
+    """K3-grad: the grid gradient (N, H_out, W, 2), of the grid's type, for
+    the output gradient g (N, C, H_out, W); a band from ``row0`` as K3's
+    (``warp_sample_bounded_grad_grid_band``, ``band_launches``). The closed
+    form on CPU tensors, the kernel on CUDA: in bf16 the tile kernel, or
+    the gather one past its limit (as K3's)."""
+    band = is_band(img, grid, row0)
+    if band:
+        _no_band_dtype("warp_sample_bounded_grad_grid", img)
     if img.device.type == "cpu":
         return grid_sample_bounded_grad_grid_ref(img, grid, g, r,
-                                                 align_corners, padding_mode)
-    n, c, h, w = _check(img, grid, r, padding_mode, g)
+                                                 align_corners, padding_mode,
+                                                 row0)
+    n, c, h, w = _check(img, grid, r, padding_mode, g, row0=row0)
     dtype = grid.dtype
     img, grid, g = img.contiguous(), _aligned(grid), _build.dense(g)
     ggrid = torch.empty_like(grid)
+    if band:
+        _band_launch("warp_sample_bounded_grad_grid_band", img,
+                     (img.data_ptr(), grid.data_ptr(), g.data_ptr(),
+                      ggrid.data_ptr()), n, c, h, w, row0, grid.shape[1], r,
+                     align_corners, padding_mode)
+        warp_sample_bounded_grad_grid.launches += 1
+        warp_sample_bounded_grad_grid.band_launches += 1
+        return ggrid.to(dtype)
     fn, route = _entry(_library(), "warp_sample_bounded_grad_grid", img, r)
     code = _launch(fn, img.device,
                    img.data_ptr(), grid.data_ptr(), g.data_ptr(),
@@ -559,6 +660,7 @@ def warp_sample_bounded_grad_grid(img: torch.Tensor, grid: torch.Tensor,
 
 warp_sample_bounded_grad_grid.launches = 0
 warp_sample_bounded_grad_grid.gather_launches = 0
+warp_sample_bounded_grad_grid.band_launches = 0
 
 
 def warp_sample_bounded_grad_grid_backward(img: torch.Tensor,
@@ -574,7 +676,10 @@ def warp_sample_bounded_grad_grid_backward(img: torch.Tensor,
     kernel on CUDA: float32 its kernel; bf16 the tile kernel or, past its
     limit (C > 4, or a window over 227 KB of shared memory;
     :func:`bf16_window`), the float32 kernel on the widened operands, gg
-    rounded back (counted in ``gather_launches``)."""
+    rounded back (counted in ``gather_launches``). It has no band form: a
+    grid of other rows than the image's raises."""
+    _no_band("warp_sample_bounded_grad_grid_backward (K3-grad²)", img, grid,
+             0)
     if img.device.type == "cpu":
         gg, ggrid = grid_sample_bounded_grad_grid_backward_ref(
             _widen(img), _widen(grid), _widen(g), _widen(v), r,
@@ -612,6 +717,8 @@ def reset_launches():
     for fn in (warp_sample_bounded_forward, warp_sample_bounded_grad_grid,
                warp_sample_bounded_grad_grid_backward):
         fn.launches = fn.gather_launches = 0
+    for fn in (warp_sample_bounded_forward, warp_sample_bounded_grad_grid):
+        fn.band_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -619,17 +726,18 @@ def reset_launches():
 # ---------------------------------------------------------------------------
 
 class GridSampleBoundedFunction(torch.autograd.Function):
-    """Inputs (img, grid), with R, align_corners and padding_mode fixed.
-    Forward is K3; backward is :class:`GridSampleBoundedGradGridFunction`
-    (K3-grad, itself differentiable by K3-grad²) for the grid and, only
+    """Inputs (img, grid), with R, align_corners, padding_mode and the
+    band's first row ``row0`` fixed. Forward is K3; backward is
+    :class:`GridSampleBoundedGradGridFunction` (K3-grad, itself
+    differentiable by K3-grad² on whole frames) for the grid and, only
     when the image needs one, the plain image gradient (autograd through
     :func:`grid_sample_bounded_ref`, once differentiable). Twice
     differentiable in the grid, as the JAX package's XLA backward is."""
 
     @staticmethod
-    def forward(ctx, img, grid, r, align_corners, padding_mode):
+    def forward(ctx, img, grid, r, align_corners, padding_mode, row0=0):
         ctx.save_for_backward(img, grid)
-        ctx.opts = (r, align_corners, padding_mode)
+        ctx.opts = (r, align_corners, padding_mode, row0)
         return warp_sample_bounded_forward(img, grid, *ctx.opts)
 
     @staticmethod
@@ -647,29 +755,36 @@ class GridSampleBoundedFunction(torch.autograd.Function):
                     "takes no gradient (the models warp input frames)")
             with torch.enable_grad():
                 leaf = img.detach().requires_grad_()
-                out = grid_sample_bounded_ref(leaf, grid.detach(), *ctx.opts)
+                r, align_corners, padding_mode, row0 = ctx.opts
+                out = grid_sample_bounded_ref(leaf, grid.detach(), r,
+                                              align_corners, padding_mode,
+                                              row0=row0)
                 gimg, = torch.autograd.grad(out, leaf, g)
-        return gimg, ggrid, None, None, None
+        return gimg, ggrid, None, None, None, None
 
 
 class GridSampleBoundedGradGridFunction(torch.autograd.Function):
     """The grid gradient of the sampler as a function of (img, grid, g),
-    with R, align_corners and padding_mode fixed: forward K3-grad, backward
-    K3-grad² for g and the grid and, only when the image needs one, the
-    plain image term (autograd through the closed form). The backward is
-    not itself differentiable (``once_differentiable``): second-order
-    meta-training needs no third derivative."""
+    with R, align_corners, padding_mode and ``row0`` fixed: forward
+    K3-grad, backward K3-grad² for g and the grid and, only when the image
+    needs one, the plain image term (autograd through the closed form).
+    The backward is not itself differentiable (``once_differentiable``):
+    second-order meta-training needs no third derivative. On a band it
+    raises: K3-grad² has no band form (no second order on bands)."""
 
     @staticmethod
-    def forward(ctx, img, grid, g, r, align_corners, padding_mode):
+    def forward(ctx, img, grid, g, r, align_corners, padding_mode, row0=0):
         ctx.save_for_backward(img, grid, g)
         ctx.opts = (r, align_corners, padding_mode)
-        return warp_sample_bounded_grad_grid(img, grid, g, *ctx.opts)
+        ctx.row0 = row0
+        return warp_sample_bounded_grad_grid(img, grid, g, *ctx.opts, row0)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, v):
         img, grid, g = ctx.saved_tensors
+        _no_band("the bounded sampler's second derivative", img, grid,
+                 ctx.row0)
         gimg = ggrid = gg = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             gg, ggrid = warp_sample_bounded_grad_grid_backward(
@@ -681,4 +796,5 @@ class GridSampleBoundedGradGridFunction(torch.autograd.Function):
                     leaf, grid.detach(), g.detach(), *ctx.opts)
                 gimg, = torch.autograd.grad(out, leaf, v)
         return (gimg, ggrid if ctx.needs_input_grad[1] else None,
-                gg if ctx.needs_input_grad[2] else None, None, None, None)
+                gg if ctx.needs_input_grad[2] else None, None, None, None,
+                None)

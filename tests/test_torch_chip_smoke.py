@@ -340,13 +340,15 @@ def counted_warp(monkeypatch):
     ref = wb.grid_sample_bounded_ref
     ref_grad = wb.grid_sample_bounded_grad_grid_ref
 
-    def fwd(img, grid, r, align_corners=False, padding_mode="zeros"):
+    def fwd(img, grid, r, align_corners=False, padding_mode="zeros",
+            row0=0):
         fwd.launches += 1
-        return ref(img, grid, r, align_corners, padding_mode)
+        return ref(img, grid, r, align_corners, padding_mode, row0=row0)
 
-    def grad(img, grid, g, r, align_corners=False, padding_mode="zeros"):
+    def grad(img, grid, g, r, align_corners=False, padding_mode="zeros",
+             row0=0):
         grad.launches += 1
-        return ref_grad(img, grid, g, r, align_corners, padding_mode)
+        return ref_grad(img, grid, g, r, align_corners, padding_mode, row0)
     fwd.launches = grad.launches = 0
     monkeypatch.setattr(wb, "warp_sample_bounded_forward", fwd)
     monkeypatch.setattr(wb, "warp_sample_bounded_grad_grid", grad)

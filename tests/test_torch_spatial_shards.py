@@ -533,13 +533,12 @@ def test_cli_spatial_shards(ranks):
 REFUSED = {
     "training": (dict(CAIN, batch_size=2), "train", "--mode train"),
     "bf16": (dict(CAIN, dtype="bfloat16"), "val", "--dtype bfloat16"),
-    "rrin": (dict(model="rrin", number_of_training_steps_per_iter=0,
-                  number_of_evaluation_steps_per_iter=1), "val",
-             "--model rrin"),
-    "superslomo": (dict(model="superslomo", loss="1*Super", metasgd=True),
-                   "val", "--model superslomo"),
-    "voxelflow": (dict(model="voxelflow", loss="1*MSE", metasgd=True),
-                  "val", "--model voxelflow"),
+    "rrin": (dict(model="rrin", number_of_training_steps_per_iter=1,
+                  batch_size=2), "train", "--mode train"),
+    "superslomo": (dict(model="superslomo", loss="1*Super", metasgd=True,
+                        dtype="bfloat16"), "val", "--dtype bfloat16"),
+    "voxelflow": (dict(model="voxelflow", loss="1*MSE+0.1*VGG22",
+                       metasgd=True), "val", "VGG22"),
     "dain": (dict(model="dain", optimizer="Adamax", metasgd=True), "val",
              "--model dain"),
     "vgg": (dict(CAIN, loss="1*L1+0.1*VGG22"), "val", "VGG22"),
