@@ -443,9 +443,14 @@ GRAD2_SHAPES = [("1x3x256x512 random", 1, 3, 256, 512, "library", WARP_R,
 # the band entries of K3 and K3-grad (the row-sharded evaluation): checked
 # on the first and last of BAND_COUNT bands of a BAND_HW frame at each
 # padding and align_corners, R = WARP_R, displacements past R; timed on a
-# band of BAND_TIMED_HW's image (RRIN's padded frame), the first of 2
+# band of BAND_TIMED_HW's image (RRIN's padded frame), the first of 2.
+# K3-grad²'s band entry (row-sharded second-order training): checked on the
+# first, a middle, the last and a one-row band at each padding,
+# align_corners, R of GRAD2_BAND_RANGES and channel count of
+# GRAD2_BAND_CHANNELS; timed as the other two
 BAND_HW, BAND_COUNT = (256, 448), 2
 BAND_TIMED_HW = (256, 512)
+GRAD2_BAND_RANGES, GRAD2_BAND_CHANNELS = (4, WARP_R), (3, 5)
 EARLIER_WARP_KERNELS = {"warp_bounded_forward": "warp_bounded_fwd_kernel",
                         "warp_bounded_grad_frac":
                             "warp_bounded_grad_frac_kernel"}
@@ -850,6 +855,11 @@ def kernel_phase(torch, sc, card, resources=None, earlier_lib=None):
               f"this design {new[0]:.4f}, {new[1]:.4f} ms; earlier design "
               f"{old[0]:.4f}, {old[1]:.4f} ms; bound {bound:.4f} ms")
     return records
+
+
+# profiles of one call's device ops, taken again where the profiler caught
+# no device event (grad2_call_ops)
+PROFILE_TRIES = 3
 
 
 def device_time_by_kernel(torch, fn):
@@ -1312,16 +1322,69 @@ def warp_kernel_phase(torch, wb, card, resources=None, earlier=None,
     return records
 
 
-def warp_band_phase(torch, wb, card):
-    """The band entries of K3 and K3-grad: on the first and last of
-    BAND_COUNT bands of a BAND_HW frame at each padding and align_corners,
-    R = WARP_R, displacements reaching past R, each band call bit for bit
-    the whole-frame kernel's rows and within TOL_REL·max + TOL_ABS of the
-    plain version with ``row0``; the bf16 and K3-grad² band calls raise.
-    Then both timed on the first band of a BAND_TIMED_HW image, random
-    displacements within range (RRIN's padded frame), beside the plain
-    version, the bound and the library call on the same band. Returns
-    {K3 name: timing, K3-grad name: timing}."""
+def grad2_band_checks(torch, wb):
+    """K3-grad²'s band entry on the first, a middle, the last and a
+    one-row band of a BAND_HW frame, at each padding, align_corners, R of
+    GRAD2_BAND_RANGES and channel count of GRAD2_BAND_CHANNELS
+    (displacements reaching past R): gg and the grid's cotangent bit for
+    bit the whole-frame kernel's rows, and within TOL_REL·max + TOL_ABS of
+    the plain version with ``row0``. Returns (band calls, largest error
+    against plain)."""
+    h, w = BAND_HW
+    rows = h // BAND_COUNT
+    bands = {"first": (0, rows), "middle": ((h - rows) // 2, rows),
+             "last": (h - rows, rows), "one-row": (h // 3, 1)}
+    checked, worst = 0, 0.0
+    for r in GRAD2_BAND_RANGES:
+        for c in GRAD2_BAND_CHANNELS:
+            for align in (False, True):
+                for padding in wb.PADDING_MODES:
+                    seed = 41 + checked
+                    gen = torch.Generator().manual_seed(seed)
+                    img, g = (torch.rand(1, c, h, w, generator=gen).cuda(),
+                              torch.randn(1, c, h, w, generator=gen).cuda())
+                    v = torch.randn(1, h, w, 2, generator=gen).cuda()
+                    grid = warp_grid(torch, "uniform", 1, h, w, -r - 3, r + 2,
+                                     align, seed).cuda()
+                    opts = (r, align, padding)
+                    whole = wb.warp_sample_bounded_grad_grid_backward(
+                        img, grid, g, v, *opts)
+                    for name, (row0, n_rows) in bands.items():
+                        sl = slice(row0, row0 + n_rows)
+                        what = (f"K3-grad² on the {name} band (rows {row0}.."
+                                f"{row0 + n_rows - 1}) of 1x{c}x{h}x{w}, "
+                                f"R={r}, align_corners={align}, {padding}")
+                        args = (img, grid[:, sl].contiguous(),
+                                g[:, :, sl].contiguous(),
+                                v[:, sl].contiguous())
+                        got = wb.warp_sample_bounded_grad_grid_backward(
+                            *args, *opts, row0=row0)
+                        check(torch.equal(got[0], whole[0][:, :, sl])
+                              and torch.equal(got[1], whole[1][:, sl]),
+                              f"{what} is not the whole frame's rows")
+                        want = wb.grid_sample_bounded_grad_grid_backward_ref(
+                            *args, *opts, row0)
+                        for part, a, b in zip(("gg", "grid"), got, want):
+                            worst = max(worst, max_err(
+                                a, b.detach(), f"{what}, {part} against "
+                                               f"plain"))
+                        checked += 1
+    return checked, worst
+
+
+def warp_band_phase(torch, wb, card, resources=None):
+    """The band entries of K3, K3-grad and K3-grad²: K3 and K3-grad on the
+    first and last of BAND_COUNT bands of a BAND_HW frame at each padding
+    and align_corners, R = WARP_R, displacements reaching past R, each
+    band call bit for bit the whole-frame kernel's rows and within
+    TOL_REL·max + TOL_ABS of the plain version with ``row0``; K3-grad² as
+    grad2_band_checks; the bf16 band calls raise. Then the three timed on
+    the first band of a BAND_TIMED_HW image, random displacements within
+    range (RRIN's padded frame), beside the plain version, the bound and
+    the library call on the same band (K3-grad² has none: the card's
+    PyTorch has no double backward of grid_sampler_2d_backward), K3-grad²
+    with its registers and spill from ``resources`` (ptxas). Returns {K3
+    name: timing, K3-grad name: timing, K3-grad² name: timing}."""
     import torch.nn.functional as F
     n, c, r = 1, 3, WARP_R
     h, w = BAND_HW
@@ -1368,8 +1431,9 @@ def warp_band_phase(torch, wb, card):
                 img.bfloat16(), band, *opts, row0=rows)),
             ("bf16 K3-grad", lambda: wb.warp_sample_bounded_grad_grid(
                 img.bfloat16(), band, gb.bfloat16(), *opts, row0=rows)),
-            ("K3-grad²", lambda: wb.warp_sample_bounded_grad_grid_backward(
-                img, band, gb, torch.ones_like(band), *opts))]:
+            ("bf16 K3-grad²", lambda: wb.warp_sample_bounded_grad_grid_backward(
+                img.bfloat16(), band, gb.bfloat16(), torch.ones_like(band),
+                *opts, row0=rows))]:
         try:
             call()
         except NotImplementedError:
@@ -1383,6 +1447,14 @@ def warp_band_phase(torch, wb, card):
           f"the whole-frame kernel's rows; against the plain version with "
           f"row0 max|diff| {worst['fwd']:.3e} / {worst['grad']:.3e}; the "
           f"{', '.join(refused)} band calls raise")
+    checked, worst["grad2"] = grad2_band_checks(torch, wb)
+    torch.cuda.synchronize()
+    print(f"[kernels] K3-grad² band entry: {checked} band calls (first, "
+          f"middle, last and one-row bands of {h}x{w}, R in "
+          f"{GRAD2_BAND_RANGES}, C in {GRAD2_BAND_CHANNELS}, both paddings "
+          f"and align_corners, floors past R) bit for bit the whole-frame "
+          f"kernel's rows; against the plain version with row0 max|diff| "
+          f"{worst['grad2']:.3e}")
 
     flops_peak, bw_peak = peaks(card)
     h, w = BAND_TIMED_HW
@@ -1392,6 +1464,7 @@ def warp_band_phase(torch, wb, card):
     g = torch.randn(n, c, rows, w, generator=gen).cuda()
     grid = warp_grid(torch, "library", n, h, w, -r, r - 2, False,
                      38)[:, :rows].contiguous().cuda()
+    v = torch.randn(n, rows, w, 2, generator=gen).cuda()
     opts = (r, False, "zeros")
     calls = {
         "fwd": (lambda: wb.warp_sample_bounded_forward(img, grid, *opts,
@@ -1405,7 +1478,13 @@ def warp_band_phase(torch, wb, card):
                  lambda: wb.grid_sample_bounded_grad_grid_ref(img, grid, g,
                                                               *opts),
                  lambda: torch.ops.aten.grid_sampler_2d_backward(
-                     g, img, grid, 0, 0, False, [False, True])[1])}
+                     g, img, grid, 0, 0, False, [False, True])[1]),
+        "grad2": (lambda: wb.warp_sample_bounded_grad_grid_backward(
+                      img, grid, g, v, *opts, row0=0),
+                  lambda: tuple(t.detach() for t in
+                                wb.grid_sample_bounded_grad_grid_backward_ref(
+                                    img, grid, g, v, *opts)),
+                  None)}
     # the band's work: its pixels' grid (and g, ggrid) and output, and the
     # image rows its taps can reach (the band + R, clipped)
     pixels, reach = n * rows * w, n * min(rows + r + 1, h) * w
@@ -1414,11 +1493,15 @@ def warp_band_phase(torch, wb, card):
             ("fwd", "warp_sample_bounded_forward", pixels * (40 + 7 * c),
              pixels * (8 + 4 * c) + reach * 4 * c),
             ("grad", "warp_sample_bounded_grad_grid", pixels * (50 + 16 * c),
-             pixels * (16 + 4 * c) + reach * 4 * c)):
+             pixels * (16 + 4 * c) + reach * 4 * c),
+            # grid, g and v in, gg and the grid's cotangent out (24 + 8C B
+            # a pixel), grad2_timing's operations
+            ("grad2", GRAD2, pixels * (80 + 27 * c),
+             pixels * (24 + 8 * c) + reach * 4 * c)):
         kernel, plain, library = calls[key]
-        err = max_err(kernel(), plain(), f"{name} band against plain")
-        lib_err = max_err(kernel(), library(), f"{name} band against the "
-                                               f"library")
+        err = max_errs(kernel(), plain(), f"{name} band against plain")
+        lib_err = (None if library is None else max_err(
+            kernel(), library(), f"{name} band against the library"))
         t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / bw_peak * 1e3
         out[name] = {
             "shape": f"img {n}x{c}x{h}x{w}, grid and output rows 0..{rows - 1}"
@@ -1426,17 +1509,27 @@ def warp_band_phase(torch, wb, card):
             "max_abs_err": max(err, worst[key]), "library_err": lib_err,
             "ms": time_ms(torch, kernel), "call_ms": call_ms(torch, kernel),
             "plain_ms": time_ms(torch, plain),
-            "library_ms": time_ms(torch, library),
+            "library_ms": (None if library is None
+                           else time_ms(torch, library)),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "mbytes": nbytes / 1e6}
         t = out[name]
+        res = (resources or {}).get(name) if key == "grad2" else None
+        if res is not None:
+            t["registers"], t["spill"] = res["registers"], res["spill"]
         print(f"[kernels] {name} on a band ({t['shape']}): {t['ms']:.4f} ms "
               f"(eager call {t['call_ms']:.4f}; plain {t['plain_ms']:.4f}, "
-              f"library {t['library_ms']:.4f}, against it {lib_err:.3e}; "
-              f"bound {t['bound_ms']:.6f} ms by {t['bound_by']}, "
-              f"{t['mbytes']:.2f} MB, {t['bound_ms'] / t['ms']:.3f} reached)"
-              f" ({card})")
+              + ("library none (no double backward of "
+                 "grid_sampler_2d_backward in this PyTorch)"
+                 if library is None else
+                 f"library {t['library_ms']:.4f}, against it {lib_err:.3e}")
+              + f"; bound {t['bound_ms']:.6f} ms by {t['bound_by']}, "
+              f"{t['mbytes']:.2f} MB, {t['bound_ms'] / t['ms']:.3f} reached"
+              + ("" if res is None else
+                 f"; {res['registers']} registers, {res['spill']} bytes "
+                 f"spilled (ptxas, the whole-frame entry's kernel)")
+              + f") ({card})")
     return out
 
 
@@ -2254,7 +2347,11 @@ def train_phase(torch, mods, sc, card):
           f"{peak:.2f} GiB, launches K1 {got['sepconv_forward']} K2 "
           f"{got['sepconv_grad_kernels']} (want {want}), no plain sepconv")
     del second
-    train_card_vs_cpu(torch)
+    # card vs CPU: first order at the preset's 3 inner steps, second order
+    # at 1 (the CPU side's time)
+    train_card_vs_cpu(torch, orders=("first",))
+    train_card_vs_cpu(torch, TRAIN_FLAGS + ENGINE_CHECK_STEPS,
+                      orders=("second",))
     return launches
 
 
@@ -2364,7 +2461,7 @@ def handing(torch, real, record, dev):
     return card if dev == "cuda" else cpu
 
 
-def handing_inner(torch, real, record, dev, dist):
+def handing_inner(torch, real, record, dev, dist, keep_tape=False):
     """A stand-in for InnerOptimizer.update ``real`` in a first-order
     episode, whose support gradients are constants. On the card it records
     each step's gradients (on the CPU) and steps; on the CPU it steps with
@@ -2376,7 +2473,10 @@ def handing_inner(torch, real, record, dev, dist):
     the devices' rounding of 0 steps one way on the card and the other on
     the CPU, and its Meta-SGD rate's outer gradient changes sign with it.
     Handed, both devices take the same step, and what the outer gradients
-    compare is continuous in the rounding."""
+    compare is continuous in the rounding. With ``keep_tape`` (a
+    second-order episode) the replaying side steps with the recorded
+    values and its own gradients' derivative, g + (recorded − g) detached,
+    so the second order stays on its tape."""
     def card(self, params, grads, lrs, state, step_idx):
         record.append({k: g.detach().cpu() for k, g in grads.items()})
         return real(self, params, grads, lrs, state, step_idx)
@@ -2384,15 +2484,17 @@ def handing_inner(torch, real, record, dev, dist):
     def cpu(self, params, grads, lrs, state, step_idx):
         check(len(record) > 0, "the CPU run takes more inner steps than the "
                                "card run")
-        check(not any(g.requires_grad for g in grads.values()),
+        check(keep_tape or not any(g.requires_grad for g in grads.values()),
               "a handed support gradient would cut the second order")
         theirs = {k: t.to(grads[k].device) for k, t in record.pop(0).items()}
         for k, g in grads.items():
+            g = g.detach()
             dist["d2"] += float((g - theirs[k]).norm()) ** 2
             dist["n2"] += float(g.norm()) ** 2
             dist["flips"] += int((torch.sign(g) != torch.sign(theirs[k])).sum())
             dist["n"] += g.numel()
-        return real(self, params, {k: theirs[k].to(g.device)
+        return real(self, params, {k: g + (theirs[k] - g).detach()
+                                   if keep_tape else theirs[k]
                                    for k, g in grads.items()},
                     lrs, state, step_idx)
     return card if dev == "cuda" else cpu
@@ -4164,7 +4266,10 @@ def grad2_call_ops(torch, wb, img, grid, g, v, opts, card, reps=10):
     before its bf16 kernel (widened_grad2), in turns (this, widened,
     widened, this): the device ops and the device ms a call, from
     torch.profiler over ``reps`` calls. Its bf16 kernel is one device op
-    a call; the widened call also three casts."""
+    a call; the widened call also three casts. A turn whose profile caught
+    no device event at all (the profiler now and then drops a cycle's) is
+    profiled again, up to PROFILE_TRIES times; one that caught events is
+    held as it is."""
     paths = {"bf16 kernel": lambda: wb.warp_sample_bounded_grad_grid_backward(
                  img, grid, g, v, *opts),
              "widened": lambda: widened_grad2(wb)(img, grid, g, v, *opts)}
@@ -4172,8 +4277,11 @@ def grad2_call_ops(torch, wb, img, grid, g, v, opts, card, reps=10):
     for which in ("bf16 kernel", "widened", "widened", "bf16 kernel"):
         fn = paths[which]
         fn()
-        _, busy, rows, _ = device_time_by_kernel(
-            torch, lambda: [fn() for _ in range(reps)])
+        for _ in range(PROFILE_TRIES):
+            _, busy, rows, _ = device_time_by_kernel(
+                torch, lambda: [fn() for _ in range(reps)])
+            if rows:
+                break
         stats[which]["ops"].append(sum(k for _, k, _ in rows) / reps)
         stats[which]["busy"].append(busy / reps)
     check(stats["bf16 kernel"]["ops"] == [1.0, 1.0],
@@ -5309,6 +5417,32 @@ SPATIAL_LOSS_RTOL = 1e-5
 # process's, in norm: only the order of the sums differs
 SPATIAL_GRAD_RTOL = 1e-4
 SPATIAL_OP_SHAPE = (1, 8, 64, 96)     # a frame the op checks split in 2
+# row-sharded meta-training (--mode train --spatial_shards 2) on the same two
+# ranks: one task a rank (two gloo ranks share the card) of a CLI_CROP²
+# synthetic clip through System.outer_grads, first order twice (the first
+# held, the second timed) and second order once, each against one process
+# on the card on the same clip and weights, handed the ranks' support
+# gradients (in second order their values, its own derivative): the loss
+# within SPATIAL_LOSS_RTOL, each group's outer gradient within
+# SPATIAL_GRAD_RTOL of its norm (CAIN's: no farther from the float64
+# gradient than twice the one process's). Path → (flags, inner steps, warps
+# a forward, orders): SepConv at run_sepconv.sh (Adamax, Meta-SGD, 3 inner
+# steps), the warp models at WARP_TRAIN's presets with --fast_warp_range 8
+# (RRIN's second order with 1 inner step, as warp_train's), CAIN at
+# run_cain.sh's, first order
+SPATIAL_TRAIN = {
+    "sepconv": (TRAIN_FLAGS, STEPS, 0, ("first", "second")),
+    **{model: (WARP_TRAIN[model][0], WARP_TRAIN[model][2],
+               WARP_TRAIN[model][3], ("first", "second"))
+       for model in WARP_MODELS},
+    "cain": (CAIN_TRAIN_FLAGS, 1, 0, ("first",))}
+SPATIAL_TRAIN_FLAGS = ["--batch_size", "1", "--crop_size", str(CLI_CROP)]
+# the training CLI on the two ranks: VoxelFlow's preset at one task, one
+# iteration and the epoch's validation of one clip on bands; rank 0 writes
+# the checkpoint
+SPATIAL_TRAIN_CLI = WARP_TRAIN["voxelflow"][0] + SPATIAL_TRAIN_FLAGS + [
+    "--dataset", "synthetic", "--max_epoch", "1", "--total_iter_per_epoch",
+    "1", "--num_workers", "1"]
 
 
 def adamax_step_bound(torch, lr, d_grad, weight, eps=1e-8):
@@ -5556,6 +5690,111 @@ def spatial_runs(torch, work, mesh, dev):
     return out
 
 
+def spatial_train_flags(model, order):
+    """The CLI flags of a SPATIAL_TRAIN path in ``order``, one task."""
+    flags, steps, _, _ = SPATIAL_TRAIN[model]
+    extra = []
+    if order == "second":
+        extra = ["--second_order", "--number_of_training_steps_per_iter",
+                 str(max(steps, SECOND_ORDER_STEPS))]
+    return flags + SPATIAL_TRAIN_FLAGS + extra
+
+
+def spatial_train_launches(model, order):
+    """A task's launches (K1, K2, K3, K3-grad, K3-grad²) on a
+    SPATIAL_TRAIN path: one process's, each rank running them on its
+    band."""
+    _, steps, warps, _ = SPATIAL_TRAIN[model]
+    second = order == "second"
+    want = dict.fromkeys(KERNELS[:5], 0)
+    if model == "sepconv":
+        want.update(zip(KERNELS[:2], (
+            (K1_PER_TASK_SECOND_ORDER, K2_PER_TASK_SECOND_ORDER) if second
+            else (K1_PER_CLIP, K2_PER_CLIP + CALLS))))
+    elif warps:
+        want.update(train_launches(max(steps, SECOND_ORDER_STEPS) if second
+                                   else steps, warps, second))
+    return want
+
+
+def spatial_train_clip(model):
+    """The one-task batch of a SPATIAL_TRAIN path: (1, 7, H, W, 3)."""
+    import numpy as np
+
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    return np.asarray(SyntheticSeptuplet(
+        model=model, mode="train", size=(CLI_CROP, CLI_CROP))[0][0])[None]
+
+
+def spatial_train(torch, work, mesh, dev):
+    """Row-sharded meta-training on this rank: each SPATIAL_TRAIN path's
+    outer_grads, its launch counts set to 0 just before each iteration
+    and read just after (with the band entries' of K3, K3-grad and
+    K3-grad²), its seconds and peak memory, the first iteration's loss,
+    outer gradient and (rank 0) support gradients; then the training CLI
+    (SPATIAL_TRAIN_CLI) with its checkpoint writes counted."""
+    import pathlib
+
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.core import checkpoint as ckpt_lib
+    from meta_interpolation_tpu_torch.main import main as port_main
+    from meta_interpolation_tpu_torch.meta.inner_optimizers import (
+        InnerOptimizer)
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation as System)
+    from meta_interpolation_tpu_torch.ops import sepconv as sc
+    from meta_interpolation_tpu_torch.ops import warp_bounded as wb
+    mods, out = (sc, wb), {}
+    for model, (_, _, _, orders) in SPATIAL_TRAIN.items():
+        frames = spatial_train_clip(model)
+        for order in orders:
+            system = System(get_args(spatial_train_flags(model, order)
+                                     + SPATIAL_FLAGS), device=dev, mesh=mesh)
+            runs = []
+            for i in range(2 if order == "first" else 1):
+                inner = []
+                run = with_attr(InnerOptimizer, "update", handing_inner(
+                    torch, InnerOptimizer.update, inner, "cuda", None),
+                    lambda: system.outer_grads(frames, 0))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                reset_launches(mods)
+                t = time.perf_counter()
+                loss, aux, grads = run()
+                torch.cuda.synchronize()
+                runs.append({
+                    "s": time.perf_counter() - t, "loss": float(loss),
+                    "launches": launch_counts(mods),
+                    "band": {k: getattr(wb, k).band_launches
+                             for k in KERNELS[2:5]},
+                    "peak_gib": (torch.cuda.max_memory_allocated()
+                                 - base) / 2**30,
+                    "finite": bool(torch.isfinite(aux["preds"]).all())})
+                if i == 0:
+                    runs[0]["grads"] = {
+                        g: {k: v.detach().cpu() for k, v in t.items()}
+                        for g, t in grads.items() if g in ("net", "lrs")}
+                    runs[0]["inner"] = inner if mesh.rank == 0 else None
+                del loss, aux, grads
+            out[f"{model}_{order}"] = runs
+            del system
+    saves = []
+    real_save = ckpt_lib.save_checkpoint
+
+    def save(state, directory, *args, **kwargs):
+        saves.append(directory)
+        return real_save(state, directory, *args, **kwargs)
+    reset_launches(mods)
+    t = time.perf_counter()
+    ckpt = pathlib.Path(work) / "ck_spatial_train"
+    stats = with_attr(ckpt_lib, "save_checkpoint", save, port_main)(
+        SPATIAL_TRAIN_CLI + SPATIAL_FLAGS + ["--checkpoint_dir", str(ckpt)])
+    out["cli"] = {"s": time.perf_counter() - t, "stats": stats,
+                  "saves": saves, "launches": launch_counts(mods)}
+    return out
+
+
 def parallel_rank(rank, work):
     """One rank of the parallel phase: both ranks build K1/K2 at once into
     one fresh directory (K3's library, built once already, copied there
@@ -5639,6 +5878,10 @@ def parallel_rank(rank, work):
     out["spatial"] = spatial_runs(torch, str(work), mesh_lib.make_mesh(
         f"1x{PARALLEL_RANKS}"), dev)
     out["spatial_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["spatial_train"] = spatial_train(torch, str(work), mesh_lib.make_mesh(
+        f"1x{PARALLEL_RANKS}"), dev)
+    out["spatial_train_s"] = time.perf_counter() - t0
     if rank == 0:
         torch.save(first, work / "first.pt")
     torch.save(out, work / f"rank{rank}.pt")
@@ -5879,6 +6122,176 @@ def spatial_against_one(torch, ranks, work, card):
     return launches
 
 
+def to_float64(torch, system):
+    """``system`` recast to float64 in place (its model, meta-parameters,
+    the Super loss's VGG16 and the frames it takes): the exact run that
+    float32 ones round. Returns it."""
+    import numpy as np
+    system.model.double()
+    system.meta_params = {g: {k: v.double() for k, v in tree.items()}
+                          for g, tree in system.meta_params.items()}
+    vgg = getattr(system.loss_fn, "vgg16_params", None)
+    if vgg is not None:
+        system.loss_fn.vgg16_params = {
+            name: {k: t.double() for k, t in layer.items()}
+            for name, layer in vgg.items()}
+    system._frames = lambda frames: torch.from_numpy(np.ascontiguousarray(
+        np.asarray(frames, np.float64).transpose(0, 1, 4, 2, 3))).to(
+            system.device)
+    return system
+
+
+def spatial_train_against_one(torch, ranks, card):
+    """Each SPATIAL_TRAIN path's ranks against one process on the card:
+    the launches a rank an iteration (one process's, K3, K3-grad and
+    K3-grad² all on their band entries) and the same loss on both ranks;
+    the one process on the same clip and weights handed the ranks' support
+    gradients (in second order their values, its own derivative): its
+    loss within SPATIAL_LOSS_RTOL and each group's outer gradient within
+    SPATIAL_GRAD_RTOL of its norm, CAIN's against float64's (the ranks'
+    no farther than twice the one process's); seconds an iteration and
+    peak memory a rank beside the one process's. Then the training CLI:
+    one checkpoint written, by rank 0. Returns each rank's launches on
+    each path that runs a kernel of ours."""
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.meta.inner_optimizers import (
+        InnerOptimizer)
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation as System)
+
+    def cpu(tree):
+        return {g: {k: v.detach().cpu() for k, v in t.items()}
+                for g, t in tree.items() if g in ("net", "lrs")}
+
+    def group_rel(a, b):
+        out = {}
+        for g in b:
+            d = sum(float((a[g][k].double() - v.double()).norm()) ** 2
+                    for k, v in b[g].items()) ** 0.5
+            n = sum(float(v.double().norm()) ** 2 for v in b[g].values())
+            out[g] = d / n ** 0.5 if n else d
+        return out
+
+    launches = {}
+    for model, (_, _, _, orders) in SPATIAL_TRAIN.items():
+        frames = spatial_train_clip(model)
+        for order in orders:
+            path = f"{model}_{order}"
+            runs = [rank["spatial_train"][path] for rank in ranks]
+            want = spatial_train_launches(model, order)
+            for r, rank_runs in enumerate(runs):
+                for i, run in enumerate(rank_runs):
+                    got = {k: run["launches"][k] for k in want}
+                    check(got == want, f"{path} rank {r} iteration {i}: "
+                                       f"launched {got}, want {want}")
+                    check(run["band"] == {k: want[k] for k in KERNELS[2:5]},
+                          f"{path} rank {r}: K3 / K3-grad / K3-grad² "
+                          f"launched {run['band']} times on their band "
+                          f"entries, want all of them")
+                    check(run["finite"], f"{path} rank {r}: a prediction "
+                                         f"is not finite")
+                check(rank_runs[0]["loss"] == runs[0][0]["loss"],
+                      f"{path} rank {r}: loss {rank_runs[0]['loss']!r}, rank "
+                      f"0's {runs[0][0]['loss']!r}")
+                if model != "cain":
+                    launches[f"{model}_spatial_train_{order}_rank{r}"] = (
+                        rank_runs[0]["launches"])
+            first = runs[0][0]
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            system = System(get_args(spatial_train_flags(model, order)))
+            record, dist = list(first["inner"]), collections.Counter()
+            keep = order == "second"
+            run = with_attr(InnerOptimizer, "update", handing_inner(
+                torch, InnerOptimizer.update, record, "cpu", dist, keep),
+                lambda: system.outer_grads(frames, 0))
+            with deterministic(torch, False):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                loss, _, grads = run()
+                torch.cuda.synchronize()
+            one_s = time.perf_counter() - t
+            one_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            loss, grads = float(loss), cpu(grads)
+            check(not record, f"{path}: the ranks took more inner steps than "
+                              f"the one process")
+            check(abs(first["loss"] - loss) <= SPATIAL_LOSS_RTOL * abs(loss),
+                  f"{path}: the ranks' loss {first['loss']!r}, one process "
+                  f"{loss!r}")
+            rel = group_rel(first["grads"], grads)
+            inner_rel = ((dist["d2"] / dist["n2"]) ** 0.5 if dist["n2"]
+                         else 0.0)
+            line = (f"[spatial] {path} training: 2 ranks of 1x{CLI_CROP}x"
+                    f"{CLI_CROP} in 2 row bands vs one process on the card "
+                    f"({card}) handed their support gradients: loss "
+                    f"{first['loss']!r} vs {loss!r}; outer gradient "
+                    + ", ".join(f"{g} {v:.3e}" for g, v in rel.items())
+                    + f" of its norm apart; support gradients "
+                    f"{inner_rel:.3e} of their norm, {dist['flips']} of "
+                    f"{dist['n']} elements of the other sign")
+            if model == "cain":
+                # a random-init CAIN's float32 gradient carries ~2e-4 of its
+                # norm of rounding: held against float64, handed the same
+                # support gradients
+                record = list(first["inner"])
+                exact = cpu(with_attr(
+                    InnerOptimizer, "update", handing_inner(
+                        torch, InnerOptimizer.update, record, "cpu",
+                        collections.Counter(), keep),
+                    lambda: to_float64(torch, system).outer_grads(
+                        frames, 0))()[2])
+                ranks_d = group_rel(first["grads"], exact)
+                own_d = group_rel(grads, exact)
+                for g in exact:
+                    check(ranks_d[g] <= 2 * own_d[g] + SPATIAL_GRAD_RTOL * 1e-2,
+                          f"{path}: the ranks' {g} gradient {ranks_d[g]:.3e} "
+                          f"of its norm from float64's, the one process's "
+                          f"{own_d[g]:.3e}")
+                line += ("; from the float64 gradient: ranks "
+                         + ", ".join(f"{g} {v:.3e}" for g, v in ranks_d.items())
+                         + ", one process "
+                         + ", ".join(f"{g} {v:.3e}" for g, v in own_d.items()))
+            else:
+                for g, v in rel.items():
+                    check(v <= SPATIAL_GRAD_RTOL,
+                          f"{path}: the ranks' {g} gradient {v:.3e} of its "
+                          f"norm from one process's")
+                check(inner_rel <= SPATIAL_GRAD_RTOL,
+                      f"{path}: the ranks' support gradients {inner_rel:.3e} "
+                      f"of their norm from one process's")
+            del system, grads
+            print(line)
+            print(f"[spatial] {path} training: a task's launches a rank "
+                  f"{ {k: v for k, v in want.items() if v} } (one process's; "
+                  f"on band entries {runs[0][0]['band']}); s/iteration ranks "
+                  f"{[round(rank_runs[-1]['s'], 4) for rank_runs in runs]} "
+                  f"({'second' if len(runs[0]) > 1 else 'only'} iteration; 2 "
+                  f"ranks share the card), one process {one_s:.4f}; peak "
+                  f"memory a rank "
+                  f"{[round(rank_runs[-1]['peak_gib'], 3) for rank_runs in runs]}"
+                  f" GiB, one process {one_peak:.3f} GiB over what each held "
+                  f"before ({card})")
+    for r, rank in enumerate(ranks):
+        cli = rank["spatial_train"]["cli"]
+        check(len(cli["saves"]) == (1 if r == 0 else 0),
+              f"training CLI rank {r}: wrote {len(cli['saves'])} checkpoints")
+        check(cli["stats"] == ranks[0]["spatial_train"]["cli"]["stats"],
+              f"training CLI rank {r}: {cli['stats']}, rank 0's "
+              f"{ranks[0]['spatial_train']['cli']['stats']}")
+        check(all(cli["launches"][k] > 0 for k in KERNELS[2:4]),
+              f"training CLI rank {r}: launches {cli['launches']}")
+    cli = ranks[0]["spatial_train"]["cli"]
+    print(f"[spatial] training CLI (VoxelFlow, 1 iteration, the epoch's "
+          f"validation on bands) on 2 ranks: {cli['stats']}, the checkpoint "
+          f"written once (rank 0: {cli['saves']}), K3 / K3-grad launches a "
+          f"rank {[r['spatial_train']['cli']['launches'][KERNELS[2]] for r in ranks]}"
+          f" / {[r['spatial_train']['cli']['launches'][KERNELS[3]] for r in ranks]}"
+          f", {cli['s']:.1f} s")
+    return launches
+
+
 def parallel_phase(torch, mods, card):
     """run_sepconv.sh at batch 4 on 2 ranks of the one card over gloo
     (--mesh_shape 2), through the CLI: a warm-up and a timed train
@@ -6047,6 +6460,15 @@ def parallel_phase(torch, mods, card):
         spatial_launches = spatial_against_one(torch, ranks, work, card)
         print(f"[time] parallel_spatial_one_process: "
               f"{time.perf_counter() - t:.1f} s")
+        print(f"[time] parallel_spatial_train_ranks: "
+              f"{max(rank['spatial_train_s'] for rank in ranks):.1f} s")
+        t = time.perf_counter()
+        check(os.path.exists(os.path.join(
+            work, "ck_spatial_train", "exp", "checkpoint.pth")),
+              "the training CLI on bands wrote no checkpoint")
+        train_launches_ = spatial_train_against_one(torch, ranks, card)
+        print(f"[time] parallel_spatial_train_one_process: "
+              f"{time.perf_counter() - t:.1f} s")
         nccl = torch.load(os.path.join(work, "nccl.pt"), weights_only=False)
         check(nccl["backend"] == "nccl" and nccl["ok"],
               f"NCCL rank: {nccl}")
@@ -6059,7 +6481,8 @@ def parallel_phase(torch, mods, card):
     return {**{f"sepconv_parallel_rank{r}": rank["launches"]
                for r, rank in enumerate(ranks)},
             **{path: counts for path, counts in spatial_launches.items()
-               if path.split("_")[0] in ("sepconv",) + tuple(WARP_MODELS)}}
+               if path.split("_")[0] in ("sepconv",) + tuple(WARP_MODELS)},
+            **train_launches_}
 
 
 def parse_args(argv=None):
@@ -6153,9 +6576,11 @@ def main():
                        k3_resources, earlier_k3, earlier_grid_warp)
                + timed("projection_kernel", projection_kernel_phase, torch,
                        fpb, card, k4_resources, earlier_k4))
-    # K3 and K3-grad on a band of rows (the row-sharded evaluation)
-    for rec, band in zip(records[2:4], timed(
-            "warp_band", warp_band_phase, torch, wb, card).values()):
+    # K3, K3-grad and K3-grad² on a band of rows (the row-sharded
+    # evaluation and training)
+    for rec, band in zip(records[2:5], timed(
+            "warp_band", warp_band_phase, torch, wb, card,
+            k3_resources).values()):
         rec["band"] = band
     mods = (sc, wb, fpb)
     bf16_records = timed("bf16_kernels", bf16_kernel_phase, torch, mods,
@@ -6235,10 +6660,13 @@ def main():
             by_path[k][path] = counts[k]
     # task parallelism: K1/K2 in each rank's process, over its whole run;
     # the row-sharded evaluation: K1/K2 (SepConv) or K3/K3-grad (the warp
-    # models) on each rank's bands, over each CLI run
+    # models) on each rank's bands, over each CLI run; the row-sharded
+    # training: the same a rank's first iteration, and K3-grad² on the warp
+    # models' second-order paths
     for path, counts in parallel_paths.items():
-        for k in (KERNELS[2:4] if path.split("_")[0] in WARP_MODELS
-                  else KERNELS[:2]):
+        warp = path.split("_")[0] in WARP_MODELS
+        for k in (KERNELS[:2] if not warp else KERNELS[2:4] + (
+                (KERNELS[4],) if "_second_" in path else ())):
             by_path[k][path] = counts[k]
     for rec in records:
         rec["launches_by_path"] = by_path[rec["name"]]

@@ -8,9 +8,9 @@ recomputes each model forward in its backward
 (``torch.utils.checkpoint``). ``--mesh_shape`` and ``--episode_parallel``
 take effect in a run of several ranks under ``torchrun``
 (``parallel/mesh.py``); ``--spatial_shards`` above 1 runs the exact
-row-sharded evaluation of SepConv, CAIN, RRIN, SuperSloMo and VoxelFlow
-(``parallel/spatial.py``) and
-raises for what it does not cover yet (``meta/system.py`` ``_unported``).
+row-sharded evaluation and meta-training of SepConv, CAIN, RRIN,
+SuperSloMo and VoxelFlow (``parallel/spatial.py``) and raises for what it
+does not cover yet (``meta/system.py`` ``_unported``).
 """
 from __future__ import annotations
 
@@ -228,10 +228,10 @@ _HELP = {
     "episode_parallel": "under torchrun: false runs rank 0 alone (the "
                         "other ranks idle)",
     "spatial_shards": "under torchrun: the exact row-sharded evaluation "
-                      "(--mode val / test of sepconv, cain, rrin, "
-                      "superslomo and voxelflow, float32, L1 / MSE / Charb "
-                      "and superslomo's Super) over the mesh's spatial "
-                      "axis of this many ranks",
+                      "and meta-training (--mode val / test / train of "
+                      "sepconv, cain, rrin, superslomo and voxelflow, "
+                      "float32, L1 / MSE / Charb and superslomo's Super) "
+                      "over the mesh's spatial axis of this many ranks",
 }
 
 

@@ -48,13 +48,13 @@
 // floors lie in [-R, R-1], so on Hopper the sweep is one direct 2x2 gather
 // a pixel, and R enters only through the clamp.
 //
-// Row bands (the row-sharded evaluation, --spatial_shards): the float32 K3
-// and K3-grad also take a band of output rows, the _band entry points. The
-// grid, output and gradients hold the band's h_out rows, and output row y
-// measures its displacement from image row row0 + y of the whole image,
-// which every rank holds. The image's H stays in the clamp and the zero
-// padding, so a band's rows are the whole-frame call's rows bit for bit.
-// The bf16 tile kernels and K3-grad² have no band form.
+// Row bands (the row-sharded evaluation and training, --spatial_shards): the
+// float32 K3, K3-grad and K3-grad² also take a band of output rows, the
+// _band entry points. The grid, output and gradients hold the band's h_out
+// rows, and output row y measures its displacement from image row row0 + y
+// of the whole image, which every rank holds. The image's H stays in the
+// clamp and the zero padding, so a band's rows are the whole-frame call's
+// rows bit for bit. The bf16 tile kernels have no band form.
 //
 // Rounding: ix, iy, the clamps and the floors are written with __fadd_rn /
 // __fsub_rn / __fmul_rn in PyTorch's operation order, so that they are
@@ -341,7 +341,8 @@ warp_sample_grad_grid_kernel(const T* __restrict__ img,
 // pass nothing. This is what autograd gives through
 // grid_sample_bounded_grad_grid_ref (ops/warp_bounded.py), its plain
 // version. One thread a pixel and the same taps as the grad kernel; g is
-// read once a channel, gg written once.
+// read once a channel, gg written once. A band (row0, h_out) as the grad
+// kernel's: the grid, g, v, gg and ggrid hold h_out rows.
 template <int kC>
 __global__ void __launch_bounds__(kThreads)
 warp_sample_grad_grid_backward_kernel(const float* __restrict__ img,
@@ -350,14 +351,15 @@ warp_sample_grad_grid_backward_kernel(const float* __restrict__ img,
                                       const float2* __restrict__ v,
                                       float* __restrict__ gg,
                                       float2* __restrict__ ggrid, int c,
-                                      int h, int w, int r, bool align,
-                                      bool border) {
+                                      int h, int w, int row0, int h_out,
+                                      int r, bool align, bool border) {
   const int y = blockIdx.y, b = blockIdx.z;
   const int x_base = blockIdx.x * (kThreads * kPix) + threadIdx.x;
   const int nc = kC > 0 ? kC : c;
   const size_t hw = static_cast<size_t>(h) * w;
-  const size_t row = (static_cast<size_t>(b) * h + y) * w;
-  const size_t crow = static_cast<size_t>(b) * nc * hw
+  const size_t ohw = static_cast<size_t>(h_out) * w;
+  const size_t row = (static_cast<size_t>(b) * h_out + y) * w;
+  const size_t crow = static_cast<size_t>(b) * nc * ohw
       + static_cast<size_t>(y) * w;
   float2 gv[kPix], vv[kPix];
 #pragma unroll
@@ -374,7 +376,7 @@ warp_sample_grad_grid_backward_kernel(const float* __restrict__ img,
     const int x = x_base + p * kThreads;
     if (x >= w) break;
     const Axis ax = axis<false>(gv[p].x, x, w, r, align, border);
-    const Axis ay = axis<false>(gv[p].y, y, h, r, align, border);
+    const Axis ay = axis<false>(gv[p].y, row0 + y, h, r, align, border);
     const bool live = border || (ax.valid && ay.valid);
     const float ux = vv[p].x * sx, uy = vv[p].y * sy;
     // per channel, gg_c = ax_d dbil/dfx + ay_d dbil/dfy + b_d bil
@@ -398,7 +400,7 @@ warp_sample_grad_grid_backward_kernel(const float* __restrict__ img,
     for (int ch = 0; ch < nc; ++ch, q += hw) {
       const float v00 = __ldg(q + o00), v01 = __ldg(q + o01);
       const float v10 = __ldg(q + o10), v11 = __ldg(q + o11);
-      const float gc = __ldg(g + crow + ch * hw + x);
+      const float gc = __ldg(g + crow + ch * ohw + x);
       const float top = fmaf(ax.w0, v00, ax.w1 * v01);
       const float bot = fmaf(ax.w0, v10, ax.w1 * v11);
       const float dbx = fmaf(ay.w0, v01 - v00, ay.w1 * (v11 - v10));
@@ -408,7 +410,7 @@ warp_sample_grad_grid_backward_kernel(const float* __restrict__ img,
       sdy = fmaf(gc, dby, sdy);
       sb = fmaf(gc, bil, sb);
       sxy = fmaf(gc, (v11 - v10) - (v01 - v00), sxy);
-      gg[crow + ch * hw + x] = fmaf(ax_d, dbx, fmaf(ay_d, dby, b_d * bil));
+      gg[crow + ch * ohw + x] = fmaf(ax_d, dbx, fmaf(ay_d, dby, b_d * bil));
     }
     float gx, gy;
     if (border) {
@@ -942,6 +944,23 @@ int grad_grid(const T* img, const float* grid, const T* g, float* ggrid,
   return cudaGetLastError();
 }
 
+int grad_grid_backward(const float* img, const float* grid, const float* g,
+                       const float* v, float* gg, float* ggrid, int n, int c,
+                       int h, int w, int row0, int h_out, int r,
+                       int align_corners, int border, void* stream) {
+  dim3 blocks;
+  cudaError_t err = band_grid_for(n, c, h, w, row0, h_out, r, &blocks);
+  if (err != cudaSuccess) return err;
+  (c == 3 ? warp_sample_grad_grid_backward_kernel<3>
+          : warp_sample_grad_grid_backward_kernel<0>)
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      img, reinterpret_cast<const float2*>(grid), g,
+      reinterpret_cast<const float2*>(v), gg,
+      reinterpret_cast<float2*>(ggrid), c, h, w, row0, h_out, r,
+      align_corners != 0, border != 0);
+  return cudaGetLastError();
+}
+
 // The bf16 tile kernels' launch: blocks, the window's row pitch in texels
 // and its shared memory, the most any block's window takes: min(kTileH +
 // 2R, H) rows of min(kTileW + 2R, W) texels, the pitch rounded up to whole
@@ -1108,17 +1127,19 @@ extern "C" int warp_sample_bounded_grad_grid_backward(
     const float* img, const float* grid, const float* g, const float* v,
     float* gg, float* ggrid, int n, int c, int h, int w, int r,
     int align_corners, int border, void* stream) {
-  dim3 blocks;
-  cudaError_t err = grid_for(n, c, h, w, r, &blocks);
-  if (err != cudaSuccess) return err;
-  (c == 3 ? warp_sample_grad_grid_backward_kernel<3>
-          : warp_sample_grad_grid_backward_kernel<0>)
-      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, reinterpret_cast<const float2*>(grid), g,
-      reinterpret_cast<const float2*>(v), gg,
-      reinterpret_cast<float2*>(ggrid), c, h, w, r, align_corners != 0,
-      border != 0);
-  return cudaGetLastError();
+  return grad_grid_backward(img, grid, g, v, gg, ggrid, n, c, h, w, 0, h, r,
+                            align_corners, border, stream);
+}
+
+// The float32 K3-grad² on a band, as K3-grad's band entry: the grid, g, v,
+// gg and ggrid hold h_out rows from image row row0; row0 = 0, h_out = H is
+// the whole-frame call, bit for bit.
+extern "C" int warp_sample_bounded_grad_grid_backward_band(
+    const float* img, const float* grid, const float* g, const float* v,
+    float* gg, float* ggrid, int n, int c, int h, int w, int row0, int h_out,
+    int r, int align_corners, int border, void* stream) {
+  return grad_grid_backward(img, grid, g, v, gg, ggrid, n, c, h, w, row0,
+                            h_out, r, align_corners, border, stream);
 }
 
 extern "C" int warp_sample_bounded_grad_grid_backward_bf16(

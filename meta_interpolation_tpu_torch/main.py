@@ -80,19 +80,31 @@ only rank 0 writes. Ranks that share a card (more ranks than cards, or
 tasks. ``--episode_parallel false`` runs rank 0 alone. A plain ``python
 -m`` run (or a world of one rank) starts no process group.
 
-The exact row-sharded evaluation splits every frame's rows over the
-ranks of the spatial axis (SepConv, CAIN, RRIN, SuperSloMo and VoxelFlow,
-``--mode val`` and ``test``):
+The exact row-sharded evaluation and meta-training split every frame's
+rows over the ranks of the spatial axis (SepConv, CAIN, RRIN, SuperSloMo
+and VoxelFlow, ``--mode val``, ``test`` and ``train``, first and second
+order):
 
     torchrun --standalone --nproc_per_node 2 -m \
         meta_interpolation_tpu_torch.main --model sepconv --mode val \
         --dataset synthetic --loss 1*L1 --optimizer Adamax --metasgd \
         --inner_lr 1e-5 --number_of_evaluation_steps_per_iter 3 \
         --spatial_shards 2
+    torchrun --standalone --nproc_per_node 2 -m \
+        meta_interpolation_tpu_torch.main --model sepconv --mode train \
+        --dataset synthetic --loss 1*L1 --optimizer Adamax --metasgd \
+        --batch_size 3 --inner_lr 1e-5 --outer_lr 1e-5 \
+        --number_of_training_steps_per_iter 3 \
+        --number_of_evaluation_steps_per_iter 3 [--second_order] \
+        --spatial_shards 2
 
 ``--spatial_shards S`` lays the ranks out 1xS (or TxS with
-``--mesh_shape``; with ``--episode_parallel false`` the first S ranks
-run and the others idle).
+``--mesh_shape``, the batch split over the task axis; with
+``--episode_parallel false`` the first S ranks run and the others idle).
+In training the outer gradient is summed over every rank of the mesh
+and rank 0 writes the checkpoint. ``--dtype bfloat16``, DAIN, the VGG,
+SSIM and GAN terms, ``--attenuate``, ``--per_step_bn_statistics`` and
+``--remat`` raise with ``--spatial_shards``.
 """
 from __future__ import annotations
 

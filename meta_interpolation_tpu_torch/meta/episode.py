@@ -44,7 +44,8 @@ Inside ``parallel/spatial.row_shard`` (the exact ``--spatial_shards``
 evaluation) the model runs on this rank's band of rows and returns the
 whole frame gathered from the bands, so every loss, prediction and metric
 is the whole frame's on every rank; each inner step sums the ranks'
-support gradients over the bands before the update, so the adapted
+support gradients over the bands before the update (a differentiable
+all-reduce: in second order the sum stays on the tape), so the adapted
 weights stay the same on every rank.
 """
 from __future__ import annotations
@@ -391,7 +392,8 @@ class EpisodeBuilder:
                                           spec.collect_support_preds)
                 grads = torch.autograd.grad(loss, [src[k] for k in live])
             if spatial.current() is not None:
-                # each rank's gradient is its band's part
+                # each rank's gradient is its band's part; in second order
+                # the sum is differentiated in the outer backward
                 grads = spatial.all_reduce_grads(grads)
             new, state = self.inner_opt.update(
                 {k: params[k] for k in live}, dict(zip(live, grads)), lrs,

@@ -22,19 +22,21 @@ the optimizer's step, and the predictions, losses, metrics, per-step BN
 statistics and the discriminator's inputs are those of the global batch
 on every rank.
 
-Under ``--spatial_shards S`` (``--mode val`` and ``--mode test`` of SepConv,
-CAIN, RRIN, SuperSloMo and VoxelFlow, float32, pixel losses and
-SuperSloMo's ``Super``) the ranks of the mesh's spatial axis
-also split each frame's rows: the episode runs inside
+Under ``--spatial_shards S`` (``--mode val``, ``test`` and ``train``, first
+and second order, of SepConv, CAIN, RRIN, SuperSloMo and VoxelFlow,
+float32, pixel losses and SuperSloMo's ``Super``) the ranks of the mesh's
+spatial axis also split each frame's rows: the episode runs inside
 ``parallel/spatial.row_shard``, where the model works on this rank's
 band and returns the whole frame, and each inner step's gradient is
-summed over the bands. The result is the unsharded run's, up to the order
-of the sums (JAX's GSPMD partition of the same episode). A frame whose
-grid does not split into bands runs unsharded on every rank.
+summed over the bands (on the tape in second order). In training each
+rank's outer gradient is its band's part of its tasks', and one
+all-reduce over every rank of the mesh sums it. The result is the
+unsharded run's, up to the order of the sums (JAX's GSPMD partition of
+the same step). A frame whose grid does not split into bands runs
+unsharded on every rank.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -114,11 +116,10 @@ def _resolve_device(device: Union[str, torch.device]) -> torch.device:
     return device
 
 
-# what --spatial_shards runs on row bands: the evaluation modes of these
-# models (each with its row_bands), with these loss terms (each term a mean
-# of the gathered frame's pixels), and SuperSloMo's Super terms, which read
-# its gathered whole-frame flows and warped frames
-SPATIAL_MODES = ("val", "test")
+# what --spatial_shards runs on row bands: every mode of these models (each
+# with its row_bands), with these loss terms (each term a mean of the
+# gathered frame's pixels), and SuperSloMo's Super terms, which read its
+# gathered whole-frame flows and warped frames
 SPATIAL_MODELS = ("sepconv", "cain", "rrin", "superslomo", "voxelflow")
 SPATIAL_LOSSES = ("L1", "MSE", "Charb")
 SPATIAL_MODEL_LOSSES = {"superslomo": ("Super", "SuperNoPrcp")}
@@ -126,7 +127,7 @@ SPATIAL_MODEL_LOSSES = {"superslomo": ("Super", "SuperNoPrcp")}
 
 def _unported(cfg: Config):
     """Flags whose behaviour the port does not have yet: of the exact
-    row-sharded evaluation (--spatial_shards above 1), training, bf16,
+    row-sharded evaluation and training (--spatial_shards above 1), bf16,
     DAIN, the feature and adversarial loss terms and the engine's per-task
     options (ROADMAP Queue 1)."""
     if cfg.spatial_shards <= 1:
@@ -135,8 +136,6 @@ def _unported(cfg: Config):
     terms = [t.loss_type for t in losses_lib.parse_loss_spec(cfg.loss)
              if t.loss_type not in allowed]
     return [f"--spatial_shards with {what}" for what, on in [
-        (f"--mode {cfg.mode} (row-sharded training)",
-         cfg.mode not in SPATIAL_MODES),
         (f"--model {cfg.model} (only {', '.join(SPATIAL_MODELS)})",
          cfg.model not in SPATIAL_MODELS),
         (f"--dtype {cfg.dtype}", cfg.dtype != "float32"),
@@ -336,13 +335,13 @@ class SceneAdaptiveInterpolation:
 
     def _shard_batch(self, frames):
         """This rank's tasks of the global (B, T, H, W, C) batch, whether
-        they are a slice of it, and the context the episode runs in (JAX
+        they are a slice of it, and the row shard the episode runs in (JAX
         ``_shard_batch``, :475-485): the whole batch with no mesh, or when
         the task axis does not divide B (every rank then runs all of it);
-        under --spatial_shards a row shard over the mesh's spatial axis
-        where the model's grid splits (else, logged once, none)."""
+        under --spatial_shards the mesh's spatial axis where the model's
+        grid splits (else, logged once, None: whole frames)."""
         if self.mesh is None:
-            return frames, False, contextlib.nullcontext()
+            return frames, False, None
         rows = False
         if self.cfg.spatial_shards > 1:
             local, rows = mesh_lib.shard_task_spatial_batch(
@@ -356,9 +355,8 @@ class SceneAdaptiveInterpolation:
                     f"run unsharded on every rank")
         else:
             local = mesh_lib.shard_task_batch(self.mesh, frames)
-        context = (spatial.row_shard(self.mesh) if rows
-                   else contextlib.nullcontext())
-        return local, len(local) < len(frames), context
+        return (local, len(local) < len(frames),
+                spatial.RowShard.of(self.mesh) if rows else None)
 
     def _join_ranks(self, aux, frames, spec: episode_lib.EpisodeSpec,
                     with_metrics: bool):
@@ -413,8 +411,9 @@ class SceneAdaptiveInterpolation:
         Returns (loss, aux, grads): aux as ``batched_episode``'s, ``grads``
         like ``meta_params``, zero where the trainable mask is off. Under
         --disc_per_forward aux also holds the replay's predictions. On a
-        mesh: of the global batch, the gradient summed over the task
-        axis."""
+        mesh: of the global batch, the gradient summed over the task axis;
+        on row bands each rank's gradient is its band's part, and the sum
+        runs over every rank of the mesh."""
         self._refuse_untrainable()
         spec = self._spec(
             "train", self.cfg.num_inner_steps, self._use_second_order(epoch),
@@ -427,18 +426,21 @@ class SceneAdaptiveInterpolation:
         leaves = {g: {k: v.detach().requires_grad_(self.trainable[g][k])
                       for k, v in tree.items()}
                   for g, tree in self.meta_params.items()}
-        local, sharded, _ = self._shard_batch(frames)
-        loss, aux = self.builder.batched_episode(
-            leaves, self._frames(local), msl_w, spec, training=True,
-            with_metrics=with_metrics and not sharded,
-            num_tasks=len(frames))
+        local, sharded, shard = self._shard_batch(frames)
+        with spatial.row_shard(shard):
+            loss, aux = self.builder.batched_episode(
+                leaves, self._frames(local), msl_w, spec, training=True,
+                with_metrics=with_metrics and not sharded,
+                num_tasks=len(frames))
         grads = {g: {k: (v.grad if v.grad is not None
                          else torch.zeros_like(v))
                      for k, v in tree.items()}
                  for g, tree in leaves.items()}
-        if sharded:
+        if sharded or shard is not None:
             grads = mesh_lib.all_reduce_grads(self.mesh, grads,
-                                              self.trainable)
+                                              self.trainable,
+                                              rows=shard is not None)
+        if sharded:
             loss, aux = self._join_ranks(aux, frames, spec, with_metrics)
         return loss, aux, grads
 
@@ -501,8 +503,8 @@ class SceneAdaptiveInterpolation:
         msl_w = episode_lib.per_step_loss_importance(
             self.cfg.num_eval_steps, self.current_epoch,
             self.cfg.multi_step_loss_num_epochs)
-        local, sharded, rows = self._shard_batch(frames)
-        with rows:
+        local, sharded, shard = self._shard_batch(frames)
+        with spatial.row_shard(shard):
             loss, aux = self.builder.batched_episode(
                 self.meta_params, self._frames(local), msl_w, spec,
                 training=False, with_metrics=not sharded)
@@ -521,8 +523,8 @@ class SceneAdaptiveInterpolation:
         --second_order says (JAX passes it on): nothing differentiates the
         adapted weights, so the order changes no value."""
         spec = self._spec("test", self.cfg.num_eval_steps)
-        local, sharded, rows = self._shard_batch(frames)
-        with rows:
+        local, sharded, shard = self._shard_batch(frames)
+        with spatial.row_shard(shard):
             preds = self.builder.test_episode(self.meta_params,
                                               self._frames(local), spec)
         return mesh_lib.gather_tasks(self.mesh, preds) if sharded else preds

@@ -14,12 +14,12 @@ bilinear 2×2 tap at (y+dy0+fy, x+dx0+fx). Padding 'border' clamps the
 coordinate to the image first; 'zeros' rescales by the in-bounds bilinear
 mass and zeroes samples whose 2×2 support lies wholly outside. Layout: img
 (N, C, H, W); grid (N, H, W, 2) with (gx, gy) last and out (N, C, H, W),
-the image's H×W, or for a band of output rows (the row-sharded evaluation,
-``--spatial_shards``) a grid and out of H_out rows, output row y being
-image row row0 + y: K3, K3-grad and their plain versions take ``row0``,
-and a band's rows are those of the whole grid's call bit for bit. K3 and
-K3-grad have band entries in float32; the bf16 kernels and K3-grad² raise
-on a band.
+the image's H×W, or for a band of output rows (the row-sharded evaluation
+and training, ``--spatial_shards``) a grid and out of H_out rows, output
+row y being image row row0 + y: K3, K3-grad, K3-grad² and their plain
+versions take ``row0``, and a band's rows are those of the whole grid's
+call bit for bit. The three have band entries in float32; the bf16
+kernels raise on a band.
 
 Plain PyTorch pieces (they run for CPU tensors; the kernels are held
 against them on the card):
@@ -362,17 +362,20 @@ def grid_sample_bounded_grad_grid_backward_ref(img: torch.Tensor,
                                                g: torch.Tensor,
                                                v: torch.Tensor, r: int,
                                                align_corners: bool = False,
-                                               padding_mode: str = "zeros"):
+                                               padding_mode: str = "zeros",
+                                               row0: int = 0):
     """The derivative of :func:`grid_sample_bounded_grad_grid_ref` for the
-    cotangent v (N, H, W, 2) of its output: (gg, ggrid), the cotangents of
-    g (N, C, H, W) and of the grid (N, H, W, 2), by autograd through the
-    closed form (``create_graph=True``: the result stays differentiable).
-    The image, on which the closed form depends linearly, gets none."""
+    cotangent v (N, H_out, W, 2) of its output: (gg, ggrid), the
+    cotangents of g (N, C, H_out, W) and of the grid (N, H_out, W, 2), by
+    autograd through the closed form (``create_graph=True``: the result
+    stays differentiable); a band of the output rows from ``row0`` as the
+    closed form's. The image, on which the closed form depends linearly,
+    gets none."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (g, grid)]
         out = grid_sample_bounded_grad_grid_ref(img.detach(), leaves[1],
                                                 leaves[0], r, align_corners,
-                                                padding_mode)
+                                                padding_mode, row0)
         gg, ggrid = torch.autograd.grad(out, leaves, v, create_graph=True,
                                         allow_unused=True)
     return ((torch.zeros_like(g) if gg is None else gg),
@@ -398,7 +401,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # the float32 band entries (absent from a source from before them):
     # (…, n, c, h, w, row0, h_out, r, align_corners, border, stream)
     for name, ptrs in (("warp_sample_bounded_forward_band", 3),
-                       ("warp_sample_bounded_grad_grid_band", 4)):
+                       ("warp_sample_bounded_grad_grid_band", 4),
+                       ("warp_sample_bounded_grad_grid_backward_band", 6)):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = [ptr] * ptrs + [i32] * 9 + [ptr]
             getattr(lib, name).restype = i32
@@ -485,15 +489,6 @@ def is_band(img: torch.Tensor, grid: torch.Tensor, row0: int) -> bool:
     return row0 != 0 or grid.shape[1] != img.shape[2]
 
 
-def _no_band(what: str, img: torch.Tensor, grid: torch.Tensor, row0: int):
-    """Refuse a band call to ``what``, which has no band form."""
-    if is_band(img, grid, row0):
-        raise NotImplementedError(
-            f"{what} on a band of rows (grid {tuple(grid.shape)}, row0 "
-            f"{row0}, image {tuple(img.shape)}): only the float32 K3 and "
-            f"K3-grad have a band form")
-
-
 def _check(img: torch.Tensor, grid: torch.Tensor, r: int, padding_mode: str,
            g=None, v=None, row0: int = 0):
     """Validate what the kernels take, in one pass; returns (n, c, h, w).
@@ -552,8 +547,8 @@ def _aligned(grid: torch.Tensor) -> torch.Tensor:
 
 def _band_launch(name: str, img: torch.Tensor, ptrs, n, c, h, w, row0, ho,
                  r, align_corners, padding_mode):
-    """Launch the float32 band entry ``name`` (K3 or K3-grad) on the
-    tensors at ``ptrs``."""
+    """Launch the float32 band entry ``name`` (K3, K3-grad or K3-grad²) on
+    the tensors at ``ptrs``."""
     code = _launch(getattr(_library(), name), img.device, *ptrs, n, c, h, w,
                    row0, ho, r, int(align_corners),
                    int(padding_mode == "border"))
@@ -668,24 +663,41 @@ def warp_sample_bounded_grad_grid_backward(img: torch.Tensor,
                                            g: torch.Tensor, v: torch.Tensor,
                                            r: int,
                                            align_corners: bool = False,
-                                           padding_mode: str = "zeros"):
+                                           padding_mode: str = "zeros",
+                                           row0: int = 0):
     """K3-grad²: (gg, ggrid), K3-grad's derivative for the cotangent v
-    (N, H, W, 2) of its output, with respect to g and to the grid, each of
-    its input's type, computed from the widened values. The plain version
-    on CPU tensors (bf16 ones widened and the results rounded back), the
-    kernel on CUDA: float32 its kernel; bf16 the tile kernel or, past its
-    limit (C > 4, or a window over 227 KB of shared memory;
-    :func:`bf16_window`), the float32 kernel on the widened operands, gg
-    rounded back (counted in ``gather_launches``). It has no band form: a
-    grid of other rows than the image's raises."""
-    _no_band("warp_sample_bounded_grad_grid_backward (K3-grad²)", img, grid,
-             0)
+    (N, H_out, W, 2) of its output, with respect to g and to the grid,
+    each of its input's type, computed from the widened values; a band
+    from ``row0`` as K3-grad's (float32 only;
+    ``warp_sample_bounded_grad_grid_backward_band``, counted in
+    ``band_launches`` too). The plain version on CPU tensors (bf16 ones
+    widened and the results rounded back), the kernel on CUDA: float32 its
+    kernel; bf16 the tile kernel or, past its limit (C > 4, or a window
+    over 227 KB of shared memory; :func:`bf16_window`), the float32 kernel
+    on the widened operands, gg rounded back (counted in
+    ``gather_launches``)."""
+    band = is_band(img, grid, row0)
+    if band:
+        _no_band_dtype("warp_sample_bounded_grad_grid_backward", img)
     if img.device.type == "cpu":
         gg, ggrid = grid_sample_bounded_grad_grid_backward_ref(
             _widen(img), _widen(grid), _widen(g), _widen(v), r,
-            align_corners, padding_mode)
+            align_corners, padding_mode, row0)
         return gg.to(g.dtype), ggrid.to(grid.dtype)
-    n, c, h, w = _check(img, grid, r, padding_mode, g, v)
+    n, c, h, w = _check(img, grid, r, padding_mode, g, v, row0=row0)
+    if band:
+        dtype = grid.dtype
+        img, grid, g, v = (img.contiguous(), _aligned(grid), _build.dense(g),
+                           _aligned(_build.dense(v)))
+        gg, ggrid = torch.empty_like(g), torch.empty_like(grid)
+        _band_launch("warp_sample_bounded_grad_grid_backward_band", img,
+                     (img.data_ptr(), grid.data_ptr(), g.data_ptr(),
+                      v.data_ptr(), gg.data_ptr(), ggrid.data_ptr()), n, c,
+                     h, w, row0, grid.shape[1], r, align_corners,
+                     padding_mode)
+        warp_sample_bounded_grad_grid_backward.launches += 1
+        warp_sample_bounded_grad_grid_backward.band_launches += 1
+        return gg, ggrid.to(dtype)
     if (img.dtype == torch.bfloat16
             and bf16_window(n, c, h, w, r).route == "gather"):
         gg, ggrid = warp_sample_bounded_grad_grid_backward(
@@ -711,14 +723,13 @@ def warp_sample_bounded_grad_grid_backward(img: torch.Tensor,
 
 warp_sample_bounded_grad_grid_backward.launches = 0
 warp_sample_bounded_grad_grid_backward.gather_launches = 0
+warp_sample_bounded_grad_grid_backward.band_launches = 0
 
 
 def reset_launches():
     for fn in (warp_sample_bounded_forward, warp_sample_bounded_grad_grid,
                warp_sample_bounded_grad_grid_backward):
-        fn.launches = fn.gather_launches = 0
-    for fn in (warp_sample_bounded_forward, warp_sample_bounded_grad_grid):
-        fn.band_launches = 0
+        fn.launches = fn.gather_launches = fn.band_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -732,7 +743,8 @@ class GridSampleBoundedFunction(torch.autograd.Function):
     differentiable by K3-grad² on whole frames) for the grid and, only
     when the image needs one, the plain image gradient (autograd through
     :func:`grid_sample_bounded_ref`, once differentiable). Twice
-    differentiable in the grid, as the JAX package's XLA backward is."""
+    differentiable in the grid, as the JAX package's XLA backward is, on
+    whole frames and on bands."""
 
     @staticmethod
     def forward(ctx, img, grid, r, align_corners, padding_mode, row0=0):
@@ -766,11 +778,11 @@ class GridSampleBoundedFunction(torch.autograd.Function):
 class GridSampleBoundedGradGridFunction(torch.autograd.Function):
     """The grid gradient of the sampler as a function of (img, grid, g),
     with R, align_corners, padding_mode and ``row0`` fixed: forward
-    K3-grad, backward K3-grad² for g and the grid and, only when the image
-    needs one, the plain image term (autograd through the closed form).
-    The backward is not itself differentiable (``once_differentiable``):
-    second-order meta-training needs no third derivative. On a band it
-    raises: K3-grad² has no band form (no second order on bands)."""
+    K3-grad, backward K3-grad² for g and the grid (on a band its band
+    entry) and, only when the image needs one, the plain image term
+    (autograd through the closed form). The backward is not itself
+    differentiable (``once_differentiable``): second-order meta-training
+    needs no third derivative."""
 
     @staticmethod
     def forward(ctx, img, grid, g, r, align_corners, padding_mode, row0=0):
@@ -783,17 +795,15 @@ class GridSampleBoundedGradGridFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, v):
         img, grid, g = ctx.saved_tensors
-        _no_band("the bounded sampler's second derivative", img, grid,
-                 ctx.row0)
         gimg = ggrid = gg = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             gg, ggrid = warp_sample_bounded_grad_grid_backward(
-                img, grid, g, v, *ctx.opts)
+                img, grid, g, v, *ctx.opts, ctx.row0)
         if ctx.needs_input_grad[0]:
             with torch.enable_grad():
                 leaf = img.detach().requires_grad_()
                 out = grid_sample_bounded_grad_grid_ref(
-                    leaf, grid.detach(), g.detach(), *ctx.opts)
+                    leaf, grid.detach(), g.detach(), *ctx.opts, ctx.row0)
                 gimg, = torch.autograd.grad(out, leaf, v)
         return (gimg, ggrid if ctx.needs_input_grad[1] else None,
                 gg if ctx.needs_input_grad[2] else None, None, None, None,

@@ -17,8 +17,10 @@ are explicit:
   * the spatial axis: ranks that share a task coordinate hold the same
     tasks (replicated over the spatial axis, JAX's task-only placement).
     Under ``--spatial_shards`` they also split each frame's rows for the
-    exact row-sharded evaluation (:func:`shard_task_spatial_batch`, the
-    bands' ops in ``parallel/spatial.py``).
+    exact row-sharded evaluation and training
+    (:func:`shard_task_spatial_batch`, the bands' ops in
+    ``parallel/spatial.py``); a training gradient is then summed over
+    every rank of the mesh (:func:`all_reduce_grads` with ``rows``).
 
 Rank ``r`` of a mesh sits at task ``r // spatial``, spatial ``r %
 spatial``, JAX's device array reshaped to the mesh. A multi-node run
@@ -125,7 +127,9 @@ def make_mesh(mesh_shape: Optional[str] = None,
 def validate_train_batch(mesh: Optional[Mesh], batch_size: int) -> None:
     """Reject a configured training batch the task axis does not divide
     (JAX :58-76): every training iteration would otherwise fall back to
-    the replicated placement, every rank running the whole batch."""
+    the replicated placement, every rank running the whole batch. The
+    spatial axis takes no share of the batch: the ranks along it hold the
+    same tasks and split their rows."""
     if mesh is None:
         return
     axis = mesh.task
@@ -198,20 +202,24 @@ def replicate_params(mesh: Mesh, params: Dict[str, Dict[str, torch.Tensor]]):
 
 
 def all_reduce_grads(mesh: Mesh, grads: Dict[str, Dict[str, torch.Tensor]],
-                     trainable: Dict[str, Dict[str, bool]]):
+                     trainable: Dict[str, Dict[str, bool]],
+                     rows: bool = False):
     """Sum the trainable outer gradients over the task axis: one SUM
     all-reduce of one flat buffer, in a fixed order of groups and keys.
     Each rank's episode divided its tasks' losses by the global task
     count, so the sum is the gradient of the global task mean, the
-    gradient XLA's psum gives JAX. Returns ``grads`` with the trainable
-    entries replaced."""
+    gradient XLA's psum gives JAX. With ``rows`` (the episode ran on row
+    bands) each rank's gradient is also only its band's part, and the sum
+    runs over every rank of the mesh, task × spatial. Returns ``grads``
+    with the trainable entries replaced."""
     keys = [(g, k) for g in sorted(grads) for k in sorted(grads[g])
             if trainable[g][k]]
-    if mesh.task == 1 or not keys:
+    ranks = len(mesh.ranks) if rows else mesh.task
+    if ranks == 1 or not keys:
         return grads
     tensors = [grads[g][k] for g, k in keys]
     flat = _flat(tensors)
-    dist.all_reduce(flat, group=mesh.task_group)
+    dist.all_reduce(flat, group=mesh.group if rows else mesh.task_group)
     out = {g: dict(tree) for g, tree in grads.items()}
     for (g, k), v in zip(keys, _unflat(flat, tensors)):
         out[g][k] = v

@@ -19,26 +19,33 @@ The approximate apply, JAX's contract:
   its per-layer padding, and for global ops (CAIN's channel-attention
   mean sees the band's statistics).
 
-The exact row-sharded evaluation: the system runs an episode inside
-:func:`row_shard`, and each row-aware op of ``models/layers.py`` reads
-:func:`current` to work on its band of equal rows, its global offset
-``index * rows`` and the frame's ``count * rows``. Outside the context
-every op works on whole frames, as before. The collectives, each an
-autograd Function whose backward is its adjoint, so an inner step's
-gradient is the whole frame's once the ranks' parameter gradients are
-summed (:func:`all_reduce_grads`):
+The exact row-sharded evaluation and meta-training: the system runs an
+episode inside :func:`row_shard`, and each row-aware op of
+``models/layers.py`` reads :func:`current` to work on its band of equal
+rows, its global offset ``index * rows`` and the frame's ``count *
+rows``. Outside the context every op works on whole frames, as before.
+The collectives, each an autograd Function whose backward is its adjoint,
+so an inner step's gradient is the whole frame's once the ranks'
+parameter gradients are summed (:func:`all_reduce_grads`):
 
   * :func:`halo_rows`: a band with ``halo`` rows of each neighbour, zeros
     past the frame's ends (the op applies its own border rule there);
-    each halo row's cotangent goes back to the rank that owns the row;
-  * :func:`all_reduce_sum`: the sum over the bands (a global mean's
-    numerator), its backward the sum of the ranks' cotangents;
+    each halo row's cotangent goes back to the rank that owns the row
+    (:class:`HaloAdjointFunction`);
+  * :func:`all_reduce_sum` and :func:`all_reduce_grads`: the sum over
+    the bands (a global mean's numerator, the ranks' parts of the support
+    gradients in one flat buffer), its backward the sum of the ranks'
+    cotangents;
   * :func:`gather_band`: the whole frame from the equal bands, its
     backward this rank's rows of the cotangent (every rank computes the
-    same loss on the same gathered frame).
+    same loss on the same gathered frame; :class:`BandSliceFunction`).
 
-Every rank runs the same collectives in the same order, forward and
-backward, whatever its band holds.
+Each backward is itself built from these Functions, the adjoint's adjoint
+being the collective again, so a backward taken with ``create_graph=True``
+(a second-order inner step) stays on the tape, neighbours' parts
+included, and the outer gradient differentiates through it. Every rank
+runs the same collectives in the same order, forward and backward,
+whatever its band holds.
 """
 from __future__ import annotations
 
@@ -186,17 +193,32 @@ class HaloFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        halo, shard, i = ctx.halo, ctx.shard, ctx.shard.index
-        # each rank's cotangents of its halo rows, sent to their owners:
-        # the band above owns this rank's top halo, the band below its
-        # bottom one
+        return HaloAdjointFunction.apply(g, ctx.halo, ctx.shard), None, None
+
+
+class HaloAdjointFunction(torch.autograd.Function):
+    """(…, halo + rows + halo, W) → (…, rows, W), the adjoint of
+    :class:`HaloFunction`: the band's own rows, plus the halo rows that
+    the neighbours hold of it (their bottom and top halos). Its backward
+    is :class:`HaloFunction`."""
+
+    @staticmethod
+    def forward(ctx, g, halo, shard):
+        ctx.halo, ctx.shard = halo, shard
+        i = shard.index
+        # each rank's halo rows, sent to their owners: the band above owns
+        # this rank's top halo, the band below its bottom one
         parts = _edges(g[..., :halo, :], g[..., -halo:, :], shard)
         gx = g[..., halo:-halo, :].clone()
         if i > 0:
             gx[..., :halo, :] += parts[i - 1][..., halo:, :]
         if i < shard.count - 1:
             gx[..., -halo:, :] += parts[i + 1][..., :halo, :]
-        return gx, None, None
+        return gx
+
+    @staticmethod
+    def backward(ctx, gg):
+        return HaloFunction.apply(gg, ctx.halo, ctx.shard), None, None
 
 
 def halo_rows(x: torch.Tensor, halo: int,
@@ -206,44 +228,64 @@ def halo_rows(x: torch.Tensor, halo: int,
     return HaloFunction.apply(x, halo, shard or current())
 
 
-class AllReduceSumFunction(torch.autograd.Function):
-    """The sum of ``x`` over the bands' ranks; its backward sums the
-    ranks' cotangents, the adjoint of a value every rank reads."""
+class AllReduceTensorsFunction(torch.autograd.Function):
+    """Each of a list of tensors summed over the bands' ranks, read by
+    every rank's band, through one flat buffer: one SUM all-reduce. Its
+    own adjoint: its backward sums the ranks' cotangents of all the
+    tensors at once, through itself, so it is twice differentiable (a
+    slice of the flat buffer a tensor would give each tensor's cotangent
+    the whole buffer's size, filled with zeros)."""
 
     @staticmethod
-    def forward(ctx, x, shard):
+    def forward(ctx, shard, *tensors):
         ctx.shard = shard
-        out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=shard.group)
-        return out
+        flat = _flat(tensors)
+        dist.all_reduce(flat, group=shard.group)
+        return tuple(_unflat(flat, tensors))
 
     @staticmethod
-    def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.shard.group)
-        return g, None
+    def backward(ctx, *grads):
+        return (None,) + tuple(AllReduceTensorsFunction.apply(ctx.shard,
+                                                               *grads))
 
 
 def all_reduce_sum(x: torch.Tensor,
                    shard: Optional[RowShard] = None) -> torch.Tensor:
     """Σ over the bands' ranks of ``x``, differentiable."""
-    return AllReduceSumFunction.apply(x, shard or current())
+    return AllReduceTensorsFunction.apply(shard or current(), x)[0]
 
 
 class GatherBandFunction(torch.autograd.Function):
     """The whole frame from every rank's equal band (rows, dim −2); its
     backward takes this rank's rows of the cotangent, which every rank
-    computes alike from the same gathered frame."""
+    computes alike from the same gathered frame
+    (:class:`BandSliceFunction`)."""
 
     @staticmethod
     def forward(ctx, x, shard):
-        ctx.shard, ctx.rows = shard, x.shape[-2]
+        ctx.shard = shard
         return torch.cat(_all_gather(x, shard), dim=-2)
 
     @staticmethod
     def backward(ctx, g):
-        lo = ctx.shard.index * ctx.rows
-        return g[..., lo:lo + ctx.rows, :], None
+        return BandSliceFunction.apply(g, ctx.shard), None
+
+
+class BandSliceFunction(torch.autograd.Function):
+    """This rank's band of a whole frame that every rank holds alike, the
+    adjoint of :class:`GatherBandFunction`; its backward gathers the
+    bands' cotangents into the whole frame's. (A plain slice would pad its
+    cotangent with zeros: where the loss couples rows, as a perceptual
+    term does, the second order would then lose the other bands' part.)"""
+
+    @staticmethod
+    def forward(ctx, g, shard):
+        ctx.shard = shard
+        return band(g, shard).clone()
+
+    @staticmethod
+    def backward(ctx, gg):
+        return GatherBandFunction.apply(gg, ctx.shard), None
 
 
 def gather_band(x: torch.Tensor,
@@ -256,11 +298,12 @@ def all_reduce_grads(grads: Sequence[torch.Tensor],
                      shard: Optional[RowShard] = None):
     """The ranks' parameter gradients summed over the bands: one SUM
     all-reduce of one flat buffer. Each rank's gradient is its band's part
-    of the whole frame's, so the sum is the whole frame's."""
+    of the whole frame's, so the sum is the whole frame's. Differentiable
+    (:class:`AllReduceTensorsFunction`): a second-order inner step's
+    gradient, taken with ``create_graph=True``, keeps the sum on the
+    tape."""
     shard = shard or current()
     grads = list(grads)
     if not grads:
         return grads
-    flat = _flat(grads)
-    dist.all_reduce(flat, group=shard.group)
-    return _unflat(flat, grads)
+    return list(AllReduceTensorsFunction.apply(shard, *grads))

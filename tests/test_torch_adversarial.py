@@ -43,13 +43,13 @@ STEP_FLIP_SHARE = 1e-3
 TYPES = ["GAN", "WGAN", "WGAN_GP"]
 CROP = 32
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
-def two_threads():
+def one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

@@ -37,13 +37,13 @@ VF = dict(model="voxelflow", optimizer="SGD", metasgd=True, inner_lr=1e-3,
           number_of_evaluation_steps_per_iter=1, crop_size=CROP,
           mode="train", fast_warp_range=0, batch_size=2)
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
-def two_threads():
+def one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

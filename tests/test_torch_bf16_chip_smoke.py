@@ -19,9 +19,9 @@ _spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
-def two_threads():
+def one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 
@@ -159,7 +159,7 @@ def counted(monkeypatch):
 
 @pytest.mark.parametrize("model", ["rrin", "voxelflow", "sepconv"])
 def test_served_bf16_forward_launches_what_is_derived(counted, model,
-                                                      two_threads):
+                                                      one_thread):
     batch, kwargs, fwd_kw, per_fwd = chip_smoke.BF16_SERVE[model]
     net = chip_smoke.serve_model(model, torch.Generator().manual_seed(0),
                                  kwargs).to(torch.bfloat16)
@@ -171,7 +171,7 @@ def test_served_bf16_forward_launches_what_is_derived(counted, model,
 
 
 def test_bf16_sepconv_episode_launches_what_float32_does(counted,
-                                                         two_threads):
+                                                         one_thread):
     """A 32x32 clip of chip_smoke.py's SepConv evaluation preset in bf16:
     every K1/K2 call takes bf16, as many as the float32 path launches."""
     from meta_interpolation_tpu_torch.config import get_args

@@ -15,9 +15,9 @@ import pytest
 from meta_interpolation_tpu.main import main as jax_main
 from meta_interpolation_tpu_torch.main import main
 from test_torch_test_mode import (  # noqa: F401 (fixtures)
-    CROP, TINY_CAIN, _cli, _frames, _written, pth, two_threads)
+    CROP, TINY_CAIN, _cli, _frames, _written, pth, one_thread)
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _jax(dtype):

@@ -17,10 +17,10 @@ import pytest
 
 from meta_interpolation_tpu_torch.models.dain.model import DAIN
 from test_torch_bf16_models import (  # noqa: F401 (fixtures)
-    check_forward, check_vjp, frames, port_model, tpu_kernels, two_threads)
+    check_forward, check_vjp, frames, port_model, tpu_kernels, one_thread)
 from test_torch_dain_model import _tamed_jax_params
 
-pytestmark = pytest.mark.usefixtures("two_threads", "tpu_kernels")
+pytestmark = pytest.mark.usefixtures("one_thread", "tpu_kernels")
 
 
 @pytest.fixture(scope="module")

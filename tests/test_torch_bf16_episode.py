@@ -25,13 +25,13 @@ from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
 from meta_interpolation_tpu_torch.meta.system import (
     SceneAdaptiveInterpolation)
 from test_torch_bf16_models import (  # noqa: F401 (fixtures)
-    hold, tpu_kernels, two_threads)
+    hold, tpu_kernels, one_thread)
 
 CFG = dict(model="sepconv", optimizer="Adamax", metasgd=True, inner_lr=1e-5,
            number_of_evaluation_steps_per_iter=1, crop_size=64, mode="val",
            loss="1*L1")
 
-pytestmark = pytest.mark.usefixtures("two_threads", "tpu_kernels")
+pytestmark = pytest.mark.usefixtures("one_thread", "tpu_kernels")
 
 
 @pytest.fixture(scope="module")

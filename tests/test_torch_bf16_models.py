@@ -47,13 +47,13 @@ FLOOR = 1e-5
 HW = (32, 32)
 CAIN_TINY = dict(depth=2, n_resgroups=2, n_resblocks=2, reduction=4)
 
-pytestmark = pytest.mark.usefixtures("two_threads", "tpu_kernels")
+pytestmark = pytest.mark.usefixtures("one_thread", "tpu_kernels")
 
 
 @pytest.fixture(scope="module")
-def two_threads():
+def one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

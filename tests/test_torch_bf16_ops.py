@@ -34,13 +34,13 @@ from meta_interpolation_tpu_torch.ops import warp_bounded as wb
 
 ABS_FLOOR = 1e-5
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
-def two_threads():
+def one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

@@ -13,9 +13,9 @@ import pytest
 from meta_interpolation_tpu.models import registry as jax_registry
 from meta_interpolation_tpu_torch.models import superslomo
 from test_torch_bf16_models import (  # noqa: F401 (fixtures)
-    check_forward, check_vjp, frames, port_model, tpu_kernels, two_threads)
+    check_forward, check_vjp, frames, port_model, tpu_kernels, one_thread)
 
-pytestmark = pytest.mark.usefixtures("two_threads", "tpu_kernels")
+pytestmark = pytest.mark.usefixtures("one_thread", "tpu_kernels")
 
 
 @pytest.mark.parametrize("warp_range", [None, 4])

@@ -24,7 +24,7 @@ from meta_interpolation_tpu_torch.config import Config
 from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
 from meta_interpolation_tpu_torch.meta import system
 from test_torch_bf16_models import (  # noqa: F401 (fixtures)
-    hold, tpu_kernels, two_threads)
+    hold, tpu_kernels, one_thread)
 from test_torch_train import _bridge_meta, _jax_grads_as_port
 
 CFG = dict(model="sepconv", optimizer="Adamax", metasgd=True, inner_lr=1e-5,
@@ -32,7 +32,7 @@ CFG = dict(model="sepconv", optimizer="Adamax", metasgd=True, inner_lr=1e-5,
            number_of_training_steps_per_iter=1,
            use_multi_step_loss_optimization=True, loss="1*L1")
 
-pytestmark = pytest.mark.usefixtures("two_threads", "tpu_kernels")
+pytestmark = pytest.mark.usefixtures("one_thread", "tpu_kernels")
 
 
 def jax_outer(jsys, task):

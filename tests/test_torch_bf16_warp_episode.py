@@ -32,11 +32,11 @@ from meta_interpolation_tpu_torch.core import checkpoint as bridge
 from meta_interpolation_tpu_torch.meta.system import (
     SceneAdaptiveInterpolation)
 from test_torch_bf16_models import (  # noqa: F401 (fixtures)
-    hold, tpu_kernels, two_threads)
+    hold, tpu_kernels, one_thread)
 from test_torch_per_step_bn import PRESET, bn_from_jax, clips
 from test_torch_warp_models_episode import PRESETS
 
-pytestmark = pytest.mark.usefixtures("two_threads", "tpu_kernels")
+pytestmark = pytest.mark.usefixtures("one_thread", "tpu_kernels")
 
 
 def _cat(tree, keys):

@@ -41,13 +41,13 @@ CFG = dict(model="cain", depth=2, n_resblocks=1, loss="1*L1",
            number_of_training_steps_per_iter=1,
            number_of_evaluation_steps_per_iter=1, crop_size=CROP)
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
-def two_threads():
+def one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

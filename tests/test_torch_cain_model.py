@@ -28,13 +28,13 @@ PRED_ATOL = 1e-5
 FULL_RTOL = 1e-5
 TINY = dict(depth=2, n_resgroups=2, n_resblocks=2, reduction=4)
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
-def two_threads():
+def one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

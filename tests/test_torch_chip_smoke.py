@@ -15,6 +15,19 @@ _spec = importlib.util.spec_from_file_location("chip_smoke",
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's PyTorch work (the tier-1 run
+    puts six test processes on the machine's cores)."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FWD = "_ZN12_GLOBAL__N_118sepconv_fwd_kernelEPKfS1_S1_Pfiii"
 GRAD = "_ZN12_GLOBAL__N_127sepconv_grad_kernels_kernelEPKfS1_S1_S1_PfS2_iii"
 
@@ -369,7 +382,7 @@ def test_warp_model_episode_launches_what_is_derived(counted_warp, model):
     wb = counted_warp
     flags, k3, k3g = chip_smoke.WARP_MODELS[model]
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     try:
         system = SceneAdaptiveInterpolation(get_args(flags + ["--device",
                                                               "cpu"]))
@@ -411,7 +424,7 @@ def test_exact_episode_samples_once_a_bounded_launch(model):
     from meta_interpolation_tpu_torch.ops import warp as warp_ops
     flags, k3, _ = chip_smoke.WARP_MODELS[model]
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     try:
         system = SceneAdaptiveInterpolation(get_args(
             flags + ["--fast_warp_range", "0", "--device", "cpu"]))
@@ -528,7 +541,7 @@ def test_sepconv_test_clip_launches_what_is_derived(counted_sepconv):
         SceneAdaptiveInterpolation)
     sc = counted_sepconv
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     try:
         system = SceneAdaptiveInterpolation(get_args(
             chip_smoke.TEST_FLAGS + chip_smoke.TEST_MODELS["sepconv"]
@@ -554,7 +567,7 @@ def test_test_mode_names_are_what_the_writer_gives(tmp_path, monkeypatch):
     monkeypatch.setattr(chip_smoke, "TEST_FLAGS", chip_smoke.TEST_FLAGS + [
         "--depth", "2", "--n_resblocks", "1"])
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     try:
         d = str(tmp_path / "frames")
         chip_smoke.write_frames(d, (16, 24), chip_smoke.TEST_FRAMES)
@@ -697,3 +710,117 @@ def test_handing_inner_in_a_first_order_episode_changes_nothing_alike():
         for g in ("net", "lrs"):
             assert all(torch.equal(v, out[0][1][g][k])
                        for k, v in grads[g].items())
+
+
+def _tiny_cain(order):
+    from meta_interpolation_tpu_torch.config import get_args
+    from meta_interpolation_tpu_torch.data.datasets import SyntheticSeptuplet
+    from meta_interpolation_tpu_torch.meta.system import (
+        SceneAdaptiveInterpolation)
+    cfg = get_args(["--model", "cain", "--depth", "2", "--n_resblocks", "1",
+                    "--mode", "train", "--optimizer", "Adamax", "--metasgd",
+                    "--inner_lr", "1e-3", "--loss", "1*L1", "--batch_size",
+                    "1", "--number_of_training_steps_per_iter", "1"]
+                   + (["--second_order"] if order == "second" else []))
+    clip = SyntheticSeptuplet(model="cain", mode="train",
+                              size=(32, 32))[0][0][None]
+    return SceneAdaptiveInterpolation(cfg, device="cpu"), clip
+
+
+def test_handing_inner_keeps_the_tape_in_second_order():
+    """A tiny CAIN's second-order outer gradient under inner Adamax: handed
+    the very support gradients it computes itself with ``keep_tape`` (their
+    values, its own derivative), the outer gradients are bit for bit the
+    episode's without the stand-ins; without ``keep_tape`` the hand-over
+    refuses."""
+    import torch
+
+    from meta_interpolation_tpu_torch.meta.inner_optimizers import (
+        InnerOptimizer)
+    system, clip = _tiny_cain("second")
+    real = InnerOptimizer.update
+    record, dist, out = [], _inner_dist(), []
+    for dev in ("plain", "cuda", "cpu"):
+        run = lambda: system.outer_grads(clip, 0)
+        if dev != "plain":
+            run = chip_smoke.with_attr(
+                InnerOptimizer, "update", chip_smoke.handing_inner(
+                    torch, real, record, dev, dist, keep_tape=True), run)
+        loss, _, grads = run()
+        out.append((float(loss), grads))
+    assert not record and dist["d2"] == 0 and dist["n2"] > 0
+    for loss, grads in out[1:]:
+        assert loss == out[0][0]
+        for g in ("net", "lrs"):
+            assert all(torch.equal(v, out[0][1][g][k])
+                       for k, v in grads[g].items())
+    record.append({k: v.detach() for k, v in out[0][1]["net"].items()})
+    with pytest.raises(AssertionError, match="cut the second order"):
+        chip_smoke.with_attr(InnerOptimizer, "update", chip_smoke.handing_inner(
+            torch, real, record, "cpu", _inner_dist()),
+            lambda: system.outer_grads(clip, 0))()
+
+
+def test_to_float64_recasts_the_whole_step():
+    """The recast system's outer loss and gradients are float64, and
+    within float32's rounding of the float32 system's."""
+    import torch
+    system, clip = _tiny_cain("first")
+    loss32, _, grads32 = system.outer_grads(clip, 0)
+    loss, _, grads = chip_smoke.to_float64(torch, system).outer_grads(clip, 0)
+    assert all(v.dtype == torch.float64 for g in grads.values()
+               for v in g.values())
+    assert abs(float(loss) - float(loss32)) <= 1e-5 * abs(float(loss))
+    for k, v in grads["net"].items():
+        assert float((v - grads32["net"][k].double()).norm()) <= \
+            1e-3 * float(v.norm()) + 1e-12, k
+
+
+@pytest.mark.parametrize("model,order,want", [
+    ("sepconv", "first", (14, 14, 0, 0, 0)),
+    ("sepconv", "second", (38, 38, 0, 0, 0)),
+    ("rrin", "first", (0, 0, 2, 2, 0)),
+    ("rrin", "second", (0, 0, 6, 10, 4)),
+    ("superslomo", "first", (0, 0, 18, 18, 0)),
+    ("superslomo", "second", (0, 0, 18, 30, 12)),
+    ("voxelflow", "first", (0, 0, 6, 6, 0)),
+    ("voxelflow", "second", (0, 0, 6, 10, 4)),
+    ("cain", "first", (0, 0, 0, 0, 0))])
+def test_spatial_train_launches_are_one_process_s(model, order, want):
+    """A rank's launches a task (K1, K2, K3, K3-grad, K3-grad²) on each
+    row-sharded training path: one process's (12n + 2 K1 and K2 a
+    second-order SepConv task; K3-grad² 2n·w a second-order warp-model
+    task, RRIN's second order at 1 inner step), none elsewhere."""
+    got = chip_smoke.spatial_train_launches(model, order)
+    assert got == dict(zip(chip_smoke.KERNELS[:5], want))
+
+
+def test_spatial_train_flags_are_the_presets_at_one_task():
+    from meta_interpolation_tpu_torch.config import get_args
+    for model, (_, steps, _, orders) in chip_smoke.SPATIAL_TRAIN.items():
+        for order in orders:
+            cfg = get_args(chip_smoke.spatial_train_flags(model, order)
+                           + chip_smoke.SPATIAL_FLAGS)
+            assert (cfg.model, cfg.mode, cfg.batch_size, cfg.crop_size,
+                    cfg.spatial_shards, cfg.mesh_shape) == (
+                model, "train", 1, 256, 2, "1x2")
+            assert cfg.second_order == (order == "second")
+            assert cfg.num_inner_steps == (max(steps, 1) if order == "second"
+                                           else steps)
+            assert cfg.fast_warp_range == (
+                8 if model in chip_smoke.WARP_MODELS else 0)
+    cli = get_args(chip_smoke.SPATIAL_TRAIN_CLI + chip_smoke.SPATIAL_FLAGS)
+    assert (cli.model, cli.mode, cli.batch_size, cli.max_epoch,
+            cli.total_iter_per_epoch, cli.spatial_shards) == (
+        "voxelflow", "train", 1, 1, 1, 2)
+
+
+def test_grad2_band_cases_cover_each_setting():
+    """K3-grad²'s band entry is held at both paddings, align_corners both
+    ways, R = 4 and 8, C = 3 and 5, on 4 bands each: at least 8 cases."""
+    assert set(chip_smoke.GRAD2_BAND_RANGES) == {4, 8}
+    assert 3 in chip_smoke.GRAD2_BAND_CHANNELS and any(
+        c != 3 for c in chip_smoke.GRAD2_BAND_CHANNELS)
+    cases = (len(chip_smoke.GRAD2_BAND_RANGES)
+             * len(chip_smoke.GRAD2_BAND_CHANNELS) * 2 * 2 * 4)
+    assert cases >= 8

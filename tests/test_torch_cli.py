@@ -28,16 +28,16 @@ from meta_interpolation_tpu_torch.models.sepconv import SepConv
 
 PSNR_TOL_DB = 0.01
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
-def two_threads():
-    """Two intra-op threads for this file's PyTorch work: the tier-1 run
+def one_thread():
+    """One intra-op thread for this file's PyTorch work: the tier-1 run
     puts six test processes on the machine's cores, where every process
     taking a thread a core oversubscribes them many times over."""
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

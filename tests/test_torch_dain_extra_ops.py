@@ -23,9 +23,9 @@ N, H, W = 2, 9, 11
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _two_threads():
+def _one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

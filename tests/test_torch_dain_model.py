@@ -40,11 +40,11 @@ R = 8
 
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
-    """Two intra-op threads while this file runs: the tier-1 run puts six
+    """One intra-op thread while this file runs: the tier-1 run puts six
     test files side by side on one host, and DAIN's CPU forwards with a
     thread per core each slow every file down."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

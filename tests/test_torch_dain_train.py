@@ -23,8 +23,8 @@ import torch
 
 from test_torch_dain_episode import _pre_rectify, _tamed_jax_params
 from test_torch_warp_models_episode import train_cli_on_the_cpu
-from test_torch_warp_train import (  # noqa: F401 (two_threads)
-    clips, hold_outer_to_jax, systems, two_threads)
+from test_torch_warp_train import (  # noqa: F401 (one_thread)
+    clips, hold_outer_to_jax, systems, one_thread)
 from meta_interpolation_tpu.models.dain import rectify as jax_rectify
 from meta_interpolation_tpu_torch.config import Config
 from meta_interpolation_tpu_torch.meta.system import (
@@ -36,7 +36,7 @@ from meta_interpolation_tpu_torch.models.dain.model import (
 CROP = 64           # DAIN pads to x64: no padding
 PAIRS = ((0, 4), (2, 6), (2, 4))   # the support pairs and the query
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def config(order):

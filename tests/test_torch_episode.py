@@ -40,16 +40,16 @@ CFG = dict(model="sepconv", optimizer="Adamax", metasgd=True, inner_lr=LR,
            loss="1*L1")
 
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
-def two_threads():
-    """Two intra-op threads for this file's PyTorch work: the tier-1 run
+def one_thread():
+    """One intra-op thread for this file's PyTorch work: the tier-1 run
     puts six test processes on the machine's cores, where every process
     taking a thread a core oversubscribes them many times over."""
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

@@ -25,16 +25,16 @@ from meta_interpolation_tpu_torch.meta.system import (
 from meta_interpolation_tpu_torch.ops import warp
 
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
-def two_threads():
-    """Two intra-op threads while this file runs: the tier-1 run puts six
+def one_thread():
+    """One intra-op thread while this file runs: the tier-1 run puts six
     test files side by side on one host, and a thread per core each slows
     every file down."""
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

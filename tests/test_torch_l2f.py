@@ -48,13 +48,13 @@ VF = dict(model="voxelflow", loss="1*MSE", optimizer="Adam", metasgd=True,
           number_of_evaluation_steps_per_iter=1, crop_size=CROP,
           mode="train", batch_size=2, attenuate=True)
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
-def two_threads():
+def one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

@@ -25,9 +25,9 @@ INNER_LR, OUTER_LR, STEPS = 1e-2, 3e-2, 2
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _two_threads():
+def _one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

@@ -393,8 +393,11 @@ def test_train_loader_drops_the_tail_as_jax(task_size):
 
 
 def test_spatial_shards_still_refused():
+    """Training runs on row bands (tests/test_torch_band_train.py); what
+    it does not cover yet, here --remat, still raises."""
     with pytest.raises(NotImplementedError, match="--spatial_shards"):
-        SceneAdaptiveInterpolation(Config(**dict(CAIN, spatial_shards=2),
+        SceneAdaptiveInterpolation(Config(**dict(CAIN, spatial_shards=2,
+                                                 remat=True),
                                           device="cpu"))
     with pytest.raises(ValueError, match="only one device"):
         main(CLI + ["--spatial_shards", "2"])

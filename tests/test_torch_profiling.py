@@ -21,9 +21,9 @@ TRAIN = TINY + ["--mode", "train", "--batch_size", "1", "--loss", "1*L1",
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _two_threads():
+def _one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

@@ -17,13 +17,13 @@ import torch.nn.functional as F
 from meta_interpolation_tpu_torch.models import cain, layers
 
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
-def two_threads():
+def one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

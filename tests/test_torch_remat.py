@@ -24,9 +24,9 @@ CAIN = dict(model="cain", depth=2, n_resblocks=1, crop_size=32,
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _two_threads():
+def _one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

@@ -41,16 +41,16 @@ PRESET = dict(model="rrin", optimizer="Adam", inner_lr=LR, loss="1*L1",
 CFG = dict(PRESET, number_of_evaluation_steps_per_iter=1, fast_warp_range=4)
 
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
-def two_threads():
-    """Two intra-op threads for this file's PyTorch work: the tier-1 run
+def one_thread():
+    """One intra-op thread for this file's PyTorch work: the tier-1 run
     puts six test processes on the machine's cores, where every process
     taking a thread a core oversubscribes them many times over."""
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

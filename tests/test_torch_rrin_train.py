@@ -10,11 +10,11 @@ import pytest
 import torch
 
 from test_torch_warp_models_episode import train_cli_on_the_cpu
-from test_torch_warp_train import (  # noqa: F401 (two_threads)
-    R, clips, config, hold_outer_to_jax, systems, two_threads)
+from test_torch_warp_train import (  # noqa: F401 (one_thread)
+    R, clips, config, hold_outer_to_jax, systems, one_thread)
 from meta_interpolation_tpu_torch.meta import episode
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 MASK_WEIGHT = "Mask.down_path.0.block.0.weight"

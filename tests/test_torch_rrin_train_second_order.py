@@ -8,9 +8,9 @@ exact-warp cases are in tests/test_torch_rrin_train.py.
 import pytest
 
 from test_torch_rrin_train import hold_rrin_to_jax
-from test_torch_warp_train import R, two_threads  # noqa: F401
+from test_torch_warp_train import R, one_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("order,warp_range", [("second", R)])

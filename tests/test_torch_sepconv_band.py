@@ -49,13 +49,13 @@ REL, ABS = 1e-4, 1e-5
 # (N, H, W, F): ragged tiles, two images, a short and an even filter
 SHAPES = [(1, 37, 53, 51), (2, 21, 30, 51), (2, 21, 30, 5), (1, 37, 53, 50)]
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
-def two_threads():
+def one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

@@ -19,7 +19,10 @@ bit for bit; each row-aware op against the whole frame's, in float64,
 1e-6 of the largest value of its output and of each gradient; the
 full-width CAIN and SepConv on 4 bands in float64, 1e-10 of the
 prediction's largest value and of the gradient's norm; the collectives'
-adjoints by ``torch.autograd.gradcheck`` in float64.
+adjoints by ``torch.autograd.gradcheck`` in float64, and their backwards'
+by ``gradgradcheck`` (a backward that ran a collective off the tape would
+drop the neighbours' part of a second-order gradient; training on bands is
+held in tests/test_torch_band_train.py).
 """
 import contextlib
 import pathlib
@@ -82,9 +85,9 @@ SHARDS = {"1x4": 4, "2x2": 2}
 
 
 @pytest.fixture(autouse=True, scope="module")
-def two_threads():
+def one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 
@@ -142,7 +145,7 @@ def _op_case(name, shard, x, g):
 
 class _Replicated(torch.autograd.Function):
     """A value every rank holds whole, as one variable: identity forward,
-    the ranks' cotangents summed backward."""
+    the ranks' cotangents summed backward (:class:`_Summed`)."""
 
     @staticmethod
     def forward(ctx, x, shard):
@@ -151,9 +154,24 @@ class _Replicated(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        return _Summed.apply(g, ctx.shard), None
+
+
+class _Summed(torch.autograd.Function):
+    """The ranks' parts summed into a value every rank holds whole, as one
+    variable: the adjoint of :class:`_Replicated`, whose forward is its
+    backward."""
+
+    @staticmethod
+    def forward(ctx, g, shard):
+        ctx.shard = shard
         g = g.clone()
-        torch.distributed.all_reduce(g, group=ctx.shard.group)
-        return g, None
+        torch.distributed.all_reduce(g, group=shard.group)
+        return g
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _Replicated.apply(gg, ctx.shard), None
 
 
 def _band_times_sum(band, shard):
@@ -183,11 +201,70 @@ def _gradchecks(shard):
             for name, fn in fns.items()}
 
 
-def _exact64(model, shard, f0, f1, target):
+def _gradgradchecks(shard):
+    """gradgradcheck in float64 of functions of a whole frame X that every
+    rank holds, each through one band collective whose backward a second
+    order differentiates: the halo exchange, the all-reduced band sum read
+    by each band's rows, the gather of a squared band (its backward's
+    adjoint gathers the bands' cotangents) and ``all_reduce_grads`` (a
+    flat buffer of the bands' parts, read by each band's rows). Every rank
+    runs the same checks in step, with the same output cotangents."""
+    gen = torch.Generator().manual_seed(6)
+    x = torch.rand(1, 2, 2 * HALO * shard.count, 3, generator=gen,
+                   dtype=torch.float64, requires_grad=True)
+
+    def band(x):
+        return spatial.band(_Replicated.apply(x, shard), shard)
+
+    def reduced_grads(x):
+        b = band(x)
+        total, = spatial.all_reduce_grads(
+            [(b ** 2).sum(dim=-2, keepdim=True)], shard)
+        return spatial.gather_band(b * total, shard)
+    fns = {
+        "halo": lambda x: spatial.gather_band(spatial.halo_rows(
+            band(x) ** 2, HALO, shard), shard),
+        "all_reduce_sum": lambda x: _band_times_sum(band(x), shard),
+        "gather_band": lambda x: spatial.gather_band(band(x) ** 2, shard),
+        "all_reduce_grads": reduced_grads}
+    out = {}
+    for name, fn in fns.items():
+        gy = torch.rand(fn(x).shape, generator=gen, dtype=torch.float64,
+                        requires_grad=True)
+        out[name] = torch.autograd.gradgradcheck(
+            fn, (x,), (gy,), raise_exception=False)
+    return out
+
+
+EXACT64 = ("cain", "sepconv")
+
+
+def banded_summary(pred, grads, want=None):
+    """What a rank saves of a banded run, its prediction and gradient
+    (the bands' summed over the ranks, so the same on every rank): their
+    sums and sums of squares and, given the whole frame's (prediction,
+    gradient) on this rank, the prediction's largest difference from it
+    and its largest value, the gradient's distance and norm. A rank's
+    whole gradients would be gigabytes to save and load."""
+    flat = torch.cat([g.flatten() for g in grads])
+    out = {"sums": tuple(float(f(t)) for t in (pred, flat)
+                         for f in (torch.sum, lambda t: t.square().sum()))}
+    if want is not None:
+        want_pred, want_grads = want
+        out["pred"] = (float((pred - want_pred).abs().max()),
+                       float(want_pred.abs().max()))
+        out["grad"] = (sum(float((a - b).norm()) ** 2
+                           for a, b in zip(grads, want_grads)) ** 0.5,
+                       sum(float(b.norm()) ** 2 for b in want_grads) ** 0.5)
+    return out
+
+
+def _exact64(model, shard, f0, f1, target, whole):
     """A full-width model (CAIN: 5 groups of 12 RCABs, 192 channels) in
-    float64 on the whole frame and on this rank's band: the prediction and
-    the gradient of its L1 loss in every weight (the bands' summed over
-    the ranks)."""
+    float64 on this rank's band and, where ``whole`` (one rank a model),
+    on the whole frame: the prediction and the gradient of its L1 loss in
+    every weight (the bands' summed over the ranks), as
+    :func:`banded_summary`."""
     net = (cain.CAIN if model == "cain" else sepconv.SepConv)(
         torch.Generator().manual_seed(0)).double()
     params = list(net.parameters())
@@ -197,10 +274,9 @@ def _exact64(model, shard, f0, f1, target):
             pred = net(f0, f1)
         return pred.detach(), torch.autograd.grad(
             (pred - target).abs().mean(), params)
-    want = run(contextlib.nullcontext())
     pred, grads = run(spatial.row_shard(shard))
-    return {"want": want, "got": (pred, spatial.all_reduce_grads(grads,
-                                                                 shard))}
+    return banded_summary(pred, spatial.all_reduce_grads(grads, shard),
+                          run(contextlib.nullcontext()) if whole else None)
 
 
 def _system(base, mode, mesh, tree, **kw):
@@ -222,7 +298,7 @@ def _rank_cases(rank, work):
     """Every multi-rank case, in one of the spawned ranks; what it
     computes is saved to ``work/rank<rank>.pt`` for the tests."""
     import torch.distributed as dist
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     work = pathlib.Path(work)
     mesh_lib.init_distributed("cpu")
     inputs = torch.load(work / "inputs.pt", weights_only=False)
@@ -237,16 +313,20 @@ def _rank_cases(rank, work):
         halos[0] += 1
         return real_halo(*args, **kwargs)
     spatial.halo_rows = counted
-    out = {"halo": {}, "gradcheck": {}, "ops": {}, "runs": {}}
+    out = {"halo": {}, "gradcheck": {}, "gradgradcheck": {}, "ops": {},
+           "runs": {}}
     for shape, count in SHARDS.items():
         shard = spatial.RowShard.of(meshes[shape])
         out["halo"][shape] = spatial.halo_rows(
             spatial.band(inputs["halo"], shard), HALO, shard)
         out["gradcheck"][shape] = _gradchecks(shard)
+        out["gradgradcheck"][shape] = _gradgradchecks(shard)
         if count == RANKS:
+            # the whole frame once, on one rank a model
             out["exact64"] = {
-                model: _exact64(model, shard, *inputs["exact64"][model])
-                for model in ("cain", "sepconv")}
+                model: _exact64(model, shard, *inputs["exact64"][model],
+                                whole=i == rank)
+                for i, model in enumerate(EXACT64)}
         out["ops"][shape] = {}
         for name in OPS:
             x, grads = inputs["ops"][count][
@@ -409,6 +489,18 @@ def test_collective_adjoints_gradcheck(ranks, shape, fn):
 
 
 @pytest.mark.parametrize("shape", list(SHARDS))
+@pytest.mark.parametrize("fn", ["halo", "all_reduce_sum", "gather_band",
+                                "all_reduce_grads"])
+def test_collective_backwards_are_twice_differentiable(ranks, shape, fn):
+    """Each collective's backward is itself differentiable, with the
+    forward as its adjoint: a backward that ran a collective off the tape
+    gives the neighbours' part of a second-order gradient as zero, and
+    fails here."""
+    for r in range(RANKS):
+        assert ranks["ranks"][r]["gradgradcheck"][shape][fn], (r, shape, fn)
+
+
+@pytest.mark.parametrize("shape", list(SHARDS))
 @pytest.mark.parametrize("op", OPS)
 def test_row_aware_op_matches_whole_frame(ranks, shape, op):
     """Convolutions (zero, exact reflect, --fuse_pad's zero and reflect
@@ -430,14 +522,14 @@ def test_full_width_bands_are_exact_in_float64(ranks, model):
     rounding: the prediction and every weight's gradient within 1e-10
     (float32 rounds a random-init CAIN's gradient to ~1e-4 of its norm
     either way, so this is where exactness shows)."""
-    for r in range(RANKS):
-        case = ranks["ranks"][r]["exact64"][model]
-        (want, want_g), (got, got_g) = case["want"], case["got"]
-        assert float((got - want).abs().max()) <= \
-            EXACT64_RTOL * float(want.abs().max())
-        d2 = sum(float((a - b).norm()) ** 2 for a, b in zip(got_g, want_g))
-        n2 = sum(float(b.norm()) ** 2 for b in want_g)
-        assert d2 ** 0.5 <= EXACT64_RTOL * n2 ** 0.5, (r, d2, n2)
+    owner = ranks["ranks"][EXACT64.index(model)]["exact64"][model]
+    err, scale = owner["pred"]
+    assert err <= EXACT64_RTOL * scale
+    d, n = owner["grad"]
+    assert d <= EXACT64_RTOL * n, (d, n)
+    sums = [ranks["ranks"][r]["exact64"][model]["sums"]
+            for r in range(RANKS)]
+    assert all(s == sums[0] for s in sums)
 
 
 # -- the episodes ---------------------------------------------------------
@@ -531,10 +623,13 @@ def test_cli_spatial_shards(ranks):
 # -- what stays refused ---------------------------------------------------
 
 REFUSED = {
-    "training": (dict(CAIN, batch_size=2), "train", "--mode train"),
+    # training runs on bands (tests/test_torch_band_train.py): what stays
+    # refused there
+    "training": (dict(CAIN, batch_size=2, dtype="bfloat16"), "train",
+                 "--dtype bfloat16"),
     "bf16": (dict(CAIN, dtype="bfloat16"), "val", "--dtype bfloat16"),
     "rrin": (dict(model="rrin", number_of_training_steps_per_iter=1,
-                  batch_size=2), "train", "--mode train"),
+                  batch_size=2, remat=True), "train", "--remat"),
     "superslomo": (dict(model="superslomo", loss="1*Super", metasgd=True,
                         dtype="bfloat16"), "val", "--dtype bfloat16"),
     "voxelflow": (dict(model="voxelflow", loss="1*MSE+0.1*VGG22",
@@ -549,6 +644,22 @@ REFUSED = {
                          per_step_bn_statistics=True), "test",
                     "--per_step_bn_statistics"),
     "remat": (dict(SEPCONV, remat=True), "val", "--remat"),
+    # in training, what stays refused (ROADMAP Queue 1, items 2.2, 2.4 and
+    # 2.5)
+    "train_bf16": (dict(SEPCONV, dtype="bfloat16"), "train",
+                   "--dtype bfloat16"),
+    "train_dain": (dict(model="dain", optimizer="Adamax", metasgd=True),
+                   "train", "--model dain"),
+    "train_vgg": (dict(SEPCONV, loss="1*L1+0.1*VGG22"), "train", "VGG22"),
+    "train_ssim": (dict(CAIN, loss="1*L1+1*SSIM"), "train", "SSIM"),
+    "train_gan": (dict(CAIN, loss="1*L1+0.005*WGAN_GP"), "train",
+                  "WGAN_GP"),
+    "train_attenuate": (dict(SEPCONV, attenuate=True), "train",
+                        "--attenuate"),
+    "train_per_step_bn": (dict(model="voxelflow", loss="1*MSE", metasgd=True,
+                               per_step_bn_statistics=True), "train",
+                          "--per_step_bn_statistics"),
+    "train_remat": (dict(CAIN, remat=True), "train", "--remat"),
 }
 
 

@@ -7,7 +7,9 @@ The bounded sampler on a band (``ops/warp_bounded.py``, ``row0``): the
 plain K3 and K3-grad of a band's grid are the whole-frame call's same
 rows bit for bit, at each padding mode and align_corners, R = 4 and 8,
 for the first, a middle and the last band; the warps of ``ops/warp.py``
-likewise; the bf16 kernels and K3-grad² refuse a band.
+likewise; the bf16 kernels refuse a band (K3-grad²'s band rows are held in
+tests/test_torch_warp_double_backward.py, training on bands in
+tests/test_torch_band_train.py).
 
 Four gloo ranks are spawned once for the file (``parallel/launch.spawn``)
 and run every multi-rank case (:func:`_rank_cases`) on three meshes: 1x4
@@ -46,6 +48,7 @@ from meta_interpolation_tpu_torch.ops import warp_bounded as wb
 from meta_interpolation_tpu_torch.parallel import mesh as mesh_lib
 from meta_interpolation_tpu_torch.parallel import spatial
 from meta_interpolation_tpu_torch.parallel.launch import spawn
+from test_torch_spatial_shards import banded_summary
 
 RANKS = 4
 R = 8
@@ -101,9 +104,9 @@ BANDS = {"first": (0, 6), "middle": (12, 6), "last": (18, 6),
 
 
 @pytest.fixture(autouse=True, scope="module")
-def two_threads():
+def one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 
@@ -162,8 +165,9 @@ def test_bounded_sampler_bands_sum_to_the_image_gradient():
 
 
 def test_band_calls_without_a_band_form_raise():
-    """The bf16 K3 and K3-grad, K3-grad² and the second derivative of a
-    band's sample raise on a band rather than sample the wrong rows."""
+    """The bf16 K3, K3-grad and K3-grad² raise on a band rather than
+    sample the wrong rows; the float32 K3-grad² (through the second
+    derivative of a band's sample) takes it."""
     img, grid, g = _sampler_inputs()
     band, gb = grid[:, 6:12], g[:, :, 6:12]
     with pytest.raises(NotImplementedError, match="bfloat16"):
@@ -171,14 +175,15 @@ def test_band_calls_without_a_band_form_raise():
     with pytest.raises(NotImplementedError, match="bfloat16"):
         wb.warp_sample_bounded_grad_grid(img.bfloat16(), band, gb.bfloat16(),
                                          R, row0=6)
-    with pytest.raises(NotImplementedError, match="K3-grad²"):
-        wb.warp_sample_bounded_grad_grid_backward(img, band, gb,
-                                                  torch.ones_like(band), R)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        wb.warp_sample_bounded_grad_grid_backward(
+            img.bfloat16(), band, gb.bfloat16(), torch.ones_like(band), R,
+            row0=6)
     leaf = band.clone().requires_grad_()
     out = warp.grid_sample_bounded(img, leaf, R, row0=6)
     ggrid, = torch.autograd.grad((out * gb).sum(), leaf, create_graph=True)
-    with pytest.raises(NotImplementedError, match="second derivative"):
-        torch.autograd.grad(ggrid.sum(), leaf)
+    second, = torch.autograd.grad(ggrid.sum(), leaf)
+    assert second.shape == band.shape and bool(second.abs().sum() > 0)
 
 
 def _warp_call(kind, img0, img1, flow, mask, wr, row0):
@@ -289,7 +294,8 @@ def _exact64(case, shard, frames, whole):
     """A full-width model in float64 on this rank's band (and, where
     ``whole``, on the whole frame): the prediction and the gradient in
     every weight of its L1 loss, SuperSloMo's plus a term of every aux
-    tensor (the bands' gradients summed over the ranks)."""
+    tensor (the bands' gradients summed over the ranks), as
+    ``banded_summary``."""
     net = _net(*case)
     params = list(net.parameters())
     f0, f1, target = frames
@@ -305,8 +311,8 @@ def _exact64(case, shard, frames, whole):
         loss = loss + (pred - target).abs().mean()
         return pred.detach(), torch.autograd.grad(loss, params)
     pred, grads = run(spatial.row_shard(shard))
-    return {"want": run(contextlib.nullcontext()) if whole else None,
-            "got": (pred, spatial.all_reduce_grads(grads, shard))}
+    return banded_summary(pred, spatial.all_reduce_grads(grads, shard),
+                          run(contextlib.nullcontext()) if whole else None)
 
 
 def _cfg(model, mode, wr, **kw):
@@ -340,7 +346,7 @@ def _rank_cases(rank, work):
     """Every multi-rank case, in one of the spawned ranks; what it
     computes is saved to ``work/rank<rank>.pt`` for the tests."""
     import torch.distributed as dist
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     work = pathlib.Path(work)
     mesh_lib.init_distributed("cpu")
     inputs = torch.load(work / "inputs.pt", weights_only=False)
@@ -488,15 +494,14 @@ def test_full_width_bands_are_exact_in_float64(ranks, case):
     """The banded model on 4 bands is the whole frame's up to float64
     rounding, bounded (K3 / K3-grad's plain versions on bands) and exact:
     the prediction and every weight's gradient within 1e-10."""
-    i = EXACT64.index(case)
-    want, want_g = ranks["ranks"][i % RANKS]["exact64"][case]["want"]
-    for r in range(RANKS):
-        got, got_g = ranks["ranks"][r]["exact64"][case]["got"]
-        assert float((got - want).abs().max()) <= \
-            EXACT64_RTOL * float(want.abs().max())
-        d2 = sum(float((a - b).norm()) ** 2 for a, b in zip(got_g, want_g))
-        n2 = sum(float(b.norm()) ** 2 for b in want_g)
-        assert d2 ** 0.5 <= EXACT64_RTOL * n2 ** 0.5, (r, d2, n2)
+    owner = ranks["ranks"][EXACT64.index(case) % RANKS]["exact64"][case]
+    err, scale = owner["pred"]
+    assert err <= EXACT64_RTOL * scale
+    d, n = owner["grad"]
+    assert d <= EXACT64_RTOL * n, (d, n)
+    sums = [ranks["ranks"][r]["exact64"][case]["sums"]
+            for r in range(RANKS)]
+    assert all(s == sums[0] for s in sums)
 
 
 def _run_id(run):

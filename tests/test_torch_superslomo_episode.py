@@ -10,11 +10,11 @@ its compiled primitives.
 """
 import pytest
 
-from test_torch_warp_models_episode import (  # noqa: F401 (two_threads)
+from test_torch_warp_models_episode import (  # noqa: F401 (one_thread)
     hold_preset_to_jax, refuse_training, run_cli_on_the_cpu,
-    train_bf16_on_the_cpu, train_cli_on_the_cpu, two_threads)
+    train_bf16_on_the_cpu, train_cli_on_the_cpu, one_thread)
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("model,warp_range", [("superslomo", 0),

@@ -8,14 +8,14 @@ own. The helpers, presets and limits are tests/test_torch_warp_train.py's.
 """
 import pytest
 
-from test_torch_warp_train import (  # noqa: F401 (two_threads)
+from test_torch_warp_train import (  # noqa: F401 (one_thread)
     R, clips, config, counting_wrappers, hold_outer_to_jax, systems,
-    train_launches, two_threads)
+    train_launches, one_thread)
 from meta_interpolation_tpu_torch.config import Config
 from meta_interpolation_tpu_torch.meta.system import (
     SceneAdaptiveInterpolation)
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def hold_superslomo_to_jax(order, warp_range):

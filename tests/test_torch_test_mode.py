@@ -33,13 +33,13 @@ PRED_ATOL = 1e-4
 PRED_OF_RANGE = 1e-3
 CROP = 32
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
-def two_threads():
+def one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

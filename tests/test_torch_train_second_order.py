@@ -33,12 +33,12 @@ GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-12
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this file's PyTorch work: the tier-1 run
+def _one_thread():
+    """One intra-op thread for this file's PyTorch work: the tier-1 run
     puts six test processes on the machine's cores, where every process
     taking a thread a core oversubscribes them many times over."""
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

@@ -35,9 +35,9 @@ GRAD_RTOL = 1e-3
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _two_threads():
+def _one_thread():
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
 

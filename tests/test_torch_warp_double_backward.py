@@ -11,20 +11,25 @@ symmetric). On CPU tensors the port's wrapper runs its plain version
 (autograd through the closed-form grid gradient); the CUDA kernel is held
 against that version on the card by chip_smoke.py. A torch transcription
 of the kernel's per-pixel formula (csrc/warp.cu) is held here to the plain
-version, so the algorithm the kernel runs is tested where no card is.
+version, so the algorithm the kernel runs is tested where no card is. On a
+band of output rows from ``row0`` (row-sharded second-order training) the
+plain version, the formula and the second derivative of a band's sample
+give the whole frame's rows, bit for bit.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from test_torch_warp_train import two_threads  # noqa: F401
+from test_torch_warp_train import one_thread  # noqa: F401
 from meta_interpolation_tpu.ops import warp as jax_warp
 from meta_interpolation_tpu_torch.ops import _build
 from meta_interpolation_tpu_torch.ops import warp_bounded as wb
 
-pytestmark = pytest.mark.usefixtures("two_threads")
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 R = 4
 # float32 on both sides, other summation orders
@@ -114,18 +119,20 @@ def test_double_backward_matches_jax(align_corners, padding_mode, kind):
     _close(got_grid.detach().numpy(), want_grid, "Function grid")
 
 
-def _kernel_formula(img, grid, g, v, r, align_corners, padding_mode):
+def _kernel_formula(img, grid, g, v, r, align_corners, padding_mode,
+                    row0=0):
     """csrc/warp.cu's warp_sample_grad_grid_backward_kernel, per pixel, in
     torch: the channel sums S_x, S_y, S_b, S_xy and the Hessian terms of
-    its header comment."""
+    its header comment; the grid's rows are image rows row0 onwards."""
     n, c, h, w = img.shape
     border = padding_mode == "border"
     ix, iy = wb._unnormalize(grid, h, w, align_corners)
     xs = torch.arange(w, dtype=ix.dtype)[None, None, :]
-    ys = torch.arange(h, dtype=ix.dtype)[None, :, None]
+    ys = torch.arange(row0, row0 + grid.shape[1], dtype=ix.dtype)[
+        None, :, None]
     dx0, fx, mx, dmx, cx, vx = wb._axis(ix, xs, w, r, border)
     dy0, fy, my, dmy, cy, vy = wb._axis(iy, ys, h, r, border)
-    (v00, v01, v10, v11), _, _ = wb._taps(img, dy0, dx0, r)
+    (v00, v01, v10, v11), _, _ = wb._taps(img, dy0, dx0, r, row0)
     e = lambda t: t[:, None]
     fx4, fy4 = e(fx), e(fy)
     top, bot = (1 - fx4) * v00 + fx4 * v01, (1 - fx4) * v10 + fx4 * v11
@@ -188,6 +195,71 @@ def test_gradcheck_in_float64(align_corners, padding_mode):
     assert torch.autograd.gradgradcheck(
         lambda gr: wb.GridSampleBoundedFunction.apply(img, gr, *opts),
         (grid,))
+
+
+@functools.lru_cache(maxsize=None)
+def _whole_frame(align_corners, padding_mode, r):
+    """A frame's inputs ("past": displacements past R = 4) and JAX's
+    second derivative of ``grid_sample_bounded`` at R: ``jax.vjp`` of its
+    grid gradient (in the grid and g) for the cotangent v, (gg, grid) as
+    the port lays them out."""
+    img, grid, g, v = _inputs("past", align_corners, seed=21)
+    kw = dict(align_corners=align_corners, padding_mode=padding_mode)
+
+    def grad_grid(gr, gq):
+        return jax.grad(lambda gr: jnp.sum(jax_warp.grid_sample_bounded(
+            jnp.asarray(img), gr, r, **kw) * gq))(gr)
+    _, vjp = jax.vjp(grad_grid, jnp.asarray(grid), jnp.asarray(g))
+    want_grid, want_gg = vjp(jnp.asarray(v))
+    return ((_t(img), torch.from_numpy(grid), _t(g), torch.from_numpy(v)),
+            np.asarray(want_gg).transpose(0, 3, 1, 2), np.asarray(want_grid))
+
+
+BANDS = {"first": (0, 3), "middle": (3, 3), "last": (-3, 3),
+         "one_row": (4, 1)}
+
+
+@pytest.mark.parametrize("band", list(BANDS))
+@pytest.mark.parametrize("r", [R, 8])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_band_double_backward_is_the_whole_frames_rows(align_corners,
+                                                       padding_mode, r,
+                                                       band):
+    """K3-grad²'s plain version on a band of rows from ``row0``, through
+    its wrapper on CPU tensors: bit for bit the whole frame's same rows,
+    which are JAX's second derivative of ``grid_sample_bounded`` within
+    1e-5·max + 1e-6; the kernel's per-pixel formula on the band (in
+    float64) the plain version's; and the second derivative of a band's
+    sample, through the autograd Functions, the same rows."""
+    (img, grid, g, v), want_gg, want_grid = _whole_frame(
+        align_corners, padding_mode, r)
+    opts = (r, align_corners, padding_mode)
+    whole = wb.warp_sample_bounded_grad_grid_backward(img, grid, g, v, *opts)
+    _close(whole[0].detach().numpy(), want_gg, "whole gg")
+    _close(whole[1].detach().numpy(), want_grid, "whole grid")
+    row0, rows = BANDS[band]
+    row0 %= img.shape[2]
+    sl = slice(row0, row0 + rows)
+    args = (img, grid[:, sl], g[:, :, sl], v[:, sl])
+    got = wb.warp_sample_bounded_grad_grid_backward(*args, *opts, row0=row0)
+    assert got[0].shape == (2, 3, rows, img.shape[3])
+    assert torch.equal(got[0], whole[0][:, :, sl])
+    assert torch.equal(got[1], whole[1][:, sl])
+    formula = _kernel_formula(*(t.double() for t in args), *opts, row0=row0)
+    plain = wb.grid_sample_bounded_grad_grid_backward_ref(
+        *(t.double() for t in args), *opts, row0)
+    for a, b, what in zip(formula, plain, ("gg", "grid")):
+        torch.testing.assert_close(a, b.detach(), rtol=1e-12, atol=1e-10,
+                                   msg=what)
+    leaf, g_leaf = (args[1].clone().requires_grad_(),
+                    args[2].clone().requires_grad_())
+    first, = torch.autograd.grad(
+        wb.GridSampleBoundedFunction.apply(img, leaf, *opts, row0), leaf,
+        g_leaf, create_graph=True)
+    got_gg, got_grid = torch.autograd.grad(first, (g_leaf, leaf), args[3])
+    assert torch.equal(got_gg, whole[0][:, :, sl])
+    assert torch.equal(got_grid, whole[1][:, sl])
 
 
 def test_cpu_wrapper_counts_no_launches_and_other_devices_raise():
